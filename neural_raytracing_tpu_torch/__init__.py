@@ -1,0 +1,24 @@
+"""neural_raytracing_tpu_torch — the PyTorch and CUDA port of neural_raytracing_tpu.
+
+A second package beside the JAX one, for one NVIDIA H100.  It mirrors the
+JAX package's layout and names; each kernel the JAX package wrote in Pallas
+for the TPU is a CUDA kernel written for Hopper here (``csrc/``), with a
+plain PyTorch version beside it (``kernels/``).
+
+Ported so far: the flagship eval render (``pathtrace`` with
+``Direct(training=False)`` over ``SDF(SphereSDF)``,
+``ComposeSpatialVarying(NeuralBSDF)`` and ``LightField``), with the fused
+MLP and fused sphere-trace kernels.  Entry points run on the card unless the
+caller passes ``device="cpu"``.
+"""
+
+from . import bsdf, cameras, integrators, kernels, lights, nn, ops, shapes
+from .params import load_jax_params, state_dict_from_jax
+from .render import pathtrace, render_rays
+from .scene import Scene, sample_emitter
+
+__all__ = [
+    "bsdf", "cameras", "integrators", "kernels", "lights", "nn", "ops",
+    "shapes", "load_jax_params", "state_dict_from_jax", "pathtrace",
+    "render_rays", "Scene", "sample_emitter",
+]

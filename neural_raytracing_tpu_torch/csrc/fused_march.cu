@@ -1,0 +1,176 @@
+// K2: fused no-grad sphere trace through a SphereSDF.
+//
+// Replaces the TPU kernel neural_raytracing_tpu/kernels/fused_march.py
+// (fused_march / _build_march_kernel / _make_sdf_eval), omega = 1.
+// One thread block owns NRT_ROWS rays and runs the whole march loop:
+//   remaining = valid & !hit & depth < max_t
+//   sd        = smooth_min_i(|T_i p - c_i| - r_i) + shift_mlp(p),  p = o + d * depth
+//   hit      |= remaining & sd <= eps;  depth += sd where still remaining
+// The 128 transformed spheres sit in shared memory; the shift MLP is the
+// device MLP of mlp.cuh (the same network the fused MLP kernel evaluates).
+// A block leaves the loop as soon as none of its rays remains
+// (__syncthreads_or); rows past n are invalid and never hold it back.
+// Bound on an H100: f32 FMA issue of the shift MLP (2 * 165,504 flops per
+// ray and step for the 8x128 net) over the steps each ray needs.
+//
+// Bounded mode (t0 != nullptr): per-ray start t0 and end max_t (the
+// march_bound clip); otherwise depth starts at 0 and max_t is one scalar.
+// C interface for ctypes: returns a cudaError_t as int (0 = launched).
+#include "mlp.cuh"
+
+struct SphereSet {
+  const float* tfs;      // [n, 3, 3], identity already added
+  const float* centers;  // [n, 3]
+  const float* radii;    // [n]
+  int n;
+  float k;
+  int stable;            // 1: exact logsumexp smooth-min; 0: clamped
+};
+
+// Smooth-min of the sphere set at the R points ps ([R][3]) -> sm[R].
+// blockDim.x / R threads share a row; each takes every tpr-th sphere.
+__device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
+                               int stable, const float* ps, float* sm, int R) {
+  const int tpr = blockDim.x / R;
+  const int r = threadIdx.x / tpr, lane = threadIdx.x % tpr;
+  const float px = ps[r * 3 + 0], py = ps[r * 3 + 1], pz = ps[r * 3 + 2];
+  float m = -INFINITY, s = 0.f;  // stable: running max of -k d and sum exp(-k d - m)
+  for (int i = lane; i < n_sph; i += tpr) {
+    const float* t = sph + i * 13;  // tfs row-major (9), center (3), radius (1)
+    const float qx = t[0] * px + t[1] * py + t[2] * pz - t[9];
+    const float qy = t[3] * px + t[4] * py + t[5] * pz - t[10];
+    const float qz = t[6] * px + t[7] * py + t[8] * pz - t[11];
+    const float d = sqrtf(qx * qx + qy * qy + qz * qz) - t[12];
+    const float e = -k * d;
+    if (stable) {
+      if (e > m) {
+        s = s * expf(m - e) + 1.f;
+        m = e;
+      } else {
+        s += expf(e - m);
+      }
+    } else {
+      s += expf(e);
+    }
+  }
+  // reduce across the tpr lanes of this row (contiguous within a warp)
+  for (int off = tpr / 2; off > 0; off /= 2) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    if (stable) {
+      const float mm = fmaxf(m, m2);
+      s = (m == -INFINITY ? 0.f : s * expf(m - mm)) +
+          (m2 == -INFINITY ? 0.f : s2 * expf(m2 - mm));
+      m = mm;
+    } else {
+      s += s2;
+    }
+  }
+  if (lane == 0)
+    sm[r] = stable ? -(m + logf(s)) / k : -logf(fmaxf(s, 1e-4f)) / k;
+}
+
+__global__ void __launch_bounds__(NRT_THREADS)
+nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                       const float* __restrict__ t0, const float* __restrict__ mt,
+                       float max_t, float* __restrict__ depth_out,
+                       unsigned char* __restrict__ hit_out, int n, int max_steps,
+                       float eps, SphereSet S, const __grid_constant__ MLPWeights m) {
+  extern __shared__ __align__(16) float smem[];
+  const int R = NRT_ROWS;
+  float* sph = smem;                             // [n_sph][13]
+  float* ps = sph + nrt_round4(S.n * 13);        // [R][3] march points
+  float* o = ps + nrt_round4(R * 3);             // [R][3]
+  float* d = o + nrt_round4(R * 3);              // [R][3]
+  float* depth = d + nrt_round4(R * 3);          // [R]
+  float* mx = depth + R;                         // [R] per-ray max_t
+  float* sm = mx + R;                            // [R] sphere smooth-min
+  int* state = reinterpret_cast<int*>(sm + R);   // [R] bit0 valid, bit1 hit, bit2 remaining
+  float* mlp_smem = sm + 2 * R;                  // 16-byte aligned: R % 4 == 0
+
+  for (int i = threadIdx.x; i < S.n; i += blockDim.x) {
+    for (int c = 0; c < 9; ++c) sph[i * 13 + c] = S.tfs[i * 9 + c];
+    for (int c = 0; c < 3; ++c) sph[i * 13 + 9 + c] = S.centers[i * 3 + c];
+    sph[i * 13 + 12] = S.radii[i];
+  }
+  const int row0 = blockIdx.x * R;
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x, g = row0 + r;
+    const bool valid = g < n;
+    for (int c = 0; c < 3; ++c) {
+      o[r * 3 + c] = valid ? ro[(size_t)g * 3 + c] : 0.f;
+      d[r * 3 + c] = valid ? rd[(size_t)g * 3 + c] : 0.f;
+    }
+    depth[r] = valid && t0 ? t0[g] : 0.f;
+    mx[r] = valid && mt ? mt[g] : max_t;
+    state[r] = valid ? 1 : 0;
+  }
+  __syncthreads();
+
+  for (int step = 0; step < max_steps; ++step) {
+    int rem = 0;
+    if (threadIdx.x < R) {
+      const int r = threadIdx.x;
+      rem = (state[r] & 1) && !(state[r] & 2) && depth[r] < mx[r];
+      state[r] = (state[r] & 3) | (rem << 2);
+      const float t = depth[r];
+      for (int c = 0; c < 3; ++c)
+        ps[r * 3 + c] = __fadd_rn(o[r * 3 + c], __fmul_rn(d[r * 3 + c], t));
+    }
+    if (!__syncthreads_or(rem)) break;
+
+    nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, R);
+    const float* ob;
+    int os;
+    nrt_mlp_block(m, ps, R, mlp_smem, &ob, &os);  // ends with a barrier
+
+    if (threadIdx.x < R) {
+      const int r = threadIdx.x;
+      if (state[r] & 4) {
+        const float sd = sm[r] + ob[r * os];
+        if (sd <= eps)
+          state[r] |= 2;
+        else
+          depth[r] = depth[r] + sd;
+      }
+    }
+    // the barrier at the top of the next step orders these updates
+  }
+
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x, g = row0 + r;
+    if (g < n) {
+      depth_out[g] = depth[r];
+      hit_out[g] = (state[r] & 2) ? 1 : 0;
+    }
+  }
+}
+
+extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0,
+                               const float* mt, float max_t, float* depth,
+                               unsigned char* hit, int n, int max_steps, float eps,
+                               const float* tfs, const float* centers,
+                               const float* radii, int n_spheres, float k, int stable,
+                               int in_size, int freqs, int hidden, int num_layers,
+                               int skip, int out_size, int act,
+                               const void* const* weights, void* stream) {
+  MLPWeights m;
+  if (n < 0 || n_spheres <= 0 || max_steps < 0 || in_size != 3 || out_size != 1 ||
+      (t0 == nullptr) != (mt == nullptr) ||
+      !nrt_fill_weights(m, in_size, freqs, hidden, num_layers, skip, out_size,
+                        act, weights))
+    return (int)cudaErrorInvalidValue;
+  SphereSet S{tfs, centers, radii, n_spheres, k, stable};
+  const int R = NRT_ROWS;
+  const size_t floats = nrt_round4(n_spheres * 13) + 3 * nrt_round4(R * 3) +
+                        4 * R + nrt_mlp_smem_floats(m, R);
+  const size_t smem = sizeof(float) * floats;
+  cudaError_t err = cudaFuncSetAttribute(
+      nrt_fused_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  const int grid = (n + R - 1) / R;
+  nrt_fused_march_kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(
+      ro, rd, t0, mt, max_t, depth, hit, n, max_steps, eps, S, m);
+  return (int)cudaGetLastError();
+}

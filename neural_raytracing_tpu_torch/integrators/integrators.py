@@ -1,0 +1,75 @@
+"""Light-transport integrators.
+
+Counterpart of ``neural_raytracing_tpu/integrators/integrators.py`` for the
+render path: ``Direct`` with its emitter-sampling arm.  Interface:
+``sample(scene, rays, generator, training) -> (values [..., dims],
+active [...], Interaction)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..interaction import Interaction
+from ..scene import Scene, sample_emitter
+
+
+class Integrator:
+    def dims(self) -> int:
+        raise NotImplementedError
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = None):
+        raise NotImplementedError
+
+
+def _attach_aux(it: Interaction, aux: dict) -> Interaction:
+    if "nonnormalized_weights" in aux:
+        it = it._replace(nonnormalized_weights=aux["nonnormalized_weights"],
+                         normalized_weights=aux["normalized_weights"])
+    return it
+
+
+class Direct(Integrator):
+    """Direct lighting with emitter sampling.
+
+    ``training=True`` (the silhouette throughput) and the BSDF-sampling arm
+    (``bsdf_samples > 0`` with a non-delta light) are not ported yet and
+    raise.  ``horizon_mask`` zeroes the emitter arm below the local horizon.
+    """
+
+    def __init__(self, emitter_samples: int = 1, bsdf_samples: int = 0,
+                 training: bool = True, horizon_mask: bool = False):
+        self.emitter_samples = emitter_samples
+        self.bsdf_samples = bsdf_samples
+        self.training = training
+        self.horizon_mask = horizon_mask
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = None):
+        training = self.training if training is None else training
+        # delta lights are unhittable by BSDF-sampled rays: no BSDF arm
+        bsdf_samples = (0 if getattr(scene.lights, "delta", False)
+                        else self.bsdf_samples)
+        if bsdf_samples > 0:
+            raise NotImplementedError("the BSDF-sampling arm of Direct is not "
+                                      "ported yet")
+        it, active = scene.shape.intersect(rays, primary=training)
+        result = torch.zeros(rays.shape[:-1] + (3,), dtype=torch.float32,
+                             device=rays.device)
+        for _ in range(self.emitter_samples):
+            ds, emitter_val = sample_emitter(scene, it, generator, active)
+            active_emitted = active & (ds.pdf > 0)
+            wo = it.to_local(ds.d)
+            if self.horizon_mask:
+                active_emitted = active_emitted & (wo[..., 2] > 0.0)
+            bsdf_val, _, aux = scene.bsdf.eval_and_pdf(it, wo, active_emitted)
+            it = _attach_aux(it, aux)
+            val = bsdf_val * emitter_val / self.emitter_samples
+            result = result + torch.where(active_emitted[..., None], val, 0.0)
+        return result, active, it

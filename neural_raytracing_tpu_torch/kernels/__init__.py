@@ -1,0 +1,35 @@
+"""Hand-written CUDA kernels of the port and their plain versions.
+
+Each kernel wrapper counts its launches in a plain integer attribute
+(``fused_mlp_forward.launches``, ``fused_march.launches``) so a run can show
+which kernels its path went through.
+"""
+
+from torch import nn
+
+from .fused_march import fused_march, march_plain, supports
+from .fused_mlp import FusedSkipConnMLP, fused_mlp_apply, fused_mlp_forward
+
+KERNELS = {"fused_mlp_forward": fused_mlp_forward, "fused_march": fused_march}
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def set_kernel_mode(module: nn.Module, mode: str):
+    """Set every fused MLP's ``mode`` and every SDF's ``fused_loops`` in
+    ``module`` to ``mode`` ("auto", "force" or "off")."""
+    from ..shapes.sdf import SDF
+    if mode not in ("auto", "force", "off"):
+        raise ValueError(f"mode must be 'auto', 'force' or 'off', got {mode!r}")
+    for m in module.modules():
+        if isinstance(m, FusedSkipConnMLP):
+            m.mode = mode
+        elif isinstance(m, SDF):
+            m.fused_loops = mode

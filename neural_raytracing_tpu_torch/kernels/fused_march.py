@@ -1,0 +1,148 @@
+"""K2: fused no-grad sphere trace through a SphereSDF, a CUDA kernel for Hopper.
+
+Replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_march.py``
+(``fused_march``, body ``_build_march_kernel`` with ``_make_sdf_eval``) for
+omega = 1.  The kernel (``csrc/fused_march.cu``) runs the whole march per
+block of 32 rays: the sphere set in shared memory, the shift MLP through the
+device MLP that K1 uses, and an early exit once no ray of the block remains.
+It is bound by the f32 FMA rate of the shift MLP over the steps the rays
+need.  ``march_plain`` below is its plain version (``SDF._march``'s loop).
+
+Nothing differentiates through the march: every input is detached and the
+outputs carry no gradient, as in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..nn.mlp import SkipConnMLP
+from ._build import library
+from .fused_mlp import ACT_CODES, check_cuda_f32, weight_pointers
+
+_I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+
+def _lib() -> ctypes.CDLL:
+    lib = library("fused_march")
+    lib.nrt_fused_march.argtypes = [
+        _P, _P, _P, _P, _F, _P, _P, _I, _I, _F,   # rays, interval, outputs, loop
+        _P, _P, _P, _I, _F, _I,                   # sphere set
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _P]                                       # stream
+    lib.nrt_fused_march.restype = _I
+    return lib
+
+
+def supports(module) -> bool:
+    """True if ``module`` is a SphereSDF whose shift net the kernel runs."""
+    from ..shapes.sdf import SphereSDF
+    if not isinstance(module, SphereSDF):
+        return False
+    mlp = module.shift
+    return (isinstance(mlp, SkipConnMLP) and mlp.latent_size == 0
+            and mlp.in_size == 3 and mlp.out_size == 1)
+
+
+@torch.no_grad()
+def march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t,
+                t_start=None, *, max_steps: int, epsilon: float):
+    """Plain sphere trace (omega = 1), the plain version of K2.
+
+    ``sdf(p[..., 3]) -> [...]``.  ``max_t`` is a scalar or per-ray;
+    ``t_start`` (per-ray, optional) starts the march there (bounded mode).
+    Returns ``(depths, hit, evals)``: ``evals`` counts, per ray, the steps on
+    which the ray still needed an SDF evaluation.
+    """
+    batch = r_o.shape[:-1]
+    device = r_o.device
+    if t_start is None:
+        depths = torch.zeros(batch, device=device)
+    else:
+        depths = torch.as_tensor(t_start, dtype=torch.float32,
+                                 device=device).expand(batch).clone()
+    max_t = torch.as_tensor(max_t, dtype=torch.float32, device=device).expand(batch)
+    remaining = torch.ones(batch, dtype=torch.bool, device=device)
+    hit = torch.zeros(batch, dtype=torch.bool, device=device)
+    evals = torch.zeros(batch, dtype=torch.int32, device=device)
+    for _ in range(max_steps):
+        remaining = remaining & (depths < max_t)
+        evals += remaining
+        dists = sdf(r_o + r_d * depths[..., None])
+        hits = remaining & (dists <= epsilon)
+        hit = hit | hits
+        remaining = remaining & ~hits
+        depths = torch.where(remaining, depths + dists, depths)
+    return depths, hit, evals
+
+
+def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
+                max_steps: int, epsilon: float, omega: float = 1.0,
+                t_start=None):
+    """Launch K2 on CUDA tensors.  Returns ``(depths [...], hit [...])``.
+
+    ``max_t`` is a scalar (unbounded) or, with ``t_start``, a per-ray end of
+    the ``[t_start, max_t]`` interval (bounded).  Launches on the current
+    stream and does not synchronise.
+    """
+    if omega != 1.0:
+        raise NotImplementedError("the over-relaxed march (omega > 1) is not "
+                                  "ported to the CUDA kernel yet")
+    if not supports(module):
+        raise ValueError("fused_march supports SphereSDF surfaces with a "
+                         "3 -> 1 shift net and no latent")
+    batches = r_o.shape[:-1]
+    device = r_o.device
+    ro = r_o.detach().reshape(-1, 3).contiguous()
+    rd = r_d.detach().reshape(-1, 3).contiguous()
+    n = ro.shape[0]
+    check_cuda_f32("r_o", ro, (n, 3))
+    check_cuda_f32("r_d", rd, (n, 3), device)
+    if t_start is None:
+        if isinstance(max_t, torch.Tensor) and max_t.numel() != 1:
+            raise ValueError("unbounded fused_march takes a scalar max_t")
+        t0 = mt = None
+        scalar_max_t = float(max_t)
+    else:
+        t0 = torch.as_tensor(t_start, dtype=torch.float32, device=device
+                             ).detach().expand(batches).reshape(-1).contiguous()
+        mt = torch.as_tensor(max_t, dtype=torch.float32, device=device
+                             ).detach().expand(batches).reshape(-1).contiguous()
+        check_cuda_f32("t_start", t0, (n,), device)
+        check_cuda_f32("max_t", mt, (n,), device)
+        scalar_max_t = 0.0
+
+    tfs = (module.tfs.detach() + torch.eye(3, device=module.tfs.device)).contiguous()
+    centers = module.centers.detach().contiguous()
+    radii = module.radii.detach().contiguous()
+    n_sph = tfs.shape[0]
+    check_cuda_f32("tfs", tfs, (n_sph, 3, 3), device)
+    check_cuda_f32("centers", centers, (n_sph, 3), device)
+    check_cuda_f32("radii", radii, (n_sph,), device)
+    mlp = module.shift
+    weights = [w.detach() for w in mlp.flat_weights()]
+    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device)
+
+    depths = torch.empty(n, device=device, dtype=torch.float32)
+    hit = torch.empty(n, device=device, dtype=torch.bool)
+    with torch.cuda.device(device):
+        rc = _lib().nrt_fused_march(
+            ro.data_ptr(), rd.data_ptr(),
+            None if t0 is None else t0.data_ptr(),
+            None if mt is None else mt.data_ptr(), scalar_max_t,
+            depths.data_ptr(), hit.data_ptr(), n, max_steps, epsilon,
+            tfs.data_ptr(), centers.data_ptr(), radii.data_ptr(), n_sph,
+            float(module.k), int(module.stable_min),
+            mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers, mlp.skip,
+            mlp.out_size, ACT_CODES[mlp.activation_name], ptrs,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_march: CUDA error {rc} at launch")
+    if n > 0:
+        fused_march.launches += 1
+    return depths.reshape(batches), hit.reshape(batches)
+
+
+fused_march.launches = 0

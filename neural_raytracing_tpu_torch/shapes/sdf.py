@@ -1,0 +1,187 @@
+"""Learnable signed-distance surfaces and the sphere-trace marcher.
+
+Counterpart of ``neural_raytracing_tpu/shapes/sdf.py`` for the render path:
+  * ``SphereSDF``: smooth-min of n learnable transformed spheres plus a
+    zero-initialised SkipConnMLP residual ``shift``;
+  * ``SDF.intersect(primary=False)``: a no-grad sphere trace (the fused
+    kernel K2 on CUDA tensors, ``march_plain`` otherwise), optionally clipped
+    to a bounding sphere (``march_bound``), then normals from autograd at the
+    hit points.
+
+The training-only parts (the silhouette ``throughput`` min-scan, shadow
+``intersect_test``, over-relaxation) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..interaction import Interaction
+from ..kernels.fused_march import fused_march, march_plain, supports
+from ..kernels.fused_mlp import FusedSkipConnMLP
+from ..nn.mlp import SkipConnMLP
+from ..ops.math import normalize, smooth_min, stable_smooth_min
+
+
+def march_interval(r_o: torch.Tensor, r_d: torch.Tensor, bound: float,
+                   max_t: float):
+    """Per-ray ``(t_start, t_end)`` of the march clipped to the
+    origin-centred sphere of radius ``bound``; rays that miss it get an
+    empty interval and resolve at once."""
+    b = torch.sum(r_o * r_d, dim=-1)
+    c = torch.sum(r_o * r_o, dim=-1) - bound ** 2
+    disc = b * b - c
+    s = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = torch.clamp_min(-b - s, 0.0)
+    # the exit root is clamped to >= 0: a sphere entirely behind the origin
+    # collapses to the empty interval [0, 0]
+    t1 = torch.clamp_max(torch.clamp_min(torch.where(disc > 0.0, -b + s, 0.0), 0.0),
+                         max_t)
+    return torch.minimum(t0, t1), t1
+
+
+class SphereSDF(nn.Module):
+    """Smooth-min of learnable transformed spheres + zero-init MLP residual.
+
+    ``stable_min=True`` replaces the clamped smooth-min (which saturates at
+    -log(1e-4)/k = 0.288 for k=32, the reference's behaviour) with the exact
+    logsumexp form.
+    """
+
+    def __init__(self, n: int = 128, k: float = 32.0,
+                 mlp: Optional[SkipConnMLP] = None, stable_min: bool = False):
+        super().__init__()
+        self.n = n
+        self.k = k
+        self.stable_min = stable_min
+        self.centers = nn.Parameter(torch.zeros(n, 3))
+        self.radii = nn.Parameter(torch.zeros(n))
+        self.tfs = nn.Parameter(torch.zeros(n, 3, 3))
+        if mlp is None:
+            mlp = FusedSkipConnMLP(in_size=3, out=1, num_layers=8,
+                                   hidden_size=128, freqs=32,
+                                   activation="softplus", init="zeros")
+        self.shift = mlp
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        def u(*shape):
+            return torch.rand(shape, generator=generator, device=generator.device)
+        self.centers.copy_(0.3 * u(self.n, 3) - 0.15)
+        self.radii.copy_(0.2 * u(self.n) - 0.1)
+        self.tfs.zero_()
+        self.shift.reset_parameters(generator)
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        batches = p.shape[:-1]
+        flat = p.reshape(-1, 3)
+        tfs = self.tfs + torch.eye(3, dtype=flat.dtype, device=flat.device)
+        q = torch.einsum("ijk,bk->ibj", tfs, flat) - self.centers[:, None, :]
+        sd = torch.linalg.norm(q, dim=-1) - self.radii[:, None]
+        mn = stable_smooth_min if self.stable_min else smooth_min
+        out = mn(sd, k=self.k, dim=0).reshape(batches)
+        return out + self.shift(p)[..., 0]
+
+
+class SDF(nn.Module):
+    """Sphere-trace intersection driver around a surface module.
+
+    The surface module's parameters are this module's own (``centers``,
+    ``shift.layers.0.w``, ...), as the JAX ``SDF.init`` returns the
+    module's params unchanged.
+
+    ``fused_loops``: "auto" (K2 for CUDA tensors, the plain loop for CPU
+    tensors), "force" (K2; raises on CPU tensors) or "off".
+    """
+
+    def __init__(self, sdf_module: nn.Module, epsilon: float = 1e-3,
+                 max_steps: int = 32, dist: float = 2.2,
+                 throughput_steps: int = 128, alpha: float = 1000.0,
+                 fused_loops: str = "auto", omega: float = 1.0,
+                 march_bound: Optional[float] = None):
+        super().__init__()
+        if fused_loops not in ("auto", "force", "off"):
+            raise ValueError("fused_loops must be 'auto', 'force' or 'off', "
+                             f"got {fused_loops!r}")
+        if omega != 1.0:
+            raise NotImplementedError("the over-relaxed march (omega > 1) is "
+                                      "not ported yet")
+        if any(True for _ in sdf_module.buffers(recurse=False)):
+            raise ValueError("SDF cannot adopt a surface module with buffers "
+                             "of its own")
+        # share the surface's parameters and children under this module's
+        # name; the surface itself stays an unregistered attribute
+        for name, child in sdf_module.named_children():
+            self.add_module(name, child)
+        for name, param in sdf_module.named_parameters(recurse=False):
+            self.register_parameter(name, param)
+        self.__dict__["module"] = sdf_module
+        self.epsilon = epsilon
+        self.max_steps = max_steps
+        # silhouette min-scan settings of the training slice
+        self.dist = dist
+        self.throughput_steps = throughput_steps
+        self.alpha = alpha
+        self.fused_loops = fused_loops
+        self.omega = omega
+        # opt-in eval accelerator: clip the primary march to the ray's
+        # interval inside the origin-centred sphere of this radius
+        self.march_bound = march_bound
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.module.reset_parameters(generator)
+
+    def sdf(self, p: torch.Tensor) -> torch.Tensor:
+        return self.module(p)
+
+    def _use_kernel(self, r_o: torch.Tensor) -> bool:
+        if self.fused_loops == "off" or not supports(self.module):
+            return False
+        return self.fused_loops == "force" or r_o.is_cuda
+
+    def _march(self, r_o, r_d, max_t, t_start=None):
+        """No-grad sphere trace. Returns (depths [...], hit mask [...])."""
+        if self._use_kernel(r_o):
+            return fused_march(self.module, r_o, r_d, max_t,
+                               max_steps=self.max_steps, epsilon=self.epsilon,
+                               omega=self.omega, t_start=t_start)
+        depths, hit, _ = march_plain(self.sdf, r_o, r_d, max_t, t_start,
+                                     max_steps=self.max_steps,
+                                     epsilon=self.epsilon)
+        return depths, hit
+
+    def normals(self, p: torch.Tensor) -> torch.Tensor:
+        """Un-normalized SDF gradient at ``p``; differentiable (a graph of
+        the gradient is built) when grad mode is on."""
+        create = torch.is_grad_enabled()
+        with torch.enable_grad():
+            q = p if create and p.requires_grad else p.detach().requires_grad_()
+            (g,) = torch.autograd.grad(self.sdf(q).sum(), q, create_graph=create)
+        return g
+
+    def intersect(self, rays: torch.Tensor, max_t: float = 10.0,
+                  primary: bool = True):
+        """-> (Interaction, hit [...]) for ``rays [..., 6]``."""
+        if primary:
+            raise NotImplementedError(
+                "primary intersections (the training silhouette min-scan) "
+                "are ported with the training slice; use primary=False")
+        r_o, r_d = rays[..., :3], rays[..., 3:]
+        if self.march_bound is not None:
+            t0, t1 = march_interval(r_o, r_d, self.march_bound, max_t)
+            depths, hit = self._march(r_o, r_d, t1, t_start=t0)
+        else:
+            depths, hit = self._march(r_o, r_d, max_t)
+        p = r_o + depths[..., None] * r_d
+
+        raw_normals = self.normals(p)
+        n = torch.where(hit[..., None], normalize(raw_normals, eps=1e-6), 0.0)
+        p = p + n * (self.epsilon * 5.0)
+
+        it = Interaction(p=p, t=depths, raw_normals=raw_normals).with_normals(n)
+        it = it._replace(wi=it.to_local(-r_d))
+        return it, hit

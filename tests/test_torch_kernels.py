@@ -1,0 +1,214 @@
+"""The port's CUDA kernels: package rules and the kernel switch on the CPU,
+and, on a machine with an NVIDIA GPU, each kernel against its plain version.
+
+The tests marked ``cuda`` skip without a card.  They import neither JAX nor
+the JAX package, so they run on the card with
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+Tolerances on the card: K1 |kernel - plain| <= 1e-4 |plain| + 1e-5 +
+4e-7 max|x.B| (float32 rounding of the Fourier argument, amplified by the
+net); K2 hit agreement >= 99% and |depth difference| <= 1e-3 where both hit
+(float32 sums in another order over up to 256 steps).
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from neural_raytracing_tpu_torch.kernels import (
+    FusedSkipConnMLP, fused_march, fused_mlp_apply, fused_mlp_forward,
+    launch_counts, march_plain, reset_launch_counts, set_kernel_mode,
+)
+from neural_raytracing_tpu_torch.kernels import _build
+from neural_raytracing_tpu_torch.nn import SkipConnMLP
+from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF, march_interval
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neural_raytracing_tpu")
+
+FLAGSHIP = {
+    "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
+                      freqs=32, activation="softplus", init="uniform"),
+    "weight_net": dict(in_size=3, out=8, num_layers=16, hidden_size=256,
+                       freqs=128, sigma=128.0, init="xavier"),
+    "lobe": dict(in_size=3, out=3, num_layers=6, hidden_size=96, freqs=64),
+    "light_field": dict(in_size=3, out=3, num_layers=10, hidden_size=256),
+}
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "neural_raytracing_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "is_available" in out.stderr
+
+
+def test_mlp_mode_switch_on_cpu_tensors():
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(16, 3, generator=g)
+    nets = {m: FusedSkipConnMLP(num_layers=2, hidden_size=8, freqs=2, mode=m)
+            for m in ("auto", "force", "off")}
+    nets["off"].reset_parameters(g)
+    for m in ("auto", "force"):
+        nets[m].load_state_dict(nets["off"].state_dict())
+    reset_launch_counts()
+    assert torch.equal(nets["auto"](x), SkipConnMLP.forward(nets["off"], x))
+    assert torch.equal(nets["off"](x), SkipConnMLP.forward(nets["off"], x))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nets["force"](x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_forward(nets["off"], x, nets["off"].B, nets["off"].flat_weights())
+    with pytest.raises(ValueError, match="mode"):
+        FusedSkipConnMLP(mode="on")
+    assert launch_counts() == {"fused_mlp_forward": 0, "fused_march": 0}
+
+
+def test_set_kernel_mode_reaches_every_net_and_sdf():
+    sdf = SDF(SphereSDF(n=4, mlp=FusedSkipConnMLP(in_size=3, out=1, num_layers=2,
+                                                  hidden_size=8, freqs=2)))
+    set_kernel_mode(sdf, "off")
+    assert sdf.fused_loops == "off" and sdf.module.shift.mode == "off"
+    set_kernel_mode(sdf, "auto")
+    assert sdf.fused_loops == "auto" and sdf.shift.mode == "auto"
+    with pytest.raises(ValueError):
+        set_kernel_mode(sdf, "fast")
+
+
+def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    assert set(_build.library_paths()) == {"fused_mlp", "fused_march"}
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+# ---- on the card -----------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _net(cfg, seed, device):
+    mlp = FusedSkipConnMLP(**cfg)
+    mlp.reset_parameters(torch.Generator().manual_seed(seed))
+    return mlp.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLAGSHIP))
+def test_fused_mlp_kernel_matches_plain(cuda, name):
+    mlp = _net(FLAGSHIP[name], 0, cuda)
+    x = (torch.rand(4099, 3, generator=torch.Generator().manual_seed(1)) - 0.5).to(cuda)
+    with torch.no_grad():
+        reset_launch_counts()
+        got = fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights())
+        want = SkipConnMLP.forward(mlp, x)
+        torch.cuda.synchronize()
+    assert launch_counts()["fused_mlp_forward"] == 1
+    tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ mlp.B).abs().max()
+    assert ((got - want).abs() <= tol).all(), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_mlp_gradients_through_the_kernel(cuda):
+    mlp = _net(FLAGSHIP["sdf_shift"], 2, cuda)
+    x = (torch.rand(512, 3, generator=torch.Generator().manual_seed(3)) - 0.5).to(cuda)
+
+    def grads(fn):
+        xx = x.clone().requires_grad_()
+        (gx,) = torch.autograd.grad(fn(xx).sum(), xx, create_graph=True)
+        (gw,) = torch.autograd.grad(gx.square().sum(), mlp.layers[0].w)
+        return gx, gw
+
+    got = grads(lambda xx: fused_mlp_apply(mlp, xx))
+    want = grads(lambda xx: SkipConnMLP.forward(mlp, xx))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _surface(device, stable_min=False):
+    module = SphereSDF(n=128, mlp=FusedSkipConnMLP(**FLAGSHIP["sdf_shift"]),
+                       stable_min=stable_min)
+    module.reset_parameters(torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        module.shift.out.w.mul_(0.1)
+        module.shift.out.b.mul_(0.1)
+        module.radii.copy_(0.3 + 0.5 * module.radii)
+    return module.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stable_min", [False, True])
+@pytest.mark.parametrize("max_steps,bound", [(64, None), (256, 1.2)])
+def test_fused_march_matches_plain(cuda, max_steps, bound, stable_min):
+    module = _surface(cuda, stable_min)
+    g = torch.Generator().manual_seed(5)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
+    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
+    r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
+    t0, t1 = (None, 10.0) if bound is None else march_interval(r_o, r_d, bound, 10.0)
+    reset_launch_counts()
+    depth, hit = fused_march(module, r_o, r_d, t1, max_steps=max_steps,
+                             epsilon=1e-3, t_start=t0)
+    assert launch_counts()["fused_march"] == 1
+    set_kernel_mode(module, "off")
+    pdepth, phit, _ = march_plain(module, r_o, r_d, t1, t0, max_steps=max_steps,
+                                  epsilon=1e-3)
+    torch.cuda.synchronize()
+    assert phit.float().mean() > 0
+    assert (hit == phit).float().mean() >= 0.99
+    both = hit & phit
+    assert (depth - pdepth)[both].abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sdf_intersect_goes_through_both_kernels(cuda):
+    module = _surface(cuda)
+    sdf = SDF(module, max_steps=64, march_bound=1.2)
+    rays = torch.cat([torch.tensor([0.0, 0.0, 2.0]).expand(256, 3),
+                      torch.nn.functional.normalize(
+                          torch.tensor([0.0, 0.0, -1.0]) + 0.2 * torch.randn(
+                              256, 3, generator=torch.Generator().manual_seed(6)),
+                          dim=-1)], dim=-1).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        it, hit = sdf.intersect(rays, primary=False)
+    counts = launch_counts()
+    assert counts["fused_march"] == 1 and counts["fused_mlp_forward"] == 1
+    set_kernel_mode(sdf, "off")
+    with torch.no_grad():
+        pit, phit = sdf.intersect(rays, primary=False)
+    both = hit & phit
+    assert both.any() and (hit == phit).float().mean() >= 0.99
+    torch.testing.assert_close(it.n[both], pit.n[both], rtol=0, atol=1e-3)
