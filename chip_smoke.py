@@ -10,20 +10,41 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
   3. K2 fused_march against its plain version on a 256x256 NeRFCamera view
      (65,536 rays) through the full 128-sphere set with a non-zero 8x128
      shift: bounded (256 steps, march_bound 1.2) and unbounded (64 steps);
-  4. the slice: the flagship eval scene of scripts/nerf_synthetic.py
+  4. the eval slice: the flagship eval scene of scripts/nerf_synthetic.py
      (max_steps 256, march_bound 1.2) renders 3 views at 256x256 through
      pathtrace with the kernels, launch counts reset just before and read
      just after, then again with every kernel switched off; one validation
-     view (64 steps, unbounded) the same way.
+     view (64 steps, unbounded) the same way;
+  5. K3 fused_min_scan against min_scan_plain on the 38,400 rays of 6 views
+     x an 80^2 crop at unit distance (128 steps of 2.2/128), surface of 3;
+  6. K6 fused_mlp_backward (segments 0) and K7 fused_mlp_ckpt_forward +
+     fused_mlp_segment_backward (segments 4) against the autograd recompute
+     backward on the weight net, one lobe and the light field, 38,400 rows;
+  7. the training slice: the flagship training scene (max_steps 64,
+     throughput_steps 128, dist 2.2, AdamW 8e-5 / 8e-4 / 8e-5, 6 views x
+     80^2 crops, mask weight 15, SSIM, eikonal) on ground truth made here (8
+     views of an analytic diffuse sphere): one step with the kernels against
+     one with every kernel off from the same state; 20 iterations of train
+     through the kernels (launch counts reset just before, read just after);
+     3 iterations each with K6, K7 and everything plain; a profile of one
+     step; evaluate on 2 views.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
 Tolerances: K1 |kernel - plain| <= 1e-4 |plain| + 1e-5 + 4e-7 max|x.B| (the
 float32 rounding of the Fourier argument x.B, amplified by the net); K2 hit
 agreement >= 99% and |depth difference| <= 1e-3 where both hit (float32
-sums in another order, accumulated over up to 256 steps); the slice's
+sums in another order, accumulated over up to 256 steps); the eval slice's
 images finite, hit fraction > 0, mask agreement >= 99% and mean |difference|
-<= 1e-3 between the kernel and plain renders.
+<= 1e-3 between the kernel and plain renders; K3 index agreement >= 99.9%
+and |sd difference| <= 1e-5 where the indices differ (near ties); K6/K7 dx
+within 1e-4 of max |plain| on all but 0.1% of the rows, every dW/db within
+1e-3 relative L2 (float32 sums in another order, atomics in a varying one;
+a pre-activation within rounding of a leaky_relu kink takes the other slope
+in one order and moves its row); the training step: loss within 1e-4 (relative), at most
+0.1% of the rays with another hit flag, each component's gradient within
+1e-2 relative L2 (the kernels sum in another order, and a flipped hit or a
+near-tie argmin moves its ray's whole contribution).
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -83,9 +104,14 @@ def bound_ms(n_bytes: float, flops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def layer_macs(mlp) -> list:
+    """Multiply-adds per point of [init, hidden 0..L-1, out]."""
+    return [w.shape[0] * w.shape[1] for w in mlp.flat_weights()[0::2]]
+
+
 def mlp_macs(mlp) -> int:
     """Multiply-adds of the net's linear layers for one point."""
-    return sum(w.shape[0] * w.shape[1] for w in mlp.flat_weights()[0::2])
+    return sum(layer_macs(mlp))
 
 
 def weight_bytes(mlp) -> int:
@@ -160,23 +186,27 @@ def view_rays(torch, dev, elev=30.0, azim=45.0):
     return rays.reshape(-1, 6).contiguous()
 
 
+def march_surface(torch, dev):
+    """The full 128-sphere SphereSDF with a non-zero, moderate 8x128 shift
+    and spheres large enough to cover part of a view (seed 2)."""
+    from neural_raytracing_tpu_torch.shapes import SphereSDF
+    gen = torch.Generator().manual_seed(2)
+    module = SphereSDF(n=128, k=32.0, mlp=flagship_nets()["sdf_shift 8x128 F32"])
+    module.reset_parameters(gen)
+    with torch.no_grad():
+        module.shift.out.w.mul_(0.1)
+        module.shift.out.b.mul_(0.1)
+        module.radii.copy_(0.3 + 0.5 * module.radii)
+    return module.to(dev)
+
+
 def phase_march(torch, dev):
     from neural_raytracing_tpu_torch.kernels import (
         fused_march, march_plain, set_kernel_mode,
     )
-    from neural_raytracing_tpu_torch.shapes import SphereSDF, march_interval
+    from neural_raytracing_tpu_torch.shapes import march_interval
 
-    gen = torch.Generator().manual_seed(2)
-    nets = flagship_nets()
-    module = SphereSDF(n=128, k=32.0, mlp=nets["sdf_shift 8x128 F32"])
-    module.reset_parameters(gen)
-    with torch.no_grad():
-        # a non-zero, moderate shift and spheres large enough to cover part
-        # of the view
-        module.shift.out.w.mul_(0.1)
-        module.shift.out.b.mul_(0.1)
-        module.radii.copy_(0.3 + 0.5 * module.radii)
-    module.to(dev)
+    module = march_surface(torch, dev)
     rays = view_rays(torch, dev)
     r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
     set_kernel_mode(module, "off")   # the plain march evaluates the plain shift
@@ -217,7 +247,7 @@ def phase_march(torch, dev):
     return results
 
 
-def flagship_eval_scene(max_steps, march_bound):
+def flagship_scene(max_steps, march_bound):
     """scripts/nerf_synthetic.py build_scene, in the port."""
     import neural_raytracing_tpu_torch as T
     from neural_raytracing_tpu_torch.bsdf import ComposeSpatialVarying, NeuralBSDF
@@ -252,46 +282,55 @@ def render_views(torch, scene, views, dev):
     return torch.stack(images), secs
 
 
-def profile_view(torch, scene, view, dev):
-    """Device time by kernel for one rendered view (torch.profiler)."""
+def profile_step(torch, fn, label):
+    """Device time by kernel and the idle share of one call of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        render_views(torch, scene, [view], dev)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # user annotations (Optimizer.step#...) span kernels already counted
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     busy_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
     if busy_ms == 0.0:
-        print("  profile: the profiler saw no device time")
+        print(f"  profile of {label}: the profiler saw no device time")
         return
-    print(f"  profile of one view: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-          f"wall under the profiler (idle share {1 - busy_ms / wall_ms:.3f}); "
-          f"top kernels by device time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    rest = ranked[14:]
+    print(f"  profile of {label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"under the profiler (idle share {1 - busy_ms / wall_ms:.3f}), "
+          f"{sum(e.count for e in kernels)} kernel launches; top kernels:")
+    for e in ranked[:14]:
         print(f"    {1e-3 * e.self_device_time_total:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+    print(f"    {1e-3 * sum(e.self_device_time_total for e in rest):9.3f} ms  "
+          f"x{sum(e.count for e in rest):<5d} the other {len(rest)} kernels")
 
 
 def phase_slice(torch, dev, label, max_steps, march_bound, views, profile=False):
     from neural_raytracing_tpu_torch.kernels import (
         launch_counts, reset_launch_counts, set_kernel_mode,
     )
-    scene = flagship_eval_scene(max_steps, march_bound)
+    scene = flagship_scene(max_steps, march_bound)
     scene.init(torch.Generator().manual_seed(0), device=dev)
     render_views(torch, scene, views[:1], dev)      # warm-up, not counted
     reset_launch_counts()
     got, secs = render_views(torch, scene, views, dev)
     counts = launch_counts()
     if profile:
-        profile_view(torch, scene, views[0], dev)
+        profile_step(torch, lambda: render_views(torch, scene, views[:1], dev),
+                     "one view")
     set_kernel_mode(scene, "off")
     render_views(torch, scene, views[:1], dev)      # warm-up
     want, plain_secs = render_views(torch, scene, views, dev)
     set_kernel_mode(scene, "auto")
 
-    for name, n in counts.items():
-        check(n > 0, f"{label}: kernel {name} was not launched on the path")
+    for name in ("fused_mlp_forward", "fused_march"):   # the render's kernels
+        check(counts[name] > 0, f"{label}: kernel {name} was not launched on the path")
     check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
           f"{label}: non-finite image")
     mask, pmask = got.abs().sum(-1) > 0, want.abs().sum(-1) > 0
@@ -314,6 +353,329 @@ def phase_slice(torch, dev, label, max_steps, march_bound, views, profile=False)
     return counts
 
 
+# ---- slice 2: the training step -----------------------------------------------
+
+CROP_SIZE = 80
+N_VIEWS = 6
+N_RAYS = N_VIEWS * CROP_SIZE * CROP_SIZE          # 38,400 rays a step
+LRS = {"shape": 8e-5, "bsdf": 8e-4, "lights": 8e-5}
+# ground-truth views at unit distance (the NeRF-synthetic loader's
+# normalisation): elevation, azimuth
+TRAIN_VIEWS = [(20.0, 0.0), (35.0, 45.0), (-10.0, 90.0), (50.0, 135.0),
+               (25.0, 180.0), (5.0, 225.0), (40.0, 270.0), (-20.0, 315.0)]
+GT_RADIUS = 0.25
+
+
+def silhouette_crop():
+    """(u, v) of a crop halfway down one side of the view: it straddles the
+    silhouette of the random-init surface (whose centre crop is all hit)."""
+    return (SIZE - CROP_SIZE) // 2, SIZE // 16
+
+
+def train_c2ws():
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import nerf_c2w
+    return np.stack([nerf_c2w(e, a, 1.0)[:3] for e, a in TRAIN_VIEWS]).astype(np.float32)
+
+
+def crop_rays(torch, dev, c2ws, u, v):
+    """[V, 80, 80, 1, 6] NeRFCamera rays of the crop at (u, v)."""
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    return NeRFCamera(torch.from_numpy(c2ws), FOCAL).to(dev).sample_positions(
+        _tile_positions(float(u), float(v), CROP_SIZE, dev), size=SIZE)
+
+
+def sphere_gt(torch, c2ws):
+    """Ground truth made here with numpy: an analytic diffuse sphere of
+    radius 0.25 at the origin, lit from one direction, over 256x256 views;
+    masks from the ray-sphere test.  -> (images [V, 256, 256, 3], masks)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    rays = NeRFCamera(torch.from_numpy(c2ws), FOCAL).sample_positions(
+        _tile_positions(0.0, 0.0, SIZE, "cpu"), size=SIZE)[..., 0, :].numpy()
+    r_o, r_d = rays[..., :3].astype(np.float64), rays[..., 3:].astype(np.float64)
+    b = np.sum(r_o * r_d, -1)
+    disc = b * b - (np.sum(r_o * r_o, -1) - GT_RADIUS ** 2)
+    mask = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    normal = (r_o + t[..., None] * r_d) / GT_RADIUS
+    light = np.asarray([0.4, 0.8, 0.45]) / np.linalg.norm([0.4, 0.8, 0.45])
+    albedo = np.asarray([0.8, 0.55, 0.35])
+    shade = 0.15 + 0.85 * np.clip(normal @ light, 0.0, 1.0)
+    img = mask[..., None] * albedo * shade[..., None]
+    return img.astype(np.float32), mask.astype(np.float32)
+
+
+def phase_minscan(torch, dev):
+    """K3 against min_scan_plain on the 38,400 rays of 6 views x the 80^2
+    silhouette crop at unit distance, 128 steps of 2.2/128, through the
+    surface of phase 3."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_min_scan, min_scan_plain, set_kernel_mode,
+    )
+    module = march_surface(torch, dev)
+    set_kernel_mode(module, "off")   # the plain scan evaluates the plain shift
+    u, v = silhouette_crop()
+    rays = crop_rays(torch, dev, train_c2ws()[:N_VIEWS], u, v).reshape(-1, 6)
+    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+    steps, step = 128, 2.2 / 128
+    kernel = lambda: fused_min_scan(module, r_o, r_d, step, steps=steps)
+    plain = lambda: min_scan_plain(module, r_o, r_d, step, steps=steps)
+    idx, pidx = kernel(), plain()
+    torch.cuda.synchronize()
+    agree = (idx == pidx).float().mean().item()
+    s = torch.tensor(step, device=dev)
+    with torch.no_grad():
+        sd = module(r_o + (idx * s)[:, None] * r_d)
+        psd = module(r_o + (pidx * s)[:, None] * r_d)
+    err = (sd - psd).abs().max().item()
+    check(agree >= 0.999, f"K3: index agreement {agree:.6f} < 0.999")
+    check(err <= 1e-5, f"K3: |sd(kernel idx) - sd(plain idx)| {err:.3e} > 1e-5")
+    check(len(torch.unique(pidx)) > 1, "K3: every ray has the same argmin")
+    ms = cuda_ms(kernel, 5)
+    plain_ms = cuda_ms(plain, 2)
+    flops = float(N_RAYS) * (steps + 1) * (2.0 * mlp_macs(module.shift) + 31.0 * module.n)
+    n_bytes = 4 * N_RAYS * 7 + weight_bytes(module.shift) + 4 * 13 * module.n
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    print(f"K3 fused_min_scan: {N_RAYS} rays x {steps + 1} samples, index "
+          f"agreement {agree:.6f}, max |sd difference| {err:.3e}, kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, err=err)
+
+
+def phase_backward(torch, dev):
+    """K6 (segments 0) and K7 (segments 4) against the autograd recompute
+    backward on the weight net, one lobe and the light field, 38,400 rows
+    each with a seeded upstream gradient."""
+    from neural_raytracing_tpu_torch.kernels import (
+        ckpt_forward_plain, fused_mlp_backward, fused_mlp_ckpt_forward,
+        fused_mlp_segment_backward, mlp_backward, segment_backward_plain,
+        segment_bounds,
+    )
+    from neural_raytracing_tpu_torch.nn import ACTIVATION_GRADS, mlp_forward
+
+    gen = torch.Generator().manual_seed(3)
+    nets = flagship_nets()
+    names = ["weight_net 16x256 F128", "lobe 6x96 F64", "light_field 10x256 F16"]
+    tot = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+           for k in ("k6", "k7a", "k7b")}
+    for name in names:
+        mlp = nets[name]
+        mlp.reset_parameters(gen)
+        mlp.to(dev)
+        x = (torch.rand(N_RAYS, 3, generator=gen) - 0.5).to(dev)
+        g = torch.randn(N_RAYS, mlp.out_size, generator=gen).to(dev)
+        ws = [w.detach() for w in mlp.flat_weights()]
+
+        def plain():   # the autograd recompute of _FusedMLP.backward
+            xx = x.clone().requires_grad_()
+            wr = [w.clone().requires_grad_() for w in ws]
+            return torch.autograd.grad(mlp_forward(mlp, xx, mlp.B, wr), [xx] + wr, g)
+
+        want = plain()
+        for seg in (0, 4):
+            label = f"{'K6' if seg == 0 else 'K7'} {name} (segments {seg})"
+            dx, grads = mlp_backward(mlp, x, g, mlp.B, ws, seg)
+            torch.cuda.synchronize()
+            absm = max((a - b).abs().max().item() for a, b in zip([dx, *grads], want))
+            # a pre-activation within rounding of a leaky_relu kink takes the
+            # other slope in one of the two sum orders: that row's dx moves
+            # by O(1), so dx is held row by row and the sums over rows in L2
+            row_err = (dx - want[0]).abs().max(dim=-1).values
+            off_rows = int((row_err > 1e-4 * want[0].abs().max()).sum().item())
+            rel_l2 = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                         for a, b in zip(grads, want[1:]))
+            check(off_rows <= 1e-3 * N_RAYS, f"{label}: {off_rows} rows of dx off "
+                  "by more than 1e-4 max |plain|")
+            check(rel_l2 <= 1e-3, f"{label}: dW/db rel L2 {rel_l2:.3e} > 1e-3")
+            tot["k6" if seg == 0 else "k7b"]["err"] = max(
+                tot["k6" if seg == 0 else "k7b"]["err"], absm)
+            print(f"{label}: max |err| {absm:.3e}; dx rows off by > 1e-4 max|plain| "
+                  f"{off_rows} of {N_RAYS}; worst dW/db rel L2 {rel_l2:.3e}")
+        macs = layer_macs(mlp)
+        L = mlp.num_layers
+        plain_ms = cuda_ms(plain, 3)
+        # K6 whole
+        ms = cuda_ms(lambda: fused_mlp_backward(mlp, x, g, mlp.B, ws), 3)
+        flops = 6.0 * sum(macs) * N_RAYS
+        io = 4 * N_RAYS * (2 * mlp.in_size + mlp.out_size) + 2 * weight_bytes(mlp)
+        _add(tot["k6"], ms, plain_ms, flops, io)
+        # K7a: the boundary checkpoint forward
+        segs = segment_bounds(L, 4)
+        bounds = sorted({s0 for s0, _ in segs} | {L})
+        ms = cuda_ms(lambda: fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, bounds), 3)
+        p_ms = cuda_ms(lambda: ckpt_forward_plain(mlp, x, mlp.B, ws, bounds), 3)
+        flops = 2.0 * sum(macs[:-1]) * N_RAYS
+        io = 4 * N_RAYS * (mlp.in_size + mlp.enc_size + len(bounds) * mlp.hidden_size) \
+            + weight_bytes(mlp)
+        _add(tot["k7a"], ms, p_ms, flops, io)
+        # K7b: every segment, deepest first, on the inputs of one K7 run
+        hs_at, enc = fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, bounds)
+        dact = ACTIVATION_GRADS[mlp.activation_name]
+        gh = ((g @ ws[-2].t()) * dact(hs_at[L])).contiguous()
+        for l0, l1 in reversed(segs):
+            args = (mlp, x, mlp.B, ws, enc, hs_at[l0], gh, l0, l1)
+            ms = cuda_ms(lambda: fused_mlp_segment_backward(*args), 3)
+            p_ms = cuda_ms(lambda: segment_backward_plain(*args), 3)
+            flops = 2.0 * N_RAYS * (sum(macs[1 + l0:l1]) + 2 * sum(macs[1 + l0:1 + l1]))
+            io = 4 * N_RAYS * (mlp.in_size + mlp.enc_size + 4 * mlp.hidden_size) \
+                + 2 * 4 * sum(ws[2 + 2 * k].numel() for k in range(l0, l1))
+            _add(tot["k7b"], ms, p_ms, flops, io)
+            gh = fused_mlp_segment_backward(*args)[0]
+        del want, hs_at, enc, gh
+        mlp.cpu()
+        torch.cuda.empty_cache()
+    for key, label in (("k6", "K6 fused_mlp_backward"), ("k7a", "K7a fused_mlp_ckpt_forward"),
+                       ("k7b", "K7b fused_mlp_segment_backward (all segments)")):
+        t = tot[key]
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+        print(f"{label}, 3 nets x {N_RAYS} rows: kernel {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+              f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+    tot["k7a"]["err"] = tot["k7b"]["err"]
+    return tot
+
+
+def _add(total, ms, plain_ms, flops, n_bytes):
+    total["ms"] += ms
+    total["plain_ms"] += plain_ms
+    total["flops"] += flops
+    total["bytes"] += n_bytes
+
+
+def set_kernel_bwd(torch, scene, on: bool, segments: int = 4):
+    """K6/K7 backward on the shading nets (the BSDF lobes, the weight net and
+    the light field); the SDF shift keeps its differentiable backward."""
+    from neural_raytracing_tpu_torch.kernels import FusedSkipConnMLP
+    for part in (scene.bsdf, scene.lights):
+        for m in part.modules():
+            if isinstance(m, FusedSkipConnMLP):
+                m.kernel_bwd = on
+                m.kernel_bwd_segments = segments
+
+
+def phase_train(torch, dev):
+    """The flagship training step: step parity kernels vs plain, 20
+    iterations of train through the kernels, the K6/K7 routes, the plain
+    route, a profile, and evaluate."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, build_step_fn, evaluate, make_optimizer, train,
+    )
+
+    c2ws = train_c2ws()
+    imgs, masks = sphere_gt(torch, c2ws)
+    cover = masks.mean(axis=(1, 2))
+    check(((cover > 0.25) & (cover < 0.6)).all(), f"GT coverage {cover} off")
+    print(f"GT: {len(c2ws)} views 256x256 of an analytic sphere, coverage "
+          f"{[round(float(c), 3) for c in cover]}")
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
+    spec = make_optimizer(LRS)
+    scene = flagship_scene(64, None)   # build_scene(max_steps=64)
+    scene.init(torch.Generator().manual_seed(0), device=dev)
+
+    # step parity: one step from the same state and batch, no jitter
+    idxs = list(range(N_VIEWS))
+    u, v = silhouette_crop()
+    exp = torch.from_numpy(imgs[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    mask = torch.from_numpy(masks[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    rays = crop_rays(torch, dev, c2ws[idxs], u, v)
+    res = {}
+    for label, mode in (("kernels", "auto"), ("plain", "off")):
+        sc = copy.deepcopy(scene)
+        set_kernel_mode(sc, mode)
+        step = build_step_fn(sc, Direct(training=True), spec, size=SIZE,
+                             crop_size=CROP_SIZE)
+        _, aux = step(TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v),
+                      exp, mask)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights")}
+        with torch.no_grad():
+            _, hit = sc.shape.intersect(rays, primary=False)
+        res[label] = (aux["loss"].item(), grads, hit)
+        del sc
+    (lk, gk, hk), (lp, gp, hp) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_hit_diff = int((hk != hp).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"step parity (kernels vs every kernel off, no jitter): loss {lk:.6f} vs "
+          f"{lp:.6f} (rel {rel_loss:.3e}), rays whose hit differs {n_hit_diff} of "
+          f"{hk.numel()} (hit fraction {hp.float().mean().item():.4f}), gradient rel "
+          f"L2 {', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-4, f"step parity: loss rel {rel_loss:.3e} > 1e-4")
+    check(n_hit_diff <= 0.001 * hk.numel(), f"step parity: {n_hit_diff} hit flags differ")
+    check(hp.any().item(), "step parity: no ray hit the surface")
+    for c, e in rel_g.items():
+        check(e <= 1e-2, f"step parity: {c} gradient rel L2 {e:.3e} > 1e-2")
+    del res, gk, gp
+
+    kw = dict(size=SIZE, crop_size=CROP_SIZE, n_views=N_VIEWS, mask_weight=15.0,
+              with_ssim=True, log_every=0, nan_policy="raise")
+    state = TrainState(scene, spec.init(scene), 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def run(iters, label, seed):
+        nonlocal state
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, losses = train(scene, Direct(training=True), spec, state, make_camera,
+                              imgs, masks, gen, iters=iters, seed=seed, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = launch_counts()
+        check(len(losses) == iters and np.isfinite(losses).all(), f"{label}: loss {losses}")
+        print(f"{label}: {iters} steps, {iters / secs:.3f} steps/s, "
+              f"{iters * N_RAYS / secs:,.0f} rays/s, {1e3 * secs / iters:.1f} ms/step, "
+              f"losses {[round(x, 3) for x in losses]}; launches {counts}")
+        return counts, secs / iters
+
+    run(2, "training warm-up", 100)
+    before = {k: p.detach().clone() for k, p in scene.named_parameters()}
+    counts, step_s = run(20, "training (kernels)", 0)
+    changed = sum(not torch.equal(before[k], p) for k, p in scene.named_parameters())
+    check(changed > 0, "training: no parameter changed")
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan"):
+        check(counts[name] > 0, f"training: kernel {name} was not launched on the path")
+    launches = dict(counts)
+    routes = {}
+    for label, seg, names in (("K6 (kernel_bwd, segments 0)", 0, ["fused_mlp_backward"]),
+                              ("K7 (kernel_bwd, segments 4)", 4,
+                               ["fused_mlp_ckpt_forward", "fused_mlp_segment_backward"])):
+        set_kernel_bwd(torch, scene, True, seg)
+        c, routes[label] = run(3, f"training, {label}", 1 + seg)
+        for name in names:
+            check(c[name] > 0, f"{label}: kernel {name} was not launched on the path")
+            launches[name] = c[name]
+    set_kernel_bwd(torch, scene, False)
+    set_kernel_mode(scene, "off")
+    _, routes["plain"] = run(3, "training, every kernel off", 7)
+    set_kernel_mode(scene, "auto")
+
+    step = build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
+    profile_step(torch, lambda: step(state, make_camera(idxs), (u, v), exp, mask, gen),
+                 "one training step (kernels)")
+
+    start = time.perf_counter()
+    out = evaluate(scene, lambda i: make_camera([i]), imgs[:2], Direct(training=False),
+                   size=SIZE, chunk_size=CHUNK, log_fn=lambda s: None)
+    check(all(np.isfinite(v) for v in out.values()), f"evaluate: {out}")
+    print(f"evaluate on 2 GT views (trained {state.step} steps): PSNR {out['psnr']:.3f}, "
+          f"SSIM {out['ssim']:.4f}, L1 {out['l1']:.5f}, "
+          f"{1e3 * (time.perf_counter() - start) / 2:.1f} ms/view")
+    return launches, step_s, routes
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -334,7 +696,8 @@ def main():
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    print("kernels: fused_mlp_forward, fused_march")
+    print("kernels: fused_mlp_forward, fused_march, fused_min_scan, "
+          "fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward")
     secs = _build.build()
     print(f"kernel build: {secs:.1f} s")
     for stem in sorted(_build.library_paths()):
@@ -349,22 +712,33 @@ def main():
                          eval_views, profile=True)
     phase_slice(torch, dev, "validation render (unbounded, 64 steps)", 64, None,
                 [(30.0, 45.0)], profile=True)
+    k3 = phase_minscan(torch, dev)
+    kb = phase_backward(torch, dev)
+    train_counts, step_s, _ = phase_train(torch, dev)
+
+    def entry(name, source, replaces, launches, m):
+        return dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
+                    replaces=f"neural_raytracing_tpu/kernels/{replaces}",
+                    launches=launches, max_abs_err=m["err"], ms=m["ms"],
+                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                    bound_by=m["bound_by"], library_ms=None)
 
     kernels = [
-        dict(name="fused_mlp_forward", route="cuda",
-             source="neural_raytracing_tpu_torch/csrc/fused_mlp.cu",
-             replaces="neural_raytracing_tpu/kernels/fused_mlp.py:129",
-             launches=counts["fused_mlp_forward"], max_abs_err=k1["err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
-        dict(name="fused_march", route="cuda",
-             source="neural_raytracing_tpu_torch/csrc/fused_march.cu",
-             replaces="neural_raytracing_tpu/kernels/fused_march.py:405",
-             launches=counts["fused_march"], max_abs_err=k2["bounded"]["err"],
-             ms=k2["bounded"]["ms"], plain_ms=k2["bounded"]["plain_ms"],
-             bound_ms=k2["bounded"]["bound_ms"], bound_by=k2["bounded"]["bound_by"],
-             library_ms=None),
+        entry("fused_mlp_forward", "fused_mlp.cu", "fused_mlp.py:129",
+              counts["fused_mlp_forward"], k1),
+        entry("fused_march", "fused_march.cu", "fused_march.py:405",
+              counts["fused_march"], k2["bounded"]),
+        entry("fused_min_scan", "fused_minscan.cu", "fused_march.py:482",
+              train_counts["fused_min_scan"], k3),
+        entry("fused_mlp_backward", "fused_mlp_bwd.cu", "fused_mlp.py:268",
+              train_counts["fused_mlp_backward"], kb["k6"]),
+        entry("fused_mlp_ckpt_forward", "fused_mlp_bwd.cu", "fused_mlp.py:449",
+              train_counts["fused_mlp_ckpt_forward"], kb["k7a"]),
+        entry("fused_mlp_segment_backward", "fused_mlp_bwd.cu", "fused_mlp.py:476",
+              train_counts["fused_mlp_segment_backward"], kb["k7b"]),
     ]
+    print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
+          f"{N_RAYS / step_s:,.0f} rays/s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,18 +7,22 @@ plain PyTorch version beside it (``kernels/``).
 
 Ported so far: the flagship eval render (``pathtrace`` with
 ``Direct(training=False)`` over ``SDF(SphereSDF)``,
-``ComposeSpatialVarying(NeuralBSDF)`` and ``LightField``), with the fused
-MLP and fused sphere-trace kernels.  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+``ComposeSpatialVarying(NeuralBSDF)`` and ``LightField``) and its training
+step and host loop (``training.train``, ``training.evaluate``), with the
+fused MLP forward and backward, fused sphere-trace and fused silhouette
+min-scan kernels.  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
-from . import bsdf, cameras, integrators, kernels, lights, nn, ops, shapes
+from . import (
+    bsdf, cameras, integrators, kernels, lights, nn, ops, shapes, training,
+)
 from .params import load_jax_params, state_dict_from_jax
 from .render import pathtrace, render_rays
 from .scene import Scene, sample_emitter
 
 __all__ = [
     "bsdf", "cameras", "integrators", "kernels", "lights", "nn", "ops",
-    "shapes", "load_jax_params", "state_dict_from_jax", "pathtrace",
+    "shapes", "training", "load_jax_params", "state_dict_from_jax", "pathtrace",
     "render_rays", "Scene", "sample_emitter",
 ]

@@ -6,8 +6,9 @@
 //   remaining = valid & !hit & depth < max_t
 //   sd        = smooth_min_i(|T_i p - c_i| - r_i) + shift_mlp(p),  p = o + d * depth
 //   hit      |= remaining & sd <= eps;  depth += sd where still remaining
-// The 128 transformed spheres sit in shared memory; the shift MLP is the
-// device MLP of mlp.cuh (the same network the fused MLP kernel evaluates).
+// The 128 transformed spheres sit in shared memory (sphere_set.cuh, shared
+// with the min-scan K3); the shift MLP is the device MLP of mlp.cuh (the
+// same network the fused MLP kernel evaluates).
 // A block leaves the loop as soon as none of its rays remains
 // (__syncthreads_or); rows past n are invalid and never hold it back.
 // Bound on an H100: f32 FMA issue of the shift MLP (2 * 165,504 flops per
@@ -16,59 +17,7 @@
 // Bounded mode (t0 != nullptr): per-ray start t0 and end max_t (the
 // march_bound clip); otherwise depth starts at 0 and max_t is one scalar.
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
-#include "mlp.cuh"
-
-struct SphereSet {
-  const float* tfs;      // [n, 3, 3], identity already added
-  const float* centers;  // [n, 3]
-  const float* radii;    // [n]
-  int n;
-  float k;
-  int stable;            // 1: exact logsumexp smooth-min; 0: clamped
-};
-
-// Smooth-min of the sphere set at the R points ps ([R][3]) -> sm[R].
-// blockDim.x / R threads share a row; each takes every tpr-th sphere.
-__device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
-                               int stable, const float* ps, float* sm, int R) {
-  const int tpr = blockDim.x / R;
-  const int r = threadIdx.x / tpr, lane = threadIdx.x % tpr;
-  const float px = ps[r * 3 + 0], py = ps[r * 3 + 1], pz = ps[r * 3 + 2];
-  float m = -INFINITY, s = 0.f;  // stable: running max of -k d and sum exp(-k d - m)
-  for (int i = lane; i < n_sph; i += tpr) {
-    const float* t = sph + i * 13;  // tfs row-major (9), center (3), radius (1)
-    const float qx = t[0] * px + t[1] * py + t[2] * pz - t[9];
-    const float qy = t[3] * px + t[4] * py + t[5] * pz - t[10];
-    const float qz = t[6] * px + t[7] * py + t[8] * pz - t[11];
-    const float d = sqrtf(qx * qx + qy * qy + qz * qz) - t[12];
-    const float e = -k * d;
-    if (stable) {
-      if (e > m) {
-        s = s * expf(m - e) + 1.f;
-        m = e;
-      } else {
-        s += expf(e - m);
-      }
-    } else {
-      s += expf(e);
-    }
-  }
-  // reduce across the tpr lanes of this row (contiguous within a warp)
-  for (int off = tpr / 2; off > 0; off /= 2) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    if (stable) {
-      const float mm = fmaxf(m, m2);
-      s = (m == -INFINITY ? 0.f : s * expf(m - mm)) +
-          (m2 == -INFINITY ? 0.f : s2 * expf(m2 - mm));
-      m = mm;
-    } else {
-      s += s2;
-    }
-  }
-  if (lane == 0)
-    sm[r] = stable ? -(m + logf(s)) / k : -logf(fmaxf(s, 1e-4f)) / k;
-}
+#include "sphere_set.cuh"
 
 __global__ void __launch_bounds__(NRT_THREADS)
 nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
@@ -79,7 +28,7 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
   extern __shared__ __align__(16) float smem[];
   const int R = NRT_ROWS;
   float* sph = smem;                             // [n_sph][13]
-  float* ps = sph + nrt_round4(S.n * 13);        // [R][3] march points
+  float* ps = sph + nrt_sphere_smem_floats(S.n); // [R][3] march points
   float* o = ps + nrt_round4(R * 3);             // [R][3]
   float* d = o + nrt_round4(R * 3);              // [R][3]
   float* depth = d + nrt_round4(R * 3);          // [R]
@@ -88,11 +37,7 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
   int* state = reinterpret_cast<int*>(sm + R);   // [R] bit0 valid, bit1 hit, bit2 remaining
   float* mlp_smem = sm + 2 * R;                  // 16-byte aligned: R % 4 == 0
 
-  for (int i = threadIdx.x; i < S.n; i += blockDim.x) {
-    for (int c = 0; c < 9; ++c) sph[i * 13 + c] = S.tfs[i * 9 + c];
-    for (int c = 0; c < 3; ++c) sph[i * 13 + 9 + c] = S.centers[i * 3 + c];
-    sph[i * 13 + 12] = S.radii[i];
-  }
+  nrt_load_spheres(S, sph);
   const int row0 = blockIdx.x * R;
   if (threadIdx.x < R) {
     const int r = threadIdx.x, g = row0 + r;
@@ -162,7 +107,7 @@ extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0
     return (int)cudaErrorInvalidValue;
   SphereSet S{tfs, centers, radii, n_spheres, k, stable};
   const int R = NRT_ROWS;
-  const size_t floats = nrt_round4(n_spheres * 13) + 3 * nrt_round4(R * 3) +
+  const size_t floats = nrt_sphere_smem_floats(n_spheres) + 3 * nrt_round4(R * 3) +
                         4 * R + nrt_mlp_smem_floats(m, R);
   const size_t smem = sizeof(float) * floats;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,6 +1,7 @@
-// Device-side SkipConnMLP shared by the fused MLP kernel (fused_mlp.cu) and
-// the fused sphere-trace march (fused_march.cu), so the march evaluates
-// exactly the network the MLP kernel evaluates.
+// Device-side SkipConnMLP shared by the fused MLP kernel (fused_mlp.cu), the
+// fused sphere-trace march (fused_march.cu), the fused silhouette min-scan
+// (fused_minscan.cu) and the MLP backward (fused_mlp_bwd.cu), so every
+// kernel evaluates exactly the network the MLP kernel evaluates.
 //
 // Math (neural_raytracing_tpu_torch/nn/mlp.py, the plain version):
 //   enc = [x, sin(x B), cos(x B)]
@@ -92,6 +93,26 @@ __device__ __forceinline__ float nrt_act(float x, int act) {
   }
 }
 
+// d act / d x at the pre-activation x; the table ACTIVATION_GRADS of
+// nn/mlp.py (and of the JAX package) is the same.
+__device__ __forceinline__ float nrt_dact(float x, int act) {
+  switch (act) {
+    case NRT_LEAKY_RELU: return x >= 0.f ? 1.f : 0.01f;
+    case NRT_RELU: return x >= 0.f ? 1.f : 0.f;
+    case NRT_SOFTPLUS: return 1.f / (1.f + expf(-x));
+    case NRT_SIGMOID: {
+      const float s = 1.f / (1.f + expf(-x));
+      return s * (1.f - s);
+    }
+    case NRT_TANH: {
+      const float t = tanhf(x);
+      return 1.f - t * t;
+    }
+    case NRT_ELU: return x > 0.f ? 1.f : expf(x);
+    default: return 1.f;
+  }
+}
+
 // acc[r] += sum_k s[r*ld + k] * W[k*N + j] for k < K.
 // s is 16-byte aligned and ld % 4 == 0.
 template <int RT>
@@ -162,20 +183,11 @@ __device__ __forceinline__ void nrt_linear(const float* s1, int ld1, int K1,
     nrt_linear_rt<1>(s1, ld1, K1, s2, ld2, K2, W, bias, N, dst, ldd, R, act);
 }
 
-// Evaluates the MLP on the R rows of xs ([R][in_size] in shared memory).
-// smem holds nrt_mlp_smem_floats(m, R) floats (16-byte aligned).  On return
-// (after a barrier) the outputs are at *out, row stride *out_ld.
-__device__ void nrt_mlp_block(const MLPWeights& m, const float* xs, int R,
-                              float* smem, const float** out, int* out_ld) {
-  const int in = m.in_size, F = m.freqs, H = m.hidden;
-  const int E = in + 2 * F;
-  const int es = nrt_round4(E), hs = nrt_round4(H), os = nrt_round4(m.out_size);
-  float* enc = smem;
-  float* ha = enc + R * es;
-  float* hb = ha + R * hs;
-  float* ob = hb + R * hs;
-
-  // Fourier encoding
+// enc[r] = [x, sin(x B), cos(x B)] for the R rows of xs ([R][in_size]),
+// row stride es.  The caller synchronises before reading enc.
+__device__ void nrt_fourier_encode(const MLPWeights& m, const float* xs, int R,
+                                   float* enc, int es) {
+  const int in = m.in_size, F = m.freqs;
   for (int idx = threadIdx.x; idx < R * (in + F); idx += blockDim.x) {
     const int r = idx / (in + F), c = idx % (in + F);
     const float* x = xs + r * in;
@@ -189,6 +201,22 @@ __device__ void nrt_mlp_block(const MLPWeights& m, const float* xs, int R,
       enc[r * es + in + F + f] = cosf(mapped);
     }
   }
+}
+
+// Evaluates the MLP on the R rows of xs ([R][in_size] in shared memory).
+// smem holds nrt_mlp_smem_floats(m, R) floats (16-byte aligned).  On return
+// (after a barrier) the outputs are at *out, row stride *out_ld.
+__device__ void nrt_mlp_block(const MLPWeights& m, const float* xs, int R,
+                              float* smem, const float** out, int* out_ld) {
+  const int in = m.in_size, F = m.freqs, H = m.hidden;
+  const int E = in + 2 * F;
+  const int es = nrt_round4(E), hs = nrt_round4(H), os = nrt_round4(m.out_size);
+  float* enc = smem;
+  float* ha = enc + R * es;
+  float* hb = ha + R * hs;
+  float* ob = hb + R * hs;
+
+  nrt_fourier_encode(m, xs, R, enc, es);
   __syncthreads();
 
   nrt_linear(enc, es, E, nullptr, 0, 0, m.w[0], m.b[0], H, ha, hs, R, m.act);

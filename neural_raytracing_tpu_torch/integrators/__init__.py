@@ -1,1 +1,1 @@
-from .integrators import Direct, Integrator
+from .integrators import Direct, Integrator, NeRFIntegrator

@@ -1,7 +1,8 @@
 """Light-transport integrators.
 
-Counterpart of ``neural_raytracing_tpu/integrators/integrators.py`` for the
-render path: ``Direct`` with its emitter-sampling arm.  Interface:
+Counterpart of ``neural_raytracing_tpu/integrators/integrators.py``:
+``Direct`` with its emitter-sampling arm, and the training wrapper
+``NeRFIntegrator``.  Interface:
 ``sample(scene, rays, generator, training) -> (values [..., dims],
 active [...], Interaction)``.
 """
@@ -35,9 +36,11 @@ def _attach_aux(it: Interaction, aux: dict) -> Interaction:
 class Direct(Integrator):
     """Direct lighting with emitter sampling.
 
-    ``training=True`` (the silhouette throughput) and the BSDF-sampling arm
-    (``bsdf_samples > 0`` with a non-delta light) are not ported yet and
-    raise.  ``horizon_mask`` zeroes the emitter arm below the local horizon.
+    ``training=True`` runs primary intersections, which carry the
+    silhouette throughput; ``generator`` jitters its min-scan.  The
+    BSDF-sampling arm (``bsdf_samples > 0`` with a non-delta light) is not
+    ported yet and raises.  ``horizon_mask`` zeroes the emitter arm below the
+    local horizon.
     """
 
     def __init__(self, emitter_samples: int = 1, bsdf_samples: int = 0,
@@ -59,7 +62,8 @@ class Direct(Integrator):
         if bsdf_samples > 0:
             raise NotImplementedError("the BSDF-sampling arm of Direct is not "
                                       "ported yet")
-        it, active = scene.shape.intersect(rays, primary=training)
+        it, active = scene.shape.intersect(rays, primary=training,
+                                           generator=generator)
         result = torch.zeros(rays.shape[:-1] + (3,), dtype=torch.float32,
                              device=rays.device)
         for _ in range(self.emitter_samples):
@@ -73,3 +77,25 @@ class Direct(Integrator):
             val = bsdf_val * emitter_val / self.emitter_samples
             result = result + torch.where(active_emitted[..., None], val, 0.0)
         return result, active, it
+
+
+class NeRFIntegrator(Integrator):
+    """Training wrapper: appends the soft-silhouette alpha channel
+    (``sigmoid(throughput)`` with logits) and marks every pixel active."""
+
+    def __init__(self, sub_integrator: Integrator, with_logits: bool = True):
+        self.sub_integrator = sub_integrator
+        self.with_logits = with_logits
+
+    def dims(self):
+        return self.sub_integrator.dims() + 1
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = True):
+        result, active, it = self.sub_integrator.sample(scene, rays, generator,
+                                                        training)
+        alpha = it.throughput[..., None]
+        if self.with_logits:
+            alpha = torch.sigmoid(alpha)
+        return (torch.cat([result, alpha], dim=-1), torch.ones_like(active),
+                it)

@@ -1,16 +1,30 @@
 """Hand-written CUDA kernels of the port and their plain versions.
 
 Each kernel wrapper counts its launches in a plain integer attribute
-(``fused_mlp_forward.launches``, ``fused_march.launches``) so a run can show
-which kernels its path went through.
+(``fused_mlp_forward.launches``, ``fused_march.launches``, ...) so a run can
+show which kernels its path went through.
 """
 
 from torch import nn
 
-from .fused_march import fused_march, march_plain, supports
-from .fused_mlp import FusedSkipConnMLP, fused_mlp_apply, fused_mlp_forward
+from .fused_march import (
+    fused_march, fused_min_scan, march_plain, min_scan_plain, supports,
+)
+from .fused_mlp import (
+    FusedSkipConnMLP, ckpt_forward_plain, fused_mlp_apply, fused_mlp_backward,
+    fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_segment_backward,
+    mlp_backward, mlp_backward_plain, segment_backward_plain, segment_bounds,
+    segmented_backward,
+)
 
-KERNELS = {"fused_mlp_forward": fused_mlp_forward, "fused_march": fused_march}
+KERNELS = {
+    "fused_mlp_forward": fused_mlp_forward,
+    "fused_march": fused_march,
+    "fused_min_scan": fused_min_scan,
+    "fused_mlp_backward": fused_mlp_backward,
+    "fused_mlp_ckpt_forward": fused_mlp_ckpt_forward,
+    "fused_mlp_segment_backward": fused_mlp_segment_backward,
+}
 
 
 def reset_launch_counts():

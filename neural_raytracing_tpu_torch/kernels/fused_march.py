@@ -1,6 +1,7 @@
-"""K2: fused no-grad sphere trace through a SphereSDF, a CUDA kernel for Hopper.
+"""K2 fused sphere trace and K3 fused silhouette min-scan through a
+SphereSDF, CUDA kernels for Hopper, with their plain versions.
 
-Replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_march.py``
+K2 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_march.py``
 (``fused_march``, body ``_build_march_kernel`` with ``_make_sdf_eval``) for
 omega = 1.  The kernel (``csrc/fused_march.cu``) runs the whole march per
 block of 32 rays: the sphere set in shared memory, the shift MLP through the
@@ -8,8 +9,16 @@ device MLP that K1 uses, and an early exit once no ray of the block remains.
 It is bound by the f32 FMA rate of the shift MLP over the steps the rays
 need.  ``march_plain`` below is its plain version (``SDF._march``'s loop).
 
-Nothing differentiates through the march: every input is detached and the
-outputs carry no gradient, as in the reference.
+K3 replaces ``fused_min_scan`` (body ``_build_minscan_kernel``): the index of
+the earliest strict minimum of the SDF over the ``steps + 1`` samples
+``t = step * i`` of each ray.  The kernel (``csrc/fused_minscan.cu``) shares
+the sphere set (``csrc/sphere_set.cuh``) with K2 and the device MLP with
+K1; every ray takes all samples, four samples of 16 rays share one MLP
+evaluation.  It is bound by the f32 FMA rate.  ``min_scan_plain`` is its
+plain version (the ``lax.scan`` of ``SDF.throughput``).
+
+Nothing differentiates through either kernel: every input is detached and
+the outputs carry no gradient, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,6 +45,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _minscan_lib() -> ctypes.CDLL:
+    lib = library("fused_minscan")
+    lib.nrt_fused_min_scan.argtypes = [
+        _P, _P, _P, _P, _I, _I,                   # rays, step, output, n, steps
+        _P, _P, _P, _I, _F, _I,                   # sphere set
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _P]                                       # stream
+    lib.nrt_fused_min_scan.restype = _I
+    return lib
+
+
 def supports(module) -> bool:
     """True if ``module`` is a SphereSDF whose shift net the kernel runs."""
     from ..shapes.sdf import SphereSDF
@@ -44,6 +64,35 @@ def supports(module) -> bool:
     mlp = module.shift
     return (isinstance(mlp, SkipConnMLP) and mlp.latent_size == 0
             and mlp.in_size == 3 and mlp.out_size == 1)
+
+
+def _sphere_set(module, device):
+    """Check the SphereSDF's tensors on ``device`` -> (the C arguments of the
+    sphere set and the shift net, the tensors they point into)."""
+    tfs = (module.tfs.detach() + torch.eye(3, device=module.tfs.device)).contiguous()
+    centers = module.centers.detach().contiguous()
+    radii = module.radii.detach().contiguous()
+    n_sph = tfs.shape[0]
+    check_cuda_f32("tfs", tfs, (n_sph, 3, 3), device)
+    check_cuda_f32("centers", centers, (n_sph, 3), device)
+    check_cuda_f32("radii", radii, (n_sph,), device)
+    mlp = module.shift
+    weights = [w.detach() for w in mlp.flat_weights()]
+    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device)
+    args = (tfs.data_ptr(), centers.data_ptr(), radii.data_ptr(), n_sph,
+            float(module.k), int(module.stable_min),
+            mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers, mlp.skip,
+            mlp.out_size, ACT_CODES[mlp.activation_name], ptrs)
+    return args, (tfs, centers, radii, weights)
+
+
+def _rays(r_o: torch.Tensor, r_d: torch.Tensor):
+    ro = r_o.detach().reshape(-1, 3).contiguous()
+    rd = r_d.detach().reshape(-1, 3).contiguous()
+    n = ro.shape[0]
+    check_cuda_f32("r_o", ro, (n, 3))
+    check_cuda_f32("r_d", rd, (n, 3), ro.device)
+    return ro, rd, n
 
 
 @torch.no_grad()
@@ -95,11 +144,7 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                          "3 -> 1 shift net and no latent")
     batches = r_o.shape[:-1]
     device = r_o.device
-    ro = r_o.detach().reshape(-1, 3).contiguous()
-    rd = r_d.detach().reshape(-1, 3).contiguous()
-    n = ro.shape[0]
-    check_cuda_f32("r_o", ro, (n, 3))
-    check_cuda_f32("r_d", rd, (n, 3), device)
+    ro, rd, n = _rays(r_o, r_d)
     if t_start is None:
         if isinstance(max_t, torch.Tensor) and max_t.numel() != 1:
             raise ValueError("unbounded fused_march takes a scalar max_t")
@@ -114,16 +159,7 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
         check_cuda_f32("max_t", mt, (n,), device)
         scalar_max_t = 0.0
 
-    tfs = (module.tfs.detach() + torch.eye(3, device=module.tfs.device)).contiguous()
-    centers = module.centers.detach().contiguous()
-    radii = module.radii.detach().contiguous()
-    n_sph = tfs.shape[0]
-    check_cuda_f32("tfs", tfs, (n_sph, 3, 3), device)
-    check_cuda_f32("centers", centers, (n_sph, 3), device)
-    check_cuda_f32("radii", radii, (n_sph,), device)
-    mlp = module.shift
-    weights = [w.detach() for w in mlp.flat_weights()]
-    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device)
+    spheres, _tensors = _sphere_set(module, device)   # alive until the launch
 
     depths = torch.empty(n, device=device, dtype=torch.float32)
     hit = torch.empty(n, device=device, dtype=torch.bool)
@@ -133,11 +169,7 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
             None if t0 is None else t0.data_ptr(),
             None if mt is None else mt.data_ptr(), scalar_max_t,
             depths.data_ptr(), hit.data_ptr(), n, max_steps, epsilon,
-            tfs.data_ptr(), centers.data_ptr(), radii.data_ptr(), n_sph,
-            float(module.k), int(module.stable_min),
-            mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers, mlp.skip,
-            mlp.out_size, ACT_CODES[mlp.activation_name], ptrs,
-            torch.cuda.current_stream(device).cuda_stream)
+            *spheres, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_march: CUDA error {rc} at launch")
     if n > 0:
@@ -146,3 +178,56 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
 
 
 fused_march.launches = 0
+
+
+@torch.no_grad()
+def min_scan_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
+                   steps: int) -> torch.Tensor:
+    """Plain silhouette min-scan, the plain version of K3.
+
+    ``sdf(p[..., 3]) -> [...]``; ``step`` is the float32 sample spacing (a
+    number or a 0-d tensor).  Returns, per ray, the index of the earliest
+    strict minimum of the SDF over ``t = step * i``, ``i = 0..steps``, as
+    float32.
+    """
+    step = torch.as_tensor(step, dtype=torch.float32, device=r_o.device).reshape(())
+    mn = sdf(r_o)
+    idx = torch.zeros(mn.shape, dtype=torch.int32, device=r_o.device)
+    for i in range(1, steps + 1):
+        sd = sdf(r_o + (step * float(i)) * r_d)
+        idx = torch.where(sd < mn, i, idx)
+        mn = torch.minimum(mn, sd)
+    return idx.to(torch.float32)
+
+
+def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
+                   steps: int) -> torch.Tensor:
+    """Launch K3 on CUDA tensors.  Returns the argmin index ``[...]`` as f32.
+
+    ``step`` is the float32 sample spacing, a number or a 0-d tensor (on the
+    card it is read there, so a jittered step costs no synchronisation).
+    Launches on the current stream and does not synchronise.
+    """
+    if not supports(module):
+        raise ValueError("fused_min_scan supports SphereSDF surfaces with a "
+                         "3 -> 1 shift net and no latent")
+    batches = r_o.shape[:-1]
+    device = r_o.device
+    ro, rd, n = _rays(r_o, r_d)
+    step_t = torch.as_tensor(step, dtype=torch.float32, device=device
+                             ).detach().reshape(1).contiguous()
+    check_cuda_f32("step", step_t, (1,), device)
+    spheres, _tensors = _sphere_set(module, device)   # alive until the launch
+    idx = torch.empty(n, device=device, dtype=torch.float32)
+    with torch.cuda.device(device):
+        rc = _minscan_lib().nrt_fused_min_scan(
+            ro.data_ptr(), rd.data_ptr(), step_t.data_ptr(), idx.data_ptr(),
+            n, steps, *spheres, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_min_scan: CUDA error {rc} at launch")
+    if n > 0:
+        fused_min_scan.launches += 1
+    return idx.reshape(batches)
+
+
+fused_min_scan.launches = 0

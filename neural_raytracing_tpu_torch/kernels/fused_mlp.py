@@ -1,17 +1,31 @@
-"""K1: fused Fourier-encode + SkipConnMLP forward, a CUDA kernel for Hopper.
+"""K1, K6 and K7: the fused Fourier-encode + SkipConnMLP forward and its
+backward, CUDA kernels for Hopper.
 
-Replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_mlp.py``
+K1 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_mlp.py``
 (``_pallas_forward``, body ``_build_kernel``).  The kernel
 (``csrc/fused_mlp.cu`` over the device MLP in ``csrc/mlp.cuh``) evaluates a
 whole net per block of 32 points with every intermediate in shared memory;
 it is bound by the f32 FMA rate.  Its plain version is
 ``SkipConnMLP.forward`` (``nn/mlp.py``).
 
-Gradients: ``fused_mlp_apply`` wraps the kernel in an ``autograd.Function``
-whose backward recomputes through the plain version, as the JAX ``_bwd``
-does: the render differentiates the SDF shift net for its normals, and a
-backward built from plain ops can itself be differentiated (grad-of-grad for
-the eikonal loss).
+K6 (``fused_mlp_backward``, replacing ``_pallas_backward``) and K7
+(``fused_mlp_ckpt_forward`` + ``fused_mlp_segment_backward``, replacing the
+two kernels of ``_pallas_backward_segmented``) are the hand-written backward
+(``csrc/fused_mlp_bwd.cu``): recompute the forward, backprop every layer,
+dW/db summed over the rows by a split-over-rows product, dx through the
+Fourier chain; dB = 0.  They are first-order only.  Their plain versions
+are ``mlp_backward_plain`` (K6), ``ckpt_forward_plain`` and
+``segment_backward_plain`` (K7), the same math in PyTorch ops, and the
+autograd recompute of ``_FusedMLP.backward``.
+
+Gradients: ``fused_mlp_apply`` wraps K1 in an ``autograd.Function``.  By
+default its backward recomputes through the plain version, as the JAX
+``_bwd`` does: the render differentiates the SDF shift net for its normals,
+and a backward built from plain ops can itself be differentiated
+(grad-of-grad for the eikonal loss).  ``FusedSkipConnMLP(kernel_bwd=True)``
+takes K6 (``kernel_bwd_segments`` 0 or 1) or K7 (2 or more) instead, for
+nets that are never differentiated twice (the shading nets); the JAX
+options are ``pallas_bwd`` and ``pallas_bwd_segments``.
 
 ``FusedSkipConnMLP(mode=...)`` selects the path: "auto" launches the kernel
 for CUDA tensors and takes the plain version for CPU tensors, "force"
@@ -23,9 +37,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-from ..nn.mlp import SkipConnMLP, mlp_forward
+from ..nn.mlp import ACTIVATION_GRADS, SkipConnMLP, mlp_forward
+from ..ops.encoding import fourier_encode
 from ._build import library
 
 MAX_LAYERS = 32   # NRT_MAX_LAYERS in csrc/mlp.cuh
@@ -34,6 +51,7 @@ ACT_CODES = {"leaky_relu": 0, "relu": 1, "softplus": 2, "sigmoid": 3,
              "tanh": 4, "elu": 5, "identity": 6}
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
+_NET = [_I] * 8   # n, in_size, freqs, hidden, num_layers, skip, out_size, act
 
 
 def _lib() -> ctypes.CDLL:
@@ -134,11 +152,356 @@ class _FusedMLP(torch.autograd.Function):
         return (None, *result)
 
 
+# ---- K6 / K7: the backward --------------------------------------------------
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = library("fused_mlp_bwd")
+    lib.nrt_mlp_store_forward.argtypes = [_P, _P, _I, _I, _P, _P, *_NET, _P, _P]
+    lib.nrt_mlp_backward_layers.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                            _P, *_NET, _P, _P]
+    lib.nrt_mlp_outer.argtypes = [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I,
+                                  _I, _I, _P, _P]
+    for fn in (lib.nrt_mlp_store_forward, lib.nrt_mlp_backward_layers,
+               lib.nrt_mlp_outer):
+        fn.restype = _I
+    return lib
+
+
+def segment_bounds(num_layers: int, n_segments: int):
+    """Contiguous hidden-layer segments ``[(l0, l1), ...]`` covering
+    ``[0, num_layers)`` (the JAX ``_segment_bounds``)."""
+    edges = np.linspace(0, num_layers, n_segments + 1).round().astype(int)
+    return [(int(edges[s]), int(edges[s + 1]))
+            for s in range(n_segments) if edges[s + 1] > edges[s]]
+
+
+def _net_args(mlp: SkipConnMLP, n: int):
+    return (n, mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers,
+            mlp.skip, mlp.out_size, ACT_CODES[mlp.activation_name])
+
+
+def _ptr_table(tensors):
+    return (_P * len(tensors))(*(None if t is None else t.data_ptr()
+                                 for t in tensors))
+
+
+def _check(name: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _outer(a1, act1, g, a2=None, act2=-1):
+    """``[a1 | a2 | 1]^T g`` through the split-over-rows kernel:
+    -> (dW [K1 + K2, N], db [N])."""
+    n, k1 = a1.shape
+    k2 = 0 if a2 is None else a2.shape[1]
+    dst = torch.zeros(k1 + k2 + 1, g.shape[1], device=g.device)
+    _check("nrt_mlp_outer", _bwd_lib().nrt_mlp_outer(
+        a1.data_ptr(), a1.stride(0), k1, act1,
+        None if a2 is None else a2.data_ptr(), 0 if a2 is None else a2.stride(0),
+        k2, act2, 1, g.data_ptr(), g.stride(0), g.shape[1], n, dst.data_ptr(),
+        _stream(g.device)))
+    return dst[:-1], dst[-1]
+
+
+def _layer_grads(mlp: SkipConnMLP, k: int, hs_k, enc, gh_next):
+    """(dW, db) of hidden layer ``k`` from hs[k], enc and gH[k + 1]."""
+    act = ACT_CODES[mlp.activation_name]
+    if mlp.is_skip_layer(k):
+        return _outer(hs_k, act, gh_next, enc, act)
+    return _outer(hs_k, act, gh_next)
+
+
+def _transposes(weights, layers):
+    """``W^T`` (contiguous) of the weight slots in ``layers`` (0 = init,
+    1 + i = hidden layer i, L + 1 = out), None elsewhere."""
+    ws = weights[0::2]
+    return [ws[i].detach().t().contiguous() if i in layers else None
+            for i in range(len(ws))]
+
+
+def _check_rows(mlp, x, basis, weights, rows=None, width=None):
+    n = x.shape[0]
+    check_cuda_f32("x", x, (n, mlp.in_size))
+    if rows is not None:
+        check_cuda_f32("gradient", rows, (n, width), x.device)
+    return n, weight_pointers(mlp, basis, weights, x.device)
+
+
+def fused_mlp_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
+                       basis: torch.Tensor, weights):
+    """Launch K6 on CUDA tensors: the whole backward of ``out = mlp(x)`` for
+    the output gradient ``g [n, out]``.
+
+    Returns ``(dx [n, in], grads)`` with ``grads`` in ``flat_weights`` order.
+    Launches on the current stream and does not synchronise.
+    """
+    weights = [w.detach() for w in weights]
+    n, ptrs = _check_rows(mlp, x, basis, weights, g, mlp.out_size)
+    L, H, dev = mlp.num_layers, mlp.hidden_size, x.device
+    hs = torch.empty(L + 1, n, H, device=dev)
+    gh = torch.empty(L + 1, n, H, device=dev)
+    enc = torch.empty(n, mlp.enc_size, device=dev)
+    dx = torch.empty(n, mlp.in_size, device=dev)
+    wts = _transposes(weights, range(L + 2))
+    hs_ptrs, gh_ptrs = _ptr_table(list(hs)), _ptr_table(list(gh))
+    lib, net = _bwd_lib(), _net_args(mlp, n)
+    with torch.cuda.device(dev):
+        _check("nrt_mlp_store_forward", lib.nrt_mlp_store_forward(
+            x.data_ptr(), None, 0, L, hs_ptrs, enc.data_ptr(), *net, ptrs,
+            _stream(dev)))
+        _check("nrt_mlp_backward_layers", lib.nrt_mlp_backward_layers(
+            x.data_ptr(), g.data_ptr(), 1, 0, L, hs_ptrs, gh_ptrs,
+            _ptr_table(wts), None, dx.data_ptr(), *net, ptrs, _stream(dev)))
+        act = ACT_CODES[mlp.activation_name]
+        grads = list(_outer(enc, -1, gh[0]))
+        for k in range(L):
+            grads += _layer_grads(mlp, k, hs[k], enc, gh[k + 1])
+        grads += _outer(hs[L], act, g)
+    if n > 0:
+        fused_mlp_backward.launches += 1
+    return dx, grads
+
+
+def fused_mlp_ckpt_forward(mlp: SkipConnMLP, x: torch.Tensor,
+                           basis: torch.Tensor, weights, boundaries):
+    """Launch K7a on CUDA tensors: the forward that keeps only the
+    pre-activations ``hs[b]`` for ``b`` in ``boundaries`` (hs[0] = init
+    output, hs[i + 1] = hidden layer i output).
+
+    Returns ``({b: hs[b] [n, H]}, enc [n, E])``; ``enc`` is the raw Fourier
+    encoding the segment backward and the epilogue need.
+    """
+    weights = [w.detach() for w in weights]
+    n, ptrs = _check_rows(mlp, x, basis, weights)
+    L, dev = mlp.num_layers, x.device
+    hs = {b: torch.empty(n, mlp.hidden_size, device=dev) for b in boundaries}
+    enc = torch.empty(n, mlp.enc_size, device=dev)
+    with torch.cuda.device(dev):
+        _check("nrt_mlp_store_forward", _bwd_lib().nrt_mlp_store_forward(
+            x.data_ptr(), None, 0, L, _ptr_table([hs.get(k) for k in range(L + 1)]),
+            enc.data_ptr(), *_net_args(mlp, n), ptrs, _stream(dev)))
+    if n > 0:
+        fused_mlp_ckpt_forward.launches += 1
+    return hs, enc
+
+
+def fused_mlp_segment_backward(mlp: SkipConnMLP, x: torch.Tensor,
+                               basis: torch.Tensor, weights, enc: torch.Tensor,
+                               h_in: torch.Tensor, g_out: torch.Tensor,
+                               l0: int, l1: int):
+    """Launch K7b on CUDA tensors: backprop through hidden layers
+    ``[l0, l1)`` from the checkpoint ``h_in = hs[l0]`` and ``g_out = gH[l1]``.
+
+    Returns ``(g_in = gH[l0], genc_act [n, E], [(dW, db) of layers l0..l1-1])``;
+    ``genc_act`` is the gradient at act(enc) from the segment's skip layers.
+    """
+    weights = [w.detach() for w in weights]
+    n, ptrs = _check_rows(mlp, x, basis, weights, g_out, mlp.hidden_size)
+    L, H, dev = mlp.num_layers, mlp.hidden_size, x.device
+    check_cuda_f32("h_in", h_in, (n, H), dev)
+    check_cuda_f32("enc", enc, (n, mlp.enc_size), dev)
+    hs: list = [None] * (L + 1)
+    hs[l0] = h_in
+    for k in range(l0 + 1, l1):
+        hs[k] = torch.empty(n, H, device=dev)
+    gh: list = [None] * (L + 1)
+    for k in range(l0, l1):
+        gh[k] = torch.empty(n, H, device=dev)
+    genc = torch.empty(n, mlp.enc_size, device=dev)
+    hs_ptrs = _ptr_table(hs)
+    lib, net = _bwd_lib(), _net_args(mlp, n)
+    wts = _transposes(weights, range(1 + l0, 1 + l1))
+    with torch.cuda.device(dev):
+        if l1 - l0 > 1:   # recompute hs[l0 + 1 .. l1 - 1]
+            _check("nrt_mlp_store_forward", lib.nrt_mlp_store_forward(
+                x.data_ptr(), h_in.data_ptr(), l0, l1 - 1, hs_ptrs, None, *net,
+                ptrs, _stream(dev)))
+        _check("nrt_mlp_backward_layers", lib.nrt_mlp_backward_layers(
+            x.data_ptr(), g_out.data_ptr(), 0, l0, l1, hs_ptrs, _ptr_table(gh),
+            _ptr_table(wts), genc.data_ptr(), None, *net, ptrs, _stream(dev)))
+        grads = [_layer_grads(mlp, k, hs[k], enc, gh[k + 1] if k + 1 < l1 else g_out)
+                 for k in range(l0, l1)]
+    if n > 0:
+        fused_mlp_segment_backward.launches += 1
+    return gh[l0], genc, grads
+
+
+fused_mlp_backward.launches = 0
+fused_mlp_ckpt_forward.launches = 0
+fused_mlp_segment_backward.launches = 0
+
+
+# ---- the plain versions of K6 and K7 -----------------------------------------
+
+def _plain_layers(mlp, enc, h, l0, l1, weights):
+    """Forward from hs[l0] = h through hidden layers [l0, l1) ->
+    ([hs[l0], ..., hs[l1]], [a_l0, ..., a_{l1-1}])."""
+    act = mlp.activation
+    act_enc = act(enc)
+    hs, a_list = [h], []
+    for i in range(l0, l1):
+        a = act(hs[-1])
+        if mlp.is_skip_layer(i):
+            a = torch.cat([a, act_enc], dim=-1)
+        a_list.append(a)
+        hs.append(a @ weights[2 + 2 * i] + weights[3 + 2 * i])
+    return hs, a_list
+
+
+def _plain_backprop(mlp, hs, a_list, gh, l0, l1, weights):
+    """Backprop gH[l1] = gh through layers [l0, l1) (``hs`` from hs[l0]) ->
+    (gH[l0], genc_act, [(dW, db) of layers l0..l1-1])."""
+    dact = ACTIVATION_GRADS[mlp.activation_name]
+    H = mlp.hidden_size
+    genc_act = torch.zeros(gh.shape[0], mlp.enc_size, dtype=gh.dtype,
+                           device=gh.device)
+    grads = [None] * (l1 - l0)
+    for i in reversed(range(l0, l1)):
+        k = i - l0
+        grads[k] = (a_list[k].t() @ gh, gh.sum(0))
+        ga = gh @ weights[2 + 2 * i].t()
+        gh = ga[:, :H] * dact(hs[k])
+        if mlp.is_skip_layer(i):
+            genc_act = genc_act + ga[:, H:]
+    return gh, genc_act, grads
+
+
+def _plain_epilogue(mlp, x, basis, weights, enc, gh, genc_act):
+    """Init layer + dx: -> (dx, d_init_w, d_init_b)."""
+    dact = ACTIVATION_GRADS[mlp.activation_name]
+    genc = gh @ weights[0].t() + genc_act * dact(enc)
+    mapped = x @ basis
+    f, i = mlp.freqs, mlp.in_size
+    dx = genc[:, :i] + (genc[:, i:i + f] * torch.cos(mapped)
+                        - genc[:, i + f:] * torch.sin(mapped)) @ basis.t()
+    return dx, enc.t() @ gh, gh.sum(0)
+
+
+@torch.no_grad()
+def mlp_backward_plain(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
+                       basis: torch.Tensor, weights):
+    """Plain version of K6: ``(dx, grads in flat_weights order)``."""
+    weights = [w.detach() for w in weights]
+    basis = basis.detach()
+    dact = ACTIVATION_GRADS[mlp.activation_name]
+    L = mlp.num_layers
+    enc = fourier_encode(x, basis)
+    hs, a_list = _plain_layers(mlp, enc, enc @ weights[0] + weights[1], 0, L,
+                               weights)
+    d_out = (mlp.activation(hs[L]).t() @ g, g.sum(0))
+    gh = (g @ weights[-2].t()) * dact(hs[L])
+    gh, genc_act, layer_grads = _plain_backprop(mlp, hs, a_list, gh, 0, L, weights)
+    dx, d_init_w, d_init_b = _plain_epilogue(mlp, x, basis, weights, enc, gh,
+                                             genc_act)
+    grads = [d_init_w, d_init_b]
+    for dw, db in layer_grads:
+        grads += [dw, db]
+    return dx, grads + list(d_out)
+
+
+@torch.no_grad()
+def ckpt_forward_plain(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor,
+                       weights, boundaries):
+    """Plain version of K7a: ``({b: hs[b]}, enc)``."""
+    weights = [w.detach() for w in weights]
+    enc = fourier_encode(x, basis.detach())
+    hs, _ = _plain_layers(mlp, enc, enc @ weights[0] + weights[1], 0,
+                          mlp.num_layers, weights)
+    return {b: hs[b] for b in boundaries}, enc
+
+
+@torch.no_grad()
+def segment_backward_plain(mlp: SkipConnMLP, x: torch.Tensor,
+                           basis: torch.Tensor, weights, enc: torch.Tensor,
+                           h_in: torch.Tensor, g_out: torch.Tensor,
+                           l0: int, l1: int):
+    """Plain version of K7b: ``(g_in, genc_act, [(dW, db), ...])``."""
+    weights = [w.detach() for w in weights]
+    hs, a_list = _plain_layers(mlp, enc, h_in, l0, l1, weights)
+    return _plain_backprop(mlp, hs, a_list, g_out, l0, l1, weights)
+
+
+def segmented_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
+                       basis: torch.Tensor, weights, n_segments: int,
+                       ckpt=None, segment=None):
+    """The checkpointed backward of ``_pallas_backward_segmented``: K7a, the
+    out layer in plain ops, K7b per segment (deepest first), the init layer
+    and dx epilogue in plain ops.  ``ckpt``/``segment`` default to the
+    kernels; the plain versions give the plain K7.  -> (dx, grads)."""
+    ckpt = fused_mlp_ckpt_forward if ckpt is None else ckpt
+    segment = fused_mlp_segment_backward if segment is None else segment
+    weights = [w.detach() for w in weights]
+    basis = basis.detach()
+    L = mlp.num_layers
+    dact = ACTIVATION_GRADS[mlp.activation_name]
+    segs = segment_bounds(L, n_segments)
+    boundaries = sorted({s[0] for s in segs} | {L})
+    hs_at, enc = ckpt(mlp, x, basis, weights, boundaries)
+    with torch.no_grad():
+        d_out = (mlp.activation(hs_at[L]).t() @ g, g.sum(0))
+        gh = ((g @ weights[-2].t()) * dact(hs_at[L])).contiguous()
+        genc_act = torch.zeros_like(enc)
+        d_layers: dict = {}
+        for l0, l1 in reversed(segs):
+            gh, genc_part, grads = segment(mlp, x, basis, weights, enc,
+                                           hs_at[l0], gh, l0, l1)
+            genc_act = genc_act + genc_part
+            d_layers.update(zip(range(l0, l1), grads))
+        dx, d_init_w, d_init_b = _plain_epilogue(mlp, x, basis, weights, enc,
+                                                 gh, genc_act)
+    grads = [d_init_w, d_init_b]
+    for i in range(L):
+        grads += list(d_layers[i])
+    return dx, grads + list(d_out)
+
+
+def mlp_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
+                 basis: torch.Tensor, weights, segments: int = 0,
+                 kernel: bool = True):
+    """The first-order MLP backward, ``(dx, grads in flat_weights order)``:
+    K6 (``segments`` 0 or 1) or K7 (2 or more), or their plain versions
+    with ``kernel=False``."""
+    if segments >= 2:
+        if kernel:
+            return segmented_backward(mlp, x, g, basis, weights, segments)
+        return segmented_backward(mlp, x, g, basis, weights, segments,
+                                  ckpt_forward_plain, segment_backward_plain)
+    if kernel:
+        return fused_mlp_backward(mlp, x, g, basis, weights)
+    return mlp_backward_plain(mlp, x, g, basis, weights)
+
+
+class _FusedMLPKernelBwd(torch.autograd.Function):
+    """K1 forward with the K6/K7 backward (first-order only)."""
+
+    @staticmethod
+    def forward(ctx, mlp, x, basis, *weights):
+        ctx.mlp = mlp
+        ctx.save_for_backward(x, basis, *weights)
+        return fused_mlp_forward(mlp, x, basis, weights)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, basis, *weights = ctx.saved_tensors
+        dx, grads = mlp_backward(ctx.mlp, x, g.contiguous(), basis, weights,
+                                 segments=ctx.mlp.kernel_bwd_segments)
+        needs = ctx.needs_input_grad
+        return (None, dx if needs[1] else None, None,
+                *(gw if need else None for gw, need in zip(grads, needs[3:])))
+
+
 def fused_mlp_apply(mlp: SkipConnMLP, p: torch.Tensor) -> torch.Tensor:
     """``p [..., in_size] -> [..., out]`` through K1, differentiable."""
     batches = p.shape[:-1]
     x = p.reshape(-1, mlp.in_size).contiguous()
-    out = _FusedMLP.apply(mlp, x, mlp.B, *mlp.flat_weights())
+    fn = _FusedMLPKernelBwd if getattr(mlp, "kernel_bwd", False) else _FusedMLP
+    out = fn.apply(mlp, x, mlp.B, *mlp.flat_weights())
     return out.reshape(batches + (mlp.out_size,))
 
 
@@ -147,13 +510,19 @@ class FusedSkipConnMLP(SkipConnMLP):
 
     ``mode``: "auto" (kernel for CUDA tensors, plain version for CPU ones),
     "force" (kernel; raises on CPU tensors) or "off" (plain version).
+    ``kernel_bwd``: the K1 path backpropagates through K6
+    (``kernel_bwd_segments`` 0 or 1) or the checkpointed K7 (2 or more)
+    instead of the differentiable plain recompute; first-order only.
     """
 
-    def __init__(self, *args, mode: str = "auto", **kwargs):
+    def __init__(self, *args, mode: str = "auto", kernel_bwd: bool = False,
+                 kernel_bwd_segments: int = 4, **kwargs):
         super().__init__(*args, **kwargs)
         if mode not in ("auto", "force", "off"):
             raise ValueError(f"mode must be 'auto', 'force' or 'off', got {mode!r}")
         self.mode = mode
+        self.kernel_bwd = kernel_bwd
+        self.kernel_bwd_segments = kernel_bwd_segments
 
     def forward(self, p: torch.Tensor, latent=None) -> torch.Tensor:
         if self.mode == "off" or latent is not None:

@@ -1,1 +1,1 @@
-from .mlp import ACTIVATIONS, Linear, SkipConnMLP, mlp_forward
+from .mlp import ACTIVATION_GRADS, ACTIVATIONS, Linear, SkipConnMLP, mlp_forward

@@ -34,6 +34,19 @@ ACTIVATIONS: dict = {
     "identity": lambda x: x,
 }
 
+# d act / d x, as a function of the pre-activation; the plain backward of the
+# fused MLP kernels and ``nrt_dact`` in csrc/mlp.cuh follow this table (the
+# JAX package's ``ACTIVATION_GRADS``, plus ELU, which that table lacks).
+ACTIVATION_GRADS: dict = {
+    "elu": lambda x: torch.where(x > 0, 1.0, torch.exp(x)),
+    "leaky_relu": lambda x: torch.where(x >= 0, 1.0, 0.01),
+    "relu": lambda x: torch.where(x >= 0, 1.0, 0.0),
+    "softplus": torch.sigmoid,
+    "sigmoid": lambda x: torch.sigmoid(x) * (1.0 - torch.sigmoid(x)),
+    "tanh": lambda x: 1.0 - torch.square(torch.tanh(x)),
+    "identity": lambda x: torch.ones_like(x),
+}
+
 
 class Linear(nn.Module):
     """``x @ w + b`` with ``w`` shaped ``[fan_in, fan_out]`` (the JAX layout)."""

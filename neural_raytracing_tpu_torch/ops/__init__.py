@@ -1,6 +1,11 @@
 from .encoding import fourier_basis, fourier_encode, fourier_size
 from .frames import coordinate_system, from_local, to_local
+from .losses import (
+    binary_cross_entropy, binary_cross_entropy_with_logits, masked_loss,
+)
 from .math import (
-    nonzero_eps, normalize, rotate_vector, smooth_min, stable_smooth_min,
+    eikonal_loss, mse2psnr, nonzero_eps, normalize, rotate_vector, smooth_min,
+    stable_smooth_min,
 )
 from .rusin import param_rusin2
+from .ssim import ms_ssim, ssim

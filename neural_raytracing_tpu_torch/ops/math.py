@@ -41,6 +41,21 @@ def stable_smooth_min(v: torch.Tensor, k: float = 32.0,
     return -torch.logsumexp(-k * v, dim=dim) / k
 
 
+def eikonal_loss(grad: torch.Tensor) -> torch.Tensor:
+    """Mean squared deviation of ``||grad||`` from 1 (IDR surface regularizer).
+
+    The norm clamps inside the sqrt: raw SDF gradients are exactly zero
+    where the clamped smooth_min saturates, and a plain norm would give NaN
+    gradients there.
+    """
+    n = torch.sqrt(torch.clamp_min(torch.sum(grad * grad, dim=-1), 1e-12))
+    return torch.mean(torch.square(n - 1.0))
+
+
+def mse2psnr(x) -> torch.Tensor:
+    return -10.0 * torch.log10(torch.as_tensor(x, dtype=torch.float32))
+
+
 def rotate_vector(v: torch.Tensor, axis: torch.Tensor, c: torch.Tensor,
                   s: torch.Tensor) -> torch.Tensor:
     """Rodrigues rotation of ``v`` about unit ``axis`` by the angle with cos ``c``, sin ``s``."""

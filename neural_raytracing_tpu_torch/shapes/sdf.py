@@ -1,15 +1,19 @@
-"""Learnable signed-distance surfaces and the sphere-trace marcher.
+"""Learnable signed-distance surfaces, the sphere-trace marcher and the
+silhouette min-scan.
 
-Counterpart of ``neural_raytracing_tpu/shapes/sdf.py`` for the render path:
+Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
   * ``SphereSDF``: smooth-min of n learnable transformed spheres plus a
     zero-initialised SkipConnMLP residual ``shift``;
-  * ``SDF.intersect(primary=False)``: a no-grad sphere trace (the fused
-    kernel K2 on CUDA tensors, ``march_plain`` otherwise), optionally clipped
-    to a bounding sphere (``march_bound``), then normals from autograd at the
-    hit points.
+  * ``SDF.intersect``: a no-grad sphere trace (the fused kernel K2 on CUDA
+    tensors, ``march_plain`` otherwise), optionally clipped to a bounding
+    sphere (``march_bound``), then normals from autograd at the hit points;
+    with ``primary=True`` also the soft-silhouette throughput
+    ``-alpha * min_sdf`` of ``SDF.throughput`` (the min-scan K3 on CUDA
+    tensors, ``min_scan_plain`` otherwise; ``throughput_mode="half_res"``
+    scans the 2x-subsampled crop grid).
 
-The training-only parts (the silhouette ``throughput`` min-scan, shadow
-``intersect_test``, over-relaxation) are not ported yet.
+Shadow ``intersect_test``, ``batch_throughput`` and over-relaxation are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import torch
 from torch import nn
 
 from ..interaction import Interaction
-from ..kernels.fused_march import fused_march, march_plain, supports
+from ..kernels.fused_march import (
+    fused_march, fused_min_scan, march_plain, min_scan_plain, supports,
+)
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import SkipConnMLP
 from ..ops.math import normalize, smooth_min, stable_smooth_min
@@ -101,11 +107,15 @@ class SDF(nn.Module):
                  max_steps: int = 32, dist: float = 2.2,
                  throughput_steps: int = 128, alpha: float = 1000.0,
                  fused_loops: str = "auto", omega: float = 1.0,
+                 throughput_mode: str = "full",
                  march_bound: Optional[float] = None):
         super().__init__()
         if fused_loops not in ("auto", "force", "off"):
             raise ValueError("fused_loops must be 'auto', 'force' or 'off', "
                              f"got {fused_loops!r}")
+        if throughput_mode not in ("full", "half_res"):
+            raise ValueError("throughput_mode must be 'full' or 'half_res', "
+                             f"got {throughput_mode!r}")
         if omega != 1.0:
             raise NotImplementedError("the over-relaxed march (omega > 1) is "
                                       "not ported yet")
@@ -125,6 +135,8 @@ class SDF(nn.Module):
         self.dist = dist
         self.throughput_steps = throughput_steps
         self.alpha = alpha
+        # "half_res": the min-scan on the 2x-subsampled crop grid
+        self.throughput_mode = throughput_mode
         self.fused_loops = fused_loops
         self.omega = omega
         # opt-in eval accelerator: clip the primary march to the ray's
@@ -163,13 +175,47 @@ class SDF(nn.Module):
             (g,) = torch.autograd.grad(self.sdf(q).sum(), q, create_graph=create)
         return g
 
+    def throughput(self, r_o: torch.Tensor, r_d: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """Soft silhouette: the SDF at the argmin of a min-scan along the ray,
+        differentiable at that point only.
+
+        With a ``generator`` the scan length ``dist`` is jittered by
+        ``U(0, 1) * 2 / steps``; without one it is not.  Returns (SDF value at
+        the argmin point [...], best position [..., 3]).
+        """
+        steps = self.throughput_steps
+        if generator is None:
+            step = torch.tensor(self.dist / steps, dtype=torch.float32,
+                                device=r_o.device)
+        else:
+            u = torch.rand((), generator=generator, device=generator.device)
+            step = (self.dist + u.to(r_o.device) * (2.0 / steps)) / steps
+        if self._use_kernel(r_o):
+            idxs = fused_min_scan(self.module, r_o, r_d, step, steps=steps)
+        else:
+            idxs = min_scan_plain(self.sdf, r_o.detach(), r_d.detach(), step,
+                                  steps=steps)
+        best_pos = (r_o + (idxs * step)[..., None] * r_d).detach()
+        return self.sdf(best_pos), best_pos
+
+    def half_res_throughput(self, r_o: torch.Tensor, r_d: torch.Tensor,
+                            generator: Optional[torch.Generator] = None):
+        """Throughput on the 2x-subsampled pixel grid, nearest-upsampled back.
+        ``r_o``/``r_d`` are ``[N, W, H, ..., 3]`` ray grids; every 2x2 pixel
+        block shares one sample."""
+        sd, _ = self.throughput(r_o[:, ::2, ::2], r_d[:, ::2, ::2], generator)
+        sd = sd.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return sd[:, :r_o.shape[1], :r_o.shape[2]]
+
     def intersect(self, rays: torch.Tensor, max_t: float = 10.0,
-                  primary: bool = True):
-        """-> (Interaction, hit [...]) for ``rays [..., 6]``."""
-        if primary:
-            raise NotImplementedError(
-                "primary intersections (the training silhouette min-scan) "
-                "are ported with the training slice; use primary=False")
+                  primary: bool = True,
+                  generator: Optional[torch.Generator] = None):
+        """-> (Interaction, hit [...]) for ``rays [..., 6]``.
+
+        ``primary=True`` adds the silhouette ``throughput`` logits (training
+        intersections); ``generator`` jitters its scan.
+        """
         r_o, r_d = rays[..., :3], rays[..., 3:]
         if self.march_bound is not None:
             t0, t1 = march_interval(r_o, r_d, self.march_bound, max_t)
@@ -178,10 +224,21 @@ class SDF(nn.Module):
             depths, hit = self._march(r_o, r_d, max_t)
         p = r_o + depths[..., None] * r_d
 
+        throughput = None
+        if primary:
+            # half_res needs the [N, W, H, ...] crop grid; flat ray batches
+            # take the full scan
+            if self.throughput_mode == "half_res" and r_o.ndim >= 4:
+                min_sdf = self.half_res_throughput(r_o, r_d, generator)
+            else:
+                min_sdf, _ = self.throughput(r_o, r_d, generator)
+            throughput = -self.alpha * min_sdf
+
         raw_normals = self.normals(p)
         n = torch.where(hit[..., None], normalize(raw_normals, eps=1e-6), 0.0)
         p = p + n * (self.epsilon * 5.0)
 
-        it = Interaction(p=p, t=depths, raw_normals=raw_normals).with_normals(n)
+        it = Interaction(p=p, t=depths, throughput=throughput,
+                         raw_normals=raw_normals).with_normals(n)
         it = it._replace(wi=it.to_local(-r_d))
         return it, hit

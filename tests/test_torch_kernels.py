@@ -9,7 +9,10 @@ the JAX package, so they run on the card with
 Tolerances on the card: K1 |kernel - plain| <= 1e-4 |plain| + 1e-5 +
 4e-7 max|x.B| (float32 rounding of the Fourier argument, amplified by the
 net); K2 hit agreement >= 99% and |depth difference| <= 1e-3 where both hit
-(float32 sums in another order over up to 256 steps).
+(float32 sums in another order over up to 256 steps); K3 index agreement
+>= 99.9%, and where the indices differ the two SDF values within 1e-5 (near
+ties, float32 sums in another order); K6/K7 each gradient within 1e-4 of
+max|plain| (float32 sums in another order, atomics in a varying one).
 """
 
 import ast
@@ -21,8 +24,10 @@ import pytest
 import torch
 
 from neural_raytracing_tpu_torch.kernels import (
-    FusedSkipConnMLP, fused_march, fused_mlp_apply, fused_mlp_forward,
-    launch_counts, march_plain, reset_launch_counts, set_kernel_mode,
+    FusedSkipConnMLP, fused_march, fused_min_scan, fused_mlp_apply,
+    fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_forward,
+    fused_mlp_segment_backward, launch_counts, march_plain, min_scan_plain,
+    mlp_backward, reset_launch_counts, set_kernel_mode,
 )
 from neural_raytracing_tpu_torch.kernels import _build
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
@@ -30,7 +35,10 @@ from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF, march_interval
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neural_raytracing_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "neural_raytracing_tpu")
+KERNEL_NAMES = ("fused_mlp_forward", "fused_march", "fused_min_scan",
+                "fused_mlp_backward", "fused_mlp_ckpt_forward",
+                "fused_mlp_segment_backward")
 
 FLAGSHIP = {
     "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
@@ -86,7 +94,7 @@ def test_mlp_mode_switch_on_cpu_tensors():
         fused_mlp_forward(nets["off"], x, nets["off"].B, nets["off"].flat_weights())
     with pytest.raises(ValueError, match="mode"):
         FusedSkipConnMLP(mode="on")
-    assert launch_counts() == {"fused_mlp_forward": 0, "fused_march": 0}
+    assert launch_counts() == {name: 0 for name in KERNEL_NAMES}
 
 
 def test_set_kernel_mode_reaches_every_net_and_sdf():
@@ -104,7 +112,8 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    assert set(_build.library_paths()) == {"fused_mlp", "fused_march"}
+    assert set(_build.library_paths()) == {"fused_mlp", "fused_march",
+                                           "fused_minscan", "fused_mlp_bwd"}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -212,3 +221,105 @@ def test_sdf_intersect_goes_through_both_kernels(cuda):
     both = hit & phit
     assert both.any() and (hit == phit).float().mean() >= 0.99
     torch.testing.assert_close(it.n[both], pit.n[both], rtol=0, atol=1e-3)
+
+
+def test_new_kernels_raise_on_cpu_tensors():
+    module = SphereSDF(n=4, mlp=FusedSkipConnMLP(in_size=3, out=1, num_layers=2,
+                                                 hidden_size=8, freqs=2))
+    mlp = FusedSkipConnMLP(num_layers=2, hidden_size=8, freqs=2)
+    x, g = torch.rand(8, 3), torch.rand(8, 3)
+    ws = [w.detach() for w in mlp.flat_weights()]
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_min_scan(module, x, x, 0.1, steps=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_backward(mlp, x, g, mlp.B, ws)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, [0, 2])
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_segment_backward(mlp, x, mlp.B, ws, torch.rand(8, 7),
+                                   torch.rand(8, 8), torch.rand(8, 8), 0, 2)
+    assert launch_counts()["fused_min_scan"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [False, True])
+def test_fused_min_scan_matches_plain(cuda, jitter):
+    module = _surface(cuda)
+    g = torch.Generator().manual_seed(7)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
+    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
+    r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
+    step = 2.2 / 128
+    if jitter:
+        step = torch.tensor((2.2 + 0.3 * 2.0 / 128) / 128, device=cuda)
+    reset_launch_counts()
+    idx = fused_min_scan(module, r_o, r_d, step, steps=128)
+    assert launch_counts()["fused_min_scan"] == 1
+    set_kernel_mode(module, "off")
+    pidx = min_scan_plain(module, r_o, r_d, step, steps=128)
+    torch.cuda.synchronize()
+    assert idx.shape == pidx.shape == (3001,) and idx.dtype == torch.float32
+    differ = idx != pidx
+    assert (~differ).float().mean() >= 0.999
+    if differ.any():
+        s = torch.as_tensor(step, device=cuda)
+        with torch.no_grad():
+            sd = module(r_o[differ] + (idx[differ] * s)[:, None] * r_d[differ])
+            psd = module(r_o[differ] + (pidx[differ] * s)[:, None] * r_d[differ])
+        assert (sd - psd).abs().max() <= 1e-5
+
+
+def _autograd_backward(mlp, x, g):
+    ws = list(mlp.flat_weights())
+    xx = x.clone().requires_grad_()
+    out = SkipConnMLP.forward(mlp, xx)
+    return torch.autograd.grad(out, [xx] + ws, g)
+
+
+def _assert_grads_close(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * scale + 1e-6, (i, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 4])
+@pytest.mark.parametrize("name", sorted(FLAGSHIP))
+def test_fused_mlp_backward_matches_plain(cuda, name, segments):
+    mlp = _net(FLAGSHIP[name], 8, cuda)
+    gen = torch.Generator().manual_seed(9)
+    x = (torch.rand(4099, 3, generator=gen) - 0.5).to(cuda)
+    g = torch.randn(4099, mlp.out_size, generator=gen).to(cuda)
+    reset_launch_counts()
+    dx, grads = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    counts = launch_counts()
+    if segments:
+        n_seg = min(segments, mlp.num_layers)
+        assert counts["fused_mlp_ckpt_forward"] == 1
+        assert counts["fused_mlp_segment_backward"] == n_seg
+    else:
+        assert counts["fused_mlp_backward"] == 1
+    want = _autograd_backward(mlp, x, g)
+    torch.cuda.synchronize()
+    assert len(grads) + 1 == len(want)
+    _assert_grads_close([dx, *grads], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 2])
+def test_kernel_bwd_through_autograd(cuda, segments):
+    cfg = dict(FLAGSHIP["lobe"])
+    kmlp = FusedSkipConnMLP(kernel_bwd=True, kernel_bwd_segments=segments, **cfg)
+    kmlp.reset_parameters(torch.Generator().manual_seed(10))
+    kmlp.to(cuda)
+    x = (torch.rand(777, 3, generator=torch.Generator().manual_seed(11)) - 0.5).to(cuda)
+    xx = x.clone().requires_grad_()
+    reset_launch_counts()
+    kmlp(xx).square().sum().backward()
+    counts = launch_counts()
+    assert counts["fused_mlp_forward"] == 1
+    assert counts["fused_mlp_backward" if segments < 2 else "fused_mlp_ckpt_forward"] == 1
+    got = [xx.grad] + [w.grad for w in kmlp.flat_weights()]
+    want = _autograd_backward(kmlp, x, 2 * SkipConnMLP.forward(kmlp, x).detach())
+    _assert_grads_close(got, want)

@@ -137,5 +137,7 @@ def test_kernel_switch_on_cpu_tensors():
                     epsilon=1e-3, omega=1.5)
     with pytest.raises(NotImplementedError):
         SDF(mod, omega=1.5)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        auto.intersect(rays, primary=True)
+    # primary intersections carry the silhouette throughput (plain min-scan)
+    it, _ = auto.intersect(rays, primary=True)
+    assert it.throughput.shape == rays.shape[:-1]
+    assert torch.isfinite(it.throughput).all()

@@ -5,7 +5,9 @@ The shading tests feed both sides the same interaction (the JAX intersect
 of fixed rays), so they test shading alone; Direct.sample then runs each
 side end to end on the same rays.
 Tolerance: rtol 1e-4, atol 1e-5 (MLP chains in float32); Direct.sample:
-hit agreement >= 99% and atol 1e-4 where both hit (it sits after a march).
+hit agreement >= 99% and atol 1e-4 where both hit (it sits after a march);
+the training throughput logits rtol 1e-5 / atol 1e-3 (-1000 x an SDF value
+held to 1e-6).
 """
 
 import jax.numpy as jnp
@@ -107,5 +109,9 @@ def test_direct_sample_on_given_rays(horizon_mask):
     np.testing.assert_allclose(vals.numpy()[both], np.asarray(jvals)[both],
                                rtol=0, atol=1e-4)
     assert it.normalized_weights.shape == (2, 8, 8, 1, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Direct(training=True).sample(scene, torch.from_numpy(rays))
+    # training=True: primary intersections carry the silhouette throughput
+    _, _, jit_ = JDirect(training=True).sample(jscene, tree, jnp.asarray(rays))
+    with torch.no_grad():
+        _, _, it = Direct(training=True).sample(scene, torch.from_numpy(rays))
+    np.testing.assert_allclose(it.throughput.numpy(), np.asarray(jit_.throughput),
+                               rtol=1e-5, atol=1e-3)
