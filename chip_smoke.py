@@ -27,7 +27,31 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      one with every kernel off from the same state; 20 iterations of train
      through the kernels (launch counts reset just before, read just after);
      3 iterations each with K6, K7 and everything plain; a profile of one
-     step; evaluate on 2 views.
+     step; evaluate on 2 views;
+  8. K4 fused_shadow_march against shadow_march_plain on the shadow rays of
+     the trained NeRV scene (scripts/models_seed_dir/nerv_mesh_gear_mirror200b):
+     from the march end points (the hit points where a ray hit) of every
+     pixel of one 200x200 view at distance 2 towards light 0, as the render
+     casts them (128 steps, past-light exit; once without it), and of 3
+     views x 64^2 crops, one light each (12,288 rays, 64 steps); blocked
+     fraction, ms,
+     plain ms, bound ms and the mean evaluations per ray;
+  9. K5 fused_sphere_sdf against SphereSDF.forward on 65,536 seeded points
+     with the trained shape weights, and one backward and one double
+     backward through its autograd.Function against the plain version;
+ 10. the NeRV eval: workloads.nerv.build_scene(max_steps=128,
+     march_bound=1.2) loaded from the checkpoint renders 3 views at 200x200
+     through evaluate with light_update (the checkpoint's 3 lights), with
+     learned and with hard shadows, each with the kernels (launch counts
+     reset just before, read just after) and with every kernel off; a
+     profile of one view; one view again with fused_sdf=True (K5);
+ 11. NeRV training: build_scene(max_steps=64, occlusion="learned") from the
+     checkpoint, AdamW 4e-5 for every group, on ground truth made here (8
+     views of an analytic sphere, each lit by its own point light):
+     calibrate_exposure; one step with the kernels against one with every
+     kernel off from the same state; 20 iterations of train with
+     rand_uv_mask, tone mapping and light_update (counts reset just before,
+     read just after); evaluate in both shadow modes on 2 views.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -44,7 +68,11 @@ a pre-activation within rounding of a leaky_relu kink takes the other slope
 in one order and moves its row); the training step: loss within 1e-4 (relative), at most
 0.1% of the rays with another hit flag, each component's gradient within
 1e-2 relative L2 (the kernels sum in another order, and a flipped hit or a
-near-tie argmin moves its ray's whole contribution).
+near-tie argmin moves its ray's whole contribution); K4 not-blocked
+agreement >= 99.9% (a step that lands within rounding of eps goes either
+way); K5 as K1, its derivatives within 1e-4 of max|plain| (the backward
+recomputes through the plain version); the NeRV renders and step as the
+flagship's, the occlusion net's gradient included.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -65,6 +93,7 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 N_POINTS = 65_536
 SIZE = 256
+ARTIFACTS = ROOT / "scripts" / "models_seed_dir" / "nerv_mesh_gear_mirror200b"
 CHUNK = 128
 FOCAL = 0.5 * SIZE / math.tan(0.5 * 0.6911)
 
@@ -676,6 +705,379 @@ def phase_train(torch, dev):
     return launches, step_s, routes
 
 
+# ---- slice 3: the NeRV workload ---------------------------------------------------
+
+NERV_SIZE = 200
+NERV_CHUNK = 100                                   # scripts/_common.py chunk_for(200)
+NERV_FOCAL = 0.5 * NERV_SIZE / math.tan(0.5 * 0.6911)
+NERV_CROP = 64
+NERV_VIEWS = 3
+NERV_RAYS = NERV_VIEWS * NERV_CROP * NERV_CROP     # 12,288 rays a step
+NERV_LRS = {"shape": 4e-5, "bsdf": 4e-5, "lights": 4e-5, "occ": 4e-5}
+NERV_EVAL_VIEWS = [(30.0, 45.0), (30.0, 165.0), (30.0, 285.0)]
+
+
+def nerv_scene(torch, dev, max_steps, march_bound, occlusion, fused_sdf=False):
+    """workloads.nerv.build_scene with the trained checkpoint loaded."""
+    from neural_raytracing_tpu_torch.training import load_scene
+    from neural_raytracing_tpu_torch.workloads.nerv import build_scene
+    scene = build_scene(max_steps=max_steps, march_bound=march_bound,
+                        occlusion=occlusion, fused_sdf=fused_sdf)
+    load_scene(str(ARTIFACTS), scene)
+    return scene.to(dev)
+
+
+def nerv_camera(torch, views, dist=2.0):
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera, nerf_c2w
+    c2w = np.stack([nerf_c2w(e, a, dist)[:3] for e, a in views]).astype(np.float32)
+    return NeRFCamera(torch.from_numpy(c2w), NERV_FOCAL)
+
+
+def shadow_rays(torch, scene, camera, positions, locs):
+    """Shadow rays from the march end points of ``camera``'s rays at
+    ``positions`` (the hit points where they hit) towards each view's light
+    -> (r_o, r_d, distance to the light), flat."""
+    rays = camera.sample_positions(positions, size=NERV_SIZE)
+    with torch.no_grad():
+        it, _ = scene.shape.intersect(rays, primary=False)
+        loc = locs.reshape(-1, 1, 1, 1, 3)
+        d = loc - it.p
+        dist = d.norm(dim=-1)
+        d = d / dist[..., None]
+    return (it.p.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
+            dist.reshape(-1).contiguous())
+
+
+def phase_shadow(torch, dev):
+    """K4 against shadow_march_plain on the trained NeRV scene's shadow rays."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_shadow_march, set_kernel_mode, shadow_march_plain,
+    )
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    scene = nerv_scene(torch, dev, 128, 1.2, "hard")
+    locs = scene.lights.location.detach()
+    module = scene.shape.module
+    per_eval_flops = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
+    view = shadow_rays(torch, scene, nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev),
+                       _tile_positions(0.0, 0.0, NERV_SIZE, dev), locs[:1])
+    c0 = float((NERV_SIZE - NERV_CROP) // 2)
+    crops = shadow_rays(torch, scene, nerv_camera(torch, NERV_EVAL_VIEWS).to(dev),
+                        _tile_positions(c0, c0, NERV_CROP, dev), locs)
+    set_kernel_mode(scene, "off")      # the plain march evaluates the plain shift
+    results = {}
+    for label, (r_o, r_d, dist), steps, ple in (
+            ("eval (128 steps, past-light exit)", view, 128, True),
+            ("training (64 steps, past-light exit)", crops, 64, True),
+            ("eval (128 steps, no past-light exit)", view, 128, False)):
+        n = r_o.shape[0]
+        kernel = lambda: fused_shadow_march(module, r_o, r_d, dist, max_steps=steps,
+                                            epsilon=1e-3, past_light_exit=ple)
+        plain = lambda: shadow_march_plain(module, r_o, r_d, dist, max_steps=steps,
+                                           epsilon=1e-3, past_light_exit=ple)
+        nb = kernel()
+        pnb, evals = plain()
+        torch.cuda.synchronize()
+        agree = (nb == pnb).float().mean().item()
+        blocked = (~pnb).float().mean().item()
+        check(0.0 < blocked < 1.0, f"K4 {label}: blocked fraction {blocked:.4f} not in (0, 1)")
+        check(agree >= 0.999, f"K4 {label}: not-blocked agreement {agree:.6f} < 0.999")
+        ms = cuda_ms(kernel, 5)
+        plain_ms = cuda_ms(plain, 3)
+        n_evals = evals.sum().item()
+        n_bytes = 4 * n * 7 + n + weight_bytes(module.shift) + 4 * 13 * module.n
+        b_ms, b_by = bound_ms(n_bytes, per_eval_flops * n_evals)
+        print(f"K4 fused_shadow_march, {label}: {n} rays, blocked fraction {blocked:.4f}, "
+              f"agreement {agree:.6f}, SDF evaluations needed {n_evals} "
+              f"({n_evals / n:.2f}/ray), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}), {per_eval_flops * n_evals / ms / 1e9:.1f} TFLOP/s")
+        # not_blocked is boolean: max |kernel - plain| is 1 if any ray differs
+        results[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              err=float(agree < 1.0))
+    return results["eval (128 steps, past-light exit)"]
+
+
+def phase_fused_sdf(torch, dev):
+    """K5 against SphereSDF.forward with the trained shape weights, and its
+    first and second derivatives against the plain version."""
+    from neural_raytracing_tpu_torch.kernels import (
+        FusedSphereSDF, fused_sphere_sdf, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.shapes import SphereSDF
+    from neural_raytracing_tpu_torch.training.checkpoint import load_pytree, load_tree_into
+    tree = load_pytree(str(ARTIFACTS / "shape.msgpack"))
+    fused = load_tree_into(FusedSphereSDF(n=128), tree).to(dev)
+    plain = load_tree_into(SphereSDF(n=128), tree).to(dev)
+    set_kernel_mode(plain, "off")
+    gen = torch.Generator().manual_seed(11)
+    x = (2.4 * torch.rand(N_POINTS, 3, generator=gen) - 1.2).to(dev)
+    with torch.no_grad():
+        got = fused_sphere_sdf(fused, x)
+        want = plain(x)
+        torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ fused.shift.B).abs().max()
+    check(bool(torch.isfinite(got).all()), "K5: non-finite output")
+    check(bool((err <= tol).all()), f"K5: max |err| {err.max().item():.3e} over tolerance")
+
+    def derivatives(module, pts):
+        xx = pts.clone().requires_grad_()
+        (gx,) = torch.autograd.grad(module(xx).sum(), xx, create_graph=True)
+        params = [module.centers, module.shift.layers[3].w]
+        return [gx, *torch.autograd.grad(gx.square().sum(), params)]
+
+    pts = x[:4096]
+    worst = 0.0
+    for a, b in zip(derivatives(fused, pts), derivatives(plain, pts)):
+        e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, e)
+    check(worst <= 1e-4, f"K5 derivatives: max |err| / max |plain| {worst:.3e} > 1e-4")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused_sphere_sdf(fused, x), 5)
+        plain_ms = cuda_ms(lambda: plain(x), 5)
+    flops = N_POINTS * (2.0 * mlp_macs(fused.shift) + 31.0 * fused.n)
+    n_bytes = 4 * N_POINTS * 4 + weight_bytes(fused.shift) + 4 * 13 * fused.n
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    print(f"K5 fused_sphere_sdf: {N_POINTS} points, max |err| {err.max().item():.3e}, "
+          f"first and second derivatives max rel err {worst:.3e}, kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                err=err.max().item())
+
+
+def nerv_evaluate(torch, scene, camera_fn, n_views, locs, exp=None):
+    """evaluate over ``n_views`` with light_update from ``locs``; -> (metrics,
+    images [V, 200, 200, 3] clipped as evaluate saves them, seconds per view)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import evaluate
+    images = []
+    if exp is None:
+        exp = np.zeros((n_views, NERV_SIZE, NERV_SIZE, 3), np.float32)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = evaluate(scene, camera_fn, exp[:n_views], Direct(training=False),
+                   size=NERV_SIZE, chunk_size=NERV_CHUNK, tone_map=True,
+                   with_ms_ssim=NERV_SIZE > 160, log_fn=lambda s: None,
+                   light_update=lambda sc, cam, i: sc.lights.set_location(locs[i:i + 1]),
+                   save_fn=lambda i, im: images.append(np.asarray(im)))
+    torch.cuda.synchronize()
+    return out, np.stack(images), (time.perf_counter() - start) / n_views
+
+
+def compare_images(label, got, want):
+    import numpy as np
+    mask, pmask = np.abs(got).sum(-1) > 0, np.abs(want).sum(-1) > 0
+    agree = (mask == pmask).mean()
+    diff = np.abs(got - want)
+    check(np.isfinite(got).all() and np.isfinite(want).all(), f"{label}: non-finite image")
+    check(pmask.mean() > 0, f"{label}: no pixel lit")
+    check(agree >= 0.99, f"{label}: mask agreement {agree:.4f} < 0.99")
+    check(diff.mean() <= 1e-3, f"{label}: mean |diff| {diff.mean():.3e} > 1e-3")
+    return pmask.mean(), agree, diff.mean(), diff.max()
+
+
+def phase_nerv_eval(torch, dev):
+    """The NeRV test renders, soft and hard shadows, kernels against plain."""
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    camera_fn = lambda i: nerv_camera(torch, NERV_EVAL_VIEWS[i:i + 1])
+    counts = {}
+    kernel_images = {}
+    for occlusion in ("learned", "hard"):
+        scene = nerv_scene(torch, dev, 128, 1.2, occlusion)
+        locs = scene.lights.location.detach().clone()
+        nerv_evaluate(torch, scene, camera_fn, 1, locs)          # warm-up
+        reset_launch_counts()
+        _, got, s_view = nerv_evaluate(torch, scene, camera_fn, NERV_VIEWS, locs)
+        counts[occlusion] = launch_counts()
+        check(scene.lights.location.shape == (3, 3), "evaluate changed the light location")
+        for name in ("fused_mlp_forward", "fused_march", "fused_shadow_march"):
+            check(counts[occlusion][name] > 0,
+                  f"NeRV eval ({occlusion}): kernel {name} was not launched on the path")
+        if occlusion == "learned":
+            from neural_raytracing_tpu_torch.render import pathtrace
+            from neural_raytracing_tpu_torch.integrators import Direct
+
+            def one_view():
+                scene.lights.set_location(locs[:1])
+                pathtrace(scene, camera_fn(0), Direct(training=False), size=NERV_SIZE,
+                          chunk_size=NERV_CHUNK, bundle_size=1, background=0.0, key=0,
+                          device=dev)
+                scene.lights.set_location(locs)
+            profile_step(torch, one_view, "one NeRV eval view (learned shadows)")
+        set_kernel_mode(scene, "off")
+        _, want, p_view = nerv_evaluate(torch, scene, camera_fn, NERV_VIEWS, locs)
+        frac, agree, mean_d, max_d = compare_images(f"NeRV eval ({occlusion})", got, want)
+        kernel_images[occlusion] = got
+        print(f"NeRV eval, {occlusion} shadows: {NERV_VIEWS} views {NERV_SIZE}x{NERV_SIZE}, "
+              f"kernels {1e3 * s_view:.1f} ms/view "
+              f"({NERV_SIZE ** 2 / s_view:,.0f} rays/s), every kernel off "
+              f"{1e3 * p_view:.1f} ms/view; lit fraction {frac:.4f}, mask agreement "
+              f"{agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}; "
+              f"launches {counts[occlusion]}")
+        del scene
+    soft, hard = kernel_images["learned"], kernel_images["hard"]
+    print(f"NeRV eval: learned against hard shadows, mean |diff| "
+          f"{float(abs(soft - hard).mean()):.3e}")
+    # the same scene with the surface as FusedSphereSDF: K5 at the normals
+    scene = nerv_scene(torch, dev, 128, 1.2, "learned", fused_sdf=True)
+    locs = scene.lights.location.detach().clone()
+    nerv_evaluate(torch, scene, camera_fn, 1, locs)              # warm-up
+    reset_launch_counts()
+    _, got, s_view = nerv_evaluate(torch, scene, camera_fn, 1, locs)
+    counts["fused_sdf"] = launch_counts()
+    for name in ("fused_sphere_sdf", "fused_march", "fused_shadow_march"):
+        check(counts["fused_sdf"][name] > 0,
+              f"NeRV eval (fused_sdf): kernel {name} was not launched on the path")
+    frac, agree, mean_d, max_d = compare_images("NeRV eval (fused_sdf)", got, soft[:1])
+    print(f"NeRV eval, learned shadows, fused_sdf=True: {1e3 * s_view:.1f} ms/view; "
+          f"against the SphereSDF render: mask agreement {agree:.6f}, mean |diff| "
+          f"{mean_d:.3e}, max |diff| {max_d:.3e}; launches {counts['fused_sdf']}")
+    return counts
+
+
+def nerv_gt(torch):
+    """Ground truth made here with numpy: 8 views 200x200 at distance 2.2 of
+    an analytic diffuse sphere of radius 0.6, each lit by its own point
+    light (inverse-square falloff).  -> (c2ws, images, masks, light_locs)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    views = [(e, a) for e in (15.0, 40.0) for a in (0.0, 90.0, 180.0, 270.0)]
+    camera = nerv_camera(torch, views, dist=2.2)
+    rays = camera.sample_positions(_tile_positions(0.0, 0.0, NERV_SIZE, "cpu"),
+                                   size=NERV_SIZE)[..., 0, :].numpy().astype(np.float64)
+    r_o, r_d = rays[..., :3], rays[..., 3:]
+    rng = np.random.default_rng(8)
+    locs = rng.normal(size=(len(views), 3))
+    locs = 1.6 * locs / np.linalg.norm(locs, axis=-1, keepdims=True)
+    locs = locs + 0.6 * camera.cam_to_world[:, :3, 3].numpy() / 2.2
+    b = np.sum(r_o * r_d, -1)
+    disc = b * b - (np.sum(r_o * r_o, -1) - 0.6 ** 2)
+    mask = disc > 0
+    p = r_o + (-b - np.sqrt(np.maximum(disc, 0.0)))[..., None] * r_d
+    to_l = locs[:, None, None, :] - p
+    d2 = np.sum(to_l * to_l, -1)
+    cos = np.clip(np.sum((p / 0.6) * to_l, -1) / np.sqrt(d2), 0.0, 1.0)
+    img = mask[..., None] * np.asarray([0.7, 0.5, 0.35]) * (1.5 * cos / d2)[..., None]
+    return (camera.cam_to_world.numpy(), img.astype(np.float32),
+            mask.astype(np.float32), locs.astype(np.float32))
+
+
+def phase_nerv_train(torch, dev):
+    """NeRV training from the checkpoint: calibration, step parity, 20 steps
+    of train with light_update, evaluate in both shadow modes."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, build_step_fn, calibrate_exposure, make_optimizer, rand_uv_mask,
+        train,
+    )
+    from neural_raytracing_tpu_torch.workloads.nerv import eval_scene
+
+    c2ws, imgs, masks, locs = nerv_gt(torch)
+    cover = masks.mean(axis=(1, 2))
+    print(f"NeRV GT: {len(c2ws)} views {NERV_SIZE}x{NERV_SIZE} of an analytic sphere, one "
+          f"point light each, coverage {[round(float(c), 3) for c in cover]}")
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), NERV_FOCAL)
+    light_update = lambda sc, cam, idxs: sc.lights.set_location(locs[np.asarray(idxs)])
+    spec = make_optimizer(NERV_LRS)
+    scene = nerv_scene(torch, dev, 64, None, "learned")   # build_scene(max_steps=64)
+    state = TrainState(scene, spec.init(scene), 0)
+    state, ratio = calibrate_exposure(scene, state, make_camera, imgs, masks,
+                                      size=NERV_SIZE, chunk_size=NERV_CHUNK,
+                                      light_update=light_update, log_fn=print)
+    print(f"calibrate_exposure: ratio {ratio:.4f}, light scale "
+          f"{scene.lights.scale.item():.4f}")
+
+    # step parity: one step from the same state and batch, no jitter
+    idxs = [0, 1, 2]
+    u = v = (NERV_SIZE - NERV_CROP) // 2
+    exp = torch.from_numpy(imgs[idxs, u:u + NERV_CROP, v:v + NERV_CROP]).to(dev)
+    mask = torch.from_numpy(masks[idxs, u:u + NERV_CROP, v:v + NERV_CROP]).to(dev)
+    rays = make_camera(idxs).to(dev).sample_positions(
+        _tile_positions(float(u), float(v), NERV_CROP, dev), size=NERV_SIZE)
+    res = {}
+    for label, mode in (("kernels", "auto"), ("plain", "off")):
+        sc = copy.deepcopy(scene)
+        set_kernel_mode(sc, mode)
+        light_update(sc, None, idxs)
+        step = build_step_fn(sc, Direct(training=True), spec, size=NERV_SIZE,
+                             crop_size=NERV_CROP, tone_mapping=True)
+        _, aux = step(TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v), exp, mask)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights", "occ")}
+        with torch.no_grad():
+            _, hit = sc.shape.intersect(rays, primary=False)
+        res[label] = (aux["loss"].item(), grads, hit)
+        del sc
+    (lk, gk, hk), (lp, gp, hp) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_hit_diff = int((hk != hp).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"NeRV step parity (kernels vs every kernel off, no jitter): loss {lk:.6f} vs "
+          f"{lp:.6f} (rel {rel_loss:.3e}), rays whose hit differs {n_hit_diff} of "
+          f"{hk.numel()} (hit fraction {hp.float().mean().item():.4f}), gradient rel "
+          f"L2 {', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-4, f"NeRV step parity: loss rel {rel_loss:.3e}")
+    check(n_hit_diff <= 0.001 * hk.numel(), f"NeRV step parity: {n_hit_diff} hit flags differ")
+    check(hp.any().item(), "NeRV step parity: no ray hit the surface")
+    for c, e in rel_g.items():
+        check(gp[c].norm().item() > 0, f"NeRV step parity: no {c} gradient")
+        check(e <= 1e-2, f"NeRV step parity: {c} gradient rel L2 {e:.3e} > 1e-2")
+    del res, gk, gp
+
+    kw = dict(size=NERV_SIZE, crop_size=NERV_CROP, n_views=NERV_VIEWS, tone_mapping=True,
+              uv_select=rand_uv_mask, light_update=light_update, log_every=0,
+              nan_policy="raise")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state, _ = train(scene, Direct(training=True), spec, state, make_camera, imgs, masks,
+                     gen, iters=2, seed=100, **kw)                   # warm-up
+    occ0 = {k: p.detach().clone() for k, p in scene.occ.named_parameters()}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    iters = 20
+    state, losses = train(scene, Direct(training=True), spec, state, make_camera, imgs,
+                          masks, gen, iters=iters, seed=0, **kw)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - start) / iters
+    counts = launch_counts()
+    check(len(losses) == iters and np.isfinite(losses).all(), f"NeRV training: loss {losses}")
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
+        check(counts[name] > 0, f"NeRV training: kernel {name} was not launched on the path")
+    changed = sum(not torch.equal(occ0[k], p) for k, p in scene.occ.named_parameters())
+    check(changed > 0, "NeRV training: no occlusion parameter changed")
+    check(scene.lights.location.shape == (NERV_VIEWS, 3), "NeRV training: light location shape")
+    print(f"NeRV training (kernels): {iters} steps, {1e3 * secs:.1f} ms/step, "
+          f"{NERV_RAYS / secs:,.0f} rays/s, losses {[round(x, 3) for x in losses]}; "
+          f"occ parameters changed {changed}; launches {counts}")
+    step = build_step_fn(scene, Direct(training=True), spec, size=NERV_SIZE,
+                         crop_size=NERV_CROP, tone_mapping=True)
+    light_update(scene, None, idxs)
+    profile_step(torch, lambda: step(state, make_camera(idxs), (u, v), exp, mask, gen),
+                 "one NeRV training step (kernels)")
+    camera_fn = lambda i: make_camera([i])
+    for occlusion in ("learned", "hard"):
+        test = eval_scene(scene, occlusion, 1.2)
+        out, _, s_view = nerv_evaluate(torch, test, camera_fn, 2, locs, exp=imgs)
+        check(all(np.isfinite(x) for x in out.values()), f"NeRV evaluate: {out}")
+        print(f"NeRV evaluate, {occlusion} shadows, 2 GT views (trained {state.step} steps): "
+              f"PSNR {out['psnr']:.3f}, SSIM {out['ssim']:.4f}, MS-SSIM "
+              f"{out.get('ms_ssim', float('nan')):.4f}, "
+              f"{1e3 * s_view:.1f} ms/view")
+    return counts, secs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -697,7 +1099,8 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     print("kernels: fused_mlp_forward, fused_march, fused_min_scan, "
-          "fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward")
+          "fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward, "
+          "fused_shadow_march, fused_sphere_sdf")
     secs = _build.build()
     print(f"kernel build: {secs:.1f} s")
     for stem in sorted(_build.library_paths()):
@@ -715,6 +1118,10 @@ def main():
     k3 = phase_minscan(torch, dev)
     kb = phase_backward(torch, dev)
     train_counts, step_s, _ = phase_train(torch, dev)
+    k4 = phase_shadow(torch, dev)
+    k5 = phase_fused_sdf(torch, dev)
+    nerv_counts = phase_nerv_eval(torch, dev)
+    nerv_train_counts, nerv_step_s = phase_nerv_train(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         return dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -736,9 +1143,15 @@ def main():
               train_counts["fused_mlp_ckpt_forward"], kb["k7a"]),
         entry("fused_mlp_segment_backward", "fused_mlp_bwd.cu", "fused_mlp.py:476",
               train_counts["fused_mlp_segment_backward"], kb["k7b"]),
+        entry("fused_shadow_march", "fused_shadow.cu", "fused_march.py:445",
+              nerv_counts["learned"]["fused_shadow_march"], k4),
+        entry("fused_sphere_sdf", "fused_sdf.cu", "fused_sdf.py:133",
+              nerv_counts["fused_sdf"]["fused_sphere_sdf"], k5),
     ]
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
-          f"{N_RAYS / step_s:,.0f} rays/s")
+          f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
+          f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "
+          f"{nerv_train_counts['fused_shadow_march']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

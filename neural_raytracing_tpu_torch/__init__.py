@@ -10,12 +10,15 @@ Ported so far: the flagship eval render (``pathtrace`` with
 ``ComposeSpatialVarying(NeuralBSDF)`` and ``LightField``) and its training
 step and host loop (``training.train``, ``training.evaluate``), with the
 fused MLP forward and backward, fused sphere-trace and fused silhouette
-min-scan kernels.  Entry points run on the card unless the caller passes
+min-scan kernels; and the NeRV workload (``workloads.nerv``: per-view
+``PointLights``, hard and learned occlusion through the fused shadow march,
+``FusedSphereSDF`` through the fused SphereSDF kernel).  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
 from . import (
     bsdf, cameras, integrators, kernels, lights, nn, ops, shapes, training,
+    workloads,
 )
 from .params import load_jax_params, state_dict_from_jax
 from .render import pathtrace, render_rays
@@ -23,6 +26,6 @@ from .scene import Scene, sample_emitter
 
 __all__ = [
     "bsdf", "cameras", "integrators", "kernels", "lights", "nn", "ops",
-    "shapes", "training", "load_jax_params", "state_dict_from_jax", "pathtrace",
-    "render_rays", "Scene", "sample_emitter",
+    "shapes", "training", "workloads", "load_jax_params", "state_dict_from_jax",
+    "pathtrace", "render_rays", "Scene", "sample_emitter",
 ]

@@ -40,7 +40,9 @@ class Direct(Integrator):
     silhouette throughput; ``generator`` jitters its min-scan.  The
     BSDF-sampling arm (``bsdf_samples > 0`` with a non-delta light) is not
     ported yet and raises.  ``horizon_mask`` zeroes the emitter arm below the
-    local horizon.
+    local horizon.  The emitter samples go through ``sample_emitter``, which
+    casts the shadow ray of the scene's occlusion mode up to the light's
+    distance (10 for a light without one).
     """
 
     def __init__(self, emitter_samples: int = 1, bsdf_samples: int = 0,

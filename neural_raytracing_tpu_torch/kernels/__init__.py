@@ -8,13 +8,17 @@ show which kernels its path went through.
 from torch import nn
 
 from .fused_march import (
-    fused_march, fused_min_scan, march_plain, min_scan_plain, supports,
+    fused_march, fused_min_scan, fused_shadow_march, march_plain,
+    min_scan_plain, shadow_march_plain, supports,
 )
 from .fused_mlp import (
     FusedSkipConnMLP, ckpt_forward_plain, fused_mlp_apply, fused_mlp_backward,
     fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_segment_backward,
     mlp_backward, mlp_backward_plain, segment_backward_plain, segment_bounds,
     segmented_backward,
+)
+from .fused_sdf import (
+    FusedSphereSDF, fused_sphere_sdf, fused_sphere_sdf_apply, sphere_sdf_plain,
 )
 
 KERNELS = {
@@ -24,6 +28,8 @@ KERNELS = {
     "fused_mlp_backward": fused_mlp_backward,
     "fused_mlp_ckpt_forward": fused_mlp_ckpt_forward,
     "fused_mlp_segment_backward": fused_mlp_segment_backward,
+    "fused_shadow_march": fused_shadow_march,
+    "fused_sphere_sdf": fused_sphere_sdf,
 }
 
 
@@ -37,13 +43,15 @@ def launch_counts() -> dict:
 
 
 def set_kernel_mode(module: nn.Module, mode: str):
-    """Set every fused MLP's ``mode`` and every SDF's ``fused_loops`` in
-    ``module`` to ``mode`` ("auto", "force" or "off")."""
+    """Set every fused MLP's and FusedSphereSDF's ``mode`` and every SDF's
+    ``fused_loops`` in ``module`` to ``mode`` ("auto", "force" or "off")."""
     from ..shapes.sdf import SDF
     if mode not in ("auto", "force", "off"):
         raise ValueError(f"mode must be 'auto', 'force' or 'off', got {mode!r}")
     for m in module.modules():
-        if isinstance(m, FusedSkipConnMLP):
+        if isinstance(m, (FusedSkipConnMLP, FusedSphereSDF)):
             m.mode = mode
         elif isinstance(m, SDF):
             m.fused_loops = mode
+            if isinstance(m.module, FusedSphereSDF):   # not a registered child
+                m.module.mode = mode

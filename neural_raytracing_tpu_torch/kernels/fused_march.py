@@ -1,5 +1,6 @@
-"""K2 fused sphere trace and K3 fused silhouette min-scan through a
-SphereSDF, CUDA kernels for Hopper, with their plain versions.
+"""K2 fused sphere trace, K3 fused silhouette min-scan and K4 fused shadow
+march through a SphereSDF, CUDA kernels for Hopper, with their plain
+versions.
 
 K2 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_march.py``
 (``fused_march``, body ``_build_march_kernel`` with ``_make_sdf_eval``) for
@@ -17,6 +18,16 @@ K1; every ray takes all samples, four samples of 16 rays share one MLP
 evaluation.  It is bound by the f32 FMA rate.  ``min_scan_plain`` is its
 plain version (the ``lax.scan`` of ``SDF.throughput``).
 
+K4 replaces ``fused_shadow_march`` (body ``_build_shadow_kernel``): the loop
+of ``SDF.intersect_test``, which differs from K2's in four places (depth
+starts at ``1e2 * eps``, the hit test is a strict ``sd < eps``, the hit
+step's distance is still applied, and zero-direction rays are left out of
+the block's exit gate).  The kernel (``csrc/fused_shadow.cu``) shares the
+sphere set and the device MLP with K2 and K3; it is bound by the f32 FMA
+rate over the live ray-steps.  ``shadow_march_plain`` is its plain version.
+
+The three kernels take a ``SphereSDF`` or a ``FusedSphereSDF`` (the same
+parameters) whose shift is a 3 -> 1 ``SkipConnMLP`` without a latent.
 Nothing differentiates through either kernel: every input is detached and
 the outputs carry no gradient, as in the reference.
 """
@@ -56,10 +67,23 @@ def _minscan_lib() -> ctypes.CDLL:
     return lib
 
 
+def _shadow_lib() -> ctypes.CDLL:
+    lib = library("fused_shadow")
+    lib.nrt_fused_shadow_march.argtypes = [
+        _P, _P, _P, _P, _I, _I, _F, _F, _I,       # rays, max_t, output, loop
+        _P, _P, _P, _I, _F, _I,                   # sphere set
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _P]                                       # stream
+    lib.nrt_fused_shadow_march.restype = _I
+    return lib
+
+
 def supports(module) -> bool:
-    """True if ``module`` is a SphereSDF whose shift net the kernel runs."""
+    """True if ``module`` is a SphereSDF or FusedSphereSDF whose shift net
+    the kernels run."""
     from ..shapes.sdf import SphereSDF
-    if not isinstance(module, SphereSDF):
+    from .fused_sdf import FusedSphereSDF
+    if not isinstance(module, (SphereSDF, FusedSphereSDF)):
         return False
     mlp = module.shift
     return (isinstance(mlp, SkipConnMLP) and mlp.latent_size == 0
@@ -231,3 +255,63 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
 
 
 fused_min_scan.launches = 0
+
+
+@torch.no_grad()
+def shadow_march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
+                       max_steps: int, epsilon: float,
+                       past_light_exit: bool = True):
+    """Plain shadow march, the plain version of K4 (``SDF.intersect_test``).
+
+    ``sdf(p[..., 3]) -> [...]``; ``max_t`` is a scalar or per-ray.  Returns
+    ``(not_blocked [...], evals [...])``: ``evals`` counts, per ray, the
+    steps on which the ray was live and needed an SDF evaluation.
+    """
+    batch = r_o.shape[:-1]
+    device = r_o.device
+    max_t = torch.as_tensor(max_t, dtype=torch.float32, device=device).expand(batch)
+    depths = torch.full(batch, 1e2 * epsilon, dtype=torch.float32, device=device)
+    remaining = torch.ones(batch, dtype=torch.bool, device=device)
+    evals = torch.zeros(batch, dtype=torch.int32, device=device)
+    for _ in range(max_steps):
+        live = remaining & (depths < max_t) if past_light_exit else remaining
+        evals += live
+        dists = sdf(r_o + r_d * depths[..., None])
+        hits = live & (dists < epsilon)
+        depths = torch.where(live, depths + dists, depths)
+        remaining = remaining & ~hits
+    return (depths >= max_t) | remaining, evals
+
+
+def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
+                       max_steps: int, epsilon: float,
+                       past_light_exit: bool = True) -> torch.Tensor:
+    """Launch K4 on CUDA tensors.  Returns ``not_blocked [...]`` (bool).
+
+    ``max_t`` is a scalar or per-ray.  Launches on the current stream and
+    does not synchronise.
+    """
+    if not supports(module):
+        raise ValueError("fused_shadow_march supports SphereSDF surfaces with a "
+                         "3 -> 1 shift net and no latent")
+    batches = r_o.shape[:-1]
+    device = r_o.device
+    ro, rd, n = _rays(r_o, r_d)
+    mt = torch.as_tensor(max_t, dtype=torch.float32, device=device
+                         ).detach().expand(batches).reshape(-1).contiguous()
+    check_cuda_f32("max_t", mt, (n,), device)
+    spheres, _tensors = _sphere_set(module, device)   # alive until the launch
+    not_blocked = torch.empty(n, device=device, dtype=torch.bool)
+    with torch.cuda.device(device):
+        rc = _shadow_lib().nrt_fused_shadow_march(
+            ro.data_ptr(), rd.data_ptr(), mt.data_ptr(), not_blocked.data_ptr(),
+            n, max_steps, epsilon, 1e2 * epsilon, int(past_light_exit),
+            *spheres, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_shadow_march: CUDA error {rc} at launch")
+    if n > 0:
+        fused_shadow_march.launches += 1
+    return not_blocked.reshape(batches)
+
+
+fused_shadow_march.launches = 0

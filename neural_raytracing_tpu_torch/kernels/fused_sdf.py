@@ -1,0 +1,170 @@
+"""K5: the fused SphereSDF evaluation, a CUDA kernel for Hopper, with its
+plain version and the drop-in surface module ``FusedSphereSDF``.
+
+K5 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_sdf.py``
+(``_pallas_forward``, body ``_build_kernel``): the smooth-min of the 128
+transformed spheres (clamped, or exact with ``stable_min``) plus the shift
+MLP, one value per point.  The kernel (``csrc/fused_sdf.cu``) is the inner
+evaluation of the loop kernels K2, K3 and K4 once per point, over the same
+device code (``csrc/sphere_set.cuh``, ``csrc/mlp.cuh``); it never writes the
+``[points, spheres, 3]`` transformed points the plain version builds.  It
+is bound by the f32 FMA rate of the shift MLP.  Its plain version is
+``sphere_sdf_plain``, which computes ``SphereSDF.forward`` over explicit
+tensors.
+
+Gradients: ``fused_sphere_sdf_apply`` wraps K5 in an ``autograd.Function``
+whose backward recomputes through the plain version, as the JAX
+``custom_vjp`` does.  That backward is built from plain ops, so it can itself
+be differentiated: the training step's eikonal loss differentiates the
+normals a second time.
+
+``FusedSphereSDF(mode=...)``: "auto" launches K5 for CUDA tensors and takes
+the plain version for CPU tensors, "force" launches K5 and raises on CPU
+tensors, "off" is the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..nn.mlp import SkipConnMLP, mlp_forward
+from ..ops.math import smooth_min, stable_smooth_min
+from ._build import library
+from .fused_mlp import check_cuda_f32
+
+_I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+
+def _lib() -> ctypes.CDLL:
+    lib = library("fused_sdf")
+    lib.nrt_fused_sphere_sdf.argtypes = [
+        _P, _P, _I,                               # points, output, n
+        _P, _P, _P, _I, _F, _I,                   # sphere set
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _P]                                       # stream
+    lib.nrt_fused_sphere_sdf.restype = _I
+    return lib
+
+
+def sphere_sdf_plain(module, p: torch.Tensor, centers: torch.Tensor,
+                     radii: torch.Tensor, tfs: torch.Tensor,
+                     basis: torch.Tensor, weights) -> torch.Tensor:
+    """The plain SphereSDF forward over explicit tensors (``weights`` in
+    ``SkipConnMLP.flat_weights`` order) -> ``[...]``; the plain version of
+    K5, and what its backward recomputes."""
+    batches = p.shape[:-1]
+    flat = p.reshape(-1, 3)
+    tf = tfs + torch.eye(3, dtype=flat.dtype, device=flat.device)
+    q = torch.einsum("ijk,bk->ibj", tf, flat) - centers[:, None, :]
+    sd = torch.linalg.norm(q, dim=-1) - radii[:, None]
+    mn = stable_smooth_min if module.stable_min else smooth_min
+    out = mn(sd, k=module.k, dim=0).reshape(batches)
+    return out + mlp_forward(module.shift, p, basis, weights)[..., 0]
+
+
+def fused_sphere_sdf(module, p: torch.Tensor) -> torch.Tensor:
+    """Launch K5 on CUDA tensors: ``p [..., 3] -> [...]``, no gradient.
+    Launches on the current stream and does not synchronise."""
+    from .fused_march import _sphere_set, supports
+    if not supports(module):
+        raise ValueError("fused_sphere_sdf supports SphereSDF surfaces with a "
+                         "3 -> 1 shift net and no latent")
+    batches = p.shape[:-1]
+    x = p.detach().reshape(-1, 3).contiguous()
+    n = x.shape[0]
+    check_cuda_f32("p", x, (n, 3))
+    spheres, _tensors = _sphere_set(module, x.device)   # alive until the launch
+    out = torch.empty(n, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        rc = _lib().nrt_fused_sphere_sdf(
+            x.data_ptr(), out.data_ptr(), n, *spheres,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_sphere_sdf: CUDA error {rc} at launch")
+    if n > 0:
+        fused_sphere_sdf.launches += 1
+    return out.reshape(batches)
+
+
+fused_sphere_sdf.launches = 0
+
+
+class _FusedSDF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, module, p, centers, radii, tfs, basis, *weights):
+        ctx.module = module
+        ctx.save_for_backward(p, centers, radii, tfs, basis, *weights)
+        return fused_sphere_sdf(module, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        tensors = ctx.saved_tensors
+        # differentiable backward when the caller asked for a graph of it
+        create = torch.is_grad_enabled()
+        needs = ctx.needs_input_grad[1:]
+        inputs = [t for t, need in zip(tensors, needs) if need]
+        with torch.enable_grad():
+            p, centers, radii, tfs, basis, *weights = tensors
+            out = sphere_sdf_plain(ctx.module, p, centers, radii, tfs, basis, weights)
+            grads = torch.autograd.grad(out, inputs, g, create_graph=create,
+                                        allow_unused=True)
+        it = iter(grads)
+        result = []
+        for t, need in zip(tensors, needs):
+            gt = next(it) if need else None
+            result.append(torch.zeros_like(t) if need and gt is None else gt)
+        return (None, *result)
+
+
+def fused_sphere_sdf_apply(module, p: torch.Tensor) -> torch.Tensor:
+    """``p [..., 3] -> [...]`` through K5, differentiable in ``p`` and the
+    module's parameters."""
+    mlp = module.shift
+    return _FusedSDF.apply(module, p, module.centers, module.radii, module.tfs,
+                           mlp.B, *mlp.flat_weights())
+
+
+class FusedSphereSDF(nn.Module):
+    """SphereSDF evaluated by K5 on CUDA tensors.
+
+    The parameters are named as ``SphereSDF``'s (``centers``, ``radii``,
+    ``tfs``, ``shift.*``), so a checkpoint loads into either.  The default
+    shift is the plain ``SkipConnMLP`` 8x128, 32 frequencies, softplus,
+    zero init: the whole evaluation is fused here.
+    """
+
+    def __init__(self, n: int = 128, k: float = 32.0,
+                 mlp: Optional[SkipConnMLP] = None, mode: str = "auto",
+                 stable_min: bool = False):
+        super().__init__()
+        if mode not in ("auto", "force", "off"):
+            raise ValueError(f"mode must be 'auto', 'force' or 'off', got {mode!r}")
+        self.n = n
+        self.k = k
+        self.stable_min = stable_min
+        self.mode = mode
+        self.centers = nn.Parameter(torch.zeros(n, 3))
+        self.radii = nn.Parameter(torch.zeros(n))
+        self.tfs = nn.Parameter(torch.zeros(n, 3, 3))
+        if mlp is None:
+            mlp = SkipConnMLP(in_size=3, out=1, num_layers=8, hidden_size=128,
+                              freqs=32, activation="softplus", init="zeros")
+        self.shift = mlp
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        from ..shapes.sdf import SphereSDF
+        SphereSDF.reset_parameters(self, generator)
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        if self.mode == "off" or (not p.is_cuda and self.mode == "auto"):
+            return sphere_sdf_plain(self, p, self.centers, self.radii, self.tfs,
+                                    self.shift.B, self.shift.flat_weights())
+        if not p.is_cuda:
+            raise RuntimeError("FusedSphereSDF(mode='force') needs CUDA tensors, "
+                               f"got one on {p.device}")
+        return fused_sphere_sdf_apply(self, p)

@@ -1,1 +1,1 @@
-from .lights import LightField
+from .lights import LightField, PointLights

@@ -1,3 +1,7 @@
+from .dirs import (
+    dir_to_elev_azim, dir_to_uv, elev_azim_to_dir, elev_azim_to_uv,
+    uv_to_dir, uv_to_elev_azim,
+)
 from .encoding import fourier_basis, fourier_encode, fourier_size
 from .frames import coordinate_system, from_local, to_local
 from .losses import (

@@ -10,10 +10,12 @@ Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
     with ``primary=True`` also the soft-silhouette throughput
     ``-alpha * min_sdf`` of ``SDF.throughput`` (the min-scan K3 on CUDA
     tensors, ``min_scan_plain`` otherwise; ``throughput_mode="half_res"``
-    scans the 2x-subsampled crop grid).
-
-Shadow ``intersect_test``, ``batch_throughput`` and over-relaxation are not
-ported yet.
+    scans the 2x-subsampled crop grid);
+  * ``SDF.intersect_test``: the shadow march (the fused kernel K4 on CUDA
+    tensors, ``shadow_march_plain`` otherwise).
+The surface may also be a ``kernels.FusedSphereSDF`` (the same parameters,
+evaluated by K5).  ``batch_throughput`` and over-relaxation are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from torch import nn
 
 from ..interaction import Interaction
 from ..kernels.fused_march import (
-    fused_march, fused_min_scan, march_plain, min_scan_plain, supports,
+    fused_march, fused_min_scan, fused_shadow_march, march_plain,
+    min_scan_plain, shadow_march_plain, supports,
 )
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import SkipConnMLP
@@ -107,6 +110,7 @@ class SDF(nn.Module):
                  max_steps: int = 32, dist: float = 2.2,
                  throughput_steps: int = 128, alpha: float = 1000.0,
                  fused_loops: str = "auto", omega: float = 1.0,
+                 shadow_past_light_exit: bool = True,
                  throughput_mode: str = "full",
                  march_bound: Optional[float] = None):
         super().__init__()
@@ -139,6 +143,10 @@ class SDF(nn.Module):
         self.throughput_mode = throughput_mode
         self.fused_loops = fused_loops
         self.omega = omega
+        # freeze a shadow ray once it marches past the light (it is
+        # unblocked); False keeps marching as the reference does, where a
+        # negative-SDF overshoot can pull a ray back before max_t
+        self.shadow_past_light_exit = shadow_past_light_exit
         # opt-in eval accelerator: clip the primary march to the ray's
         # interval inside the origin-centred sphere of this radius
         self.march_bound = march_bound
@@ -146,6 +154,16 @@ class SDF(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
         self.module.reset_parameters(generator)
+
+    def replace(self, **overrides) -> "SDF":
+        """A view of this SDF, over the same surface and parameters, with
+        some settings (``max_steps``, ``march_bound``, ...) overridden."""
+        cfg = {k: getattr(self, k) for k in (
+            "epsilon", "max_steps", "dist", "throughput_steps", "alpha",
+            "fused_loops", "omega", "shadow_past_light_exit",
+            "throughput_mode", "march_bound")}
+        cfg.update(overrides)
+        return SDF(self.module, **cfg)
 
     def sdf(self, p: torch.Tensor) -> torch.Tensor:
         return self.module(p)
@@ -242,3 +260,19 @@ class SDF(nn.Module):
                          raw_normals=raw_normals).with_normals(n)
         it = it._replace(wi=it.to_local(-r_d))
         return it, hit
+
+    def intersect_test(self, rays: torch.Tensor, max_t=10.0,
+                       active=None) -> torch.Tensor:
+        """True where the ray ``[..., 6]`` is NOT blocked before ``max_t`` (a
+        scalar or per ray); no gradient.  ``active`` is accepted and, as in
+        the reference, not used."""
+        r_o, r_d = rays[..., :3], rays[..., 3:]
+        if self._use_kernel(r_o):
+            return fused_shadow_march(
+                self.module, r_o, r_d, max_t, max_steps=self.max_steps,
+                epsilon=self.epsilon,
+                past_light_exit=self.shadow_past_light_exit)
+        not_blocked, _ = shadow_march_plain(
+            self.sdf, r_o, r_d, max_t, max_steps=self.max_steps,
+            epsilon=self.epsilon, past_light_exit=self.shadow_past_light_exit)
+        return not_blocked

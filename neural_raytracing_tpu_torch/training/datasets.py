@@ -1,10 +1,12 @@
 """Dataset loaders.
 
-Counterpart of ``load_nerf_synthetic`` in
+Counterparts of ``load_nerf_synthetic`` and ``load_nerv`` in
 ``neural_raytracing_tpu/training/datasets.py``: ``transforms_{split}.json``
-plus one PNG per frame; the focal length from ``camera_angle_x``; camera
-translations normalised to unit distance; masks ``ceil(alpha - 1e-5)``.
-The other loaders (DTU, NeRV, colocate) are not ported yet.
+plus one PNG per frame; the focal length from ``camera_angle_x``; masks
+``ceil(alpha - 1e-5)``.  NeRF-synthetic camera translations are normalised
+to unit distance; NeRV's are not, and each NeRV frame carries its point
+light's ``light_loc`` (and ``light_weights`` where present).  The other
+loaders (DTU, colocate) are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,3 +50,42 @@ def load_nerf_synthetic(directory: str, size: int,
         c2ws.append(mat)
     return NeRFDataset(np.stack(c2ws), float(focal), np.stack(images),
                        np.stack(masks))
+
+
+class NeRVDataset(NamedTuple):
+    cam_to_worlds: np.ndarray   # [V, 3, 4]
+    focal: float
+    images: np.ndarray          # [V, H, W, 3]
+    masks: np.ndarray           # [V, H, W]
+    light_locs: np.ndarray      # [V, 3] (or [V, L, 3] multi-light)
+    light_weights: Optional[np.ndarray]  # [V, L] or None
+
+
+def load_nerv(directory: str, size: int, split: str = "train",
+              point_dir: Optional[str] = None) -> NeRVDataset:
+    """A NeRV scene: ``{split}_point/transforms_{split}.json`` (or
+    ``point_dir``), else ``transforms_{split}.json`` at the top; an RGB image
+    gets an all-ones mask."""
+    sub = point_dir if point_dir is not None else f"{split}_point"
+    tf_path = os.path.join(directory, sub, f"transforms_{split}.json")
+    if not os.path.exists(tf_path):
+        tf_path = os.path.join(directory, f"transforms_{split}.json")
+    with open(tf_path) as f:
+        tfs = json.load(f)
+    focal = 0.5 * size / np.tan(0.5 * float(tfs["camera_angle_x"]))
+    images, masks, c2ws, lights, weights = [], [], [], [], []
+    base = os.path.dirname(tf_path)
+    for frame in tfs["frames"]:
+        img = load_image(os.path.join(base, frame["file_path"] + ".png"),
+                         resize=(size, size))
+        images.append(img[..., :3])
+        masks.append(np.ceil(img[..., 3] - 1e-5) if img.shape[-1] > 3
+                     else np.ones(img.shape[:2], np.float32))
+        c2ws.append(np.asarray(frame["transform_matrix"], np.float32)[:3, :4])
+        lights.append(np.asarray(frame.get("light_loc", [0.0, 0.0, 0.0]),
+                                 np.float32))
+        if "light_weights" in frame:
+            weights.append(np.asarray(frame["light_weights"], np.float32))
+    return NeRVDataset(np.stack(c2ws), float(focal), np.stack(images),
+                       np.stack(masks), np.stack(lights),
+                       np.stack(weights) if weights else None)

@@ -7,10 +7,17 @@ reported.  The ground-truth protocol is the reference's: the GT is clamped to
 [0, 1] for the per-view metrics only with ``tone_map``, and the set-level
 SSIM stack is built from the raw GT (tone-mapped ``x / (1 + x)`` with
 ``tone_map``); ``masks`` multiply prediction and GT everywhere.
+
+``light_update(scene, camera, i)`` moves the lights for view ``i`` in place
+(NeRV's per-view point lights).  The JAX ``evaluate`` works on a local
+params pytree; here the scene's parameters are restored, in values and
+shapes, before ``evaluate`` returns, so a training run that evaluates in
+the middle goes on from the state it had.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -20,6 +27,24 @@ from ..ops.math import mse2psnr
 from ..ops.ssim import ms_ssim as ms_ssim_fn
 from ..ops.ssim import ssim as ssim_fn
 from ..render import pathtrace
+
+
+@contextlib.contextmanager
+def restored_parameters(module: torch.nn.Module):
+    """On exit, every parameter of ``module`` gets back the values and the
+    shape it had on entry (a shape change drops the gradient, as
+    ``PointLights.set_location`` does)."""
+    saved = [(p, p.detach().clone()) for p in module.parameters()]
+    try:
+        yield module
+    finally:
+        with torch.no_grad():
+            for p, value in saved:
+                if p.shape == value.shape:
+                    p.copy_(value)
+                else:
+                    p.data = value
+                    p.grad = None
 
 
 def view_key(key: Optional[int], i: int) -> Optional[int]:
@@ -45,15 +70,27 @@ def evaluate(scene, make_camera: Callable, exp_imgs: np.ndarray, integrator,
     none).  Renders on the scene's device unless ``device`` is given.
     Returns a dict of floats.
     """
-    if light_update is not None:
-        raise NotImplementedError("light_update= is not ported yet: it comes "
-                                  "with the occlusion workloads (ROADMAP.md)")
     if device is None:
         device = next(scene.parameters()).device
+    with restored_parameters(scene):
+        return _evaluate(scene, make_camera, exp_imgs, integrator, size=size,
+                         chunk_size=chunk_size, bundle_size=bundle_size,
+                         masks=masks, tone_map=tone_map,
+                         with_ms_ssim=with_ms_ssim, key=key,
+                         light_update=light_update, save_fn=save_fn,
+                         log_fn=log_fn, device=device)
+
+
+def _evaluate(scene, make_camera, exp_imgs, integrator, *, size, chunk_size,
+              bundle_size, masks, tone_map, with_ms_ssim, key, light_update,
+              save_fn, log_fn, device):
     l1s, l2s, psnrs = [], [], []
     got_all, exp_all = [], []
     for i in range(len(exp_imgs)):
-        img, _ = pathtrace(scene, make_camera(i), integrator, size=size,
+        camera = make_camera(i)
+        if light_update is not None:
+            light_update(scene, camera, i)
+        img, _ = pathtrace(scene, camera, integrator, size=size,
                            chunk_size=chunk_size, bundle_size=bundle_size,
                            background=0.0, key=view_key(key, i),
                            training=False, squeeze_first=True, device=device)

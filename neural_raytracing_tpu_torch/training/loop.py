@@ -25,7 +25,7 @@ from ..ops.losses import masked_loss
 from ..ops.math import eikonal_loss
 from ..render import _tile_positions
 from .loss_sampler import LossSampler
-from .optim import clip_grads, global_norm
+from .optim import broadcast_state, clip_grads, global_norm
 
 
 class TrainState(NamedTuple):
@@ -62,6 +62,7 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
                   mask_weight: float = 15.0, tone_mapping: bool = False,
                   with_ssim: bool = True, with_noise=False,
                   extra_loss: Callable = default_extra_loss,
+                  space_reg: Optional[Callable] = None,
                   skip_nan_updates: bool = False):
     """The step ``(state, camera, uv, exp, mask, generator) -> (state, aux)``.
 
@@ -72,6 +73,9 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     With ``skip_nan_updates`` a step whose loss or gradient norm is not
     finite keeps the parameters and the optimizer state and does not advance
     the count; that check waits for the card.
+    ``space_reg(scene, generator) -> scalar`` (optional) is added to the
+    loss: a regularizer at fresh random points each step (the JAX
+    ``space_reg(params, key)``).
     """
     train_integrator = NeRFIntegrator(integrator)
     clip_norm = optimizer_config.clip_norm
@@ -95,6 +99,8 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
                            mask_weight=mask_weight, tone_mapping=tone_mapping,
                            with_ssim=with_ssim)
         loss = loss + extra_loss(it, got, exp, mask)
+        if space_reg is not None:
+            loss = loss + space_reg(scene_, generator)
         loss.backward()
         if clip_norm is not None:
             clip_grads(params, clip_norm)
@@ -103,6 +109,7 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
                 global_norm([p.grad for p in params])))
             if not good:
                 return state, {"loss": loss.detach(), "got": got.detach()}
+        broadcast_state(opt)
         opt.step()
         return (TrainState(scene_, opt, state.step + 1),
                 {"loss": loss.detach(), "got": got.detach()})
@@ -147,7 +154,12 @@ def train(scene, integrator, optimizer_config, state: TrainState,
 
     ``make_camera(idxs) -> camera`` builds the view batch; ``exp_imgs
     [V, H, W, 3]`` and ``exp_masks [V, H, W]`` (numpy) go to the scene's
-    device once; ``generator`` draws the step jitter; ``valid_fn(state,
+    device once; ``generator`` draws the step jitter;
+    ``light_update(scene, camera, idxs)`` runs before each step and moves
+    the lights in place (NeRV's per-frame point lights; the JAX
+    ``light_update(params, camera, idxs) -> params``);
+    ``space_reg(scene, generator) -> scalar`` is added to each step's loss
+    (the JAX ``space_reg(params, key)``); ``valid_fn(state,
     step)`` runs every ``valid_freq`` steps and ``save_fn(state, step)``
     every ``ckpt_freq``; per-step scalars are appended to ``metrics``.
     ``nan_policy``: "raise" aborts on a non-finite loss; "skip" drops the
@@ -161,16 +173,12 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     if device_data is not None:
         _not_ported("device_data= (the on-device data path)",
                     "the deferred training items")
-    if light_update is not None:
-        _not_ported("light_update= (moving lights)", "the occlusion workloads")
-    if space_reg is not None:
-        _not_ported("space_reg", "the occlusion workloads")
     skip_nan = nan_policy == "skip"
     step_fn = build_step_fn(
         scene, integrator, optimizer_config, size=size, crop_size=crop_size,
         bundle_size=bundle_size, mask_weight=mask_weight,
         tone_mapping=tone_mapping, with_ssim=with_ssim,
-        extra_loss=extra_loss, skip_nan_updates=skip_nan)
+        extra_loss=extra_loss, space_reg=space_reg, skip_nan_updates=skip_nan)
     device = next(state.scene.parameters()).device
     images = torch.as_tensor(np.asarray(exp_imgs)[..., :3], dtype=torch.float32,
                              device=device)
@@ -219,6 +227,8 @@ def train(scene, integrator, optimizer_config, state: TrainState,
         sel = torch.as_tensor(idxs, device=device)
         exp = images[sel, u:u + crop_size, v:v + crop_size]
         mask = masks[sel, u:u + crop_size, v:v + crop_size]
+        if light_update is not None:
+            light_update(state.scene, camera, idxs)
         state, aux = step_fn(state, camera, (u, v), exp, mask, generator)
         rays_done += n_views * crop_size * crop_size * bundle_size
         if pending is not None:

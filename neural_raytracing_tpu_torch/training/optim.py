@@ -3,7 +3,7 @@
 Counterpart of ``neural_raytracing_tpu/training/optim.py`` (the reference's
 AdamW groups, e.g. surface 8e-5 / bsdf 8e-4 / light 8e-5, weight decay 0).
 The groups are the top-level children of the scene (``shape``, ``bsdf``,
-``lights``, anything else at the default rate).
+``lights``, ``occ``, anything else at the default rate).
 
 Traps kept away from the reference's behaviour:
   * ``torch.optim.AdamW`` defaults to ``weight_decay=0.01``; the reference
@@ -12,7 +12,11 @@ Traps kept away from the reference's behaviour:
     ``max_norm / norm`` only when ``norm >= max_norm``, which ``clip_grads``
     writes out;
   * Fourier bases are buffers and never updated, as optax's zero-gradient,
-    zero-decay update leaves them.
+    zero-decay update leaves them;
+  * a parameter may change shape between steps (NeRV's light location goes
+    from one row to one row per view): optax's moments broadcast to the new
+    shape at the next update, ``broadcast_state`` does the same for
+    AdamW's.
 """
 
 from __future__ import annotations
@@ -38,6 +42,22 @@ def clip_grads(params, max_norm: float) -> torch.Tensor:
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
     return norm
+
+
+@torch.no_grad()
+def broadcast_state(optimizer: torch.optim.Optimizer) -> None:
+    """Broadcast each AdamW moment whose parameter changed shape since the
+    moment was made to the parameter's shape, as optax's moments broadcast
+    (raises where the shapes do not broadcast)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if not st:
+                continue
+            for key in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq"):
+                m = st.get(key)
+                if m is not None and m.shape != p.shape:
+                    st[key] = torch.broadcast_to(m, p.shape).clone()
 
 
 class AdamWConfig(NamedTuple):

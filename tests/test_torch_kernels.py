@@ -12,7 +12,10 @@ net); K2 hit agreement >= 99% and |depth difference| <= 1e-3 where both hit
 (float32 sums in another order over up to 256 steps); K3 index agreement
 >= 99.9%, and where the indices differ the two SDF values within 1e-5 (near
 ties, float32 sums in another order); K6/K7 each gradient within 1e-4 of
-max|plain| (float32 sums in another order, atomics in a varying one).
+max|plain| (float32 sums in another order, atomics in a varying one); K4
+not-blocked agreement >= 99.9% (a near-eps step may fall on either side in
+another sum order); K5 as K1, its first and second derivatives (recomputed
+through the plain version) rtol/atol 1e-4.
 """
 
 import ast
@@ -24,10 +27,12 @@ import pytest
 import torch
 
 from neural_raytracing_tpu_torch.kernels import (
-    FusedSkipConnMLP, fused_march, fused_min_scan, fused_mlp_apply,
-    fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_forward,
-    fused_mlp_segment_backward, launch_counts, march_plain, min_scan_plain,
-    mlp_backward, reset_launch_counts, set_kernel_mode,
+    FusedSkipConnMLP, FusedSphereSDF, fused_march, fused_min_scan,
+    fused_mlp_apply, fused_mlp_backward, fused_mlp_ckpt_forward,
+    fused_mlp_forward, fused_mlp_segment_backward, fused_shadow_march,
+    fused_sphere_sdf, launch_counts, march_plain, min_scan_plain, mlp_backward,
+    reset_launch_counts, set_kernel_mode, shadow_march_plain, sphere_sdf_plain,
+    supports,
 )
 from neural_raytracing_tpu_torch.kernels import _build
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
@@ -38,7 +43,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "neural_raytracing_tpu")
 KERNEL_NAMES = ("fused_mlp_forward", "fused_march", "fused_min_scan",
                 "fused_mlp_backward", "fused_mlp_ckpt_forward",
-                "fused_mlp_segment_backward")
+                "fused_mlp_segment_backward", "fused_shadow_march",
+                "fused_sphere_sdf")
 
 FLAGSHIP = {
     "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
@@ -113,7 +119,8 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     assert set(_build.library_paths()) == {"fused_mlp", "fused_march",
-                                           "fused_minscan", "fused_mlp_bwd"}
+                                           "fused_minscan", "fused_mlp_bwd",
+                                           "fused_shadow", "fused_sdf"}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -232,6 +239,10 @@ def test_new_kernels_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_min_scan(module, x, x, 0.1, steps=4)
     with pytest.raises(ValueError, match="CUDA"):
+        fused_shadow_march(module, x, x, 1.0, max_steps=4, epsilon=1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_sphere_sdf(module, x)
+    with pytest.raises(ValueError, match="CUDA"):
         fused_mlp_backward(mlp, x, g, mlp.B, ws)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, [0, 2])
@@ -239,6 +250,37 @@ def test_new_kernels_raise_on_cpu_tensors():
         fused_mlp_segment_backward(mlp, x, mlp.B, ws, torch.rand(8, 7),
                                    torch.rand(8, 8), torch.rand(8, 8), 0, 2)
     assert launch_counts()["fused_min_scan"] == 0
+    assert launch_counts()["fused_shadow_march"] == 0
+    assert launch_counts()["fused_sphere_sdf"] == 0
+
+
+def test_fused_sphere_sdf_modes_and_kernel_support():
+    gen = torch.Generator().manual_seed(0)
+    shift = dict(in_size=3, out=1, num_layers=2, hidden_size=8, freqs=2,
+                 activation="softplus", init="uniform")
+    fused = {m: FusedSphereSDF(n=4, mlp=SkipConnMLP(**shift), mode=m)
+             for m in ("auto", "force", "off")}
+    fused["off"].reset_parameters(gen)
+    for m in ("auto", "force"):
+        fused[m].load_state_dict(fused["off"].state_dict())
+    plain = SphereSDF(n=4, mlp=SkipConnMLP(**shift))
+    plain.load_state_dict(fused["off"].state_dict())
+    x = torch.rand(16, 3, generator=gen) - 0.5
+    reset_launch_counts()
+    assert torch.equal(fused["auto"](x), plain(x))
+    assert torch.equal(fused["off"](x), plain(x))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused["force"](x)
+    with pytest.raises(ValueError, match="mode"):
+        FusedSphereSDF(n=4, mode="on")
+    assert launch_counts()["fused_sphere_sdf"] == 0
+    # K2, K3 and K4 take either surface, as the JAX supports() does
+    assert supports(fused["auto"]) and supports(plain)
+    assert not supports(FusedSphereSDF(n=4, mlp=SkipConnMLP(in_size=3, out=2)))
+    assert SDF(fused["auto"], fused_loops="force")._use_kernel(x)
+    sdf = SDF(fused["auto"])
+    set_kernel_mode(sdf, "off")
+    assert fused["auto"].mode == "off" and not sdf._use_kernel(x)
 
 
 @pytest.mark.cuda
@@ -323,3 +365,145 @@ def test_kernel_bwd_through_autograd(cuda, segments):
     got = [xx.grad] + [w.grad for w in kmlp.flat_weights()]
     want = _autograd_backward(kmlp, x, 2 * SkipConnMLP.forward(kmlp, x).detach())
     _assert_grads_close(got, want)
+
+
+def _shadow_rays(device, n=3001, seed=12):
+    """Shadow rays from points on a shell of radius 0.7 around the surface
+    towards a light at (0.4, 1.6, 0.9); every 7th ray has a zero direction.
+    -> (r_o, r_d, distance to the light)."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=-1) * 0.7
+    to_light = torch.tensor([0.4, 1.6, 0.9]) - p
+    dist = to_light.norm(dim=-1)
+    r_d = to_light / dist[:, None]
+    r_d[::7] = 0.0
+    return p.to(device), r_d.to(device), dist.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stable_min", [False, True])
+@pytest.mark.parametrize("past_light_exit", [True, False])
+def test_fused_shadow_march_matches_plain(cuda, past_light_exit, stable_min):
+    module = _surface(cuda, stable_min)
+    r_o, r_d, dist = _shadow_rays(cuda)
+    for max_t in (dist, 10.0):
+        reset_launch_counts()
+        nb = fused_shadow_march(module, r_o, r_d, max_t, max_steps=64, epsilon=1e-3,
+                                past_light_exit=past_light_exit)
+        assert launch_counts()["fused_shadow_march"] == 1
+        set_kernel_mode(module, "off")
+        pnb, evals = shadow_march_plain(module, r_o, r_d, max_t, max_steps=64,
+                                        epsilon=1e-3, past_light_exit=past_light_exit)
+        set_kernel_mode(module, "auto")
+        torch.cuda.synchronize()
+        assert nb.dtype == torch.bool and nb.shape == pnb.shape == (3001,)
+        assert 0.0 < pnb.float().mean().item() < 1.0
+        assert (nb == pnb).float().mean() >= 0.999
+        assert nb[::7].all()                  # zero-direction rays are free
+        assert evals.sum() > 0
+
+
+@pytest.mark.cuda
+def test_sdf_intersect_test_goes_through_k4(cuda):
+    sdf = SDF(_surface(cuda), max_steps=64)
+    r_o, r_d, dist = _shadow_rays(cuda, n=512)
+    rays = torch.cat([r_o, r_d], dim=-1)
+    reset_launch_counts()
+    nb = sdf.intersect_test(rays, max_t=dist)
+    assert launch_counts()["fused_shadow_march"] == 1
+    set_kernel_mode(sdf, "off")
+    pnb = sdf.intersect_test(rays, max_t=dist)
+    assert (nb == pnb).float().mean() >= 0.99
+
+
+def _fused_surface(device, stable_min=False):
+    module = FusedSphereSDF(n=128, mlp=SkipConnMLP(**FLAGSHIP["sdf_shift"]),
+                            stable_min=stable_min)
+    module.load_state_dict(_surface("cpu", stable_min).state_dict())
+    return module.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stable_min", [False, True])
+def test_fused_sphere_sdf_matches_plain(cuda, stable_min):
+    module = _fused_surface(cuda, stable_min)
+    x = (2.0 * torch.rand(4099, 3, generator=torch.Generator().manual_seed(13))
+         - 1.0).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = module(x)
+        assert launch_counts()["fused_sphere_sdf"] == 1
+        want = sphere_sdf_plain(module, x, module.centers, module.radii, module.tfs,
+                                module.shift.B, module.shift.flat_weights())
+        torch.cuda.synchronize()
+    tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ module.shift.B).abs().max()
+    assert ((got - want).abs() <= tol).all(), (got - want).abs().max().item()
+
+    def grads():
+        xx = x[:512].clone().requires_grad_()
+        (gx,) = torch.autograd.grad(module(xx).sum(), xx, create_graph=True)
+        gw = torch.autograd.grad(gx.square().sum(),
+                                 [module.centers, module.shift.layers[0].w])
+        return (gx, *gw)
+
+    got = grads()
+    module.mode = "off"
+    want = grads()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_sphere_sdf_surface_through_k2_k4_k5(cuda):
+    sdf = SDF(_fused_surface(cuda), max_steps=64, march_bound=1.2)
+    r_o, r_d, dist = _shadow_rays(cuda, n=512)
+    cam = torch.cat([torch.tensor([0.0, 0.0, 2.0]).expand(256, 3),
+                     torch.nn.functional.normalize(
+                         torch.tensor([0.0, 0.0, -1.0]) + 0.2 * torch.randn(
+                             256, 3, generator=torch.Generator().manual_seed(6)),
+                         dim=-1)], dim=-1).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        _, hit = sdf.intersect(cam, primary=False)
+        sdf.intersect_test(torch.cat([r_o, r_d], dim=-1), max_t=dist)
+    counts = launch_counts()
+    assert hit.any()
+    assert counts["fused_march"] == 1 and counts["fused_shadow_march"] == 1
+    assert counts["fused_sphere_sdf"] == 1 and counts["fused_mlp_forward"] == 0
+
+
+def _one_sphere(device):
+    """An exact SDF (one sphere of radius 0.5, the exact smooth-min, a zero
+    shift): every step of the cases below is exact in float32."""
+    module = SphereSDF(n=1, mlp=SkipConnMLP(in_size=3, out=1, num_layers=1,
+                                            hidden_size=4, freqs=2, init="zeros"),
+                       stable_min=True)
+    with torch.no_grad():
+        module.radii.fill_(0.5)
+    return module.to(device)
+
+
+@pytest.mark.cuda
+def test_fused_shadow_march_rules(cuda):
+    """K4's rules that differ from K2's, each in a case it decides (the CPU
+    twin is tests/test_torch_occlusion.py::test_shadow_march_rules): the
+    strict sd < eps, the advance on the hit step, the start at 1e2 * eps."""
+    eps = 2.0 ** -10
+    module = _one_sphere("cpu")
+    r_o = [[0.5 + eps - 1e2 * eps, 0.0, 0.0], [0.5 + 0.5 * eps, 0.0, 0.0],
+           [0.0, 0.3, 1.5]]
+    r_d = torch.nn.functional.normalize(torch.tensor(
+        [[1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.02, -1.0]]), dim=-1)
+    r_o = torch.tensor(r_o)
+    with torch.no_grad():      # the grazing ray's hit step, and a light inside it
+        depth = torch.tensor([1e2 * eps])
+        for _ in range(63):
+            sd = module(r_o[2:] + r_d[2:] * depth[:, None])
+            if sd.item() < eps:
+                break
+            depth = depth + sd
+    assert 0.0 < sd.item() < eps
+    max_t = torch.cat([torch.tensor([10.0, 10.0]), depth + 0.5 * sd])
+    nb = fused_shadow_march(_one_sphere(cuda), r_o.to(cuda), r_d.to(cuda),
+                            max_t.to(cuda), max_steps=64, epsilon=eps)
+    assert nb.tolist() == [True, True, True]

@@ -131,6 +131,19 @@ def test_scene_init_draws_from_the_generator():
 
 
 @pytest.mark.parametrize("occlusion", ["hard", "learned"])
-def test_unported_occlusion_modes_raise(occlusion):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_scene("torch", occlusion=occlusion)
+def test_occlusion_modes_and_the_occ_net_follow_the_pytree(occlusion):
+    jscene = build_scene("jax", occlusion=occlusion)
+    tree = scene_params(jscene)
+    scene = load_jax_params(build_scene("torch", occlusion=occlusion), tree,
+                            device="cpu")
+    assert scene.occlusion == occlusion
+    if occlusion == "learned":       # the default occlusion net, child "occ"
+        assert set(tree["occ"]) == {"B", "init", "layers", "out"}
+        assert scene.occ.in_size == 5 and scene.occ.out_size == 1
+        assert scene.occ.hidden_size == 64 and scene.occ.num_layers == 8
+        assert scene.occ.freqs == 16 and scene.occ.activation_name == "leaky_relu"
+        assert "occ.layers.7.w" in dict(scene.named_parameters())
+    else:
+        assert scene.occ is None and tree["occ"] == {}
+    with pytest.raises(ValueError, match="occlusion"):
+        build_scene("torch", occlusion="soft")

@@ -260,7 +260,7 @@ def test_nan_policy(policy):
         assert torch.equal(before[k], v), k
 
 
-@pytest.mark.parametrize("option", ["mesh", "device_data", "light_update", "space_reg"])
+@pytest.mark.parametrize("option", ["mesh", "device_data"])
 def test_unported_train_options_raise(option):
     scene, imgs, masks, make_camera = _train_setup()
     spec = T.make_optimizer(LRS)
