@@ -51,7 +51,30 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      calibrate_exposure; one step with the kernels against one with every
      kernel off from the same state; 20 iterations of train with
      rand_uv_mask, tone mapping and light_update (counts reset just before,
-     read just after); evaluate in both shadow modes on 2 views.
+     read just after); evaluate in both shadow modes on 2 views;
+ 12. K8 fused_composite against composite_plain at the NeRFLE eval-tile shape
+     [64, 10,000] and the training shape [64, 1,024] (sigma relu(normal), rgb
+     sigmoid(normal), ts linspace(0, 2, 64), seeded), and one backward
+     through its autograd.Function against autograd through the plain
+     version; both timed by the profiler's device time on inputs that a
+     call finds out of the L2 cache (CUDA events beside it);
+ 13. the NeRFLE eval: workloads.nerfle.build_scene() at full width, weights
+     from seed 0, FoV cameras on the 8x8 colocated grid at distance 1, each
+     view lit at 1.05 x its camera centre: 2 views at 200x200 through the
+     twin's evaluate (chunk 100) with K8 (counts reset just before, read just
+     after), the same with fused="off" (no K8 launch), one view with
+     envmap=True, a profile of one view;
+ 14. NeRFLE training on ground truth made here (an analytic diffuse sphere
+     under the colocated light, the 8x8 grid at 200x200): one MSE step of
+     the twin with K8 against one with it off from the same state, then 20
+     iterations of the twin's loop (4 views x 16^2 crops, AdamW 5e-4; counts
+     reset just before, read just after), a profile of one step;
+ 15. K2 relaxed (omega 1.4) against the relaxed march_plain on the trained
+     NeRV checkpoint: the primary rays of 4 workloads.render orbit frames at
+     128x128 (--dist 1.0 --elev 20), 128 steps, unbounded and bounded
+     (march_bound 1.2), with the evaluations per ray at omega 1.0 and 1.4
+     and K2's time at both; then workloads.render.main for 4 frames with
+     --omega 1.4 (counts reset just before, read just after) and 1.0.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -72,7 +95,13 @@ near-tie argmin moves its ray's whole contribution); K4 not-blocked
 agreement >= 99.9% (a step that lands within rounding of eps goes either
 way); K5 as K1, its derivatives within 1e-4 of max|plain| (the backward
 recomputes through the plain version); the NeRV renders and step as the
-flagship's, the occlusion net's gradient included.
+flagship's, the occlusion net's gradient included; K8 2e-5 absolute + 2e-5
+relative (as tests/test_kernels.py holds the TPU kernel), its gradients 1e-4
+absolute + 1e-3 relative; the NeRFLE render with K8 against fused="off" mean
+|difference| <= 1e-5 and max <= 1e-4 (only the compositing differs); the
+NeRFLE step loss within 1e-5 relative and each component's gradient within
+1e-4 relative L2; K2 relaxed as K2 (hit agreement >= 99%, |depth
+difference| <= 1e-3 where both hit).
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -125,6 +154,26 @@ def cuda_ms(fn, reps: int) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: the device time of all its
+    kernels under the profiler over ``reps`` calls, after one warm-up call.
+    For kernels shorter than their launch, where CUDA events around a call
+    time the host's launch path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    check(total > 0, "device_ms: the profiler saw no device time")
+    return 1e-3 * total / reps
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -1078,6 +1127,327 @@ def phase_nerv_train(torch, dev):
     return counts, secs
 
 
+# ---- slice 4: the NeRF-family volume path and the relaxed march --------------------
+
+LE_SIZE = 200
+LE_CROP = 16
+LE_VIEWS = 4
+LE_RAYS = LE_VIEWS * LE_CROP * LE_CROP             # 1,024 rays a step
+LE_LR = 5e-4
+COMPOSITE_SHAPES = ((64, 10_000), (64, 1_024))     # (samples, rays): eval tile, step
+ORBIT_SIZE = 128
+ORBIT_FRAMES = 4
+OMEGA = 1.4
+
+
+def phase_composite(torch, dev):
+    """K8 against composite_plain at the eval-tile and training shapes, and
+    its autograd.Function's backward against autograd through the plain
+    version."""
+    from neural_raytracing_tpu_torch.kernels import (
+        composite_apply, composite_plain, fused_composite,
+    )
+    results = {}
+    for n_t, n_r in COMPOSITE_SHAPES:
+        gen = torch.Generator().manual_seed(12)
+        sigma = torch.relu(torch.randn(n_t, n_r, generator=gen)).to(dev)
+        rgb = torch.sigmoid(torch.randn(n_t, n_r, 3, generator=gen)).to(dev)
+        ts = torch.linspace(0.0, 2.0, n_t).to(dev)
+        w = torch.randn(n_r, 3, generator=gen).to(dev)
+        got = fused_composite(sigma, rgb, ts)
+        want = composite_plain(sigma, rgb, ts)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        label = f"K8 [{n_t}, {n_r}]"
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        check(bool((err <= 2e-5 + 2e-5 * want.abs()).all()),
+              f"{label}: max |err| {err.max().item():.3e} over tolerance")
+
+        def grads(fn):
+            s, c = sigma.clone().requires_grad_(), rgb.clone().requires_grad_()
+            (fn(s, c, ts) * w).sum().backward()
+            return s.grad, c.grad
+
+        gerr = 0.0
+        for a, b in zip(grads(composite_apply), grads(composite_plain)):
+            check(bool(((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all()),
+                  f"{label}: gradient off by {(a - b).abs().max().item():.3e}")
+            gerr = max(gerr, (a - b).abs().max().item())
+        # each input read once (sigma, rgb, ts), the output written once;
+        # ~14 operations a sample (exp counted as one)
+        n_bytes = 4 * (n_t * n_r * 4 + n_t + 3 * n_r)
+        # in a render K8 reads what the colour net just wrote, mostly out of
+        # the 50 MB L2: time each call on the next of enough input copies
+        # (64 MB) that it finds its own evicted
+        copies = [(sigma.clone(), rgb.clone(), ts.clone())
+                  for _ in range(math.ceil(64 * 2 ** 20 / n_bytes))]
+        turn = [0]
+
+        def cold(fn):
+            turn[0] = (turn[0] + 1) % len(copies)
+            return fn(*copies[turn[0]])
+
+        # a call lasts microseconds: device time from the profiler, beside
+        # CUDA events around one call (the host's launch included)
+        ms = device_ms(torch, lambda: cold(fused_composite), 20)
+        plain_ms = device_ms(torch, lambda: cold(composite_plain), 20)
+        ev_ms = cuda_ms(lambda: cold(fused_composite), 20)
+        ev_plain_ms = cuda_ms(lambda: cold(composite_plain), 20)
+        b_ms, b_by = bound_ms(n_bytes, 14.0 * n_t * n_r)
+        print(f"{label}: max |err| {err.max().item():.3e}, gradients max |err| {gerr:.3e}, "
+              f"kernel {ms:.4f} ms device ({ev_ms:.4f} ms by events), plain {plain_ms:.4f} "
+              f"ms device ({ev_plain_ms:.4f} ms by events), bound {b_ms:.4f} ms ({b_by}), "
+              f"{n_bytes / ms / 1e6:.1f} GB/s")
+        results[(n_t, n_r)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, err=err.max().item())
+    return results[COMPOSITE_SHAPES[0]]
+
+
+def colocate_gt(torch):
+    """Ground truth made here with numpy: the 8x8 colocated grid (elevation
+    0-45, azimuth -135-135, distance 1) at 200x200 of an analytic diffuse
+    sphere of radius 0.35, lit by a point light at 1.05 x the camera centre
+    (inverse-square falloff).  -> a ColocateDataset."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.training import ColocateDataset
+    from neural_raytracing_tpu_torch.workloads.nerfle import colocate_cameras
+    elevs = np.repeat(np.linspace(0.0, 45.0, 8), 8).astype(np.float32)
+    azims = np.tile(np.linspace(-135.0, 135.0, 8), 8).astype(np.float32)
+    cams = colocate_cameras(ColocateDataset(None, None, elevs, azims, 1.0))
+    rays = cams.sample_positions(_tile_positions(0.0, 0.0, LE_SIZE, "cpu"),
+                                 size=LE_SIZE)[..., 0, :].numpy().astype(np.float64)
+    r_o, r_d = rays[..., :3], rays[..., 3:]
+    b = np.sum(r_o * r_d, -1)
+    disc = b * b - (np.sum(r_o * r_o, -1) - 0.35 ** 2)
+    mask = disc > 0
+    p = r_o + (-b - np.sqrt(np.maximum(disc, 0.0)))[..., None] * r_d
+    light = 1.05 * cams.camera_center().numpy().astype(np.float64)[:, None, None, :]
+    to_l = light - p
+    d2 = np.sum(to_l * to_l, -1)
+    cos = np.clip(np.sum((p / 0.35) * to_l, -1) / np.sqrt(d2), 0.0, 1.0)
+    img = mask[..., None] * np.asarray([0.75, 0.55, 0.4]) * (0.45 * cos / d2)[..., None]
+    return ColocateDataset(img.astype(np.float32), mask.astype(np.float32), elevs,
+                           azims, 1.0)
+
+
+def nerfle_scene(torch, dev, envmap=False):
+    from neural_raytracing_tpu_torch.workloads.nerfle import build_scene
+    return build_scene(envmap=envmap).init(torch.Generator().manual_seed(0), device=dev)
+
+
+def nerfle_eval(torch, scene, cams, images):
+    """-> (images [V, 200, 200, 3] as the twin's evaluate saves them, metrics,
+    seconds per view)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.workloads.nerfle import evaluate
+    out = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = evaluate(scene, cams, images, size=LE_SIZE, log_fn=lambda s: None,
+                       save_fn=lambda i, im: out.append(np.asarray(im)))
+    torch.cuda.synchronize()
+    return np.stack(out), metrics, (time.perf_counter() - start) / len(images)
+
+
+def phase_nerfle_eval(torch, dev, data):
+    """The NeRFLE eval at full width: K8 against fused="off", envmap, profile."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.workloads.nerfle import colocate_cameras
+    cams = colocate_cameras(data)
+    scene = nerfle_scene(torch, dev)
+    nerfle_eval(torch, scene, cams, data.images[:1])              # warm-up
+    reset_launch_counts()
+    got, metrics, s_view = nerfle_eval(torch, scene, cams, data.images[:2])
+    counts = launch_counts()
+    check(counts["fused_composite"] > 0, "NeRFLE eval: K8 was not launched on the path")
+    profile_step(torch, lambda: nerfle_eval(torch, scene, cams, data.images[:1]),
+                 "one NeRFLE eval view (K8)")
+    set_kernel_mode(scene, "off")
+    reset_launch_counts()
+    want, _, p_view = nerfle_eval(torch, scene, cams, data.images[:2])
+    check(launch_counts()["fused_composite"] == 0, "NeRFLE eval: K8 launched with fused='off'")
+    diff = np.abs(got - want)
+    check(np.isfinite(got).all() and np.isfinite(want).all(), "NeRFLE eval: non-finite image")
+    check(want.max() > 0.0, "NeRFLE eval: black image")
+    check(diff.mean() <= 1e-5 and diff.max() <= 1e-4,
+          f"NeRFLE eval: K8 against off mean |diff| {diff.mean():.3e}, max {diff.max():.3e}")
+    print(f"NeRFLE eval: 2 views {LE_SIZE}x{LE_SIZE}, 64 samples a ray, K8 {1e3 * s_view:.1f} "
+          f"ms/view ({LE_SIZE ** 2 / s_view:,.0f} rays/s), fused='off' {1e3 * p_view:.1f} "
+          f"ms/view; mean |diff| {diff.mean():.3e}, max |diff| {diff.max():.3e}; PSNR "
+          f"against the sphere GT {metrics['psnr']:.3f} (random weights); launches {counts}")
+    del scene
+    env = nerfle_scene(torch, dev, envmap=True)
+    nerfle_eval(torch, env, cams, data.images[:1])                # warm-up
+    reset_launch_counts()
+    img, _, e_view = nerfle_eval(torch, env, cams, data.images[:1])
+    check(launch_counts()["fused_composite"] > 0, "NeRFLE envmap: K8 was not launched")
+    check(np.isfinite(img).all() and img.max() > 0.0, "NeRFLE envmap: bad image")
+    print(f"NeRFLE eval, envmap=True: 1 view, {1e3 * e_view:.1f} ms/view, mean pixel "
+          f"{img.mean():.4f}")
+    return counts
+
+
+def phase_nerfle_train(torch, dev, data):
+    """The NeRFLE MSE step: K8 against off from the same state, 20 steps of
+    the twin's loop, a profile of one step."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import FoVPerspectiveCamera
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.training import make_optimizer
+    from neural_raytracing_tpu_torch.workloads.nerfle import (
+        build_step, colocate_cameras, train,
+    )
+    cams = colocate_cameras(data)
+    cover = data.masks.mean(axis=(1, 2))
+    print(f"NeRFLE GT: {len(cover)} views {LE_SIZE}x{LE_SIZE} of an analytic sphere under "
+          f"the colocated light, coverage {cover.min():.3f}-{cover.max():.3f}")
+    spec = make_optimizer({"shape": LE_LR, "lights": LE_LR})
+    scene = nerfle_scene(torch, dev)
+    idxs = torch.tensor([0, 19, 38, 57])
+    u = v = (LE_SIZE - LE_CROP) // 2
+    exp = torch.from_numpy(data.images[idxs.numpy(), u:u + LE_CROP, v:v + LE_CROP]).to(dev)
+    camera = FoVPerspectiveCamera(R=cams.R[idxs], T=cams.T[idxs])
+    res = {}
+    for label, mode in (("kernels", "auto"), ("plain", "off")):
+        sc = copy.deepcopy(scene)
+        set_kernel_mode(sc, mode)
+        sc.lights.set_location(cams.camera_center()[idxs] * 1.05)
+        loss = build_step(sc, spec.init(sc), size=LE_SIZE, crop_size=LE_CROP)(
+            camera, (u, v), exp)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()
+                               if p.grad is not None]) for c in ("shape", "lights")}
+        res[label] = (loss.item(), grads)
+        del sc
+    (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"NeRFLE step parity (K8 vs off): loss {lk:.7f} vs {lp:.7f} (rel {rel_loss:.3e}), "
+          f"gradient rel L2 {', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-5, f"NeRFLE step: loss rel {rel_loss:.3e}")
+    for c, e in rel_g.items():
+        check(gp[c].norm().item() > 0, f"NeRFLE step: no {c} gradient")
+        check(e <= 1e-4, f"NeRFLE step: {c} gradient rel L2 {e:.3e} > 1e-4")
+
+    optimizer = spec.init(scene)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kw = dict(size=LE_SIZE, crop_size=LE_CROP, n_views=LE_VIEWS, generator=gen,
+              log_every=0)
+    train(scene, optimizer, cams, data.images, iters=2, seed=100, **kw)   # warm-up
+    before = {k: p.detach().clone() for k, p in scene.named_parameters()}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    iters = 20
+    losses = train(scene, optimizer, cams, data.images, iters=iters, seed=0, **kw)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - start) / iters
+    counts = launch_counts()
+    check(len(losses) == iters and np.isfinite(losses).all(), f"NeRFLE training: {losses}")
+    check(counts["fused_composite"] > 0, "NeRFLE training: K8 was not launched on the path")
+    changed = sum(not torch.equal(before[k], p) for k, p in scene.named_parameters())
+    check(changed > 0, "NeRFLE training: no parameter changed")
+    print(f"NeRFLE training (K8): {iters} steps, {1e3 * secs:.1f} ms/step, "
+          f"{LE_RAYS / secs:,.0f} rays/s, losses {[round(x, 5) for x in losses]}; "
+          f"parameters changed {changed}; launches {counts}")
+    step = build_step(scene, optimizer, size=LE_SIZE, crop_size=LE_CROP)
+    profile_step(torch, lambda: step(camera, (u, v), exp, gen), "one NeRFLE training step (K8)")
+    return counts, secs
+
+
+def phase_relaxed_march(torch, dev):
+    """K2 relaxed against the relaxed march_plain on the NeRV checkpoint's
+    orbit rays, then the orbit renderer at omega 1.4 and 1.0."""
+    import tempfile
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_march, launch_counts, march_plain, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.shapes import march_interval
+    from neural_raytracing_tpu_torch.workloads import render
+
+    scene = nerv_scene(torch, dev, 128, None, "learned")
+    module = scene.shape.module
+    set_kernel_mode(scene, "off")      # the plain march evaluates the plain shift
+    rays = torch.cat([render.frame_camera(f, ORBIT_FRAMES, 1.0, 20.0).to(dev).sample_positions(
+        _tile_positions(0.0, 0.0, ORBIT_SIZE, dev), size=ORBIT_SIZE).reshape(-1, 6)
+        for f in range(ORBIT_FRAMES)])
+    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+    n = r_o.shape[0]
+    per_eval_flops = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
+    results = {}
+    for label, bound in (("unbounded", None), ("bounded", 1.2)):
+        t0, t1 = (None, 10.0) if bound is None else march_interval(r_o, r_d, bound, 10.0)
+
+        def kernel(omega=OMEGA):
+            return fused_march(module, r_o, r_d, t1, max_steps=128, epsilon=1e-3,
+                               t_start=t0, omega=omega)
+
+        def plain(omega=OMEGA):
+            return march_plain(module, r_o, r_d, t1, t0, max_steps=128, epsilon=1e-3,
+                               omega=omega)
+
+        depth, hit = kernel()
+        pdepth, phit, evals = plain()
+        evals1 = plain(1.0)[2]
+        torch.cuda.synchronize()
+        agree = (hit == phit).float().mean().item()
+        both = hit & phit
+        derr = (depth - pdepth)[both].abs().max().item() if both.any() else 0.0
+        frac = phit.float().mean().item()
+        check(0.0 < frac < 1.0, f"K2 relaxed {label}: hit fraction {frac:.4f}")
+        check(agree >= 0.99, f"K2 relaxed {label}: hit agreement {agree:.4f} < 0.99")
+        check(derr <= 1e-3, f"K2 relaxed {label}: max |depth err| {derr:.3e} > 1e-3")
+        ms = cuda_ms(kernel, 5)
+        ms1 = cuda_ms(lambda: kernel(1.0), 5)
+        plain_ms = cuda_ms(plain, 3)
+        n_evals, n_evals1 = evals.sum().item(), evals1.sum().item()
+        n_bytes = 4 * n * (6 + (2 if bound else 0)) + 5 * n \
+            + weight_bytes(module.shift) + 4 * 13 * module.n
+        b_ms, b_by = bound_ms(n_bytes, per_eval_flops * n_evals)
+        print(f"K2 relaxed (omega {OMEGA}), {label}, {n} orbit rays, 128 steps: hit fraction "
+              f"{frac:.4f}, agreement {agree:.6f}, max |depth err| {derr:.3e}; SDF "
+              f"evaluations per ray {n_evals / n:.2f} (omega 1.0: {n_evals1 / n:.2f}); kernel "
+              f"{ms:.3f} ms (omega 1.0: {ms1:.3f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by})")
+        results[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              err=derr)
+    del scene
+    with tempfile.TemporaryDirectory() as out:
+        args = ["--workload", "nerv", "--models", str(ARTIFACTS), "--size", str(ORBIT_SIZE),
+                "--dist", "1.0", "--elev", "20", "--device", str(dev), "--outputs", out]
+        render.main(args + ["--frames", "1", "--omega", str(OMEGA)])       # warm-up
+        frames, secs = {}, {}
+        for omega in (OMEGA, 1.0):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            frames[omega] = render.main(args + ["--frames", str(ORBIT_FRAMES),
+                                                "--omega", str(omega)])
+            torch.cuda.synchronize()
+            secs[omega] = (time.perf_counter() - start) / ORBIT_FRAMES
+            if omega == OMEGA:
+                counts = launch_counts()
+    check(counts["fused_march"] > 0, "orbit render: K2 was not launched on the path")
+    check(all(np.isfinite(f).all() for f in frames.values()), "orbit render: non-finite")
+    diff = np.abs(frames[OMEGA] - frames[1.0])
+    print(f"orbit render (workloads.render.main, {ORBIT_FRAMES} frames {ORBIT_SIZE}x{ORBIT_SIZE}, "
+          f"bundle 4): omega {OMEGA} {1e3 * secs[OMEGA]:.1f} ms/frame, omega 1.0 "
+          f"{1e3 * secs[1.0]:.1f} ms/frame (scene build and load included); mean |diff| "
+          f"{diff.mean():.3e}, max |diff| {diff.max():.3e}; lit fraction "
+          f"{(frames[1.0].sum(-1) > 0).mean():.4f}; launches {counts}")
+    return results["unbounded"], counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1100,7 +1470,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     print("kernels: fused_mlp_forward, fused_march, fused_min_scan, "
           "fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward, "
-          "fused_shadow_march, fused_sphere_sdf")
+          "fused_shadow_march, fused_sphere_sdf, fused_composite")
     secs = _build.build()
     print(f"kernel build: {secs:.1f} s")
     for stem in sorted(_build.library_paths()):
@@ -1122,6 +1492,11 @@ def main():
     k5 = phase_fused_sdf(torch, dev)
     nerv_counts = phase_nerv_eval(torch, dev)
     nerv_train_counts, nerv_step_s = phase_nerv_train(torch, dev)
+    k8 = phase_composite(torch, dev)
+    le_data = colocate_gt(torch)
+    le_counts = phase_nerfle_eval(torch, dev, le_data)
+    le_train_counts, le_step_s = phase_nerfle_train(torch, dev, le_data)
+    k2r, orbit_counts = phase_relaxed_march(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         return dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -1147,11 +1522,17 @@ def main():
               nerv_counts["learned"]["fused_shadow_march"], k4),
         entry("fused_sphere_sdf", "fused_sdf.cu", "fused_sdf.py:133",
               nerv_counts["fused_sdf"]["fused_sphere_sdf"], k5),
+        entry("K8_fused_composite", "composite.cu", "composite.py:74",
+              le_counts["fused_composite"], k8),
+        entry("K2_relaxed_fused_march", "fused_march.cu", "fused_march.py:405",
+              orbit_counts["fused_march"], k2r),
     ]
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "
-          f"{nerv_train_counts['fused_shadow_march']}")
+          f"{nerv_train_counts['fused_shadow_march']}; NeRFLE training step "
+          f"{1e3 * le_step_s:.1f} ms/step, {LE_RAYS / le_step_s:,.0f} rays/s, K8 launches "
+          f"{le_train_counts['fused_composite']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

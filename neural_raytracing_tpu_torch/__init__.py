@@ -12,8 +12,11 @@ step and host loop (``training.train``, ``training.evaluate``), with the
 fused MLP forward and backward, fused sphere-trace and fused silhouette
 min-scan kernels; and the NeRV workload (``workloads.nerv``: per-view
 ``PointLights``, hard and learned occlusion through the fused shadow march,
-``FusedSphereSDF`` through the fused SphereSDF kernel).  Entry points run on the card unless the caller passes
-``device="cpu"``.
+``FusedSphereSDF`` through the fused SphereSDF kernel); the NeRF-family
+volume path (``shapes.nerf``, ``NeRFReproduce``, ``pathtrace_sample``, the
+twin ``workloads.nerfle``) with the alpha-compositing kernel; and the
+over-relaxed sphere trace behind the orbit renderer ``workloads.render``.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import (
@@ -21,11 +24,11 @@ from . import (
     workloads,
 )
 from .params import load_jax_params, state_dict_from_jax
-from .render import pathtrace, render_rays
+from .render import pathtrace, pathtrace_sample, render_rays
 from .scene import Scene, sample_emitter
 
 __all__ = [
     "bsdf", "cameras", "integrators", "kernels", "lights", "nn", "ops",
     "shapes", "training", "workloads", "load_jax_params", "state_dict_from_jax",
-    "pathtrace", "render_rays", "Scene", "sample_emitter",
+    "pathtrace", "pathtrace_sample", "render_rays", "Scene", "sample_emitter",
 ]

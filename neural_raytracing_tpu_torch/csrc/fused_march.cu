@@ -1,11 +1,21 @@
 // K2: fused no-grad sphere trace through a SphereSDF.
 //
 // Replaces the TPU kernel neural_raytracing_tpu/kernels/fused_march.py
-// (fused_march / _build_march_kernel / _make_sdf_eval), omega = 1.
+// (fused_march / _build_march_kernel / _make_sdf_eval), plain (omega = 1)
+// and over-relaxed (1 < omega < 2, Keinert et al. 2014).
 // One thread block owns NRT_ROWS rays and runs the whole march loop:
 //   remaining = valid & !hit & depth < max_t
 //   sd        = smooth_min_i(|T_i p - c_i| - r_i) + shift_mlp(p),  p = o + d * depth
-//   hit      |= remaining & sd <= eps;  depth += sd where still remaining
+//   fail      = remaining & om > 1 & (|sd| + |prev| <= step | sd < -eps)
+//   hit      |= remaining & !fail & sd <= eps
+//   step      = fail ? (1 - om) * step : om * sd;  om = fail ? 1 : om
+//   depth += step, prev = sd where still remaining
+// Each ray keeps three values of the relaxation in shared memory: the
+// previous SDF, the last step and its own omega (which falls to 1 at its
+// first failure: the failed step is taken back and the ray marches plainly
+// from there).  With omega = 1 no step fails and om * sd == sd exactly, so
+// the loop is the plain sphere trace.  Products and sums are rounded one by
+// one (no contraction into FMAs), as the plain version computes them.
 // The 128 transformed spheres sit in shared memory (sphere_set.cuh, shared
 // with the min-scan K3); the shift MLP is the device MLP of mlp.cuh (the
 // same network the fused MLP kernel evaluates).
@@ -24,7 +34,8 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
                        const float* __restrict__ t0, const float* __restrict__ mt,
                        float max_t, float* __restrict__ depth_out,
                        unsigned char* __restrict__ hit_out, int n, int max_steps,
-                       float eps, SphereSet S, const __grid_constant__ MLPWeights m) {
+                       float eps, float omega, SphereSet S,
+                       const __grid_constant__ MLPWeights m) {
   extern __shared__ __align__(16) float smem[];
   const int R = NRT_ROWS;
   float* sph = smem;                             // [n_sph][13]
@@ -34,8 +45,11 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
   float* depth = d + nrt_round4(R * 3);          // [R]
   float* mx = depth + R;                         // [R] per-ray max_t
   float* sm = mx + R;                            // [R] sphere smooth-min
-  int* state = reinterpret_cast<int*>(sm + R);   // [R] bit0 valid, bit1 hit, bit2 remaining
-  float* mlp_smem = sm + 2 * R;                  // 16-byte aligned: R % 4 == 0
+  float* prev = sm + R;                          // [R] SDF at the previous point
+  float* slen = prev + R;                        // [R] last step taken
+  float* om = slen + R;                          // [R] the ray's omega
+  int* state = reinterpret_cast<int*>(om + R);   // [R] bit0 valid, bit1 hit, bit2 remaining
+  float* mlp_smem = om + 2 * R;                  // 16-byte aligned: R % 4 == 0
 
   nrt_load_spheres(S, sph);
   const int row0 = blockIdx.x * R;
@@ -48,6 +62,9 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
     }
     depth[r] = valid && t0 ? t0[g] : 0.f;
     mx[r] = valid && mt ? mt[g] : max_t;
+    prev[r] = 0.f;
+    slen[r] = 0.f;
+    om[r] = omega;
     state[r] = valid ? 1 : 0;
   }
   __syncthreads();
@@ -72,11 +89,19 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
     if (threadIdx.x < R) {
       const int r = threadIdx.x;
       if (state[r] & 4) {
-        const float sd = sm[r] + ob[r * os];
-        if (sd <= eps)
+        const float sd = __fadd_rn(sm[r], ob[r * os]);
+        const float o = om[r], l = slen[r];
+        const bool fail = o > 1.f && (__fadd_rn(fabsf(sd), fabsf(prev[r])) <= l ||
+                                      sd < -eps);
+        if (!fail && sd <= eps) {
           state[r] |= 2;
-        else
-          depth[r] = depth[r] + sd;
+        } else {
+          const float step = fail ? __fmul_rn(__fsub_rn(1.f, o), l) : __fmul_rn(o, sd);
+          if (fail) om[r] = 1.f;
+          depth[r] = __fadd_rn(depth[r], step);
+          slen[r] = step;
+          prev[r] = sd;
+        }
       }
     }
     // the barrier at the top of the next step orders these updates
@@ -94,13 +119,14 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
 extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0,
                                const float* mt, float max_t, float* depth,
                                unsigned char* hit, int n, int max_steps, float eps,
-                               const float* tfs, const float* centers,
+                               float omega, const float* tfs, const float* centers,
                                const float* radii, int n_spheres, float k, int stable,
                                int in_size, int freqs, int hidden, int num_layers,
                                int skip, int out_size, int act,
                                const void* const* weights, void* stream) {
   MLPWeights m;
   if (n < 0 || n_spheres <= 0 || max_steps < 0 || in_size != 3 || out_size != 1 ||
+      !(omega >= 1.f && omega < 2.f) ||
       (t0 == nullptr) != (mt == nullptr) ||
       !nrt_fill_weights(m, in_size, freqs, hidden, num_layers, skip, out_size,
                         act, weights))
@@ -108,7 +134,7 @@ extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0
   SphereSet S{tfs, centers, radii, n_spheres, k, stable};
   const int R = NRT_ROWS;
   const size_t floats = nrt_sphere_smem_floats(n_spheres) + 3 * nrt_round4(R * 3) +
-                        4 * R + nrt_mlp_smem_floats(m, R);
+                        7 * R + nrt_mlp_smem_floats(m, R);
   const size_t smem = sizeof(float) * floats;
   cudaError_t err = cudaFuncSetAttribute(
       nrt_fused_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -116,6 +142,6 @@ extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0
   if (n == 0) return 0;
   const int grid = (n + R - 1) / R;
   nrt_fused_march_kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(
-      ro, rd, t0, mt, max_t, depth, hit, n, max_steps, eps, S, m);
+      ro, rd, t0, mt, max_t, depth, hit, n, max_steps, eps, omega, S, m);
   return (int)cudaGetLastError();
 }

@@ -1,1 +1,1 @@
-from .integrators import Direct, Integrator, NeRFIntegrator
+from .integrators import Direct, Integrator, NeRFIntegrator, NeRFReproduce

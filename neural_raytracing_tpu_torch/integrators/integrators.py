@@ -1,8 +1,9 @@
 """Light-transport integrators.
 
 Counterpart of ``neural_raytracing_tpu/integrators/integrators.py``:
-``Direct`` with its emitter-sampling arm, and the training wrapper
-``NeRFIntegrator``.  Interface:
+``Direct`` with its emitter-sampling arm, the training wrapper
+``NeRFIntegrator``, and ``NeRFReproduce``, which hands the rays to a
+volumetric (NeRF-family) shape.  Interface:
 ``sample(scene, rays, generator, training) -> (values [..., dims],
 active [...], Interaction)``.
 """
@@ -101,3 +102,22 @@ class NeRFIntegrator(Integrator):
             alpha = torch.sigmoid(alpha)
         return (torch.cat([result, alpha], dim=-1), torch.ones_like(active),
                 it)
+
+
+class NeRFReproduce(Integrator):
+    """Delegates rendering to a volumetric (NeRF-family) shape's
+    ``volume_render``; every ray is active, and the interaction is a dummy
+    at the ray origins."""
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = False):
+        result = scene.shape.volume_render(rays, generator=generator,
+                                           lights=scene.lights)
+        batch = rays.shape[:-1]
+        active = torch.ones(batch, dtype=torch.bool, device=rays.device)
+        dummy = Interaction(p=rays[..., :3],
+                            t=torch.zeros(batch, dtype=rays.dtype, device=rays.device))
+        return result, active, dummy

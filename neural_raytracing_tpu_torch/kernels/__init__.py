@@ -7,6 +7,9 @@ show which kernels its path went through.
 
 from torch import nn
 
+from .composite import (
+    composite_apply, composite_plain, fused_composite,
+)
 from .fused_march import (
     fused_march, fused_min_scan, fused_shadow_march, march_plain,
     min_scan_plain, shadow_march_plain, supports,
@@ -30,6 +33,7 @@ KERNELS = {
     "fused_mlp_segment_backward": fused_mlp_segment_backward,
     "fused_shadow_march": fused_shadow_march,
     "fused_sphere_sdf": fused_sphere_sdf,
+    "fused_composite": fused_composite,
 }
 
 
@@ -43,8 +47,10 @@ def launch_counts() -> dict:
 
 
 def set_kernel_mode(module: nn.Module, mode: str):
-    """Set every fused MLP's and FusedSphereSDF's ``mode`` and every SDF's
-    ``fused_loops`` in ``module`` to ``mode`` ("auto", "force" or "off")."""
+    """Set every fused MLP's and FusedSphereSDF's ``mode``, every SDF's
+    ``fused_loops`` and every NeRF-family shape's compositing ``fused`` in
+    ``module`` to ``mode`` ("auto", "force" or "off")."""
+    from ..shapes.nerf import NeRFLE, PartialNeRF, PlainNeRF
     from ..shapes.sdf import SDF
     if mode not in ("auto", "force", "off"):
         raise ValueError(f"mode must be 'auto', 'force' or 'off', got {mode!r}")
@@ -55,3 +61,5 @@ def set_kernel_mode(module: nn.Module, mode: str):
             m.fused_loops = mode
             if isinstance(m.module, FusedSphereSDF):   # not a registered child
                 m.module.mode = mode
+        elif isinstance(m, (PlainNeRF, PartialNeRF, NeRFLE)):
+            m.fused = mode

@@ -3,12 +3,15 @@ march through a SphereSDF, CUDA kernels for Hopper, with their plain
 versions.
 
 K2 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_march.py``
-(``fused_march``, body ``_build_march_kernel`` with ``_make_sdf_eval``) for
-omega = 1.  The kernel (``csrc/fused_march.cu``) runs the whole march per
-block of 32 rays: the sphere set in shared memory, the shift MLP through the
-device MLP that K1 uses, and an early exit once no ray of the block remains.
-It is bound by the f32 FMA rate of the shift MLP over the steps the rays
-need.  ``march_plain`` below is its plain version (``SDF._march``'s loop).
+(``fused_march``, body ``_build_march_kernel`` with ``_make_sdf_eval``), the
+plain march (omega = 1) and the over-relaxed one (1 < omega < 2).  The
+kernel (``csrc/fused_march.cu``) runs the whole march per block of 32 rays:
+the sphere set in shared memory, the shift MLP through the device MLP that
+K1 uses, the three per-ray values of the relaxation (previous SDF, last
+step, the ray's omega) in shared memory, and an early exit once no ray of
+the block remains.  It is bound by the f32 FMA rate of the shift MLP over
+the steps the rays need.  ``march_plain`` below is its plain version
+(``SDF._march``'s loops).
 
 K3 replaces ``fused_min_scan`` (body ``_build_minscan_kernel``): the index of
 the earliest strict minimum of the SDF over the ``steps + 1`` samples
@@ -48,7 +51,7 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 def _lib() -> ctypes.CDLL:
     lib = library("fused_march")
     lib.nrt_fused_march.argtypes = [
-        _P, _P, _P, _P, _F, _P, _P, _I, _I, _F,   # rays, interval, outputs, loop
+        _P, _P, _P, _P, _F, _P, _P, _I, _I, _F, _F,  # rays, interval, outputs, loop
         _P, _P, _P, _I, _F, _I,                   # sphere set
         _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
         _P]                                       # stream
@@ -119,16 +122,29 @@ def _rays(r_o: torch.Tensor, r_d: torch.Tensor):
     return ro, rd, n
 
 
+def check_omega(omega: float) -> None:
+    if not 1.0 <= omega < 2.0:
+        raise ValueError(f"omega must lie in [1, 2), got {omega}")
+
+
 @torch.no_grad()
 def march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t,
-                t_start=None, *, max_steps: int, epsilon: float):
-    """Plain sphere trace (omega = 1), the plain version of K2.
+                t_start=None, *, max_steps: int, epsilon: float,
+                omega: float = 1.0):
+    """Plain sphere trace, the plain version of K2.
 
     ``sdf(p[..., 3]) -> [...]``.  ``max_t`` is a scalar or per-ray;
     ``t_start`` (per-ray, optional) starts the march there (bounded mode).
+    With ``omega > 1`` each step is ``omega * sd`` until it fails (the new
+    and the previous bounding spheres no longer overlap, or the point lies
+    deeper than ``epsilon`` inside); a failed step is taken back and the ray
+    marches plainly from there, and it cannot hit on the step that failed
+    (the JAX ``SDF._march``'s relaxed loop).  With ``omega = 1`` nothing
+    fails and ``omega * sd == sd``: the plain loop.
     Returns ``(depths, hit, evals)``: ``evals`` counts, per ray, the steps on
     which the ray still needed an SDF evaluation.
     """
+    check_omega(omega)
     batch = r_o.shape[:-1]
     device = r_o.device
     if t_start is None:
@@ -140,14 +156,23 @@ def march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t,
     remaining = torch.ones(batch, dtype=torch.bool, device=device)
     hit = torch.zeros(batch, dtype=torch.bool, device=device)
     evals = torch.zeros(batch, dtype=torch.int32, device=device)
+    prev_sd = torch.zeros(batch, device=device)
+    step_len = torch.zeros(batch, device=device)
+    om = torch.full(batch, omega, dtype=torch.float32, device=device)
     for _ in range(max_steps):
         remaining = remaining & (depths < max_t)
         evals += remaining
-        dists = sdf(r_o + r_d * depths[..., None])
-        hits = remaining & (dists <= epsilon)
+        sd = sdf(r_o + r_d * depths[..., None])
+        fail = remaining & (om > 1.0) & (
+            (torch.abs(sd) + torch.abs(prev_sd) <= step_len) | (sd < -epsilon))
+        hits = remaining & ~fail & (sd <= epsilon)
+        new_step = torch.where(fail, (1.0 - om) * step_len, om * sd)
+        om = torch.where(fail, 1.0, om)
         hit = hit | hits
         remaining = remaining & ~hits
-        depths = torch.where(remaining, depths + dists, depths)
+        depths = torch.where(remaining, depths + new_step, depths)
+        step_len = torch.where(remaining, new_step, step_len)
+        prev_sd = torch.where(remaining, sd, prev_sd)
     return depths, hit, evals
 
 
@@ -157,12 +182,11 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
     """Launch K2 on CUDA tensors.  Returns ``(depths [...], hit [...])``.
 
     ``max_t`` is a scalar (unbounded) or, with ``t_start``, a per-ray end of
-    the ``[t_start, max_t]`` interval (bounded).  Launches on the current
-    stream and does not synchronise.
+    the ``[t_start, max_t]`` interval (bounded); ``omega`` in [1, 2) is the
+    over-relaxation of ``march_plain``.  Launches on the current stream and
+    does not synchronise.
     """
-    if omega != 1.0:
-        raise NotImplementedError("the over-relaxed march (omega > 1) is not "
-                                  "ported to the CUDA kernel yet")
+    check_omega(omega)
     if not supports(module):
         raise ValueError("fused_march supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
@@ -193,7 +217,7 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
             None if t0 is None else t0.data_ptr(),
             None if mt is None else mt.data_ptr(), scalar_max_t,
             depths.data_ptr(), hit.data_ptr(), n, max_steps, epsilon,
-            *spheres, torch.cuda.current_stream(device).cuda_stream)
+            float(omega), *spheres, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_march: CUDA error {rc} at launch")
     if n > 0:

@@ -125,6 +125,25 @@ def fused_mlp_forward(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor,
 fused_mlp_forward.launches = 0
 
 
+def recompute_grads(plain, tensors, needs, g) -> list:
+    """The backward of a kernel whose forward is ``plain(*tensors)``:
+    recompute through the plain version and return the gradient against
+    ``g`` of each tensor whose ``needs`` flag is set (zeros where ``plain``
+    does not read it, None where not needed).  When grad mode is on (the
+    caller asked for a graph of the backward) the result is differentiable."""
+    create = torch.is_grad_enabled()
+    inputs = [t for t, need in zip(tensors, needs) if need]
+    with torch.enable_grad():
+        out = plain(*tensors)
+        grads = iter(torch.autograd.grad(out, inputs, g, create_graph=create,
+                                         allow_unused=True))
+    result = []
+    for t, need in zip(tensors, needs):
+        gt = next(grads) if need else None
+        result.append(torch.zeros_like(t) if need and gt is None else gt)
+    return result
+
+
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mlp, x, basis, *weights):
@@ -134,22 +153,10 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, basis, *weights = ctx.saved_tensors
-        # differentiable backward when the caller asked for a graph of it
-        create = torch.is_grad_enabled()
-        tensors = [x, basis, *weights]
-        needs = ctx.needs_input_grad[1:]
-        inputs = [t for t, need in zip(tensors, needs) if need]
-        with torch.enable_grad():
-            out = mlp_forward(ctx.mlp, x, basis, weights)
-            grads = torch.autograd.grad(out, inputs, g, create_graph=create,
-                                        allow_unused=True)
-        it = iter(grads)
-        result = []
-        for t, need in zip(tensors, needs):
-            gt = next(it) if need else None
-            result.append(torch.zeros_like(t) if need and gt is None else gt)
-        return (None, *result)
+        def plain(x, basis, *weights):
+            return mlp_forward(ctx.mlp, x, basis, weights)
+        return (None, *recompute_grads(plain, ctx.saved_tensors,
+                                       ctx.needs_input_grad[1:], g))
 
 
 # ---- K6 / K7: the backward --------------------------------------------------

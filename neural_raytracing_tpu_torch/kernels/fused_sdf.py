@@ -34,7 +34,7 @@ from torch import nn
 from ..nn.mlp import SkipConnMLP, mlp_forward
 from ..ops.math import smooth_min, stable_smooth_min
 from ._build import library
-from .fused_mlp import check_cuda_f32
+from .fused_mlp import check_cuda_f32, recompute_grads
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -102,22 +102,10 @@ class _FusedSDF(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        tensors = ctx.saved_tensors
-        # differentiable backward when the caller asked for a graph of it
-        create = torch.is_grad_enabled()
-        needs = ctx.needs_input_grad[1:]
-        inputs = [t for t, need in zip(tensors, needs) if need]
-        with torch.enable_grad():
-            p, centers, radii, tfs, basis, *weights = tensors
-            out = sphere_sdf_plain(ctx.module, p, centers, radii, tfs, basis, weights)
-            grads = torch.autograd.grad(out, inputs, g, create_graph=create,
-                                        allow_unused=True)
-        it = iter(grads)
-        result = []
-        for t, need in zip(tensors, needs):
-            gt = next(it) if need else None
-            result.append(torch.zeros_like(t) if need and gt is None else gt)
-        return (None, *result)
+        def plain(p, centers, radii, tfs, basis, *weights):
+            return sphere_sdf_plain(ctx.module, p, centers, radii, tfs, basis, weights)
+        return (None, *recompute_grads(plain, ctx.saved_tensors,
+                                       ctx.needs_input_grad[1:], g))
 
 
 def fused_sphere_sdf_apply(module, p: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Render drivers: full-image tiled rendering.
+"""Render drivers: full-image tiled rendering and crop sampling.
 
-Counterpart of ``pathtrace``/``render_rays`` in
+Counterpart of ``pathtrace``/``pathtrace_sample``/``render_rays`` in
 ``neural_raytracing_tpu/render.py``.  The image is cut into square tiles
 taken in the order of the JAX tile scan: tile ``idx`` covers first-axis
 pixels from ``(idx // n_tiles) * chunk`` and second-axis pixels from
@@ -84,3 +84,18 @@ def pathtrace(scene: Scene, camera, integrator, size: int = 512,
     if squeeze_first and n == 1:
         out = out[0]
     return out, (None if scan_tiles else it)
+
+
+def pathtrace_sample(scene: Scene, integrator, camera, uv, generator=None,
+                     crop_size: int = 32, bundle_size: int = 1, size: int = 256,
+                     with_noise=False, training: bool = True):
+    """Render the ``crop_size``^2 window at pixel offset ``uv = (u, v)`` on
+    the scene's device, differentiably (the training crop).  ``generator``
+    draws the camera jitter and the integrator's randomness.  Returns
+    ``(values [N, S, S, bundle, dims], active, it)``."""
+    device = next(scene.parameters()).device
+    positions = _tile_positions(float(uv[0]), float(uv[1]), crop_size, device)
+    rays = camera.to(device).sample_positions(
+        positions, generator=generator, bundle_size=bundle_size, size=size,
+        with_noise=with_noise)
+    return integrator.sample(scene, rays, generator=generator, training=training)

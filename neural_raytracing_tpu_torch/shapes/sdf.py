@@ -5,8 +5,9 @@ Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
   * ``SphereSDF``: smooth-min of n learnable transformed spheres plus a
     zero-initialised SkipConnMLP residual ``shift``;
   * ``SDF.intersect``: a no-grad sphere trace (the fused kernel K2 on CUDA
-    tensors, ``march_plain`` otherwise), optionally clipped to a bounding
-    sphere (``march_bound``), then normals from autograd at the hit points;
+    tensors, ``march_plain`` otherwise), over-relaxed with ``omega > 1``,
+    optionally clipped to a bounding sphere (``march_bound``), then normals
+    from autograd at the hit points;
     with ``primary=True`` also the soft-silhouette throughput
     ``-alpha * min_sdf`` of ``SDF.throughput`` (the min-scan K3 on CUDA
     tensors, ``min_scan_plain`` otherwise; ``throughput_mode="half_res"``
@@ -14,8 +15,7 @@ Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
   * ``SDF.intersect_test``: the shadow march (the fused kernel K4 on CUDA
     tensors, ``shadow_march_plain`` otherwise).
 The surface may also be a ``kernels.FusedSphereSDF`` (the same parameters,
-evaluated by K5).  ``batch_throughput`` and over-relaxation are not ported
-yet.
+evaluated by K5).  ``batch_throughput`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from torch import nn
 
 from ..interaction import Interaction
 from ..kernels.fused_march import (
-    fused_march, fused_min_scan, fused_shadow_march, march_plain,
+    check_omega, fused_march, fused_min_scan, fused_shadow_march, march_plain,
     min_scan_plain, shadow_march_plain, supports,
 )
 from ..kernels.fused_mlp import FusedSkipConnMLP
@@ -103,7 +103,9 @@ class SDF(nn.Module):
     module's params unchanged.
 
     ``fused_loops``: "auto" (K2 for CUDA tensors, the plain loop for CPU
-    tensors), "force" (K2; raises on CPU tensors) or "off".
+    tensors), "force" (K2; raises on CPU tensors) or "off".  ``omega`` in
+    [1, 2) over-relaxes the primary march (1: the reference's march); it is
+    read at every march, so setting it on a built SDF takes effect.
     """
 
     def __init__(self, sdf_module: nn.Module, epsilon: float = 1e-3,
@@ -120,9 +122,7 @@ class SDF(nn.Module):
         if throughput_mode not in ("full", "half_res"):
             raise ValueError("throughput_mode must be 'full' or 'half_res', "
                              f"got {throughput_mode!r}")
-        if omega != 1.0:
-            raise NotImplementedError("the over-relaxed march (omega > 1) is "
-                                      "not ported yet")
+        check_omega(omega)
         if any(True for _ in sdf_module.buffers(recurse=False)):
             raise ValueError("SDF cannot adopt a surface module with buffers "
                              "of its own")
@@ -181,7 +181,7 @@ class SDF(nn.Module):
                                omega=self.omega, t_start=t_start)
         depths, hit, _ = march_plain(self.sdf, r_o, r_d, max_t, t_start,
                                      max_steps=self.max_steps,
-                                     epsilon=self.epsilon)
+                                     epsilon=self.epsilon, omega=self.omega)
         return depths, hit
 
     def normals(self, p: torch.Tensor) -> torch.Tensor:

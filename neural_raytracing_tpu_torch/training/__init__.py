@@ -8,7 +8,10 @@ from .calibrate import calibrate_exposure
 from .checkpoint import (
     load_scene, load_train_state, save_scene, save_train_state,
 )
-from .datasets import NeRFDataset, NeRVDataset, load_nerf_synthetic, load_nerv
+from .datasets import (
+    ColocateDataset, NeRFDataset, NeRVDataset, load_colocate, load_nerf_synthetic,
+    load_nerv,
+)
 from .eval import evaluate
 from .loop import (
     TrainState, build_step_fn, default_extra_loss, init_train_state, rand_uv,

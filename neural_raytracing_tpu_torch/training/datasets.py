@@ -1,12 +1,14 @@
 """Dataset loaders.
 
-Counterparts of ``load_nerf_synthetic`` and ``load_nerv`` in
-``neural_raytracing_tpu/training/datasets.py``: ``transforms_{split}.json``
-plus one PNG per frame; the focal length from ``camera_angle_x``; masks
-``ceil(alpha - 1e-5)``.  NeRF-synthetic camera translations are normalised
-to unit distance; NeRV's are not, and each NeRV frame carries its point
-light's ``light_loc`` (and ``light_weights`` where present).  The other
-loaders (DTU, colocate) are not ported yet.
+Counterparts of ``load_nerf_synthetic``, ``load_nerv`` and
+``load_colocate`` in ``neural_raytracing_tpu/training/datasets.py``:
+``transforms_{split}.json`` plus one PNG per frame; the focal length from
+``camera_angle_x``; masks ``ceil(alpha - 1e-5)``.  NeRF-synthetic camera
+translations are normalised to unit distance; NeRV's are not, and each NeRV
+frame carries its point light's ``light_loc`` (and ``light_weights`` where
+present).  The colocated set (mitsuba ``cbox_relight``) is an elevation x
+azimuth grid of ``{kind}_{i}_{j}.png`` renders, camera and light together.
+The DTU loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,3 +91,32 @@ def load_nerv(directory: str, size: int, split: str = "train",
     return NeRVDataset(np.stack(c2ws), float(focal), np.stack(images),
                        np.stack(masks), np.stack(lights),
                        np.stack(weights) if weights else None)
+
+
+class ColocateDataset(NamedTuple):
+    images: np.ndarray          # [V, H, W, 3]
+    masks: np.ndarray           # [V, H, W]
+    elevs: np.ndarray           # [V]
+    azims: np.ndarray           # [V]
+    dist: float
+
+
+def load_colocate(directory: str, kind: str, size: int,
+                  n_elev: int = 8, n_azim: int = 8,
+                  min_elev: float = 0.0, max_elev: float = 45.0,
+                  min_azim: float = -135.0, max_azim: float = 135.0,
+                  dist: float = 1.0) -> ColocateDataset:
+    """The ``n_elev x n_azim`` grid of ``{kind}_{i}_{j}.png`` (elevation
+    ``i``, azimuth ``j``, evenly spaced over the given ranges, row-major)."""
+    images, masks, elevs, azims = [], [], [], []
+    for i, elev in enumerate(np.linspace(min_elev, max_elev, n_elev)):
+        for j, azim in enumerate(np.linspace(min_azim, max_azim, n_azim)):
+            img = load_image(os.path.join(directory, f"{kind}_{i}_{j}.png"),
+                             resize=(size, size))
+            images.append(img[..., :3])
+            masks.append(np.ceil(img[..., 3] - 1e-5))
+            elevs.append(elev)
+            azims.append(azim)
+    return ColocateDataset(np.stack(images), np.stack(masks),
+                           np.asarray(elevs, np.float32),
+                           np.asarray(azims, np.float32), dist)

@@ -23,7 +23,7 @@ import torch
 from ..integrators import NeRFIntegrator
 from ..ops.losses import masked_loss
 from ..ops.math import eikonal_loss
-from ..render import _tile_positions
+from ..render import pathtrace_sample
 from .loss_sampler import LossSampler
 from .optim import broadcast_state, clip_grads, global_norm
 
@@ -83,16 +83,12 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     def step(state: TrainState, camera, uv, exp, mask, generator=None):
         scene_, opt = state.scene, state.optimizer
         params = [p for group in opt.param_groups for p in group["params"]]
-        device = params[0].device
         # zeros, not None: AdamW then updates every parameter each step, as
         # optax does
         opt.zero_grad(set_to_none=False)
-        positions = _tile_positions(float(uv[0]), float(uv[1]), crop_size, device)
-        rays = camera.to(device).sample_positions(
-            positions, generator=generator, bundle_size=bundle_size, size=size,
-            with_noise=with_noise)
-        values, _, it = train_integrator.sample(scene_, rays, generator=generator,
-                                                training=True)
+        values, _, it = pathtrace_sample(
+            scene_, train_integrator, camera, uv, generator, crop_size=crop_size,
+            bundle_size=bundle_size, size=size, with_noise=with_noise)
         got = values.mean(dim=-2)                       # over the bundle
         throughput = it.throughput.mean(dim=-1)
         loss = masked_loss(got[..., :3], exp, throughput, mask,

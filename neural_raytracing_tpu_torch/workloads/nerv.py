@@ -26,6 +26,8 @@ import sys
 import numpy as np
 import torch
 
+from ._common import chunk_for, save_image
+
 
 def build_scene(max_steps: int = 64, dist: float = 2.2,
                 occlusion: str = "learned", stable_min: bool = False,
@@ -56,14 +58,6 @@ def eval_scene(scene, occlusion: str, march_bound=None):
                                                    march_bound=march_bound))
 
 
-def chunk_for(size: int, cap: int = 128) -> int:
-    """Largest render tile <= cap that divides ``size``."""
-    chunk = min(size, cap)
-    while size % chunk:
-        chunk -= 1
-    return chunk
-
-
 def make_space_reg(eikonal: float, repulsion: float, alpha: float):
     """A full-space regularizer at 1024 fresh uniform points in
     [-1.25, 1.25]^3 per step: ``eikonal * (|grad f| - 1)^2`` and
@@ -87,13 +81,6 @@ def make_space_reg(eikonal: float, repulsion: float, alpha: float):
         return reg
 
     return space_reg
-
-
-def save_image(path: str, img) -> None:
-    from PIL import Image
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    arr = (np.clip(np.asarray(img)[..., :3], 0.0, 1.0) * 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
 
 
 def parser() -> argparse.ArgumentParser:

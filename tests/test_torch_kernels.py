@@ -15,7 +15,11 @@ ties, float32 sums in another order); K6/K7 each gradient within 1e-4 of
 max|plain| (float32 sums in another order, atomics in a varying one); K4
 not-blocked agreement >= 99.9% (a near-eps step may fall on either side in
 another sum order); K5 as K1, its first and second derivatives (recomputed
-through the plain version) rtol/atol 1e-4.
+through the plain version) rtol/atol 1e-4; K8 2e-5 absolute + 2e-5 relative
+(exp and products in another order), its gradients (recomputed through the
+plain version) 1e-4 absolute + 1e-3 relative; K2 relaxed as K2, and on the
+exact one-sphere rule cases the plain version's hit flags, depths within
+1e-3.
 """
 
 import ast
@@ -27,7 +31,8 @@ import pytest
 import torch
 
 from neural_raytracing_tpu_torch.kernels import (
-    FusedSkipConnMLP, FusedSphereSDF, fused_march, fused_min_scan,
+    FusedSkipConnMLP, FusedSphereSDF, composite_apply, composite_plain,
+    fused_composite, fused_march, fused_min_scan,
     fused_mlp_apply, fused_mlp_backward, fused_mlp_ckpt_forward,
     fused_mlp_forward, fused_mlp_segment_backward, fused_shadow_march,
     fused_sphere_sdf, launch_counts, march_plain, min_scan_plain, mlp_backward,
@@ -36,7 +41,9 @@ from neural_raytracing_tpu_torch.kernels import (
 )
 from neural_raytracing_tpu_torch.kernels import _build
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
-from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF, march_interval
+from neural_raytracing_tpu_torch.shapes import (
+    SDF, NeRFLE, SphereSDF, march_interval, volumetric_integrate,
+)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +51,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "neural_raytracing_tpu
 KERNEL_NAMES = ("fused_mlp_forward", "fused_march", "fused_min_scan",
                 "fused_mlp_backward", "fused_mlp_ckpt_forward",
                 "fused_mlp_segment_backward", "fused_shadow_march",
-                "fused_sphere_sdf")
+                "fused_sphere_sdf", "fused_composite")
 
 FLAGSHIP = {
     "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
@@ -120,7 +127,8 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     assert set(_build.library_paths()) == {"fused_mlp", "fused_march",
                                            "fused_minscan", "fused_mlp_bwd",
-                                           "fused_shadow", "fused_sdf"}
+                                           "fused_shadow", "fused_sdf",
+                                           "composite"}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -243,6 +251,10 @@ def test_new_kernels_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_sphere_sdf(module, x)
     with pytest.raises(ValueError, match="CUDA"):
+        fused_composite(torch.rand(4, 8), torch.rand(4, 8, 3), torch.rand(4))
+    with pytest.raises(ValueError, match="omega"):
+        fused_march(module, x, x, 1.0, max_steps=4, epsilon=1e-3, omega=2.0)
+    with pytest.raises(ValueError, match="CUDA"):
         fused_mlp_backward(mlp, x, g, mlp.B, ws)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, [0, 2])
@@ -252,6 +264,7 @@ def test_new_kernels_raise_on_cpu_tensors():
     assert launch_counts()["fused_min_scan"] == 0
     assert launch_counts()["fused_shadow_march"] == 0
     assert launch_counts()["fused_sphere_sdf"] == 0
+    assert launch_counts()["fused_composite"] == 0
 
 
 def test_fused_sphere_sdf_modes_and_kernel_support():
@@ -507,3 +520,107 @@ def test_fused_shadow_march_rules(cuda):
     nb = fused_shadow_march(_one_sphere(cuda), r_o.to(cuda), r_d.to(cuda),
                             max_t.to(cuda), max_steps=64, epsilon=eps)
     assert nb.tolist() == [True, True, True]
+
+
+def _composite_inputs(device, n_t=64, n_r=10_001, seed=14):
+    g = torch.Generator().manual_seed(seed)
+    sigma = torch.relu(torch.randn(n_t, n_r, generator=g))
+    sigma[5, :7] = 1e4                       # 1 - alpha at the 1e-10 clamp
+    rgb = torch.sigmoid(torch.randn(n_t, n_r, 3, generator=g))
+    ts = torch.linspace(0.0, 2.0, n_t)
+    return sigma.to(device), rgb.to(device), ts.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_t,n_r", [(64, 10_001), (13, 37)])
+def test_fused_composite_matches_plain(cuda, n_t, n_r):
+    sigma, rgb, ts = _composite_inputs(cuda, n_t, n_r)
+    reset_launch_counts()
+    got = fused_composite(sigma, rgb, ts)
+    assert launch_counts()["fused_composite"] == 1
+    want = composite_plain(sigma, rgb, ts)
+    torch.cuda.synchronize()
+    assert got.shape == (n_r, 3)
+    assert ((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()
+
+    def grads(fn):
+        s, c = sigma.clone().requires_grad_(), rgb.clone().requires_grad_()
+        w = torch.linspace(-1.0, 1.0, 3 * n_r, device=cuda).reshape(n_r, 3)
+        (fn(s, c, ts) * w).sum().backward()
+        return s.grad, c.grad
+
+    for a, b in zip(grads(composite_apply), grads(composite_plain)):
+        assert ((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all()
+
+
+@pytest.mark.cuda
+def test_nerfle_render_goes_through_k8(cuda):
+    from neural_raytracing_tpu_torch.lights import PointLights
+    shape = NeRFLE(steps=64)
+    shape.reset_parameters(torch.Generator().manual_seed(15))
+    lights = PointLights(location=(0.3, 0.9, 1.1)).to(cuda)
+    shape.to(cuda)
+    g = torch.Generator().manual_seed(16)
+    rays = torch.cat([torch.tensor([0.0, 0.0, 1.0]).expand(1, 32, 32, 1, 3),
+                      torch.nn.functional.normalize(torch.tensor([0.0, 0.0, -1.0])
+                                                    + 0.3 * torch.randn(1, 32, 32, 1, 3,
+                                                                        generator=g), dim=-1)],
+                     dim=-1).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = shape.volume_render(rays, None, lights)
+        assert launch_counts()["fused_composite"] == 1
+        shape.fused = "off"
+        want = shape.volume_render(rays, None, lights)
+        assert launch_counts()["fused_composite"] == 1
+    assert (got - want).abs().max() <= 1e-5
+    with pytest.raises(ValueError, match="CUDA"):
+        volumetric_integrate(torch.rand(4, 8), torch.rand(4, 8, 3), torch.rand(4),
+                             fused="force")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bound", [None, 1.2])
+def test_relaxed_fused_march_matches_plain(cuda, bound):
+    module = _surface(cuda)
+    g = torch.Generator().manual_seed(5)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
+    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
+    r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
+    t0, t1 = (None, 10.0) if bound is None else march_interval(r_o, r_d, bound, 10.0)
+    reset_launch_counts()
+    depth, hit = fused_march(module, r_o, r_d, t1, max_steps=128, epsilon=1e-3,
+                             t_start=t0, omega=1.4)
+    assert launch_counts()["fused_march"] == 1
+    set_kernel_mode(module, "off")
+    pdepth, phit, evals = march_plain(module, r_o, r_d, t1, t0, max_steps=128,
+                                      epsilon=1e-3, omega=1.4)
+    torch.cuda.synchronize()
+    assert phit.float().mean() > 0 and evals.sum() > 0
+    assert (hit == phit).float().mean() >= 0.99
+    both = hit & phit
+    assert (depth - pdepth)[both].abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_relaxed_fused_march_rules(cuda):
+    """The relaxed loop's rules on an exact SDF (the CPU twin, against the JAX
+    loop and kernel, is tests/test_torch_relaxed_march.py): a head-on ray
+    whose first relaxed step lands inside (fail, step back, omega reset, no
+    hit on the failed step: a hit at 1.5 on the 4th evaluation), a ray whose
+    first step jumps across the sphere (the overlap test), a ray that starts
+    inside (no hit on its one failed step)."""
+    eps = 2.0 ** -10
+    module = _one_sphere("cpu")
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    for origin, steps, want_hit in (((0.0, 0.0, 2.0), 4, True),
+                                    ((0.45, 0.0, 2.0), 32, True),
+                                    ((0.0, 0.0, 0.2), 1, False)):
+        o = torch.tensor([origin])
+        want_d, want_h, _ = march_plain(module, o, d, 10.0, max_steps=steps,
+                                        epsilon=eps, omega=1.5)
+        assert want_h.item() == want_hit
+        got_d, got_h = fused_march(_one_sphere(cuda), o.to(cuda), d.to(cuda), 10.0,
+                                   max_steps=steps, epsilon=eps, omega=1.5)
+        assert got_h.item() == want_hit, origin
+        assert abs(got_d.item() - want_d.item()) <= 1e-3, origin

@@ -19,7 +19,7 @@ from neural_raytracing_tpu.nn import SkipConnMLP as JMLP
 from neural_raytracing_tpu.shapes import SDF as JSDF
 from neural_raytracing_tpu.shapes import SphereSDF as JSphereSDF
 from neural_raytracing_tpu_torch import load_jax_params
-from neural_raytracing_tpu_torch.kernels import fused_march, march_plain, supports
+from neural_raytracing_tpu_torch.kernels import march_plain, supports
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
 from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF
 
@@ -132,11 +132,6 @@ def test_kernel_switch_on_cpu_tensors():
     assert torch.equal(a, b) and torch.equal(ha, hb)
     with pytest.raises(ValueError, match="CUDA"):
         SDF(mod, fused_loops="force")._march(rays[:, :3], rays[:, 3:], 10.0)
-    with pytest.raises(NotImplementedError):
-        fused_march(mod, rays[:, :3], rays[:, 3:], 10.0, max_steps=8,
-                    epsilon=1e-3, omega=1.5)
-    with pytest.raises(NotImplementedError):
-        SDF(mod, omega=1.5)
     # primary intersections carry the silhouette throughput (plain min-scan)
     it, _ = auto.intersect(rays, primary=True)
     assert it.throughput.shape == rays.shape[:-1]
