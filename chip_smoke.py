@@ -74,7 +74,25 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      128x128 (--dist 1.0 --elev 20), 128 steps, unbounded and bounded
      (march_bound 1.2), with the evaluations per ray at omega 1.0 and 1.4
      and K2's time at both; then workloads.render.main for 4 frames with
-     --omega 1.4 (counts reset just before, read just after) and 1.0.
+     --omega 1.4 (counts reset just before, read just after) and 1.0;
+ 16. the bf16-operand variants, each against its plain version and beside
+     its f32 kernel on the same inputs: K1-bf16 on the weight net, one lobe
+     and the light field (65,536 seeded points); K2-bf16 on phase 3's rays
+     and non-zero surface, bounded (256 steps), unbounded (64) and omega 1.4;
+     K3-bf16 at phase 5's shape; K4-bf16 on phase 8's NeRV shadow rays with
+     and without the past-light exit, and a probe on phase 3's surface that
+     reads K4's SDF at float32 resolution (the checkpoint's shift net is a
+     constant, so its bf16 and f32 marches agree bit for bit);
+ 17. the mixed-precision flagship (bf16 weight net, lobes and light field,
+     march_dtype bf16, the shift net f32): 3 eval views and one training
+     step against everything plain in the same precision (plain_kernels), 12
+     steps of train (counts reset just before, read just after: the bf16
+     variants launched, the f32 K2/K3/K4 not), beside the f32
+     configuration's images and loss, and its ms/view and ms/step timed in
+     turns with the bf16 ones (bf16, f32, f32, bf16);
+ 18. the NeRV eval of phase 10 with march_dtype bf16, learned and hard
+     shadows: ms/view, PSNR against the f32 render, hit and not-blocked
+     agreement on one view.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -101,7 +119,20 @@ absolute + 1e-3 relative; the NeRFLE render with K8 against fused="off" mean
 |difference| <= 1e-5 and max <= 1e-4 (only the compositing differs); the
 NeRFLE step loss within 1e-5 relative and each component's gradient within
 1e-4 relative L2; K2 relaxed as K2 (hit agreement >= 99%, |depth
-difference| <= 1e-3 where both hit).
+difference| <= 1e-3 where both hit); the bf16 variants: a float32
+difference (x.B by fmaf against a matmul, sums in another order) can tip a
+bf16 rounding, which moves that operand by one bf16 step and its row from
+there on, so K1-bf16 holds half of its rows within K1's tolerance and its
+mean |error| below a quarter of the mean |bf16 - f32| of the plain
+versions; K2-bf16 hit agreement >= 99%, |depth difference| <= 1e-3 on 99%
+of the common hits and <= 1e-2 on 99.9% (a depth sums its steps' SDF
+noise, and a tipped rounding near the surface can change a step, or a
+relaxed step's failure, on a grazing ray); K3-bf16 index agreement >= 99%
+and ties within 1e-3 (twice the bf16 noise of the shift, one bf16 step of
+its output scale); K4-bf16 as K4; each
+bf16 kernel must differ from its f32 kernel on a non-zero net (K1 by at
+least half that mean gap); the bf16 flagship against plain-in-bf16 as
+phases 4 and 7.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -120,6 +151,7 @@ ROOT = Path(__file__).resolve().parent
 # float32 rate outside the tensor cores, at the full 700 W power limit
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12       # dense bf16 on the tensor cores
 N_POINTS = 65_536
 SIZE = 256
 ARTIFACTS = ROOT / "scripts" / "models_seed_dir" / "nerv_mesh_gear_mirror200b"
@@ -1447,6 +1479,530 @@ def phase_relaxed_march(torch, dev):
           f"{(frames[1.0].sum(-1) > 0).mean():.4f}; launches {counts}")
     return results["unbounded"], counts
 
+# ---- slice 5: the bf16-operand variants of K1-K4 and the mixed-precision paths ------
+
+BF16_NETS = ("weight_net 16x256 F128", "lobe 6x96 F64", "light_field 10x256 F16")
+
+
+def bf16_bounds(n_bytes, macs, sphere_flops=0.0):
+    """-> (the tensor-core bound ms, "bytes"/"operations", the f32-FMA bound
+    ms) of work with ``macs`` bf16 multiply-adds on the tensor cores and
+    ``sphere_flops`` float32 operations beside them."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = max(2.0 * macs / PEAK_BF16, sphere_flops / PEAK_F32)
+    f32_ms, _ = bound_ms(n_bytes, 2.0 * macs + sphere_flops)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), f32_ms
+
+
+def check_k1_bf16(label, got, want, got_f32, want_f32):
+    """K1-bf16 against its plain version.  A float32 difference (x.B by fmaf
+    against a matmul, sums in another order) can tip a bf16 rounding, which
+    moves that operand by one bf16 step and its row from there on: half of
+    the rows within K1's tolerance, the mean error below a quarter of the
+    mean |bf16 - f32| of the plain versions, and the kernel at least half of
+    that away from the f32 kernel (not silently f32)."""
+    import torch
+    err = (got - want).abs()
+    rows_ok = (err <= 1e-4 * want.abs() + 1e-5).all(dim=-1).float().mean().item()
+    gap = (want - want_f32).abs().mean().item()
+    moved = (got - got_f32).abs().mean().item()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    check(rows_ok >= 0.5, f"{label}: {rows_ok:.4f} of the rows within K1's tolerance < 0.5")
+    check(err.mean().item() <= 0.25 * gap,
+          f"{label}: mean |err| {err.mean().item():.3e} > 0.25 x bf16-f32 gap {gap:.3e}")
+    check(moved >= 0.5 * gap, f"{label}: bf16 kernel within {moved:.3e} of the f32 kernel "
+          f"(bf16-f32 gap {gap:.3e}): it ran in f32")
+    return dict(rows_ok=rows_ok, max_err=err.max().item(), mean_err=err.mean().item(),
+                gap=gap, moved=moved)
+
+
+def phase_bf16_kernels(torch, dev):
+    """K1-bf16 on three flagship nets, K2-bf16 (bounded, unbounded, omega 1.4)
+    and K3-bf16 on phase 3's non-zero surface, K4-bf16 on the trained NeRV
+    checkpoint's shadow rays: each against its plain version, beside its f32
+    kernel on the same inputs."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_march, fused_march_bf16, fused_min_scan, fused_min_scan_bf16,
+        fused_mlp_forward, fused_mlp_forward_bf16, fused_shadow_march,
+        fused_shadow_march_bf16, march_plain, min_scan_plain,
+        mlp_forward_bf16_operands, set_kernel_mode, shadow_march_plain,
+        sphere_sdf_eval_plain,
+    )
+    from neural_raytracing_tpu_torch.nn import SkipConnMLP
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.shapes import march_interval
+
+    bf16 = torch.bfloat16
+    out = {}
+    # K1-bf16
+    gen = torch.Generator().manual_seed(1)
+    nets = flagship_nets()
+    tot = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, bytes=0.0, macs=0.0, err=0.0)
+    for name in BF16_NETS:
+        mlp = nets[name]
+        mlp.reset_parameters(gen)
+        mlp.to(dev)
+        x = (torch.rand(N_POINTS, 3, generator=gen) - 0.5).to(dev)
+        ws = [w.detach() for w in mlp.flat_weights()]
+        with torch.no_grad():
+            got = fused_mlp_forward_bf16(mlp, x, mlp.B, ws)
+            got32 = fused_mlp_forward(mlp, x, mlp.B, ws)
+            want = mlp_forward_bf16_operands(mlp, x, mlp.B, ws)
+            want32 = SkipConnMLP.forward(mlp, x)
+            torch.cuda.synchronize()
+            st = check_k1_bf16(f"K1-bf16 {name}", got, want, got32, want32)
+            ms = cuda_ms(lambda: fused_mlp_forward_bf16(mlp, x, mlp.B, ws), 5)
+            ms32 = cuda_ms(lambda: fused_mlp_forward(mlp, x, mlp.B, ws), 5)
+            plain_ms = cuda_ms(lambda: mlp_forward_bf16_operands(mlp, x, mlp.B, ws), 5)
+        macs = float(mlp_macs(mlp)) * N_POINTS
+        n_bytes = 4 * N_POINTS * (mlp.in_size + mlp.out_size) + weight_bytes(mlp)
+        b_ms, _, f32_b = bf16_bounds(n_bytes, macs)
+        print(f"K1-bf16 {name}: {N_POINTS} points, rows within K1's tolerance "
+              f"{st['rows_ok']:.4f}, max |err| {st['max_err']:.3e}, mean |err| "
+              f"{st['mean_err']:.3e}; mean |plain bf16 - plain f32| {st['gap']:.3e}, mean "
+              f"|kernel bf16 - kernel f32| {st['moved']:.3e}; kernel {ms:.4f} ms (f32 kernel "
+              f"{ms32:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (bf16 tensor "
+              f"cores), f32-FMA bound {f32_b:.4f} ms")
+        for k, v in (("ms", ms), ("f32_ms", ms32), ("plain_ms", plain_ms),
+                     ("bytes", n_bytes), ("macs", macs)):
+            tot[k] += v
+        tot["err"] = max(tot["err"], st["max_err"])
+        mlp.cpu()
+    tot["bound_ms"], tot["bound_by"], tot["f32_bound_ms"] = bf16_bounds(tot["bytes"], tot["macs"])
+    out["k1"] = tot
+    print(f"K1-bf16, 3 nets: kernel {tot['ms']:.3f} ms (f32 kernel {tot['f32_ms']:.3f} ms), "
+          f"plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, f32-FMA bound "
+          f"{tot['f32_bound_ms']:.3f} ms")
+
+    # K2-bf16 on phase 3's rays and its non-zero surface
+    module = march_surface(torch, dev)
+    set_kernel_mode(module, "off")
+    sdf16 = lambda p: sphere_sdf_eval_plain(module, p, bf16)
+    rays = view_rays(torch, dev)
+    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+    macs_eval, sph_eval = float(mlp_macs(module.shift)), 31.0 * module.n
+    for label, steps, bound, omega in (("bounded", 256, 1.2, 1.0),
+                                       ("unbounded", 64, None, 1.0),
+                                       ("relaxed", 256, 1.2, 1.4)):
+        t0, t1 = (None, 10.0) if bound is None else march_interval(r_o, r_d, bound, 10.0)
+        kw = dict(max_steps=steps, epsilon=1e-3, t_start=t0, omega=omega)
+        kernel = lambda: fused_march_bf16(module, r_o, r_d, t1, **kw)
+        kernel32 = lambda: fused_march(module, r_o, r_d, t1, **kw)
+        plain = lambda: march_plain(sdf16, r_o, r_d, t1, t0, max_steps=steps,
+                                    epsilon=1e-3, omega=omega)
+        depth, hit = kernel()
+        depth32, hit32 = kernel32()
+        pdepth, phit, evals = plain()
+        evals32 = march_plain(module, r_o, r_d, t1, t0, max_steps=steps, epsilon=1e-3,
+                              omega=omega)[2]
+        torch.cuda.synchronize()
+        agree = (hit == phit).float().mean().item()
+        both = hit & phit
+        check(bool(both.any()), f"K2-bf16 {label}: no ray hit")
+        errs = (depth - pdepth)[both].abs()
+        derr, close = errs.max().item(), (errs <= 1e-3).float().mean().item()
+        near = (errs <= 1e-2).float().mean().item()
+        moved = (depth - depth32).abs().max().item()
+        check(agree >= 0.99, f"K2-bf16 {label}: hit agreement {agree:.4f} < 0.99")
+        check(close >= 0.99 and near >= 0.999, f"K2-bf16 {label}: |depth err| <= 1e-3 on "
+              f"{close:.4f} and <= 1e-2 on {near:.5f} of the common hits")
+        check(moved > 1e-5 or bool((hit != hit32).any()),
+              f"K2-bf16 {label}: depths within {moved:.3e} of the f32 kernel: it ran in f32")
+        ms = cuda_ms(kernel, 5)
+        ms32 = cuda_ms(kernel32, 5)
+        plain_ms = cuda_ms(plain, 2)
+        n_evals = evals.sum().item()
+        n_bytes = 4 * N_POINTS * (6 + (2 if bound else 0)) + 5 * N_POINTS \
+            + weight_bytes(module.shift) + 4 * 13 * module.n
+        b_ms, b_by, f32_b = bf16_bounds(n_bytes, macs_eval * n_evals, sph_eval * n_evals)
+        print(f"K2-bf16 {label} ({steps} steps, omega {omega}): hit agreement {agree:.6f}, "
+              f"|depth err| <= 1e-3 on {close:.6f} of the common hits, max {derr:.3e}; against the f32 kernel: max |depth diff| "
+              f"{moved:.3e}, hit flags differ {int((hit != hit32).sum().item())}; "
+              f"evaluations per ray {n_evals / N_POINTS:.2f} (f32 "
+              f"{evals32.sum().item() / N_POINTS:.2f}); kernel {ms:.3f} ms (f32 kernel "
+              f"{ms32:.3f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms (bf16 tensor "
+              f"cores), f32-FMA bound {f32_b:.3f} ms")
+        out[f"k2 {label}"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, f32_bound_ms=f32_b, err=derr)
+
+    # K3-bf16 at phase 5's shape
+    u, v = silhouette_crop()
+    rays = crop_rays(torch, dev, train_c2ws()[:N_VIEWS], u, v).reshape(-1, 6)
+    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+    steps, step = 128, 2.2 / 128
+    kernel = lambda: fused_min_scan_bf16(module, r_o, r_d, step, steps=steps)
+    kernel32 = lambda: fused_min_scan(module, r_o, r_d, step, steps=steps)
+    plain = lambda: min_scan_plain(sdf16, r_o, r_d, step, steps=steps)
+    idx, idx32, pidx = kernel(), kernel32(), plain()
+    torch.cuda.synchronize()
+    agree = (idx == pidx).float().mean().item()
+    s = torch.tensor(step, device=dev)
+    err = (sdf16(r_o + (idx * s)[:, None] * r_d)
+           - sdf16(r_o + (pidx * s)[:, None] * r_d)).abs().max().item()
+    n_moved = int((idx != idx32).sum().item())
+    check(agree >= 0.99, f"K3-bf16: index agreement {agree:.6f} < 0.99")
+    check(err <= 1e-3, f"K3-bf16: |sd(kernel idx) - sd(plain idx)| {err:.3e} > 1e-3")
+    check(n_moved > 0, "K3-bf16: every index equals the f32 kernel's: it ran in f32")
+    ms, ms32, plain_ms = cuda_ms(kernel, 5), cuda_ms(kernel32, 5), cuda_ms(plain, 2)
+    n_evals = float(N_RAYS) * (steps + 1)
+    b_ms, b_by, f32_b = bf16_bounds(4 * N_RAYS * 7 + weight_bytes(module.shift)
+                                    + 4 * 13 * module.n, macs_eval * n_evals,
+                                    sph_eval * n_evals)
+    print(f"K3-bf16 fused_min_scan_bf16: {N_RAYS} rays x {steps + 1} samples, index "
+          f"agreement {agree:.6f}, max |sd difference| {err:.3e}; indices that differ from "
+          f"the f32 kernel's {n_moved}; kernel {ms:.3f} ms (f32 kernel {ms32:.3f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms (bf16 tensor cores), f32-FMA bound "
+          f"{f32_b:.3f} ms")
+    out["k3"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     f32_bound_ms=f32_b, err=err)
+    del module
+
+    # K4-bf16 on the trained checkpoint's shadow rays (phase 8)
+    scene = nerv_scene(torch, dev, 128, 1.2, "hard")
+    module = scene.shape.module
+    view = shadow_rays(torch, scene, nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev),
+                       _tile_positions(0.0, 0.0, NERV_SIZE, dev),
+                       scene.lights.location.detach()[:1])
+    set_kernel_mode(scene, "off")
+    sdf16 = lambda p: sphere_sdf_eval_plain(module, p, bf16)
+    with torch.no_grad():
+        spread = module.shift(view[0]).std().item()
+    for label, ple in (("past-light exit", True), ("no past-light exit", False)):
+        r_o, r_d, dist = view
+        n = r_o.shape[0]
+        kw = dict(max_steps=128, epsilon=1e-3, past_light_exit=ple)
+        kernel = lambda: fused_shadow_march_bf16(module, r_o, r_d, dist, **kw)
+        kernel32 = lambda: fused_shadow_march(module, r_o, r_d, dist, **kw)
+        plain = lambda: shadow_march_plain(sdf16, r_o, r_d, dist, **kw)
+        nb, nb32 = kernel(), kernel32()
+        pnb, evals = plain()
+        evals32 = shadow_march_plain(module, r_o, r_d, dist, **kw)[1]
+        torch.cuda.synchronize()
+        agree = (nb == pnb).float().mean().item()
+        check(0.0 < (~pnb).float().mean().item() < 1.0, f"K4-bf16 {label}: blocked fraction")
+        check(agree >= 0.999, f"K4-bf16 {label}: not-blocked agreement {agree:.6f} < 0.999")
+        ms, ms32, plain_ms = cuda_ms(kernel, 5), cuda_ms(kernel32, 5), cuda_ms(plain, 2)
+        n_evals = evals.sum().item()
+        b_ms, b_by, f32_b = bf16_bounds(4 * n * 7 + n + weight_bytes(module.shift)
+                                        + 4 * 13 * module.n, macs_eval * n_evals,
+                                        sph_eval * n_evals)
+        print(f"K4-bf16 fused_shadow_march_bf16, {label}: {n} rays, 128 steps, not-blocked "
+              f"agreement {agree:.6f}; flags that differ from the f32 kernel's "
+              f"{int((nb != nb32).sum().item())} (the checkpoint's shift output spreads by "
+              f"{spread:.2e} over the rays' origins); evaluations per ray {n_evals / n:.2f} "
+              f"(f32 {evals32.sum().item() / n:.2f}); kernel {ms:.3f} ms (f32 kernel "
+              f"{ms32:.3f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms (bf16 tensor "
+              f"cores), f32-FMA bound {f32_b:.3f} ms")
+        out[f"k4 {label}"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, f32_bound_ms=f32_b, err=float(agree < 1.0))
+    del scene
+    n_moved, n_probe = k4_bf16_probe(torch, march_surface(torch, dev))
+    check(n_moved > 0, f"K4-bf16: on all {n_probe} probe rays the flags equal the f32 "
+          "kernel's: it ran in f32")
+    print(f"K4-bf16 probe on phase 3's non-zero surface: {n_moved} of {n_probe} flags differ "
+          f"from the f32 kernel's")
+    return out
+
+
+def k4_bf16_probe(torch, module):
+    """K4's flag reads one SDF value at float32 resolution: a ray that starts
+    inside the surface (sd < eps at its first point p) hits on its one step
+    and advances to 1e2 eps + sd(p), so with max_t = 1e2 eps + sd32(p) - 1e-5
+    the f32 kernel says not-blocked on every such ray, and a kernel whose SDF
+    moved by more than 1e-5 (bf16 operands) says blocked on some.
+    -> (rays where K4-bf16's flag differs from K4's, probe rays)."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_shadow_march, fused_shadow_march_bf16, sphere_sdf_eval_plain,
+    )
+    dev = module.centers.device
+    gen = torch.Generator().manual_seed(17)
+    p = (0.6 * torch.rand(40_000, 3, generator=gen) - 0.3).to(dev)
+    d = torch.nn.functional.normalize(torch.randn(40_000, 3, generator=gen), dim=-1).to(dev)
+    sd = sphere_sdf_eval_plain(module, p)
+    inside = sd < 1e-3 - 1e-4
+    p, d, sd = p[inside], d[inside], sd[inside]
+    depth0 = 1e2 * 1e-3
+    r_o = (p - d * depth0).contiguous()
+    max_t = depth0 + sd - 1e-5
+    kw = dict(max_steps=1, epsilon=1e-3, past_light_exit=False)
+    nb32 = fused_shadow_march(module, r_o, d, max_t, **kw)
+    nb = fused_shadow_march_bf16(module, r_o, d, max_t, **kw)
+    check(bool(nb32.all()), "K4 probe: the f32 kernel's depths are not the plain version's")
+    return int((nb != nb32).sum().item()), int(p.shape[0])
+
+
+def bf16_flagship_scene(max_steps, march_bound):
+    """flagship_scene in the mixed-precision configuration: the three kinds of
+    shading net with bf16 operands, the march with bf16 operands, the shift
+    net in float32."""
+    import neural_raytracing_tpu_torch as T
+    from neural_raytracing_tpu_torch.bsdf import ComposeSpatialVarying, NeuralBSDF
+    from neural_raytracing_tpu_torch.kernels import FusedSkipConnMLP
+    from neural_raytracing_tpu_torch.lights import LightField
+    from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF
+    import torch
+    bf16 = torch.bfloat16
+    lobe = lambda: FusedSkipConnMLP(in_size=3, out=3, num_layers=6, hidden_size=96,
+                                    freqs=64, compute_dtype=bf16)
+    return T.Scene(
+        shape=SDF(SphereSDF(n=128), max_steps=max_steps, throughput_steps=128, dist=2.2,
+                  march_bound=march_bound, march_dtype=bf16),
+        bsdf=ComposeSpatialVarying(
+            [NeuralBSDF(activation="softplus", mlp=lobe()) for _ in range(8)],
+            sp_var_fn=FusedSkipConnMLP(in_size=3, out=8, num_layers=16, hidden_size=256,
+                                       freqs=128, sigma=128.0, init="xavier",
+                                       compute_dtype=bf16)),
+        lights=LightField(mlp=FusedSkipConnMLP(in_size=3, out=3, num_layers=10,
+                                               hidden_size=256, compute_dtype=bf16)))
+
+
+class plain_kernels:
+    """Within this context every kernel that the flagship paths launch is
+    replaced by its plain version in the kernel's precision (K1 and K1-bf16,
+    K2-K4 and their bf16 variants): "everything plain in the same precision"
+    on the card.  Nothing is counted."""
+
+    def __enter__(self):
+        import neural_raytracing_tpu_torch.kernels.fused_mlp as fm
+        import neural_raytracing_tpu_torch.shapes.sdf as sdf_mod
+        from neural_raytracing_tpu_torch.kernels import (
+            march_plain, min_scan_plain, mlp_forward_bf16_operands, shadow_march_plain,
+            sphere_sdf_eval_plain,
+        )
+        from neural_raytracing_tpu_torch.nn import mlp_forward
+
+        def sdf(module, dtype):
+            return lambda p: sphere_sdf_eval_plain(module, p, dtype)
+
+        def march(module, r_o, r_d, max_t, *, max_steps, epsilon, omega, t_start,
+                  compute_dtype):
+            return march_plain(sdf(module, compute_dtype), r_o, r_d, max_t, t_start,
+                               max_steps=max_steps, epsilon=epsilon, omega=omega)[:2]
+
+        def scan(module, r_o, r_d, step, *, steps, compute_dtype):
+            return min_scan_plain(sdf(module, compute_dtype), r_o.detach(), r_d.detach(),
+                                  step, steps=steps)
+
+        def shadow(module, r_o, r_d, max_t, *, max_steps, epsilon, past_light_exit,
+                   compute_dtype):
+            return shadow_march_plain(sdf(module, compute_dtype), r_o, r_d, max_t,
+                                      max_steps=max_steps, epsilon=epsilon,
+                                      past_light_exit=past_light_exit)[0]
+
+        self.saved = [(fm, "fused_mlp_forward", mlp_forward),
+                      (fm, "fused_mlp_forward_bf16", mlp_forward_bf16_operands),
+                      (sdf_mod, "fused_march", march), (sdf_mod, "fused_min_scan", scan),
+                      (sdf_mod, "fused_shadow_march", shadow)]
+        self.saved = [(mod, name, getattr(mod, name), new) for mod, name, new in self.saved]
+        for mod, name, _, new in self.saved:
+            setattr(mod, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, old, _ in self.saved:
+            setattr(mod, name, old)
+
+
+def phase_bf16_flagship(torch, dev):
+    """The mixed-precision flagship: the eval render (3 views) and a training
+    step against everything plain in the same precision, 12 steps of train;
+    beside them the f32 configuration's images and loss, and its ms/view and
+    ms/step timed in turns with the bf16 ones (bf16, f32, f32, bf16)."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, build_step_fn, make_optimizer, train,
+    )
+
+    f32_kernels = ("fused_march", "fused_min_scan", "fused_shadow_march")
+    views = [(30.0, 45.0), (30.0, 165.0), (30.0, 285.0)]
+    scene = bf16_flagship_scene(256, 1.2)
+    scene.init(torch.Generator().manual_seed(0), device=dev)
+    f32_scene = flagship_scene(256, 1.2)
+    f32_scene.init(torch.Generator().manual_seed(0), device=dev)
+    for sc in (scene, f32_scene):
+        render_views(torch, sc, views[:1], dev)     # warm-up, not counted
+    reset_launch_counts()
+    got, secs = render_views(torch, scene, views, dev)
+    counts = launch_counts()
+    f32_img, f32_secs = render_views(torch, f32_scene, views, dev)
+    f32_secs += render_views(torch, f32_scene, views, dev)[1]
+    secs += render_views(torch, scene, views, dev)[1]
+    del f32_scene
+    for name in ("fused_mlp_forward_bf16", "fused_march_bf16"):
+        check(counts[name] > 0, f"bf16 eval render: {name} was not launched on the path")
+    for name in f32_kernels:
+        check(counts[name] == 0, f"bf16 eval render: the f32 kernel {name} was launched")
+    profile_step(torch, lambda: render_views(torch, scene, views[:1], dev), "one bf16 view")
+    with plain_kernels():
+        want, plain_secs = render_views(torch, scene, views, dev)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          "bf16 eval render: non-finite image")
+    mask, pmask = got.abs().sum(-1) > 0, want.abs().sum(-1) > 0
+    agree = (mask == pmask).float().mean().item()
+    diff = (got - want).abs()
+    check(pmask.float().mean().item() > 0, "bf16 eval render: no pixel hit the surface")
+    check(agree >= 0.99, f"bf16 eval render: mask agreement {agree:.4f} < 0.99")
+    check(diff.mean().item() <= 1e-3, f"bf16 eval render: mean |diff| {diff.mean().item():.3e}")
+    ms_view = 1e3 * sum(secs) / len(secs)
+    print(f"bf16 eval render (bounded, 256 steps): 3 views 256x256, kernels {ms_view:.1f} "
+          f"ms/view (f32 configuration {1e3 * sum(f32_secs) / len(f32_secs):.1f} ms/view, "
+          f"in turns: bf16 {[round(1e3 * x, 1) for x in secs[:3]]}, f32 "
+          f"{[round(1e3 * x, 1) for x in f32_secs]}, bf16 "
+          f"{[round(1e3 * x, 1) for x in secs[3:]]}), plain in bf16 "
+          f"{1e3 * sum(plain_secs) / 3:.1f} ms/view; mask agreement {agree:.6f}, mean |diff| "
+          f"{diff.mean().item():.3e}, max |diff| {diff.max().item():.3e}; against the f32 "
+          f"configuration's images mean |diff| {(got - f32_img).abs().mean().item():.3e}, "
+          f"max {(got - f32_img).abs().max().item():.3e}; launches {counts}")
+    eval_counts = counts
+    del scene, got, want, f32_img
+
+    # the training step, as phase 7
+    c2ws = train_c2ws()
+    imgs, masks = sphere_gt(torch, c2ws)
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
+    spec = make_optimizer(LRS)
+    scene = bf16_flagship_scene(64, None)
+    scene.init(torch.Generator().manual_seed(0), device=dev)
+    idxs = list(range(N_VIEWS))
+    u, v = silhouette_crop()
+    exp = torch.from_numpy(imgs[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    mask = torch.from_numpy(masks[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    rays = crop_rays(torch, dev, c2ws[idxs], u, v)
+    res = {}
+    for label in ("kernels", "plain", "f32"):
+        sc = copy.deepcopy(scene)
+        if label == "f32":
+            for m in sc.modules():
+                if getattr(m, "compute_dtype", None) == torch.bfloat16:
+                    m.compute_dtype = torch.float32
+            sc.shape.march_dtype = torch.float32
+        step = build_step_fn(sc, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
+        if label == "plain":
+            with plain_kernels():
+                _, aux = step(TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v),
+                              exp, mask)
+        else:
+            _, aux = step(TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v),
+                          exp, mask)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights")}
+        with torch.no_grad():
+            _, hit = sc.shape.intersect(rays, primary=False)
+        res[label] = (aux["loss"].item(), grads, hit)
+        del sc
+    (lk, gk, hk), (lp, gp, hp), (l32, _, _) = res["kernels"], res["plain"], res["f32"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_hit_diff = int((hk != hp).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"bf16 step parity (kernels vs plain in bf16, no jitter): loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {rel_loss:.3e}; f32 configuration {l32:.6f}), rays whose hit differs "
+          f"{n_hit_diff} of {hk.numel()}, gradient rel L2 "
+          f"{', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-4, f"bf16 step parity: loss rel {rel_loss:.3e}")
+    check(n_hit_diff <= 0.001 * hk.numel(), f"bf16 step parity: {n_hit_diff} hit flags differ")
+    for c, e in rel_g.items():
+        check(e <= 1e-2, f"bf16 step parity: {c} gradient rel L2 {e:.3e} > 1e-2")
+    del res, gk, gp
+
+    kw = dict(size=SIZE, crop_size=CROP_SIZE, n_views=N_VIEWS, mask_weight=15.0,
+              with_ssim=True, log_every=0, nan_policy="raise")
+    f32_scene = flagship_scene(64, None)
+    f32_scene.init(torch.Generator().manual_seed(0), device=dev)
+    runs = {}
+    for sc in (scene, f32_scene):
+        runs[id(sc)] = [TrainState(sc, spec.init(sc), 0),
+                        torch.Generator(device=dev).manual_seed(1)]
+
+    def run(sc, iters, seed):
+        state, gen = runs[id(sc)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, losses = train(sc, Direct(training=True), spec, state, make_camera, imgs,
+                              masks, gen, iters=iters, seed=seed, **kw)
+        torch.cuda.synchronize()
+        runs[id(sc)][0] = state
+        return losses, (time.perf_counter() - start) / iters
+
+    for sc in (scene, f32_scene):
+        run(sc, 2, 100)                                                 # warm-up
+    iters = 12
+    reset_launch_counts()
+    losses, step_s = run(scene, iters, 0)
+    counts = launch_counts()
+    f32_times = [run(f32_scene, iters, 0)[1], run(f32_scene, iters, 1)[1]]
+    step_times = [step_s, run(scene, iters, 1)[1]]
+    del f32_scene
+    check(len(losses) == iters and np.isfinite(losses).all(), f"bf16 training: {losses}")
+    for name in ("fused_mlp_forward_bf16", "fused_march_bf16", "fused_min_scan_bf16"):
+        check(counts[name] > 0, f"bf16 training: {name} was not launched on the path")
+    for name in f32_kernels:
+        check(counts[name] == 0, f"bf16 training: the f32 kernel {name} was launched")
+    step_s = sum(step_times) / 2
+    print(f"bf16 training (kernels): {iters} steps, {1e3 * step_s:.1f} ms/step "
+          f"({N_RAYS / step_s:,.0f} rays/s; f32 configuration "
+          f"{1e3 * sum(f32_times) / 2:.1f} ms/step; in turns of {iters} steps: bf16 "
+          f"{1e3 * step_times[0]:.1f}, f32 {1e3 * f32_times[0]:.1f}, f32 "
+          f"{1e3 * f32_times[1]:.1f}, bf16 {1e3 * step_times[1]:.1f}), losses "
+          f"{[round(x, 3) for x in losses]}; launches {counts} (K1 f32: the shift net, "
+          f"which stays f32)")
+    return eval_counts, counts
+
+
+def phase_bf16_nerv(torch, dev):
+    """NeRV eval on the checkpoint with march_dtype=bf16, learned and hard
+    shadows, against the f32 march: ms/view, hit and not-blocked agreement,
+    PSNR of the bf16 render against the f32 one."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    camera_fn = lambda i: nerv_camera(torch, NERV_EVAL_VIEWS[i:i + 1])
+    counts = {}
+    for occlusion in ("learned", "hard"):
+        scene32 = nerv_scene(torch, dev, 128, 1.2, occlusion)
+        scene = scene32.replace(shape=scene32.shape.replace(march_dtype=torch.bfloat16))
+        locs = scene.lights.location.detach().clone()
+        nerv_evaluate(torch, scene, camera_fn, 1, locs)               # warm-up
+        reset_launch_counts()
+        _, got, s_view = nerv_evaluate(torch, scene, camera_fn, NERV_VIEWS, locs)
+        counts[occlusion] = launch_counts()
+        for name in ("fused_march_bf16", "fused_shadow_march_bf16"):
+            check(counts[occlusion][name] > 0, f"bf16 NeRV eval: {name} was not launched")
+        for name in ("fused_march", "fused_shadow_march"):
+            check(counts[occlusion][name] == 0, f"bf16 NeRV eval: f32 {name} was launched")
+        _, want, s32 = nerv_evaluate(torch, scene32, camera_fn, NERV_VIEWS, locs)
+        check(np.isfinite(got).all(), "bf16 NeRV eval: non-finite image")
+        mse = float(np.mean((got - want) ** 2))
+        psnr = float("inf") if mse == 0.0 else -10.0 * math.log10(mse)
+        # the primary hits and the shadow flags of one view, bf16 against f32
+        cam = camera_fn(0).to(dev)
+        pos = _tile_positions(0.0, 0.0, NERV_SIZE, dev)
+        rays = cam.sample_positions(pos, size=NERV_SIZE)
+        with torch.no_grad():
+            _, hit = scene.shape.intersect(rays, primary=False)
+            _, hit32 = scene32.shape.intersect(rays, primary=False)
+        r_o, r_d, dist = shadow_rays(torch, scene32, cam, pos, locs[:1])
+        shadow = torch.cat([r_o, r_d], dim=-1)
+        nb = scene.shape.intersect_test(shadow, max_t=dist)
+        nb32 = scene32.shape.intersect_test(shadow, max_t=dist)
+        hit_agree = (hit == hit32).float().mean().item()
+        nb_agree = (nb == nb32).float().mean().item()
+        check(hit_agree >= 0.99, f"bf16 NeRV eval ({occlusion}): hit agreement {hit_agree:.4f}")
+        check(nb_agree >= 0.99, f"bf16 NeRV eval ({occlusion}): not-blocked agreement "
+              f"{nb_agree:.4f}")
+        print(f"bf16 NeRV eval, {occlusion} shadows: {NERV_VIEWS} views {NERV_SIZE}x{NERV_SIZE}, "
+              f"march_dtype bf16 {1e3 * s_view:.1f} ms/view, f32 {1e3 * s32:.1f} ms/view; "
+              f"against the f32 render: PSNR {psnr:.2f} dB, mean |diff| "
+              f"{np.abs(got - want).mean():.3e}, hit agreement {hit_agree:.6f}, not-blocked "
+              f"agreement {nb_agree:.6f} (one view); launches {counts[occlusion]}")
+        del scene, scene32
+    return counts
+
+
 
 def main():
     import torch
@@ -1470,7 +2026,9 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     print("kernels: fused_mlp_forward, fused_march, fused_min_scan, "
           "fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward, "
-          "fused_shadow_march, fused_sphere_sdf, fused_composite")
+          "fused_shadow_march, fused_sphere_sdf, fused_composite, and the bf16-operand "
+          "fused_mlp_forward_bf16, fused_march_bf16, fused_min_scan_bf16, "
+          "fused_shadow_march_bf16")
     secs = _build.build()
     print(f"kernel build: {secs:.1f} s")
     for stem in sorted(_build.library_paths()):
@@ -1497,6 +2055,9 @@ def main():
     le_counts = phase_nerfle_eval(torch, dev, le_data)
     le_train_counts, le_step_s = phase_nerfle_train(torch, dev, le_data)
     k2r, orbit_counts = phase_relaxed_march(torch, dev)
+    kb16 = phase_bf16_kernels(torch, dev)
+    bf16_eval_counts, bf16_train_counts = phase_bf16_flagship(torch, dev)
+    bf16_nerv_counts = phase_bf16_nerv(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         return dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -1504,6 +2065,12 @@ def main():
                     launches=launches, max_abs_err=m["err"], ms=m["ms"],
                     plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                     bound_by=m["bound_by"], library_ms=None)
+
+    def entry16(*args):
+        # bound_ms is the bf16 tensor-core bound; the f32-FMA one beside it
+        e = entry(*args)
+        e["f32_fma_bound_ms"] = args[-1]["f32_bound_ms"]
+        return e
 
     kernels = [
         entry("fused_mlp_forward", "fused_mlp.cu", "fused_mlp.py:129",
@@ -1526,6 +2093,19 @@ def main():
               le_counts["fused_composite"], k8),
         entry("K2_relaxed_fused_march", "fused_march.cu", "fused_march.py:405",
               orbit_counts["fused_march"], k2r),
+        entry16("fused_mlp_forward_bf16", "fused_mlp.cu",
+              "fused_mlp.py:129 (bf16 operands: fused_mlp.py:44-91)",
+              bf16_eval_counts["fused_mlp_forward_bf16"], kb16["k1"]),
+        entry16("fused_march_bf16", "fused_march.cu",
+              "fused_march.py:405 (bf16 operands: fused_march.py:65-75,78-130)",
+              bf16_eval_counts["fused_march_bf16"], kb16["k2 bounded"]),
+        entry16("fused_min_scan_bf16", "fused_minscan.cu",
+              "fused_march.py:482 (bf16 operands: fused_march.py:65-75,78-130)",
+              bf16_train_counts["fused_min_scan_bf16"], kb16["k3"]),
+        entry16("fused_shadow_march_bf16", "fused_shadow.cu",
+              "fused_march.py:445 (bf16 operands: fused_march.py:65-75,78-130)",
+              bf16_nerv_counts["learned"]["fused_shadow_march_bf16"],
+              kb16["k4 past-light exit"]),
     ]
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "

@@ -23,12 +23,15 @@
 // (__syncthreads_or); rows past n are invalid and never hold it back.
 // Bound on an H100: f32 FMA issue of the shift MLP (2 * 165,504 flops per
 // ray and step for the 8x128 net) over the steps each ray needs.
+// K2-bf16 (bf16 != 0, SDF(march_dtype=bfloat16)) runs the same loop over the
+// NRT_BF16_MARCH operands of mlp.cuh; the sphere set and the loop stay f32.
 //
 // Bounded mode (t0 != nullptr): per-ray start t0 and end max_t (the
 // march_bound clip); otherwise depth starts at 0 and max_t is one scalar.
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
 #include "sphere_set.cuh"
 
+template <int MODE>
 __global__ void __launch_bounds__(NRT_THREADS)
 nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                        const float* __restrict__ t0, const float* __restrict__ mt,
@@ -84,7 +87,7 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
     nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, R);
     const float* ob;
     int os;
-    nrt_mlp_block(m, ps, R, mlp_smem, &ob, &os);  // ends with a barrier
+    nrt_mlp_block<MODE>(m, ps, R, mlp_smem, &ob, &os);  // ends with a barrier
 
     if (threadIdx.x < R) {
       const int r = threadIdx.x;
@@ -119,8 +122,9 @@ nrt_fused_march_kernel(const float* __restrict__ ro, const float* __restrict__ r
 extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0,
                                const float* mt, float max_t, float* depth,
                                unsigned char* hit, int n, int max_steps, float eps,
-                               float omega, const float* tfs, const float* centers,
-                               const float* radii, int n_spheres, float k, int stable,
+                               float omega, int bf16, const float* tfs,
+                               const float* centers, const float* radii,
+                               int n_spheres, float k, int stable,
                                int in_size, int freqs, int hidden, int num_layers,
                                int skip, int out_size, int act,
                                const void* const* weights, void* stream) {
@@ -136,12 +140,10 @@ extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0
   const size_t floats = nrt_sphere_smem_floats(n_spheres) + 3 * nrt_round4(R * 3) +
                         7 * R + nrt_mlp_smem_floats(m, R);
   const size_t smem = sizeof(float) * floats;
-  cudaError_t err = cudaFuncSetAttribute(
-      nrt_fused_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
   const int grid = (n + R - 1) / R;
-  nrt_fused_march_kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(
-      ro, rd, t0, mt, max_t, depth, hit, n, max_steps, eps, omega, S, m);
-  return (int)cudaGetLastError();
+  if (bf16)
+    return nrt_launch(nrt_fused_march_kernel<NRT_BF16_MARCH>, grid, smem, stream, ro, rd,
+                      t0, mt, max_t, depth, hit, n, max_steps, eps, omega, S, m);
+  return nrt_launch(nrt_fused_march_kernel<NRT_F32>, grid, smem, stream, ro, rd, t0, mt,
+                    max_t, depth, hit, n, max_steps, eps, omega, S, m);
 }

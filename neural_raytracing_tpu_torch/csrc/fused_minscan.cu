@@ -21,6 +21,8 @@
 // device MLP of mlp.cuh (shared with K1).
 // Bound on an H100: f32 FMA issue, (2 * 165,504 + 31 * 128) flops per ray
 // and sample for the flagship 8x128 shift net and 128 spheres.
+// K3-bf16 (bf16 != 0, SDF(march_dtype=bfloat16)) is the same scan over the
+// NRT_BF16_MARCH operands of mlp.cuh.
 //
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
 #include "sphere_set.cuh"
@@ -29,6 +31,7 @@
 #define NRT_SCAN_UNROLL 4
 #define NRT_SCAN_ROWS (NRT_SCAN_RAYS * NRT_SCAN_UNROLL)
 
+template <int MODE>
 __global__ void __launch_bounds__(NRT_THREADS)
 nrt_fused_minscan_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                          const float* __restrict__ step_ptr,
@@ -71,7 +74,7 @@ nrt_fused_minscan_kernel(const float* __restrict__ ro, const float* __restrict__
     nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, rows);
     const float* ob;
     int os;
-    nrt_mlp_block(m, ps, rows, mlp_smem, &ob, &os);  // ends with a barrier
+    nrt_mlp_block<MODE>(m, ps, rows, mlp_smem, &ob, &os);  // ends with a barrier
 
     if (threadIdx.x < R) {
       const int r = threadIdx.x;
@@ -96,7 +99,7 @@ nrt_fused_minscan_kernel(const float* __restrict__ ro, const float* __restrict__
 
 extern "C" int nrt_fused_min_scan(const float* ro, const float* rd,
                                   const float* step, float* idx, int n, int steps,
-                                  const float* tfs, const float* centers,
+                                  int bf16, const float* tfs, const float* centers,
                                   const float* radii, int n_spheres, float k,
                                   int stable, int in_size, int freqs, int hidden,
                                   int num_layers, int skip, int out_size, int act,
@@ -112,12 +115,10 @@ extern "C" int nrt_fused_min_scan(const float* ro, const float* rd,
                         nrt_round4(U * R * 3) + U * R +
                         nrt_mlp_smem_floats(m, U * R);
   const size_t smem = sizeof(float) * floats;
-  cudaError_t err = cudaFuncSetAttribute(
-      nrt_fused_minscan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
   const int grid = (n + R - 1) / R;
-  nrt_fused_minscan_kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(
-      ro, rd, step, idx, n, steps, S, m);
-  return (int)cudaGetLastError();
+  if (bf16)
+    return nrt_launch(nrt_fused_minscan_kernel<NRT_BF16_MARCH>, grid, smem, stream, ro, rd,
+                      step, idx, n, steps, S, m);
+  return nrt_launch(nrt_fused_minscan_kernel<NRT_F32>, grid, smem, stream, ro, rd, step,
+                    idx, n, steps, S, m);
 }

@@ -6,10 +6,16 @@
 // out) with every intermediate in shared memory; only x is read and the
 // output written.  Bound on an H100: f32 FMA issue (2 * MACs flops per point
 // at 67 TFLOP/s); the bytes moved are tiny.  See mlp.cuh for the layout.
+// K1-bf16 (bf16 != 0, SkipConnMLP(compute_dtype=bfloat16) in the JAX
+// package) is the same kernel over the NRT_BF16_MLP operands of mlp.cuh: the
+// same float32 FMAs on bf16-rounded operands.  Its least time on the card
+// would be the tensor cores' (2 * MACs at 989 TFLOP/s); this simple version
+// is still held to the f32 FMA rate.
 //
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
 #include "mlp.cuh"
 
+template <int MODE>
 __global__ void __launch_bounds__(NRT_THREADS)
 nrt_fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
                      int n, const __grid_constant__ MLPWeights m) {
@@ -28,7 +34,7 @@ nrt_fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
 
   const float* ob;
   int os;
-  nrt_mlp_block(m, xs, R, mlp_smem, &ob, &os);
+  nrt_mlp_block<MODE>(m, xs, R, mlp_smem, &ob, &os);
 
   const int O = m.out_size;
   for (int idx = threadIdx.x; idx < R * O; idx += blockDim.x) {
@@ -40,19 +46,16 @@ nrt_fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
 extern "C" int nrt_fused_mlp_forward(const float* x, float* out, int n,
                                      int in_size, int freqs, int hidden,
                                      int num_layers, int skip, int out_size,
-                                     int act, const void* const* weights,
-                                     void* stream) {
+                                     int act, int bf16,
+                                     const void* const* weights, void* stream) {
   MLPWeights m;
   if (n < 0 || !nrt_fill_weights(m, in_size, freqs, hidden, num_layers, skip,
                                  out_size, act, weights))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (nrt_round4(NRT_ROWS * in_size) + nrt_mlp_smem_floats(m, NRT_ROWS));
-  cudaError_t err = cudaFuncSetAttribute(
-      nrt_fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
   const int grid = (n + NRT_ROWS - 1) / NRT_ROWS;
-  nrt_fused_mlp_kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(x, out, n, m);
-  return (int)cudaGetLastError();
+  if (bf16)
+    return nrt_launch(nrt_fused_mlp_kernel<NRT_BF16_MLP>, grid, smem, stream, x, out, n, m);
+  return nrt_launch(nrt_fused_mlp_kernel<NRT_F32>, grid, smem, stream, x, out, n, m);
 }

@@ -23,9 +23,12 @@
 // Bound on an H100: f32 FMA issue of the shift MLP (2 * 165,504 flops per
 // ray and step for the 8x128 net) over the live ray-steps; with the
 // past-light exit most shadow rays leave after a few steps.
+// K4-bf16 (bf16 != 0, SDF(march_dtype=bfloat16)) runs the same loop over the
+// NRT_BF16_MARCH operands of mlp.cuh.
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
 #include "sphere_set.cuh"
 
+template <int MODE>
 __global__ void __launch_bounds__(NRT_THREADS)
 nrt_fused_shadow_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                         const float* __restrict__ mt,
@@ -79,7 +82,7 @@ nrt_fused_shadow_kernel(const float* __restrict__ ro, const float* __restrict__ 
     nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, R);
     const float* ob;
     int os;
-    nrt_mlp_block(m, ps, R, mlp_smem, &ob, &os);  // ends with a barrier
+    nrt_mlp_block<MODE>(m, ps, R, mlp_smem, &ob, &os);  // ends with a barrier
 
     if (threadIdx.x < R) {
       const int r = threadIdx.x;
@@ -101,7 +104,7 @@ nrt_fused_shadow_kernel(const float* __restrict__ ro, const float* __restrict__ 
 extern "C" int nrt_fused_shadow_march(const float* ro, const float* rd,
                                       const float* mt, unsigned char* not_blocked,
                                       int n, int max_steps, float eps,
-                                      float depth0, int past_light_exit,
+                                      float depth0, int past_light_exit, int bf16,
                                       const float* tfs, const float* centers,
                                       const float* radii, int n_spheres, float k,
                                       int stable, int in_size, int freqs,
@@ -118,12 +121,10 @@ extern "C" int nrt_fused_shadow_march(const float* ro, const float* rd,
   const size_t floats = nrt_sphere_smem_floats(n_spheres) + 3 * nrt_round4(R * 3) +
                         4 * R + nrt_mlp_smem_floats(m, R);
   const size_t smem = sizeof(float) * floats;
-  cudaError_t err = cudaFuncSetAttribute(
-      nrt_fused_shadow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
   const int grid = (n + R - 1) / R;
-  nrt_fused_shadow_kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(
-      ro, rd, mt, not_blocked, n, max_steps, eps, depth0, past_light_exit, S, m);
-  return (int)cudaGetLastError();
+  if (bf16)
+    return nrt_launch(nrt_fused_shadow_kernel<NRT_BF16_MARCH>, grid, smem, stream, ro, rd,
+                      mt, not_blocked, n, max_steps, eps, depth0, past_light_exit, S, m);
+  return nrt_launch(nrt_fused_shadow_kernel<NRT_F32>, grid, smem, stream, ro, rd, mt,
+                    not_blocked, n, max_steps, eps, depth0, past_light_exit, S, m);
 }

@@ -11,13 +11,15 @@ from .composite import (
     composite_apply, composite_plain, fused_composite,
 )
 from .fused_march import (
-    fused_march, fused_min_scan, fused_shadow_march, march_plain,
-    min_scan_plain, shadow_march_plain, supports,
+    fused_march, fused_march_bf16, fused_min_scan, fused_min_scan_bf16,
+    fused_shadow_march, fused_shadow_march_bf16, march_plain, min_scan_plain,
+    shadow_march_plain, sphere_sdf_eval_plain, supports,
 )
 from .fused_mlp import (
     FusedSkipConnMLP, ckpt_forward_plain, fused_mlp_apply, fused_mlp_backward,
-    fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_segment_backward,
-    mlp_backward, mlp_backward_plain, segment_backward_plain, segment_bounds,
+    fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_forward_bf16,
+    fused_mlp_segment_backward, mlp_backward, mlp_backward_plain,
+    mlp_forward_bf16_operands, segment_backward_plain, segment_bounds,
     segmented_backward,
 )
 from .fused_sdf import (
@@ -34,6 +36,11 @@ KERNELS = {
     "fused_shadow_march": fused_shadow_march,
     "fused_sphere_sdf": fused_sphere_sdf,
     "fused_composite": fused_composite,
+    # the bf16-operand variants of K1-K4
+    "fused_mlp_forward_bf16": fused_mlp_forward_bf16,
+    "fused_march_bf16": fused_march_bf16,
+    "fused_min_scan_bf16": fused_min_scan_bf16,
+    "fused_shadow_march_bf16": fused_shadow_march_bf16,
 }
 
 

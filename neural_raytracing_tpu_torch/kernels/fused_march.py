@@ -33,6 +33,17 @@ The three kernels take a ``SphereSDF`` or a ``FusedSphereSDF`` (the same
 parameters) whose shift is a 3 -> 1 ``SkipConnMLP`` without a latent.
 Nothing differentiates through either kernel: every input is detached and
 the outputs carry no gradient, as in the reference.
+
+K2-bf16, K3-bf16 and K4-bf16 (``compute_dtype=torch.bfloat16``, the JAX
+``SDF(march_dtype=bfloat16)``, counted as ``fused_march_bf16``,
+``fused_min_scan_bf16`` and ``fused_shadow_march_bf16``) are the same
+kernels over the bf16 operands of the JAX ``_make_sdf_eval``: the shift
+net's matmul operands rounded to bf16, its skip layers reading ``act`` of
+the ROUNDED encoding (K1-bf16 takes ``act`` of the float32 one), the weight
+matrices cast once per call; the sphere set, the smooth-min, ``x @ B``,
+sin/cos, the biases and the loops stay float32.  Their plain versions are
+the three loops above over ``sphere_sdf_eval_plain(module, p,
+torch.bfloat16)``.
 """
 
 from __future__ import annotations
@@ -41,9 +52,13 @@ import ctypes
 
 import torch
 
-from ..nn.mlp import SkipConnMLP
+from ..nn.mlp import SkipConnMLP, check_compute_dtype
 from ._build import library
-from .fused_mlp import ACT_CODES, check_cuda_f32, weight_pointers
+from .fused_mlp import (
+    ACT_CODES, check_cuda_f32, mlp_forward_bf16_operands, operand_weights,
+    weight_pointers,
+)
+from .fused_sdf import sphere_min_plain, sphere_sdf_plain
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -52,6 +67,7 @@ def _lib() -> ctypes.CDLL:
     lib = library("fused_march")
     lib.nrt_fused_march.argtypes = [
         _P, _P, _P, _P, _F, _P, _P, _I, _I, _F, _F,  # rays, interval, outputs, loop
+        _I,                                       # bf16 operands
         _P, _P, _P, _I, _F, _I,                   # sphere set
         _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
         _P]                                       # stream
@@ -63,6 +79,7 @@ def _minscan_lib() -> ctypes.CDLL:
     lib = library("fused_minscan")
     lib.nrt_fused_min_scan.argtypes = [
         _P, _P, _P, _P, _I, _I,                   # rays, step, output, n, steps
+        _I,                                       # bf16 operands
         _P, _P, _P, _I, _F, _I,                   # sphere set
         _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
         _P]                                       # stream
@@ -74,6 +91,7 @@ def _shadow_lib() -> ctypes.CDLL:
     lib = library("fused_shadow")
     lib.nrt_fused_shadow_march.argtypes = [
         _P, _P, _P, _P, _I, _I, _F, _F, _I,       # rays, max_t, output, loop
+        _I,                                       # bf16 operands
         _P, _P, _P, _I, _F, _I,                   # sphere set
         _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
         _P]                                       # stream
@@ -93,9 +111,10 @@ def supports(module) -> bool:
             and mlp.in_size == 3 and mlp.out_size == 1)
 
 
-def _sphere_set(module, device):
+def _sphere_set(module, device, compute_dtype=torch.float32):
     """Check the SphereSDF's tensors on ``device`` -> (the C arguments of the
-    sphere set and the shift net, the tensors they point into)."""
+    sphere set and the shift net, the tensors they point into); the shift
+    net's matrices in ``compute_dtype``."""
     tfs = (module.tfs.detach() + torch.eye(3, device=module.tfs.device)).contiguous()
     centers = module.centers.detach().contiguous()
     radii = module.radii.detach().contiguous()
@@ -104,8 +123,8 @@ def _sphere_set(module, device):
     check_cuda_f32("centers", centers, (n_sph, 3), device)
     check_cuda_f32("radii", radii, (n_sph,), device)
     mlp = module.shift
-    weights = [w.detach() for w in mlp.flat_weights()]
-    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device)
+    weights = operand_weights([w.detach() for w in mlp.flat_weights()], compute_dtype)
+    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device, compute_dtype)
     args = (tfs.data_ptr(), centers.data_ptr(), radii.data_ptr(), n_sph,
             float(module.k), int(module.stable_min),
             mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers, mlp.skip,
@@ -125,6 +144,26 @@ def _rays(r_o: torch.Tensor, r_d: torch.Tensor):
 def check_omega(omega: float) -> None:
     if not 1.0 <= omega < 2.0:
         raise ValueError(f"omega must lie in [1, 2), got {omega}")
+
+
+def sphere_sdf_eval_plain(module, p: torch.Tensor,
+                          compute_dtype=torch.float32) -> torch.Tensor:
+    """The SphereSDF as K2-K4 evaluate it with ``compute_dtype`` operands
+    (the JAX ``_make_sdf_eval``): ``p [..., 3] -> [...]``, no gradient.  The
+    smooth-min of the spheres in float32, plus the shift net, whose matmul
+    operands are rounded to bf16 for bf16, with ``act`` of the rounded
+    encoding on the skip layers.  The plain version of the bf16 kernels, as
+    the ``sdf`` of ``march_plain``, ``min_scan_plain`` and
+    ``shadow_march_plain``."""
+    mlp = module.shift
+    with torch.no_grad():
+        if check_compute_dtype(compute_dtype) == torch.float32:
+            return sphere_sdf_plain(module, p, module.centers, module.radii,
+                                    module.tfs, mlp.B, mlp.flat_weights())
+        shift = mlp_forward_bf16_operands(mlp, p, mlp.B, mlp.flat_weights(),
+                                          act_of_rounded_enc=True)
+        return (sphere_min_plain(module, p, module.centers, module.radii, module.tfs)
+                + shift[..., 0])
 
 
 @torch.no_grad()
@@ -178,15 +217,17 @@ def march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t,
 
 def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                 max_steps: int, epsilon: float, omega: float = 1.0,
-                t_start=None):
+                t_start=None, compute_dtype=torch.float32):
     """Launch K2 on CUDA tensors.  Returns ``(depths [...], hit [...])``.
 
     ``max_t`` is a scalar (unbounded) or, with ``t_start``, a per-ray end of
     the ``[t_start, max_t]`` interval (bounded); ``omega`` in [1, 2) is the
-    over-relaxation of ``march_plain``.  Launches on the current stream and
-    does not synchronise.
+    over-relaxation of ``march_plain``; ``compute_dtype=torch.bfloat16``
+    launches K2-bf16 (counted as ``fused_march_bf16``).  Launches on the
+    current stream and does not synchronise.
     """
     check_omega(omega)
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if not supports(module):
         raise ValueError("fused_march supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
@@ -207,7 +248,8 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
         check_cuda_f32("max_t", mt, (n,), device)
         scalar_max_t = 0.0
 
-    spheres, _tensors = _sphere_set(module, device)   # alive until the launch
+    # the tensors stay alive until the launch
+    spheres, _tensors = _sphere_set(module, device, compute_dtype)
 
     depths = torch.empty(n, device=device, dtype=torch.float32)
     hit = torch.empty(n, device=device, dtype=torch.bool)
@@ -217,15 +259,22 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
             None if t0 is None else t0.data_ptr(),
             None if mt is None else mt.data_ptr(), scalar_max_t,
             depths.data_ptr(), hit.data_ptr(), n, max_steps, epsilon,
-            float(omega), *spheres, torch.cuda.current_stream(device).cuda_stream)
+            float(omega), int(bf16), *spheres,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_march: CUDA error {rc} at launch")
     if n > 0:
-        fused_march.launches += 1
+        (fused_march_bf16 if bf16 else fused_march).launches += 1
     return depths.reshape(batches), hit.reshape(batches)
 
 
+def fused_march_bf16(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, **kw):
+    """Launch K2-bf16: ``fused_march`` with bf16 operands."""
+    return fused_march(module, r_o, r_d, max_t, compute_dtype=torch.bfloat16, **kw)
+
+
 fused_march.launches = 0
+fused_march_bf16.launches = 0
 
 
 @torch.no_grad()
@@ -249,13 +298,16 @@ def min_scan_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
 
 
 def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
-                   steps: int) -> torch.Tensor:
+                   steps: int, compute_dtype=torch.float32) -> torch.Tensor:
     """Launch K3 on CUDA tensors.  Returns the argmin index ``[...]`` as f32.
 
     ``step`` is the float32 sample spacing, a number or a 0-d tensor (on the
     card it is read there, so a jittered step costs no synchronisation).
-    Launches on the current stream and does not synchronise.
+    ``compute_dtype=torch.bfloat16`` launches K3-bf16 (counted as
+    ``fused_min_scan_bf16``).  Launches on the current stream and does not
+    synchronise.
     """
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if not supports(module):
         raise ValueError("fused_min_scan supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
@@ -265,20 +317,28 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     step_t = torch.as_tensor(step, dtype=torch.float32, device=device
                              ).detach().reshape(1).contiguous()
     check_cuda_f32("step", step_t, (1,), device)
-    spheres, _tensors = _sphere_set(module, device)   # alive until the launch
+    # the tensors stay alive until the launch
+    spheres, _tensors = _sphere_set(module, device, compute_dtype)
     idx = torch.empty(n, device=device, dtype=torch.float32)
     with torch.cuda.device(device):
         rc = _minscan_lib().nrt_fused_min_scan(
             ro.data_ptr(), rd.data_ptr(), step_t.data_ptr(), idx.data_ptr(),
-            n, steps, *spheres, torch.cuda.current_stream(device).cuda_stream)
+            n, steps, int(bf16), *spheres,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_min_scan: CUDA error {rc} at launch")
     if n > 0:
-        fused_min_scan.launches += 1
+        (fused_min_scan_bf16 if bf16 else fused_min_scan).launches += 1
     return idx.reshape(batches)
 
 
+def fused_min_scan_bf16(module, r_o: torch.Tensor, r_d: torch.Tensor, step, **kw):
+    """Launch K3-bf16: ``fused_min_scan`` with bf16 operands."""
+    return fused_min_scan(module, r_o, r_d, step, compute_dtype=torch.bfloat16, **kw)
+
+
 fused_min_scan.launches = 0
+fused_min_scan_bf16.launches = 0
 
 
 @torch.no_grad()
@@ -309,12 +369,15 @@ def shadow_march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
 
 def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                        max_steps: int, epsilon: float,
-                       past_light_exit: bool = True) -> torch.Tensor:
+                       past_light_exit: bool = True,
+                       compute_dtype=torch.float32) -> torch.Tensor:
     """Launch K4 on CUDA tensors.  Returns ``not_blocked [...]`` (bool).
 
-    ``max_t`` is a scalar or per-ray.  Launches on the current stream and
-    does not synchronise.
+    ``max_t`` is a scalar or per-ray; ``compute_dtype=torch.bfloat16``
+    launches K4-bf16 (counted as ``fused_shadow_march_bf16``).  Launches on
+    the current stream and does not synchronise.
     """
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if not supports(module):
         raise ValueError("fused_shadow_march supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
@@ -324,18 +387,26 @@ def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
     mt = torch.as_tensor(max_t, dtype=torch.float32, device=device
                          ).detach().expand(batches).reshape(-1).contiguous()
     check_cuda_f32("max_t", mt, (n,), device)
-    spheres, _tensors = _sphere_set(module, device)   # alive until the launch
+    # the tensors stay alive until the launch
+    spheres, _tensors = _sphere_set(module, device, compute_dtype)
     not_blocked = torch.empty(n, device=device, dtype=torch.bool)
     with torch.cuda.device(device):
         rc = _shadow_lib().nrt_fused_shadow_march(
             ro.data_ptr(), rd.data_ptr(), mt.data_ptr(), not_blocked.data_ptr(),
-            n, max_steps, epsilon, 1e2 * epsilon, int(past_light_exit),
+            n, max_steps, epsilon, 1e2 * epsilon, int(past_light_exit), int(bf16),
             *spheres, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_shadow_march: CUDA error {rc} at launch")
     if n > 0:
-        fused_shadow_march.launches += 1
+        (fused_shadow_march_bf16 if bf16 else fused_shadow_march).launches += 1
     return not_blocked.reshape(batches)
 
 
+def fused_shadow_march_bf16(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, **kw):
+    """Launch K4-bf16: ``fused_shadow_march`` with bf16 operands."""
+    return fused_shadow_march(module, r_o, r_d, max_t, compute_dtype=torch.bfloat16,
+                              **kw)
+
+
 fused_shadow_march.launches = 0
+fused_shadow_march_bf16.launches = 0

@@ -8,6 +8,18 @@ whole net per block of 32 points with every intermediate in shared memory;
 it is bound by the f32 FMA rate.  Its plain version is
 ``SkipConnMLP.forward`` (``nn/mlp.py``).
 
+K1-bf16 (``fused_mlp_forward_bf16``) is K1 for a net with
+``compute_dtype=torch.bfloat16``, the JAX ``_build_kernel`` with
+``compute_dtype=bfloat16``: every matmul operand is rounded to bf16 (the
+encoding, ``act(enc)`` of the float32 encoding on the skip layers, every
+``act(h)``, the weight matrices), the products accumulate in float32, and
+``x @ B``, sin/cos and the biases stay float32.  The same kernel source
+compiles it over the ``NRT_BF16_MLP`` operands of ``csrc/mlp.cuh``; the
+wrapper casts the weight matrices to bf16 once per call.  Its plain version
+is ``mlp_forward_bf16_operands``.  The product of two bf16 values is exact
+in float32, so kernel and plain version differ by float32 sums in another
+order (and by a bf16 rounding that such a difference tips over).
+
 K6 (``fused_mlp_backward``, replacing ``_pallas_backward``) and K7
 (``fused_mlp_ckpt_forward`` + ``fused_mlp_segment_backward``, replacing the
 two kernels of ``_pallas_backward_segmented``) are the hand-written backward
@@ -30,7 +42,13 @@ options are ``pallas_bwd`` and ``pallas_bwd_segments``.
 ``FusedSkipConnMLP(mode=...)`` selects the path: "auto" launches the kernel
 for CUDA tensors and takes the plain version for CPU tensors, "force"
 launches the kernel and raises on CPU tensors, "off" is the plain version.
-A latent input always takes the plain version.
+A latent input always takes the plain version.  With bf16 operands the CPU
+path in "auto" is the kernel's autograd.Function with K1-bf16's plain
+version in the kernel's place (the JAX ``mode="force"``), and "off" the
+module's own forward, which rounds only the input (the JAX "off").  Either
+way the default backward recomputes through that x-rounded forward, as the
+JAX ``_bwd`` does, so the gradient is not that of the function the
+K1-bf16 forward computed; the port keeps this.
 """
 
 from __future__ import annotations
@@ -41,7 +59,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..nn.mlp import ACTIVATION_GRADS, SkipConnMLP, mlp_forward
+from ..nn.mlp import ACTIVATION_GRADS, SkipConnMLP, check_compute_dtype, mlp_forward
 from ..ops.encoding import fourier_encode
 from ._build import library
 
@@ -57,29 +75,48 @@ _NET = [_I] * 8   # n, in_size, freqs, hidden, num_layers, skip, out_size, act
 def _lib() -> ctypes.CDLL:
     lib = library("fused_mlp")
     lib.nrt_fused_mlp_forward.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                          _I, _P, _P]
+                                          _I, _I, _P, _P]
     lib.nrt_fused_mlp_forward.restype = _I
     return lib
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, shape=None, device=None):
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``."""
+def check_cuda_f32(name: str, t: torch.Tensor, shape=None, device=None,
+                   dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` and
+    ``dtype`` (float32 unless given)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def operand_weights(weights, compute_dtype):
+    """The weights (``flat_weights`` order) as a kernel with
+    ``compute_dtype`` operands reads them: for bf16 the matrices cast once,
+    in one cast of their concatenation (the JAX ``_mlp_weight_arrays``),
+    the biases as they are."""
+    if check_compute_dtype(compute_dtype) == torch.float32:
+        return list(weights)
+    mats = [w.detach() for w in weights[0::2]]
+    flat = torch.cat([w.reshape(-1) for w in mats]).to(compute_dtype)
+    out, offset = list(weights), 0
+    for i, w in enumerate(mats):
+        out[2 * i] = flat[offset:offset + w.numel()].view(w.shape)
+        offset += w.numel()
+    return out
+
+
 def weight_pointers(mlp: SkipConnMLP, basis: torch.Tensor, weights,
-                    device: torch.device):
+                    device: torch.device, compute_dtype=torch.float32):
     """Check the net's tensors and pack their addresses in kernel order
-    ``[B, init_w, init_b, layer_w, layer_b, ..., out_w, out_b]``."""
+    ``[B, init_w, init_b, layer_w, layer_b, ..., out_w, out_b]``; the
+    matrices are of ``compute_dtype``, everything else float32."""
     if mlp.latent_size:
         raise ValueError("the fused MLP kernel takes no latent input")
     if mlp.num_layers > MAX_LAYERS:
@@ -94,35 +131,90 @@ def weight_pointers(mlp: SkipConnMLP, basis: torch.Tensor, weights,
     if len(tensors) != len(shapes):
         raise ValueError(f"expected {len(shapes)} weight tensors, got {len(tensors)}")
     for i, (t, shape) in enumerate(zip(tensors, shapes)):
-        check_cuda_f32(f"weight {i}", t, shape, device)
+        dtype = compute_dtype if i % 2 == 1 else torch.float32   # the matrices
+        check_cuda_f32(f"weight {i}", t, shape, device, dtype)
     return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def fused_mlp_forward(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor,
-                      weights) -> torch.Tensor:
-    """Launch K1: ``x [n, in_size] -> [n, out]`` on CUDA tensors.
+                      weights, compute_dtype=torch.float32) -> torch.Tensor:
+    """Launch K1: ``x [n, in_size] -> [n, out]`` on CUDA tensors, with
+    float32 or (K1-bf16, counted as ``fused_mlp_forward_bf16``) bf16
+    operands.
 
     ``weights`` are in ``SkipConnMLP.flat_weights`` order.  Launches on the
     current stream and does not synchronise.
     """
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     n = x.shape[0]
     check_cuda_f32("x", x, (n, mlp.in_size))
-    ptrs = weight_pointers(mlp, basis, weights, x.device)
+    weights = operand_weights(weights, compute_dtype)   # alive until the launch
+    ptrs = weight_pointers(mlp, basis, weights, x.device, compute_dtype)
     out = torch.empty(n, mlp.out_size, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         rc = _lib().nrt_fused_mlp_forward(
             x.data_ptr(), out.data_ptr(), n, mlp.in_size, mlp.freqs,
             mlp.hidden_size, mlp.num_layers, mlp.skip, mlp.out_size,
-            ACT_CODES[mlp.activation_name], ptrs,
+            ACT_CODES[mlp.activation_name], int(bf16), ptrs,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_mlp_forward: CUDA error {rc} at launch")
     if n > 0:
-        fused_mlp_forward.launches += 1
+        (fused_mlp_forward_bf16 if bf16 else fused_mlp_forward).launches += 1
     return out
 
 
+def fused_mlp_forward_bf16(mlp: SkipConnMLP, x: torch.Tensor,
+                           basis: torch.Tensor, weights) -> torch.Tensor:
+    """Launch K1-bf16: ``fused_mlp_forward`` with bf16 operands."""
+    return fused_mlp_forward(mlp, x, basis, weights, torch.bfloat16)
+
+
 fused_mlp_forward.launches = 0
+fused_mlp_forward_bf16.launches = 0
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even), as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def mlp_forward_bf16_operands(mlp: SkipConnMLP, p: torch.Tensor,
+                              basis: torch.Tensor, weights,
+                              act_of_rounded_enc: bool = False) -> torch.Tensor:
+    """K1-bf16's function in PyTorch ops, its plain version: every matmul
+    operand rounded to bf16, float32 matmuls (exact products, float32 sums;
+    keep TF32 off on the card).  The skip layers read ``act(enc)`` of the
+    float32 encoding, rounded (``fused_mlp.py:82`` of the JAX package);
+    ``act_of_rounded_enc=True`` takes ``act`` of the rounded encoding instead,
+    the rounding of the march kernels K2-K4 (``fused_march.py:117``)."""
+    batches = p.shape[:-1]
+    act = mlp.activation
+    enc = fourier_encode(p.reshape(-1, mlp.in_size), basis)
+    if act_of_rounded_enc:
+        enc = _bf16(enc)
+        act_enc = _bf16(act(enc))
+    else:
+        act_enc = _bf16(act(enc))
+        enc = _bf16(enc)
+    h = enc @ _bf16(weights[0]) + weights[1]
+    for i in range(mlp.num_layers):
+        a = _bf16(act(h))
+        if mlp.is_skip_layer(i):
+            a = torch.cat([a, act_enc], dim=-1)
+        h = a @ _bf16(weights[2 + 2 * i]) + weights[3 + 2 * i]
+    out = _bf16(act(h)) @ _bf16(weights[-2]) + weights[-1]
+    return out.reshape(batches + (mlp.out_size,))
+
+
+def _k1(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor, weights):
+    """K1 (K1-bf16 for a bf16 net) on CUDA tensors; on CPU tensors K1-bf16's
+    plain version, so the CPU computes what the card does."""
+    if mlp.compute_dtype == torch.float32:
+        return fused_mlp_forward(mlp, x, basis, weights)
+    if not x.is_cuda:
+        return mlp_forward_bf16_operands(mlp, x, basis, weights)
+    return fused_mlp_forward_bf16(mlp, x, basis, weights)
 
 
 def recompute_grads(plain, tensors, needs, g) -> list:
@@ -149,7 +241,7 @@ class _FusedMLP(torch.autograd.Function):
     def forward(ctx, mlp, x, basis, *weights):
         ctx.mlp = mlp
         ctx.save_for_backward(x, basis, *weights)
-        return fused_mlp_forward(mlp, x, basis, weights)
+        return _k1(mlp, x, basis, weights)
 
     @staticmethod
     def backward(ctx, g):
@@ -484,27 +576,31 @@ def mlp_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
 
 
 class _FusedMLPKernelBwd(torch.autograd.Function):
-    """K1 forward with the K6/K7 backward (first-order only)."""
+    """K1 forward with the K6/K7 backward (first-order only).  The backward
+    is float32 whatever the operands of the forward, as in the JAX package;
+    on CPU tensors its plain versions stand in for the kernels."""
 
     @staticmethod
     def forward(ctx, mlp, x, basis, *weights):
         ctx.mlp = mlp
         ctx.save_for_backward(x, basis, *weights)
-        return fused_mlp_forward(mlp, x, basis, weights)
+        return _k1(mlp, x, basis, weights)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, basis, *weights = ctx.saved_tensors
         dx, grads = mlp_backward(ctx.mlp, x, g.contiguous(), basis, weights,
-                                 segments=ctx.mlp.kernel_bwd_segments)
+                                 segments=ctx.mlp.kernel_bwd_segments,
+                                 kernel=x.is_cuda)
         needs = ctx.needs_input_grad
         return (None, dx if needs[1] else None, None,
                 *(gw if need else None for gw, need in zip(grads, needs[3:])))
 
 
 def fused_mlp_apply(mlp: SkipConnMLP, p: torch.Tensor) -> torch.Tensor:
-    """``p [..., in_size] -> [..., out]`` through K1, differentiable."""
+    """``p [..., in_size] -> [..., out]`` through K1 (K1-bf16 for a bf16
+    net), differentiable."""
     batches = p.shape[:-1]
     x = p.reshape(-1, mlp.in_size).contiguous()
     fn = _FusedMLPKernelBwd if getattr(mlp, "kernel_bwd", False) else _FusedMLP
@@ -520,6 +616,8 @@ class FusedSkipConnMLP(SkipConnMLP):
     ``kernel_bwd``: the K1 path backpropagates through K6
     (``kernel_bwd_segments`` 0 or 1) or the checkpointed K7 (2 or more)
     instead of the differentiable plain recompute; first-order only.
+    ``compute_dtype=torch.bfloat16`` runs K1-bf16 (see the module
+    docstring for each mode's path).
     """
 
     def __init__(self, *args, mode: str = "auto", kernel_bwd: bool = False,
@@ -538,5 +636,6 @@ class FusedSkipConnMLP(SkipConnMLP):
             if self.mode == "force":
                 raise RuntimeError("FusedSkipConnMLP(mode='force') needs CUDA "
                                    f"tensors, got one on {p.device}")
-            return super().forward(p)
+            if self.compute_dtype == torch.float32:
+                return super().forward(p)
         return fused_mlp_apply(self, p)

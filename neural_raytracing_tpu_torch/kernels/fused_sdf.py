@@ -50,20 +50,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def sphere_min_plain(module, p: torch.Tensor, centers: torch.Tensor,
+                     radii: torch.Tensor, tfs: torch.Tensor) -> torch.Tensor:
+    """The smooth-min of the SphereSDF's transformed spheres (clamped, or
+    exact with ``stable_min``) at ``p [..., 3]`` -> ``[...]``."""
+    flat = p.reshape(-1, 3)
+    tf = tfs + torch.eye(3, dtype=flat.dtype, device=flat.device)
+    q = torch.einsum("ijk,bk->ibj", tf, flat) - centers[:, None, :]
+    sd = torch.linalg.norm(q, dim=-1) - radii[:, None]
+    mn = stable_smooth_min if module.stable_min else smooth_min
+    return mn(sd, k=module.k, dim=0).reshape(p.shape[:-1])
+
+
 def sphere_sdf_plain(module, p: torch.Tensor, centers: torch.Tensor,
                      radii: torch.Tensor, tfs: torch.Tensor,
                      basis: torch.Tensor, weights) -> torch.Tensor:
     """The plain SphereSDF forward over explicit tensors (``weights`` in
     ``SkipConnMLP.flat_weights`` order) -> ``[...]``; the plain version of
     K5, and what its backward recomputes."""
-    batches = p.shape[:-1]
-    flat = p.reshape(-1, 3)
-    tf = tfs + torch.eye(3, dtype=flat.dtype, device=flat.device)
-    q = torch.einsum("ijk,bk->ibj", tf, flat) - centers[:, None, :]
-    sd = torch.linalg.norm(q, dim=-1) - radii[:, None]
-    mn = stable_smooth_min if module.stable_min else smooth_min
-    out = mn(sd, k=module.k, dim=0).reshape(batches)
-    return out + mlp_forward(module.shift, p, basis, weights)[..., 0]
+    return (sphere_min_plain(module, p, centers, radii, tfs)
+            + mlp_forward(module.shift, p, basis, weights)[..., 0])
 
 
 def fused_sphere_sdf(module, p: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,13 @@ Counterpart of ``SkipConnMLP`` in ``neural_raytracing_tpu/nn/mlp.py``:
 Weights keep the JAX layout ``w [fan_in, fan_out]`` and compute ``x @ w + b``,
 so the parameter names and shapes match the JAX params pytree
 (``init.w``, ``layers.3.b``, ``out.w``, the basis ``B``).
+
+``compute_dtype=torch.bfloat16`` is configuration, not a parameter: the
+plain forward rounds the input to bf16 and computes the Fourier encoding in
+bf16 (``B`` cast to bf16, ``x @ B`` and sin/cos rounded) and everything after
+it in float32, as ``SkipConnMLP.__call__`` of the JAX package does (its bf16
+encoding meets float32 weights and is promoted); the fused kernel K1 rounds
+every matmul operand instead (``kernels/fused_mlp.py``).
 """
 
 from __future__ import annotations
@@ -85,22 +92,35 @@ def _uniform(generator: torch.Generator, shape, bound: float) -> torch.Tensor:
     return (2.0 * u - 1.0) * bound
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_compute_dtype(dtype) -> torch.dtype:
+    """Return ``dtype`` if it is an operand dtype the port runs (float32 or
+    bfloat16), else raise ValueError."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be torch.float32 or torch.bfloat16, "
+                         f"got {dtype!r}")
+    return dtype
+
+
 class SkipConnMLP(nn.Module):
     """Fourier-encoded MLP with periodic skip re-injection of the encoding.
 
     ``forward(p[..., in_size], latent[..., latent_size]?) -> [..., out]``.
-    This forward is the plain version of the fused kernel
-    (``kernels/fused_mlp.py``).
+    With ``compute_dtype=torch.float32`` this forward is the plain version
+    of the fused kernel (``kernels/fused_mlp.py``).
     """
 
     def __init__(self, in_size: int = 3, out: int = 3, num_layers: int = 8,
                  hidden_size: int = 64, skip: int = 3, freqs: int = 16,
                  sigma: float = 32.0, latent_size: int = 0,
                  activation: str = "leaky_relu", init: str = "uniform",
-                 zero_out: bool = False):
+                 zero_out: bool = False, compute_dtype=torch.float32):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}")
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self.in_size = in_size
         self.out_size = out
         self.num_layers = num_layers
@@ -158,10 +178,14 @@ def mlp_forward(mlp: SkipConnMLP, p: torch.Tensor, basis: torch.Tensor,
                 weights: Sequence[torch.Tensor],
                 latent: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain SkipConnMLP forward over explicit weights (``flat_weights``
-    order), so a kernel's backward can recompute through it."""
+    order), so a kernel's backward can recompute through it.  A bf16
+    ``compute_dtype`` computes the Fourier encoding in bf16 and the rest in
+    float32, as the JAX package's plain path does; autograd then runs the
+    encoding's backward in bf16 too, as JAX's does."""
     batches = p.shape[:-1]
     x = p.reshape(-1, mlp.in_size)
-    enc = fourier_encode(x, basis)
+    # bf16: the encoding in bf16 (B cast, x @ B and sin/cos rounded), float32 after
+    enc = fourier_encode(x.to(mlp.compute_dtype), basis).to(torch.float32)
     if latent is not None:
         enc = torch.cat([enc, latent.reshape(-1, mlp.latent_size).to(enc.dtype)],
                         dim=-1)

@@ -15,7 +15,10 @@ Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
   * ``SDF.intersect_test``: the shadow march (the fused kernel K4 on CUDA
     tensors, ``shadow_march_plain`` otherwise).
 The surface may also be a ``kernels.FusedSphereSDF`` (the same parameters,
-evaluated by K5).  ``batch_throughput`` is not ported yet.
+evaluated by K5).  ``SDF(march_dtype=torch.bfloat16)`` runs the three loops
+with bf16 operands in the shift net (K2-bf16, K3-bf16, K4-bf16); the
+differentiable evaluations (hit point, normals, throughput value) stay
+float32.  ``batch_throughput`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,10 +31,10 @@ from torch import nn
 from ..interaction import Interaction
 from ..kernels.fused_march import (
     check_omega, fused_march, fused_min_scan, fused_shadow_march, march_plain,
-    min_scan_plain, shadow_march_plain, supports,
+    min_scan_plain, shadow_march_plain, sphere_sdf_eval_plain, supports,
 )
 from ..kernels.fused_mlp import FusedSkipConnMLP
-from ..nn.mlp import SkipConnMLP
+from ..nn.mlp import SkipConnMLP, check_compute_dtype
 from ..ops.math import normalize, smooth_min, stable_smooth_min
 
 
@@ -106,6 +109,11 @@ class SDF(nn.Module):
     tensors), "force" (K2; raises on CPU tensors) or "off".  ``omega`` in
     [1, 2) over-relaxes the primary march (1: the reference's march); it is
     read at every march, so setting it on a built SDF takes effect.
+    ``march_dtype`` (None: float32, or torch.bfloat16) is the operand dtype
+    of the shift net inside the three no-grad loops: on CUDA tensors the
+    bf16 kernels, on CPU tensors in "auto" their plain versions (the JAX
+    ``fused_loops="force"``); "off" takes the float32 loop over ``sdf``
+    whatever the dtype, as the JAX loop does.
     """
 
     def __init__(self, sdf_module: nn.Module, epsilon: float = 1e-3,
@@ -114,7 +122,7 @@ class SDF(nn.Module):
                  fused_loops: str = "auto", omega: float = 1.0,
                  shadow_past_light_exit: bool = True,
                  throughput_mode: str = "full",
-                 march_bound: Optional[float] = None):
+                 march_bound: Optional[float] = None, march_dtype=None):
         super().__init__()
         if fused_loops not in ("auto", "force", "off"):
             raise ValueError("fused_loops must be 'auto', 'force' or 'off', "
@@ -150,6 +158,8 @@ class SDF(nn.Module):
         # opt-in eval accelerator: clip the primary march to the ray's
         # interval inside the origin-centred sphere of this radius
         self.march_bound = march_bound
+        self.march_dtype = check_compute_dtype(
+            torch.float32 if march_dtype is None else march_dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -161,7 +171,7 @@ class SDF(nn.Module):
         cfg = {k: getattr(self, k) for k in (
             "epsilon", "max_steps", "dist", "throughput_steps", "alpha",
             "fused_loops", "omega", "shadow_past_light_exit",
-            "throughput_mode", "march_bound")}
+            "throughput_mode", "march_bound", "march_dtype")}
         cfg.update(overrides)
         return SDF(self.module, **cfg)
 
@@ -173,13 +183,22 @@ class SDF(nn.Module):
             return False
         return self.fused_loops == "force" or r_o.is_cuda
 
+    def _loop_sdf(self):
+        """The SDF the plain loops evaluate: the bf16 kernels' plain version
+        where a bf16 kernel would run, else ``sdf``."""
+        if (self.march_dtype == torch.float32 or self.fused_loops == "off"
+                or not supports(self.module)):
+            return self.sdf
+        return lambda p: sphere_sdf_eval_plain(self.module, p, self.march_dtype)
+
     def _march(self, r_o, r_d, max_t, t_start=None):
         """No-grad sphere trace. Returns (depths [...], hit mask [...])."""
         if self._use_kernel(r_o):
             return fused_march(self.module, r_o, r_d, max_t,
                                max_steps=self.max_steps, epsilon=self.epsilon,
-                               omega=self.omega, t_start=t_start)
-        depths, hit, _ = march_plain(self.sdf, r_o, r_d, max_t, t_start,
+                               omega=self.omega, t_start=t_start,
+                               compute_dtype=self.march_dtype)
+        depths, hit, _ = march_plain(self._loop_sdf(), r_o, r_d, max_t, t_start,
                                      max_steps=self.max_steps,
                                      epsilon=self.epsilon, omega=self.omega)
         return depths, hit
@@ -210,10 +229,11 @@ class SDF(nn.Module):
             u = torch.rand((), generator=generator, device=generator.device)
             step = (self.dist + u.to(r_o.device) * (2.0 / steps)) / steps
         if self._use_kernel(r_o):
-            idxs = fused_min_scan(self.module, r_o, r_d, step, steps=steps)
+            idxs = fused_min_scan(self.module, r_o, r_d, step, steps=steps,
+                                  compute_dtype=self.march_dtype)
         else:
-            idxs = min_scan_plain(self.sdf, r_o.detach(), r_d.detach(), step,
-                                  steps=steps)
+            idxs = min_scan_plain(self._loop_sdf(), r_o.detach(), r_d.detach(),
+                                  step, steps=steps)
         best_pos = (r_o + (idxs * step)[..., None] * r_d).detach()
         return self.sdf(best_pos), best_pos
 
@@ -271,8 +291,9 @@ class SDF(nn.Module):
             return fused_shadow_march(
                 self.module, r_o, r_d, max_t, max_steps=self.max_steps,
                 epsilon=self.epsilon,
-                past_light_exit=self.shadow_past_light_exit)
+                past_light_exit=self.shadow_past_light_exit,
+                compute_dtype=self.march_dtype)
         not_blocked, _ = shadow_march_plain(
-            self.sdf, r_o, r_d, max_t, max_steps=self.max_steps,
+            self._loop_sdf(), r_o, r_d, max_t, max_steps=self.max_steps,
             epsilon=self.epsilon, past_light_exit=self.shadow_past_light_exit)
         return not_blocked

@@ -19,7 +19,19 @@ through the plain version) rtol/atol 1e-4; K8 2e-5 absolute + 2e-5 relative
 (exp and products in another order), its gradients (recomputed through the
 plain version) 1e-4 absolute + 1e-3 relative; K2 relaxed as K2, and on the
 exact one-sphere rule cases the plain version's hit flags, depths within
-1e-3.
+1e-3.  The bf16-operand variants against their plain versions: a float32
+difference (x.B by fmaf against a matmul, sums in another order) can tip a
+bf16 rounding, which moves that operand by one bf16 step and its row from
+there on; so K1-bf16 holds half of its rows within K1's tolerance and its
+mean error below a quarter of the mean |bf16 - float32| difference of the
+plain versions; K2-bf16 hit agreement >= 99%, and where both hit the depths
+within 1e-3 on 99% of the rays and within 1e-2 on 99.9% (a depth sums the
+steps, and each step's SDF carries the bf16 noise of the shift, up to one
+bf16 step of its output where a rounding tips); K4-bf16 as K4; K3-bf16
+index agreement >= 99% and, where the indices differ, the two SDF values
+within 1e-3 (ties at twice that noise).  Each bf16 kernel must also
+differ from its float32 kernel on the same non-zero net: one that silently
+ran in float32 fails.
 """
 
 import ast
@@ -32,12 +44,13 @@ import torch
 
 from neural_raytracing_tpu_torch.kernels import (
     FusedSkipConnMLP, FusedSphereSDF, composite_apply, composite_plain,
-    fused_composite, fused_march, fused_min_scan,
-    fused_mlp_apply, fused_mlp_backward, fused_mlp_ckpt_forward,
-    fused_mlp_forward, fused_mlp_segment_backward, fused_shadow_march,
+    fused_composite, fused_march, fused_march_bf16, fused_min_scan,
+    fused_min_scan_bf16, fused_mlp_apply, fused_mlp_backward,
+    fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_forward_bf16,
+    fused_mlp_segment_backward, fused_shadow_march, fused_shadow_march_bf16,
     fused_sphere_sdf, launch_counts, march_plain, min_scan_plain, mlp_backward,
-    reset_launch_counts, set_kernel_mode, shadow_march_plain, sphere_sdf_plain,
-    supports,
+    mlp_forward_bf16_operands, reset_launch_counts, set_kernel_mode,
+    shadow_march_plain, sphere_sdf_eval_plain, sphere_sdf_plain, supports,
 )
 from neural_raytracing_tpu_torch.kernels import _build
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
@@ -51,7 +64,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "neural_raytracing_tpu
 KERNEL_NAMES = ("fused_mlp_forward", "fused_march", "fused_min_scan",
                 "fused_mlp_backward", "fused_mlp_ckpt_forward",
                 "fused_mlp_segment_backward", "fused_shadow_march",
-                "fused_sphere_sdf", "fused_composite")
+                "fused_sphere_sdf", "fused_composite", "fused_mlp_forward_bf16",
+                "fused_march_bf16", "fused_min_scan_bf16", "fused_shadow_march_bf16")
 
 FLAGSHIP = {
     "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
@@ -624,3 +638,204 @@ def test_relaxed_fused_march_rules(cuda):
                                    max_steps=steps, epsilon=eps, omega=1.5)
         assert got_h.item() == want_hit, origin
         assert abs(got_d.item() - want_d.item()) <= 1e-3, origin
+
+
+# ---- the bf16-operand variants of K1-K4 ---------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def test_bf16_variants_raise_on_cpu_tensors_and_switch():
+    """On CPU tensors the bf16 wrappers raise; a bf16 net in "auto" takes
+    K1-bf16's plain version and an SDF with march_dtype=bf16 the bf16 plain
+    loops; no kernel is counted."""
+    module = SphereSDF(n=4, mlp=SkipConnMLP(in_size=3, out=1, num_layers=2, hidden_size=8,
+                                            freqs=2, activation="softplus"))
+    module.reset_parameters(torch.Generator().manual_seed(0))
+    mlp = FusedSkipConnMLP(num_layers=2, hidden_size=8, freqs=2, compute_dtype=BF16)
+    mlp.reset_parameters(torch.Generator().manual_seed(1))
+    x = torch.rand(8, 3, generator=torch.Generator().manual_seed(2))
+    reset_launch_counts()
+    for call in (lambda: fused_mlp_forward_bf16(mlp, x, mlp.B, mlp.flat_weights()),
+                 lambda: fused_march_bf16(module, x, x, 1.0, max_steps=4, epsilon=1e-3),
+                 lambda: fused_min_scan_bf16(module, x, x, 0.1, steps=4),
+                 lambda: fused_shadow_march_bf16(module, x, x, 1.0, max_steps=4,
+                                                 epsilon=1e-3)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="compute dtype"):
+        fused_march(module, x, x, 1.0, max_steps=4, epsilon=1e-3,
+                    compute_dtype=torch.float16)
+    with torch.no_grad():
+        assert torch.equal(mlp(x), mlp_forward_bf16_operands(mlp, x, mlp.B,
+                                                             mlp.flat_weights()))
+        mlp.mode = "off"
+        assert torch.equal(mlp(x), SkipConnMLP.forward(mlp, x))
+    sdf = SDF(module, max_steps=16, march_dtype=BF16)
+    assert sdf.replace(max_steps=8).march_dtype == BF16
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(8, 3)
+    r_d = torch.nn.functional.normalize(torch.tensor([0.0, 0.0, -1.0]) + 0.1 * x, dim=-1)
+    want = march_plain(lambda p: sphere_sdf_eval_plain(module, p, BF16), r_o, r_d, 10.0,
+                       max_steps=16, epsilon=1e-3)
+    got = sdf._march(r_o, r_d, 10.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    off = sdf.replace(fused_loops="off")._march(r_o, r_d, 10.0)
+    assert torch.equal(off[0], march_plain(module, r_o, r_d, 10.0, max_steps=16,
+                                           epsilon=1e-3)[0])
+    with pytest.raises(ValueError, match="compute dtype"):
+        SDF(module, march_dtype=torch.float16)
+    assert all(v == 0 for v in launch_counts().values())
+
+
+def _assert_k1_bf16_close(got, want, got_f32, want_f32):
+    tol = 1e-4 * want.abs() + 1e-5
+    rows_ok = ((got - want).abs() <= tol).all(dim=-1).float().mean().item()
+    err = (got - want).abs().mean().item()
+    gap = (want - want_f32).abs().mean().item()
+    assert rows_ok >= 0.5, rows_ok
+    assert err <= 0.25 * gap, (err, gap)
+    assert (got - got_f32).abs().mean().item() >= 0.5 * gap   # not silently f32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLAGSHIP))
+def test_fused_mlp_bf16_kernel_matches_plain(cuda, name):
+    mlp = _net(FLAGSHIP[name], 0, cuda)
+    x = (torch.rand(4099, 3, generator=torch.Generator().manual_seed(1)) - 0.5).to(cuda)
+    ws = mlp.flat_weights()
+    with torch.no_grad():
+        reset_launch_counts()
+        got = fused_mlp_forward_bf16(mlp, x, mlp.B, ws)
+        assert launch_counts()["fused_mlp_forward_bf16"] == 1
+        assert launch_counts()["fused_mlp_forward"] == 0
+        got_f32 = fused_mlp_forward(mlp, x, mlp.B, ws)
+        want = mlp_forward_bf16_operands(mlp, x, mlp.B, ws)
+        want_f32 = SkipConnMLP.forward(mlp, x)
+        torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _assert_k1_bf16_close(got, want, got_f32, want_f32)
+
+
+@pytest.mark.cuda
+def test_bf16_net_goes_through_k1_bf16(cuda):
+    cfg = dict(FLAGSHIP["lobe"], compute_dtype=BF16)
+    mlp = _net(cfg, 2, cuda)
+    x = (torch.rand(512, 3, generator=torch.Generator().manual_seed(3)) - 0.5).to(cuda)
+    xx = x.clone().requires_grad_()
+    reset_launch_counts()
+    out = mlp(xx)
+    counts = launch_counts()
+    assert counts["fused_mlp_forward_bf16"] == 1 and counts["fused_mlp_forward"] == 0
+    # the backward recomputes through the module's own (x-rounded) forward
+    (gx,) = torch.autograd.grad(out.sum(), xx)
+    yy = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(SkipConnMLP.forward(mlp, yy).sum(), yy)
+    torch.testing.assert_close(gx, want, rtol=1e-4, atol=1e-4)
+
+
+def _bf16_sdf(module):
+    return lambda p: sphere_sdf_eval_plain(module, p, BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["unbounded", "bounded", "relaxed"])
+def test_fused_march_bf16_matches_plain(cuda, mode):
+    module = _surface(cuda)
+    g = torch.Generator().manual_seed(5)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
+    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
+    r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
+    t0, t1 = (march_interval(r_o, r_d, 1.2, 10.0) if mode == "bounded" else (None, 10.0))
+    kw = dict(max_steps=64 if mode == "unbounded" else 256, epsilon=1e-3,
+              omega=1.4 if mode == "relaxed" else 1.0)
+    reset_launch_counts()
+    depth, hit = fused_march_bf16(module, r_o, r_d, t1, t_start=t0, **kw)
+    assert launch_counts()["fused_march_bf16"] == 1 and launch_counts()["fused_march"] == 0
+    depth32, _ = fused_march(module, r_o, r_d, t1, t_start=t0, **kw)
+    pdepth, phit, _ = march_plain(_bf16_sdf(module), r_o, r_d, t1, t0, **kw)
+    torch.cuda.synchronize()
+    assert phit.float().mean() > 0
+    assert (hit == phit).float().mean() >= 0.99
+    derr = (depth - pdepth)[hit & phit].abs()
+    assert (derr <= 1e-3).float().mean() >= 0.99 and (derr <= 1e-2).float().mean() >= 0.999
+    assert (depth - depth32).abs().max() > 1e-5           # not silently f32
+
+
+@pytest.mark.cuda
+def test_fused_min_scan_bf16_matches_plain(cuda):
+    module = _surface(cuda)
+    g = torch.Generator().manual_seed(7)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
+    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
+    r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
+    step = 2.2 / 128
+    reset_launch_counts()
+    idx = fused_min_scan_bf16(module, r_o, r_d, step, steps=128)
+    assert launch_counts()["fused_min_scan_bf16"] == 1
+    idx32 = fused_min_scan(module, r_o, r_d, step, steps=128)
+    sdf = _bf16_sdf(module)
+    pidx = min_scan_plain(sdf, r_o, r_d, step, steps=128)
+    torch.cuda.synchronize()
+    differ = idx != pidx
+    assert (~differ).float().mean() >= 0.99
+    if differ.any():
+        sd = sdf(r_o[differ] + (idx[differ] * step)[:, None] * r_d[differ])
+        psd = sdf(r_o[differ] + (pidx[differ] * step)[:, None] * r_d[differ])
+        assert (sd - psd).abs().max() <= 1e-3
+    assert (idx != idx32).any()                              # not silently f32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past_light_exit", [True, False])
+def test_fused_shadow_march_bf16_matches_plain(cuda, past_light_exit):
+    module = _surface(cuda)
+    r_o, r_d, dist = _shadow_rays(cuda, n=20_001)
+    reset_launch_counts()
+    nb = fused_shadow_march_bf16(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3,
+                                 past_light_exit=past_light_exit)
+    assert launch_counts()["fused_shadow_march_bf16"] == 1
+    pnb, _ = shadow_march_plain(_bf16_sdf(module), r_o, r_d, dist, max_steps=64,
+                                epsilon=1e-3, past_light_exit=past_light_exit)
+    torch.cuda.synchronize()
+    assert 0.0 < pnb.float().mean().item() < 1.0
+    assert (nb == pnb).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_fused_shadow_march_bf16_is_not_f32(cuda):
+    """A ray that starts inside the surface hits on its one step and
+    advances to 1e2 eps + sd(p): with max_t 1e-5 short of the float32 value
+    the f32 kernel says not-blocked, and K4-bf16, whose SDF carries the bf16
+    noise of the shift, says blocked on some rays (chip_smoke.py's probe)."""
+    module = _surface(cuda)
+    g = torch.Generator().manual_seed(17)
+    p = (0.6 * torch.rand(20_000, 3, generator=g) - 0.3).to(cuda)
+    d = torch.nn.functional.normalize(torch.randn(20_000, 3, generator=g), dim=-1).to(cuda)
+    sd = sphere_sdf_eval_plain(module, p)
+    inside = sd < 1e-3 - 1e-4
+    p, d, sd = p[inside], d[inside], sd[inside]
+    r_o, max_t = (p - d * 0.1).contiguous(), 0.1 + sd - 1e-5
+    kw = dict(max_steps=1, epsilon=1e-3, past_light_exit=False)
+    nb32 = fused_shadow_march(module, r_o, d, max_t, **kw)
+    nb = fused_shadow_march_bf16(module, r_o, d, max_t, **kw)
+    assert p.shape[0] > 1000 and nb32.all()
+    assert (~nb).any()
+
+
+@pytest.mark.cuda
+def test_bf16_sdf_goes_through_the_bf16_kernels(cuda):
+    sdf = SDF(_surface(cuda), max_steps=64, march_bound=1.2, march_dtype=BF16)
+    r_o, r_d, dist = _shadow_rays(cuda, n=512)
+    cam = torch.cat([torch.tensor([0.0, 0.0, 2.0]).expand(256, 3),
+                     torch.nn.functional.normalize(
+                         torch.tensor([0.0, 0.0, -1.0]) + 0.2 * torch.randn(
+                             256, 3, generator=torch.Generator().manual_seed(6)),
+                         dim=-1)], dim=-1).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        it, hit = sdf.intersect(cam, primary=True)
+        sdf.intersect_test(torch.cat([r_o, r_d], dim=-1), max_t=dist)
+    counts = launch_counts()
+    assert hit.any() and torch.isfinite(it.throughput).all()
+    for name in ("fused_march", "fused_min_scan", "fused_shadow_march"):
+        assert counts[name + "_bf16"] == 1 and counts[name] == 0, name
