@@ -16,7 +16,12 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      just after, then again with every kernel switched off; one validation
      view (64 steps, unbounded) the same way;
   5. K3 fused_min_scan against min_scan_plain on the 38,400 rays of 6 views
-     x an 80^2 crop at unit distance (128 steps of 2.2/128), surface of 3;
+     x an 80^2 crop at unit distance (128 steps of 2.2/128), surface of 3,
+     and timed on the half-res grid (9,600 rays): TFLOP/s, share of the
+     bound, blocks per SM, the indices that differ, the time before the
+     redesign beside, a
+     leaky_relu twin (the epilogue's cost) and each shape with one sample
+     segment a ray (the split's gain, in the same call);
   6. K6 fused_mlp_backward (segments 0) and K7 fused_mlp_ckpt_forward +
      fused_mlp_segment_backward (segments 4) against the autograd recompute
      backward on the weight net, one lobe and the light field, 38,400 rows;
@@ -79,7 +84,10 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      its f32 kernel on the same inputs: K1-bf16 on the weight net, one lobe
      and the light field (65,536 seeded points); K2-bf16 on phase 3's rays
      and non-zero surface, bounded (256 steps), unbounded (64) and omega 1.4;
-     K3-bf16 at phase 5's shape; K4-bf16 on phase 8's NeRV shadow rays with
+     K3-bf16 at phase 5's shapes, as phase 5 reports K3, its bound the
+     larger of the tensor-core bound and the elementwise floor (the SFU and
+     f32 work of its softplus epilogue, encoding and spheres); K4-bf16 on
+     phase 8's NeRV shadow rays with
      and without the past-light exit, and a probe on phase 3's surface that
      reads K4's SDF at float32 resolution (the checkpoint's shift net is a
      constant, so its bf16 and f32 marches agree bit for bit);
@@ -89,7 +97,9 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      steps of train (counts reset just before, read just after: the bf16
      variants launched, the f32 K2/K3/K4 not), beside the f32
      configuration's images and loss, and its ms/view and ms/step timed in
-     turns with the bf16 ones (bf16, f32, f32, bf16);
+     turns with the bf16 ones (bf16, f32, f32, bf16); a profile of one bf16
+     step (phases 7 and 17 print the step times before K3's redesign
+     beside theirs);
  18. the NeRV eval of phase 10 with march_dtype bf16, learned and hard
      shadows: ms/view, PSNR against the f32 render, hit and not-blocked
      agreement on one view.
@@ -192,20 +202,25 @@ def device_ms(torch, fn, reps: int) -> float:
     """Device milliseconds per call of ``fn``: the device time of all its
     kernels under the profiler over ``reps`` calls, after one warm-up call.
     For kernels shorter than their launch, where CUDA events around a call
-    time the host's launch path."""
+    time the host's launch path.  A profiler session that records no device
+    time is tried once more, then the time is taken by CUDA events (and
+    said so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    check(total > 0, "device_ms: the profiler saw no device time")
-    return 1e-3 * total / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+        if total > 0:
+            return 1e-3 * total / reps
+    print("  device_ms: the profiler saw no device time twice; timed by CUDA events")
+    return cuda_ms(fn, reps)
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -518,42 +533,127 @@ def sphere_gt(torch, c2ws):
     return img.astype(np.float32), mask.astype(np.float32)
 
 
+def scan_rays(torch, dev, half_res=False):
+    """(r_o, r_d) [n, 3] of K3's training shape: 6 views x the 80^2
+    silhouette crop at unit distance (38,400 rays), or its 2x-subsampled
+    grid (9,600 rays, SDF.throughput_mode="half_res")."""
+    u, v = silhouette_crop()
+    rays = crop_rays(torch, dev, train_c2ws()[:N_VIEWS], u, v)
+    if half_res:
+        rays = rays[:, ::2, ::2]
+    rays = rays.reshape(-1, 6)
+    return rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+
+
+def check_scan(torch, label, module, sdf, r_o, r_d, step, steps, idx, pidx, agree_min,
+               tie_max):
+    """A min-scan's indices against the plain version's: agreement, and the
+    two SDF values where they differ (near ties).  -> (agreement, max |sd
+    difference|, indices that differ)."""
+    differ = idx != pidx
+    n_differ = int(differ.sum().item())
+    err = 0.0
+    if n_differ:
+        s = torch.tensor(step, device=r_o.device)
+        with torch.no_grad():
+            sd = sdf(r_o[differ] + (idx[differ] * s)[:, None] * r_d[differ])
+            psd = sdf(r_o[differ] + (pidx[differ] * s)[:, None] * r_d[differ])
+        err = (sd - psd).abs().max().item()
+    agree = 1.0 - n_differ / idx.numel()
+    check(agree >= agree_min, f"{label}: index agreement {agree:.6f} < {agree_min}")
+    check(err <= tie_max, f"{label}: |sd(kernel idx) - sd(plain idx)| {err:.3e} > {tie_max}")
+    check(len(torch.unique(pidx)) > 1, f"{label}: every ray has the same argmin")
+    return agree, err, n_differ
+
+
+def cheap_activation_twin(module):
+    """A copy of ``module`` whose shift net takes leaky_relu instead of its
+    activation: the same widths and products with a nearly free epilogue,
+    to time what the activation costs inside K3."""
+    import copy
+    from neural_raytracing_tpu_torch.nn.mlp import ACTIVATIONS
+    twin = copy.deepcopy(module)
+    twin.shift.activation_name = "leaky_relu"
+    twin.shift.activation = ACTIVATIONS["leaky_relu"]
+    return twin
+
+
+def segment_split(torch, module, kernel, shapes, compute_dtype):
+    """K3's sample segments on ``shapes`` ((r_o, r_d) pairs, 128 steps):
+    -> ([segments the wrapper chooses], [ms of ``kernel`` with every ray in
+    one segment]), the latter timed right after the chosen split, in the
+    same call."""
+    fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+    from neural_raytracing_tpu_torch.kernels import min_scan_blocks_per_sm
+    slots = (min_scan_blocks_per_sm(module, compute_dtype)
+             * torch.cuda.get_device_properties(0).multi_processor_count)
+    chosen = [fm.min_scan_segments(-(-r_o.shape[0] // 32), 129 // 4 + 1, slots)
+              for r_o, _ in shapes]
+    saved, fm.min_scan_segments = fm.min_scan_segments, lambda *args: 1
+    try:
+        one = [cuda_ms(lambda: kernel(module, r_o, r_d, 2.2 / 128, steps=128), 5)
+               for r_o, r_d in shapes]
+    finally:
+        fm.min_scan_segments = saved
+    return chosen, one
+
+
+# K3 and K3-bf16 before their redesign, measured by this script on an NVIDIA
+# H100 80GB HBM3 (700 W) at 38,400 rays x 129 samples
+K3_PREV_MS = {"f32": 120.85, "bf16": 112.77}
+# the flagship training steps in the same run: f32 (phase 7), and bf16 and
+# f32 timed in turns (phase 17)
+PREV_STEP_MS = {"f32": 311.8, "bf16": 304.4, "bf16 call f32": 304.8}
+
+
 def phase_minscan(torch, dev):
     """K3 against min_scan_plain on the 38,400 rays of 6 views x the 80^2
     silhouette crop at unit distance, 128 steps of 2.2/128, through the
-    surface of phase 3."""
+    surface of phase 3; K3 alone on the half-res grid (9,600 rays)."""
     from neural_raytracing_tpu_torch.kernels import (
-        fused_min_scan, min_scan_plain, set_kernel_mode,
+        fused_min_scan, min_scan_blocks_per_sm, min_scan_plain, set_kernel_mode,
     )
     module = march_surface(torch, dev)
     set_kernel_mode(module, "off")   # the plain scan evaluates the plain shift
-    u, v = silhouette_crop()
-    rays = crop_rays(torch, dev, train_c2ws()[:N_VIEWS], u, v).reshape(-1, 6)
-    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+    r_o, r_d = scan_rays(torch, dev)
     steps, step = 128, 2.2 / 128
     kernel = lambda: fused_min_scan(module, r_o, r_d, step, steps=steps)
     plain = lambda: min_scan_plain(module, r_o, r_d, step, steps=steps)
     idx, pidx = kernel(), plain()
     torch.cuda.synchronize()
-    agree = (idx == pidx).float().mean().item()
-    s = torch.tensor(step, device=dev)
-    with torch.no_grad():
-        sd = module(r_o + (idx * s)[:, None] * r_d)
-        psd = module(r_o + (pidx * s)[:, None] * r_d)
-    err = (sd - psd).abs().max().item()
-    check(agree >= 0.999, f"K3: index agreement {agree:.6f} < 0.999")
-    check(err <= 1e-5, f"K3: |sd(kernel idx) - sd(plain idx)| {err:.3e} > 1e-5")
-    check(len(torch.unique(pidx)) > 1, "K3: every ray has the same argmin")
+    agree, err, n_differ = check_scan(torch, "K3", module, module, r_o, r_d, step, steps,
+                                      idx, pidx, 0.999, 1e-5)
     ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 2)
-    flops = float(N_RAYS) * (steps + 1) * (2.0 * mlp_macs(module.shift) + 31.0 * module.n)
+    per_sample = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
+    flops = float(N_RAYS) * (steps + 1) * per_sample
     n_bytes = 4 * N_RAYS * 7 + weight_bytes(module.shift) + 4 * 13 * module.n
     b_ms, b_by = bound_ms(n_bytes, flops)
+    cheap = cheap_activation_twin(module)
+    cheap_ms = cuda_ms(lambda: fused_min_scan(cheap, r_o, r_d, step, steps=steps), 5)
+    h_o, h_d = scan_rays(torch, dev, half_res=True)
+    half_ms = cuda_ms(lambda: fused_min_scan(module, h_o, h_d, step, steps=steps), 5)
+    segs, one = segment_split(torch, module, fused_min_scan, [(r_o, r_d), (h_o, h_d)],
+                              torch.float32)
+    half_flops = float(h_o.shape[0]) * (steps + 1) * per_sample
+    half_b, _ = bound_ms(4 * h_o.shape[0] * 7 + weight_bytes(module.shift)
+                         + 4 * 13 * module.n, half_flops)
+    blocks = min_scan_blocks_per_sm(module)
     print(f"K3 fused_min_scan: {N_RAYS} rays x {steps + 1} samples, index "
-          f"agreement {agree:.6f}, max |sd difference| {err:.3e}, kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, err=err)
+          f"agreement {agree:.6f} ({n_differ} indices differ from min_scan_plain), max "
+          f"|sd difference| {err:.3e}, kernel {ms:.3f} ms (before the redesign: "
+          f"{K3_PREV_MS['f32']} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound; "
+          f"{blocks} blocks per SM; half-res {h_o.shape[0]} rays {half_ms:.3f} ms, bound "
+          f"{half_b:.3f} ms, {half_flops / half_ms / 1e9:.1f} TFLOP/s, "
+          f"{half_b / half_ms:.3f} of the bound; the same widths with a leaky_relu "
+          f"shift {cheap_ms:.3f} ms (the softplus epilogue's cost: {ms - cheap_ms:.3f} ms); "
+          f"sample segments {segs[0]} and {segs[1]}, with one segment a ray instead "
+          f"{one[0]:.3f} and {one[1]:.3f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, err=err,
+                segments=segs[0], one_segment_ms=one[0], half_res_one_segment_ms=one[1],
+                prev_ms=K3_PREV_MS["f32"], half_res_ms=half_ms, half_res_bound_ms=half_b,
+                blocks_per_sm=blocks, indices_differ=n_differ)
 
 
 def phase_backward(torch, dev):
@@ -753,6 +853,8 @@ def phase_train(torch, dev):
     run(2, "training warm-up", 100)
     before = {k: p.detach().clone() for k, p in scene.named_parameters()}
     counts, step_s = run(20, "training (kernels)", 0)
+    print(f"  before K3's redesign: {PREV_STEP_MS['f32']} ms/step; one step's "
+          f"device time 221.5 ms, K3 119.9 ms of it")
     changed = sum(not torch.equal(before[k], p) for k, p in scene.named_parameters())
     check(changed > 0, "training: no parameter changed")
     for name in ("fused_mlp_forward", "fused_march", "fused_min_scan"):
@@ -1494,6 +1596,27 @@ def bf16_bounds(n_bytes, macs, sphere_flops=0.0):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), f32_ms
 
 
+# the H100 SXM's special-function units: 16 operations per clock per SM, 132
+# SMs at the 1.98 GHz boost clock of the f32 peak above; the other f32
+# operations issue at half the f32 flop rate (an FMA counts two flops)
+PEAK_SFU = 132 * 16 * 1.98e9
+PEAK_F32_OPS = PEAK_F32 / 2
+
+
+def scan_elementwise_ms(module) -> float:
+    """Milliseconds per sample of K3-bf16's work beside the tensor cores, counted
+    from the code: each softplus ((L + 1) x hidden outputs and act(enc)) an
+    exp and a log1p on the SFU plus 4 other f32 operations (|x|, negate,
+    max, add), a sin and a cos per frequency, a sqrt and an exp per sphere
+    beside its 31 f32 operations; the larger of the SFU's and the f32
+    pipe's time (the floor, whatever the products cost)."""
+    mlp = module.shift
+    n_act = (mlp.num_layers + 1) * mlp.hidden_size + mlp.enc_size
+    sfu = 2 * n_act + 2 * mlp.freqs + 2 * module.n
+    f32 = 4 * n_act + 31 * module.n + 6 * mlp.freqs
+    return 1e3 * max(sfu / PEAK_SFU, f32 / PEAK_F32_OPS)
+
+
 def check_k1_bf16(label, got, want, got_f32, want_f32):
     """K1-bf16 against its plain version.  A float32 difference (x.B by fmaf
     against a matmul, sums in another order) can tip a bf16 rounding, which
@@ -1522,9 +1645,8 @@ def phase_bf16_kernels(torch, dev):
     checkpoint's shadow rays: each against its plain version, beside its f32
     kernel on the same inputs."""
     from neural_raytracing_tpu_torch.kernels import (
-        fused_march, fused_march_bf16, fused_min_scan, fused_min_scan_bf16,
-        fused_mlp_forward, fused_mlp_forward_bf16, fused_shadow_march,
-        fused_shadow_march_bf16, march_plain, min_scan_plain,
+        fused_march, fused_march_bf16, fused_mlp_forward, fused_mlp_forward_bf16,
+        fused_shadow_march, fused_shadow_march_bf16, march_plain,
         mlp_forward_bf16_operands, set_kernel_mode, shadow_march_plain,
         sphere_sdf_eval_plain,
     )
@@ -1625,36 +1747,7 @@ def phase_bf16_kernels(torch, dev):
         out[f"k2 {label}"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, f32_bound_ms=f32_b, err=derr)
 
-    # K3-bf16 at phase 5's shape
-    u, v = silhouette_crop()
-    rays = crop_rays(torch, dev, train_c2ws()[:N_VIEWS], u, v).reshape(-1, 6)
-    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
-    steps, step = 128, 2.2 / 128
-    kernel = lambda: fused_min_scan_bf16(module, r_o, r_d, step, steps=steps)
-    kernel32 = lambda: fused_min_scan(module, r_o, r_d, step, steps=steps)
-    plain = lambda: min_scan_plain(sdf16, r_o, r_d, step, steps=steps)
-    idx, idx32, pidx = kernel(), kernel32(), plain()
-    torch.cuda.synchronize()
-    agree = (idx == pidx).float().mean().item()
-    s = torch.tensor(step, device=dev)
-    err = (sdf16(r_o + (idx * s)[:, None] * r_d)
-           - sdf16(r_o + (pidx * s)[:, None] * r_d)).abs().max().item()
-    n_moved = int((idx != idx32).sum().item())
-    check(agree >= 0.99, f"K3-bf16: index agreement {agree:.6f} < 0.99")
-    check(err <= 1e-3, f"K3-bf16: |sd(kernel idx) - sd(plain idx)| {err:.3e} > 1e-3")
-    check(n_moved > 0, "K3-bf16: every index equals the f32 kernel's: it ran in f32")
-    ms, ms32, plain_ms = cuda_ms(kernel, 5), cuda_ms(kernel32, 5), cuda_ms(plain, 2)
-    n_evals = float(N_RAYS) * (steps + 1)
-    b_ms, b_by, f32_b = bf16_bounds(4 * N_RAYS * 7 + weight_bytes(module.shift)
-                                    + 4 * 13 * module.n, macs_eval * n_evals,
-                                    sph_eval * n_evals)
-    print(f"K3-bf16 fused_min_scan_bf16: {N_RAYS} rays x {steps + 1} samples, index "
-          f"agreement {agree:.6f}, max |sd difference| {err:.3e}; indices that differ from "
-          f"the f32 kernel's {n_moved}; kernel {ms:.3f} ms (f32 kernel {ms32:.3f} ms), plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms (bf16 tensor cores), f32-FMA bound "
-          f"{f32_b:.3f} ms")
-    out["k3"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     f32_bound_ms=f32_b, err=err)
+    out["k3"] = bf16_minscan(torch, dev, module)
     del module
 
     # K4-bf16 on the trained checkpoint's shadow rays (phase 8)
@@ -1702,6 +1795,64 @@ def phase_bf16_kernels(torch, dev):
     print(f"K4-bf16 probe on phase 3's non-zero surface: {n_moved} of {n_probe} flags differ "
           f"from the f32 kernel's")
     return out
+
+
+def bf16_minscan(torch, dev, module):
+    """K3-bf16 at phase 5's shapes on ``module`` (phase 3's non-zero
+    surface), against min_scan_plain over the bf16 SDF and beside K3."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_min_scan, fused_min_scan_bf16, min_scan_blocks_per_sm, min_scan_plain,
+        sphere_sdf_eval_plain,
+    )
+    bf16 = torch.bfloat16
+    sdf16 = lambda p: sphere_sdf_eval_plain(module, p, bf16)
+    macs_eval, sph_eval = float(mlp_macs(module.shift)), 31.0 * module.n
+    r_o, r_d = scan_rays(torch, dev)
+    steps, step = 128, 2.2 / 128
+    kernel = lambda: fused_min_scan_bf16(module, r_o, r_d, step, steps=steps)
+    kernel32 = lambda: fused_min_scan(module, r_o, r_d, step, steps=steps)
+    plain = lambda: min_scan_plain(sdf16, r_o, r_d, step, steps=steps)
+    idx, idx32, pidx = kernel(), kernel32(), plain()
+    torch.cuda.synchronize()
+    agree, err, n_differ = check_scan(torch, "K3-bf16", module, sdf16, r_o, r_d, step,
+                                      steps, idx, pidx, 0.99, 1e-3)
+    n_moved = int((idx != idx32).sum().item())
+    check(n_moved > 0, "K3-bf16: every index equals the f32 kernel's: it ran in f32")
+    ms, ms32, plain_ms = cuda_ms(kernel, 5), cuda_ms(kernel32, 5), cuda_ms(plain, 2)
+    n_evals = float(N_RAYS) * (steps + 1)
+    tc_ms, b_by, f32_b = bf16_bounds(4 * N_RAYS * 7 + weight_bytes(module.shift)
+                                     + 4 * 13 * module.n, macs_eval * n_evals,
+                                     sph_eval * n_evals)
+    floor_ms = n_evals * scan_elementwise_ms(module)
+    b_ms = max(tc_ms, floor_ms)
+    cheap = cheap_activation_twin(module)
+    cheap_ms = cuda_ms(lambda: fused_min_scan_bf16(cheap, r_o, r_d, step, steps=steps), 5)
+    h_o, h_d = scan_rays(torch, dev, half_res=True)
+    half_ms = cuda_ms(lambda: fused_min_scan_bf16(module, h_o, h_d, step, steps=steps), 5)
+    segs, one = segment_split(torch, module, fused_min_scan_bf16,
+                              [(r_o, r_d), (h_o, h_d)], bf16)
+    half_b = b_ms * h_o.shape[0] / N_RAYS
+    blocks = min_scan_blocks_per_sm(module, bf16)
+    flops = 2.0 * macs_eval * n_evals
+    print(f"K3-bf16 fused_min_scan_bf16: {N_RAYS} rays x {steps + 1} samples, index "
+          f"agreement {agree:.6f} ({n_differ} indices differ from min_scan_plain), max |sd "
+          f"difference| {err:.3e}; indices that differ from the f32 kernel's {n_moved}; "
+          f"kernel {ms:.3f} ms (f32 kernel {ms32:.3f} ms; before the redesign: "
+          f"{K3_PREV_MS['bf16']} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms: the "
+          f"larger of the bf16 tensor-core bound {tc_ms:.3f} ms and the elementwise floor "
+          f"{floor_ms:.3f} ms (f32-FMA bound {f32_b:.3f} ms); {flops / ms / 1e9:.1f} "
+          f"TFLOP/s of products, {b_ms / ms:.3f} of the bound; {blocks} blocks per SM; "
+          f"half-res {h_o.shape[0]} rays {half_ms:.3f} ms, bound {half_b:.3f} ms, "
+          f"{half_b / half_ms:.3f} of the bound; the same widths with a leaky_relu shift "
+          f"{cheap_ms:.3f} ms (the softplus epilogue's cost: {ms - cheap_ms:.3f} ms); "
+          f"sample segments {segs[0]} and {segs[1]}, with one segment a ray instead "
+          f"{one[0]:.3f} and {one[1]:.3f} ms")
+    return dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
+                segments=segs[0], one_segment_ms=one[0], half_res_one_segment_ms=one[1],
+                bound_by="operations", f32_bound_ms=f32_b, tensor_core_bound_ms=tc_ms,
+                elementwise_floor_ms=floor_ms, err=err, prev_ms=K3_PREV_MS["bf16"],
+                half_res_ms=half_ms, half_res_bound_ms=half_b, blocks_per_sm=blocks,
+                indices_differ=n_differ)
 
 
 def k4_bf16_probe(torch, module):
@@ -1949,7 +2100,9 @@ def phase_bf16_flagship(torch, dev):
           f"{1e3 * step_times[0]:.1f}, f32 {1e3 * f32_times[0]:.1f}, f32 "
           f"{1e3 * f32_times[1]:.1f}, bf16 {1e3 * step_times[1]:.1f}), losses "
           f"{[round(x, 3) for x in losses]}; launches {counts} (K1 f32: the shift net, "
-          f"which stays f32)")
+          f"which stays f32); before K3's redesign: bf16 "
+          f"{PREV_STEP_MS['bf16']}, f32 {PREV_STEP_MS['bf16 call f32']} ms/step")
+    profile_step(torch, lambda: run(scene, 1, 2), "one bf16 training step (kernels)")
     return eval_counts, counts
 
 
@@ -2060,11 +2213,19 @@ def main():
     bf16_nerv_counts = phase_bf16_nerv(torch, dev)
 
     def entry(name, source, replaces, launches, m):
-        return dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
-                    replaces=f"neural_raytracing_tpu/kernels/{replaces}",
-                    launches=launches, max_abs_err=m["err"], ms=m["ms"],
-                    plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-                    bound_by=m["bound_by"], library_ms=None)
+        e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
+                 replaces=f"neural_raytracing_tpu/kernels/{replaces}",
+                 launches=launches, max_abs_err=m["err"], ms=m["ms"],
+                 plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                 bound_by=m["bound_by"], library_ms=None)
+        # K3 and K3-bf16 (redesigned): the time before, the half-res shape, the
+        # occupancy, the sample segments, and K3-bf16's two bounds
+        for key in ("prev_ms", "half_res_ms", "half_res_bound_ms", "blocks_per_sm",
+                    "indices_differ", "tensor_core_bound_ms", "elementwise_floor_ms",
+                    "segments", "one_segment_ms", "half_res_one_segment_ms"):
+            if key in m:
+                e[key] = m[key]
+        return e
 
     def entry16(*args):
         # bound_ms is the bf16 tensor-core bound; the f32-FMA one beside it

@@ -11,8 +11,10 @@ from .composite import (
     composite_apply, composite_plain, fused_composite,
 )
 from .fused_march import (
-    fused_march, fused_march_bf16, fused_min_scan, fused_min_scan_bf16,
-    fused_shadow_march, fused_shadow_march_bf16, march_plain, min_scan_plain,
+    MIN_SCAN_LIMITS, f32_column_order, fused_march, fused_march_bf16,
+    fused_min_scan, fused_min_scan_bf16, fused_shadow_march,
+    fused_shadow_march_bf16, march_plain, min_scan_blocks_per_sm,
+    min_scan_plain, min_scan_segments, min_scan_widths, pack_shift_weights,
     shadow_march_plain, sphere_sdf_eval_plain, supports,
 )
 from .fused_mlp import (

@@ -103,4 +103,5 @@ def ptxas_report(stem: str) -> str:
     if not log.exists():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()
-                     if "ptxas" in line)
+                     if "ptxas" in line or "spill" in line)
+

@@ -16,10 +16,19 @@ the steps the rays need.  ``march_plain`` below is its plain version
 K3 replaces ``fused_min_scan`` (body ``_build_minscan_kernel``): the index of
 the earliest strict minimum of the SDF over the ``steps + 1`` samples
 ``t = step * i`` of each ray.  The kernel (``csrc/fused_minscan.cu``) shares
-the sphere set (``csrc/sphere_set.cuh``) with K2 and the device MLP with
-K1; every ray takes all samples, four samples of 16 rays share one MLP
-evaluation.  It is bound by the f32 FMA rate.  ``min_scan_plain`` is its
-plain version (the ``lax.scan`` of ``SDF.throughput``).
+the sphere set (``csrc/sphere_set.cuh``) with K2; its shift net is the
+register-tiled device MLP of ``csrc/mlp_tiled.cuh``: four samples of 32
+rays (128 rows) share one evaluation, each thread an 8 x 8 tile of a
+layer's output on the CUDA cores, the weights streamed once per block and
+layer through shared memory in the layout ``pack_shift_weights`` makes.
+Every ray takes all samples; it is bound by the f32 FMA rate.  To fill
+the card's last wave of blocks, each ray's samples may be split into
+segments run by separate blocks and merged by a second kernel
+(``min_scan_segments`` picks the count from the ray count, the steps and
+the card's block slots).  ``min_scan_plain`` is its plain version (the ``lax.scan`` of
+``SDF.throughput``).  K3-bf16 runs the same scan with the shift net's
+products on the tensor cores (``mma.sync`` m16n8k16, bf16 activations in
+shared memory).
 
 K4 replaces ``fused_shadow_march`` (body ``_build_shadow_kernel``): the loop
 of ``SDF.intersect_test``, which differs from K2's in four places (depth
@@ -49,14 +58,15 @@ torch.bfloat16)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..nn.mlp import SkipConnMLP, check_compute_dtype
 from ._build import library
 from .fused_mlp import (
-    ACT_CODES, check_cuda_f32, mlp_forward_bf16_operands, operand_weights,
-    weight_pointers,
+    ACT_CODES, MAX_LAYERS, check_cuda_f32, mlp_forward_bf16_operands,
+    operand_weights, weight_pointers,
 )
 from .fused_sdf import sphere_min_plain, sphere_sdf_plain
 
@@ -78,12 +88,15 @@ def _lib() -> ctypes.CDLL:
 def _minscan_lib() -> ctypes.CDLL:
     lib = library("fused_minscan")
     lib.nrt_fused_min_scan.argtypes = [
-        _P, _P, _P, _P, _I, _I,                   # rays, step, output, n, steps
+        _P, _P, _P, _P, _P, _P,                   # rays, step, output, segment states
+        _I, _I, _I,                               # segments, n, steps
         _I,                                       # bf16 operands
         _P, _P, _P, _I, _F, _I,                   # sphere set
-        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP (packed weights)
         _P]                                       # stream
     lib.nrt_fused_min_scan.restype = _I
+    lib.nrt_fused_min_scan_blocks_per_sm.argtypes = [_I, _I, _I, _I]
+    lib.nrt_fused_min_scan_blocks_per_sm.restype = _I
     return lib
 
 
@@ -111,10 +124,9 @@ def supports(module) -> bool:
             and mlp.in_size == 3 and mlp.out_size == 1)
 
 
-def _sphere_set(module, device, compute_dtype=torch.float32):
-    """Check the SphereSDF's tensors on ``device`` -> (the C arguments of the
-    sphere set and the shift net, the tensors they point into); the shift
-    net's matrices in ``compute_dtype``."""
+def _spheres(module, device):
+    """Check the SphereSDF's sphere tensors on ``device`` -> (the C arguments
+    of the sphere set, the tensors they point into)."""
     tfs = (module.tfs.detach() + torch.eye(3, device=module.tfs.device)).contiguous()
     centers = module.centers.detach().contiguous()
     radii = module.radii.detach().contiguous()
@@ -122,14 +134,25 @@ def _sphere_set(module, device, compute_dtype=torch.float32):
     check_cuda_f32("tfs", tfs, (n_sph, 3, 3), device)
     check_cuda_f32("centers", centers, (n_sph, 3), device)
     check_cuda_f32("radii", radii, (n_sph,), device)
+    args = (tfs.data_ptr(), centers.data_ptr(), radii.data_ptr(), n_sph,
+            float(module.k), int(module.stable_min))
+    return args, (tfs, centers, radii)
+
+
+def _net_args(mlp, ptrs):
+    return (mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers, mlp.skip,
+            mlp.out_size, ACT_CODES[mlp.activation_name], ptrs)
+
+
+def _sphere_set(module, device, compute_dtype=torch.float32):
+    """Check the SphereSDF's tensors on ``device`` -> (the C arguments of the
+    sphere set and the shift net, the tensors they point into); the shift
+    net's matrices in ``compute_dtype``."""
+    args, tensors = _spheres(module, device)
     mlp = module.shift
     weights = operand_weights([w.detach() for w in mlp.flat_weights()], compute_dtype)
     ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device, compute_dtype)
-    args = (tfs.data_ptr(), centers.data_ptr(), radii.data_ptr(), n_sph,
-            float(module.k), int(module.stable_min),
-            mlp.in_size, mlp.freqs, mlp.hidden_size, mlp.num_layers, mlp.skip,
-            mlp.out_size, ACT_CODES[mlp.activation_name], ptrs)
-    return args, (tfs, centers, radii, weights)
+    return args + _net_args(mlp, ptrs), tensors + (weights,)
 
 
 def _rays(r_o: torch.Tensor, r_d: torch.Tensor):
@@ -297,6 +320,150 @@ def min_scan_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     return idx.to(torch.float32)
 
 
+# K3's widths: the limits of csrc/mlp_tiled.cuh and csrc/fused_minscan.cu
+MIN_SCAN_LIMITS = {"hidden_size": 256, "freqs": 128, "num_layers": MAX_LAYERS,
+                   "spheres": 1024}
+
+
+def check_min_scan_widths(module) -> None:
+    """Raise ValueError, naming the limit, if K3 cannot take ``module``'s
+    shift net or sphere set (checked before anything about devices)."""
+    mlp = module.shift
+    sizes = {"hidden_size": mlp.hidden_size, "freqs": mlp.freqs,
+             "num_layers": mlp.num_layers, "spheres": module.centers.shape[0]}
+    for name, limit in MIN_SCAN_LIMITS.items():
+        if sizes[name] > limit:
+            raise ValueError(f"fused_min_scan takes at most {name} = {limit}, "
+                             f"got {sizes[name]}")
+
+
+def min_scan_widths(mlp, compute_dtype=torch.float32):
+    """``(NP, EP)``: the padded hidden width (128 or 256) and encoding width
+    (a multiple of 8, or 16 with bf16 operands) of K3's packed layout."""
+    r = 16 if check_compute_dtype(compute_dtype) == torch.bfloat16 else 8
+    return (128 if mlp.hidden_size <= 128 else 256), -(-mlp.enc_size // r) * r
+
+
+def f32_column_order(np_width: int) -> torch.Tensor:
+    """The logical output column of each physical column of a packed f32
+    matrix (``nrt_tiled_col`` of ``csrc/mlp_tiled.cuh``)."""
+    p = torch.arange(np_width)
+    return (p % 64) // 4 + 16 * (4 * (p // 64) + p % 4)
+
+
+@torch.no_grad()
+def pack_shift_weights(mlp: SkipConnMLP, compute_dtype=torch.float32) -> list:
+    """The shift net's weights as K3 reads them (``csrc/mlp_tiled.cuh``), in
+    kernel order ``[B, init w, init b, layer 0 w, layer 0 b, ..., out w,
+    out b]``, on the net's device.
+
+    With ``(NP, EP) = min_scan_widths(mlp, compute_dtype)``, the activation
+    buffer holds h at rows ``[0, NP)`` and the encoding (then ``act(enc)``)
+    at ``[NP, NP + EP)``; a layer's matrix has a row for each buffer row it
+    reads: the init layer the ``EP`` encoding rows, a skip layer all
+    ``NP + EP``, any other layer the ``NP`` h rows.  The layer's weights sit
+    in the rows of their inputs and in its first ``hidden_size`` columns;
+    every other entry, and the biases past ``hidden_size``, are zero.
+      - float32: each matrix ``[K, NP]`` float32, its columns in the order
+        of ``f32_column_order(NP)`` (physical column p holds logical column
+        ``f32_column_order(NP)[p]``);
+      - bfloat16: each matrix transposed, ``[NP, K]`` bf16, the one cast of
+        each weight (as ``operand_weights``);
+    biases ``[NP]`` float32; out w ``[NP]`` float32 (rounded to bf16 with
+    bf16 operands), out b ``[1]``; ``B`` as the module's.
+    """
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    NP, EP = min_scan_widths(mlp, compute_dtype)
+    H, E = mlp.hidden_size, mlp.enc_size
+    ws = [w.detach() for w in mlp.flat_weights()]
+    dev = ws[0].device
+    order = f32_column_order(NP).to(dev)
+
+    def matrix(w, h_rows: bool, enc_rows: bool):
+        k_h = NP if h_rows else 0
+        out = torch.zeros(k_h + (EP if enc_rows else 0), NP, device=dev)
+        if h_rows:
+            out[:H, :H] = w[:H]
+        if enc_rows:
+            out[k_h:k_h + E, :H] = w[H if h_rows else 0:]
+        if bf16:
+            return out.t().contiguous().to(compute_dtype)
+        return out[:, order].contiguous()
+
+    def vector(v):
+        out = torch.zeros(NP, device=dev)
+        out[:H] = v
+        return out
+
+    packed = [mlp.B.detach().contiguous(), matrix(ws[0], False, True), vector(ws[1])]
+    for i in range(mlp.num_layers):
+        packed += [matrix(ws[2 + 2 * i], True, mlp.is_skip_layer(i)),
+                   vector(ws[3 + 2 * i])]
+    out_w = vector(ws[-2][:, 0])
+    if bf16:
+        out_w = out_w.to(compute_dtype).float()
+    return packed + [out_w, ws[-1].contiguous()]
+
+
+def _packed_pointers(mlp, packed, device, compute_dtype):
+    """Check the packed tensors on ``device`` -> the C pointer table."""
+    NP, EP = min_scan_widths(mlp, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    check_cuda_f32("B", packed[0], (mlp.in_size, mlp.freqs), device)
+    for l in range(mlp.num_layers + 1):
+        k = EP if l == 0 else (NP + EP if mlp.is_skip_layer(l - 1) else NP)
+        if bf16:
+            check_cuda_f32(f"packed w {l}", packed[1 + 2 * l], (NP, k), device, compute_dtype)
+        else:
+            check_cuda_f32(f"packed w {l}", packed[1 + 2 * l], (k, NP), device)
+        check_cuda_f32(f"packed b {l}", packed[2 + 2 * l], (NP,), device)
+    check_cuda_f32("packed out w", packed[-2], (NP,), device)
+    check_cuda_f32("packed out b", packed[-1], (1,), device)
+    return (_P * len(packed))(*(t.data_ptr() for t in packed))
+
+
+# samples of one ray per evaluation (NRT_TILE_U of csrc/mlp_tiled.cuh)
+MIN_SCAN_SAMPLES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(bf16: bool, freqs: int, hidden: int, n_spheres: int,
+                   device: int) -> int:
+    with torch.cuda.device(device):
+        blocks = _minscan_lib().nrt_fused_min_scan_blocks_per_sm(
+            int(bf16), freqs, hidden, n_spheres)
+    if blocks <= 0:
+        raise RuntimeError(f"min_scan_blocks_per_sm: CUDA error {-blocks}")
+    return blocks
+
+
+def min_scan_blocks_per_sm(module, compute_dtype=torch.float32) -> int:
+    """Blocks of K3 (K3-bf16) for ``module`` that fit on one SM of the
+    current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    check_min_scan_widths(module)
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    mlp = module.shift
+    return _blocks_per_sm(bf16, mlp.freqs, mlp.hidden_size, module.centers.shape[0],
+                          torch.cuda.current_device())
+
+
+def min_scan_segments(blocks: int, groups: int, slots: int, most: int = 8) -> int:
+    """Into how many segments K3 splits each ray's ``groups`` sample groups
+    (``MIN_SCAN_SAMPLES`` samples each), given its ``blocks`` ray blocks and
+    the ``slots`` blocks the card holds at once: the count, up to ``most``
+    and with at least two groups a segment, that minimises the waves of
+    blocks times the groups of the longest segment (plus a quarter group
+    for a block's fixed work and the merge)."""
+    best, best_cost = 1, float("inf")
+    for seg in range(1, most + 1):
+        if seg > 1 and groups < 2 * seg:
+            break
+        cost = -(-blocks * seg // slots) * (-(-groups // seg) + 0.25)
+        if cost < best_cost:
+            best, best_cost = seg, cost
+    return best
+
+
 def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
                    steps: int, compute_dtype=torch.float32) -> torch.Tensor:
     """Launch K3 on CUDA tensors.  Returns the argmin index ``[...]`` as f32.
@@ -304,13 +471,15 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     ``step`` is the float32 sample spacing, a number or a 0-d tensor (on the
     card it is read there, so a jittered step costs no synchronisation).
     ``compute_dtype=torch.bfloat16`` launches K3-bf16 (counted as
-    ``fused_min_scan_bf16``).  Launches on the current stream and does not
-    synchronise.
+    ``fused_min_scan_bf16``).  The shift net's weights are packed once per
+    call (``pack_shift_weights``).  Launches on the current stream and does
+    not synchronise.
     """
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if not supports(module):
         raise ValueError("fused_min_scan supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
+    check_min_scan_widths(module)
     batches = r_o.shape[:-1]
     device = r_o.device
     ro, rd, n = _rays(r_o, r_d)
@@ -318,12 +487,27 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
                              ).detach().reshape(1).contiguous()
     check_cuda_f32("step", step_t, (1,), device)
     # the tensors stay alive until the launch
-    spheres, _tensors = _sphere_set(module, device, compute_dtype)
+    spheres, _tensors = _spheres(module, device)
+    mlp = module.shift
+    packed = pack_shift_weights(mlp, compute_dtype)
+    ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
     idx = torch.empty(n, device=device, dtype=torch.float32)
+    segments = 1
+    if n > 0 and steps >= 0:
+        np_width, _ = min_scan_widths(mlp, compute_dtype)
+        rays = (128 if np_width == 128 else 64) // MIN_SCAN_SAMPLES
+        slots = _blocks_per_sm(bf16, mlp.freqs, mlp.hidden_size, spheres[3],
+                               device.index) \
+            * torch.cuda.get_device_properties(device).multi_processor_count
+        segments = min_scan_segments(-(-n // rays), steps // MIN_SCAN_SAMPLES + 1, slots)
+    part_m = torch.empty(segments * n if segments > 1 else 0, device=device)
+    part_i = torch.empty_like(part_m, dtype=torch.int32)
     with torch.cuda.device(device):
         rc = _minscan_lib().nrt_fused_min_scan(
             ro.data_ptr(), rd.data_ptr(), step_t.data_ptr(), idx.data_ptr(),
-            n, steps, int(bf16), *spheres,
+            part_m.data_ptr() if segments > 1 else None,
+            part_i.data_ptr() if segments > 1 else None,
+            segments, n, steps, int(bf16), *spheres, *_net_args(mlp, ptrs),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_min_scan: CUDA error {rc} at launch")

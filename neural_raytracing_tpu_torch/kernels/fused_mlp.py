@@ -45,10 +45,11 @@ launches the kernel and raises on CPU tensors, "off" is the plain version.
 A latent input always takes the plain version.  With bf16 operands the CPU
 path in "auto" is the kernel's autograd.Function with K1-bf16's plain
 version in the kernel's place (the JAX ``mode="force"``), and "off" the
-module's own forward, which rounds only the input (the JAX "off").  Either
-way the default backward recomputes through that x-rounded forward, as the
-JAX ``_bwd`` does, so the gradient is not that of the function the
-K1-bf16 forward computed; the port keeps this.
+module's own forward (the JAX "off"), which computes the whole Fourier
+encoding in bf16 (``B`` cast, ``x @ B`` and sin/cos rounded) and the layers
+in float32.  Either way the default backward recomputes through that
+bf16-encoding forward, as the JAX ``_bwd`` does, so the gradient is not that
+of the function the K1-bf16 forward computed; the port keeps this.
 """
 
 from __future__ import annotations

@@ -11,10 +11,11 @@ so the parameter names and shapes match the JAX params pytree
 (``init.w``, ``layers.3.b``, ``out.w``, the basis ``B``).
 
 ``compute_dtype=torch.bfloat16`` is configuration, not a parameter: the
-plain forward rounds the input to bf16 and computes the Fourier encoding in
-bf16 (``B`` cast to bf16, ``x @ B`` and sin/cos rounded) and everything after
-it in float32, as ``SkipConnMLP.__call__`` of the JAX package does (its bf16
-encoding meets float32 weights and is promoted); the fused kernel K1 rounds
+plain forward rounds the input to bf16, computes the Fourier encoding in
+bf16 (``B`` cast to bf16, ``x @ B`` and sin/cos rounded), rounds a latent to
+bf16 and computes everything after that in float32, as
+``SkipConnMLP.__call__`` of the JAX package does (its bf16 encoding meets
+float32 weights and is promoted); the fused kernel K1 rounds
 every matmul operand instead (``kernels/fused_mlp.py``).
 """
 
@@ -179,16 +180,19 @@ def mlp_forward(mlp: SkipConnMLP, p: torch.Tensor, basis: torch.Tensor,
                 latent: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain SkipConnMLP forward over explicit weights (``flat_weights``
     order), so a kernel's backward can recompute through it.  A bf16
-    ``compute_dtype`` computes the Fourier encoding in bf16 and the rest in
-    float32, as the JAX package's plain path does; autograd then runs the
-    encoding's backward in bf16 too, as JAX's does."""
+    ``compute_dtype`` computes the Fourier encoding in bf16 and rounds the
+    latent to bf16, then runs the rest in float32, as the JAX package's plain
+    path does; autograd then runs the encoding's backward in bf16 too and
+    rounds the latent's gradient to bf16, as JAX's does."""
     batches = p.shape[:-1]
     x = p.reshape(-1, mlp.in_size)
-    # bf16: the encoding in bf16 (B cast, x @ B and sin/cos rounded), float32 after
-    enc = fourier_encode(x.to(mlp.compute_dtype), basis).to(torch.float32)
+    # bf16: the encoding in bf16 (B cast, x @ B and sin/cos rounded) and the
+    # latent rounded, float32 after
+    enc = fourier_encode(x.to(mlp.compute_dtype), basis)
     if latent is not None:
         enc = torch.cat([enc, latent.reshape(-1, mlp.latent_size).to(enc.dtype)],
                         dim=-1)
+    enc = enc.to(torch.float32)
     act = mlp.activation
     h = enc @ weights[0] + weights[1]
     for i in range(mlp.num_layers):

@@ -63,6 +63,7 @@ from neural_raytracing_tpu_torch.kernels import (
 )
 from neural_raytracing_tpu_torch.lights import LightField
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
+from neural_raytracing_tpu_torch.ops.encoding import fourier_encode
 from neural_raytracing_tpu_torch.params import load_jax_params
 from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF
 from test_torch_params import NETS, scene_params
@@ -289,7 +290,7 @@ def test_plain_mlp_bf16_forward_and_gradients(activation):
     xt = torch.from_numpy(x).requires_grad_()
     out = mlp(xt)
     np.testing.assert_allclose(out.detach().numpy(), want, rtol=RTOL, atol=ATOL)
-    # only the input was rounded: float32 from there on
+    # the encoding is bf16 (B cast, x @ B and sin/cos rounded): not the f32 net
     assert not np.allclose(want, np.asarray(JMLP(**cfg)(tree, jnp.asarray(x))),
                            rtol=0, atol=1e-6)
 
@@ -313,8 +314,9 @@ def test_plain_mlp_bf16_forward_and_gradients(activation):
 
 def test_fused_mlp_bf16_on_cpu_matches_jax_force():
     """The CPU path in "auto" is the kernel's autograd.Function with K1-bf16's
-    plain version; the backward recomputes through the x-rounded function, as
-    the JAX ``_bwd`` does under ``mode="force"``."""
+    plain version; the backward recomputes through the bf16-encoding function
+    (the module's plain forward), as the JAX ``_bwd`` does under
+    ``mode="force"``."""
     cfg = dict(NET, activation="softplus")
     jmlp, tree, mlp = _net_pair(cfg, jcls=JFused, cls=FusedSkipConnMLP,
                                 jkw=dict(mode="force", block_rows=64))
@@ -326,7 +328,7 @@ def test_fused_mlp_bf16_on_cpu_matches_jax_force():
     xt = torch.from_numpy(x).requires_grad_()
     out = mlp(xt)
     _assert_bf16_close(out.detach().numpy(), want, f32)
-    # the kernel's function, not the module's x-rounded one
+    # the kernel's function, not the module's bf16-encoding one
     np.testing.assert_array_equal(out.detach().numpy(), _plain(mlp, x))
 
     jgp, jgx = jax.grad(lambda p, xx: jnp.sum(jmlp(p, xx) * g), argnums=(0, 1))(
@@ -347,6 +349,61 @@ def test_fused_mlp_bf16_on_cpu_matches_jax_force():
     np.testing.assert_allclose(mlp(torch.from_numpy(x)).detach().numpy(),
                                np.asarray(JMLP(**cfg, compute_dtype=jnp.bfloat16)(
                                    tree, jnp.asarray(x))), rtol=RTOL, atol=ATOL)
+
+
+# ---- (e2) a bf16 net with a latent: the latent is rounded to bf16 ----------------------
+
+def _unrounded_latent_forward(mlp, x, latent):
+    """The plain bf16 forward with the latent left in float32: not the JAX
+    function, the counterexample the latent test must reject."""
+    enc = torch.cat([fourier_encode(x.to(BF16), mlp.B).float(), latent], dim=-1)
+    ws, act = mlp.flat_weights(), mlp.activation
+    h = enc @ ws[0] + ws[1]
+    for i in range(mlp.num_layers):
+        if mlp.is_skip_layer(i):
+            h = torch.cat([h, enc], dim=-1)
+        h = act(h) @ ws[2 + 2 * i] + ws[3 + 2 * i]
+    return act(h) @ ws[-2] + ws[-1]
+
+
+@pytest.mark.parametrize("cls", [SkipConnMLP, FusedSkipConnMLP])
+def test_plain_mlp_bf16_rounds_the_latent(cls):
+    """``SkipConnMLP(compute_dtype=bf16, latent_size=8)`` and a
+    ``FusedSkipConnMLP`` called with a latent (the plain path) against the
+    JAX ``SkipConnMLP.__call__`` under ``jax.grad``: the latent is rounded to
+    bf16, and its gradient comes back through that cast rounded to bf16 on
+    both sides, held as the input's gradient (two bf16 steps of its largest
+    value: float32 sums in another order, cancelling, then rounded)."""
+    cfg = dict(NET, activation="softplus", latent_size=8)
+    jmlp, tree, mlp = _net_pair(cfg, cls=cls)
+    rng = np.random.default_rng(10)
+    x = _x(seed=11)
+    # a latent of scale 8: its bf16 rounding moves the outputs past the tolerance
+    lat = 8.0 * rng.normal(size=(x.shape[0], 8)).astype(np.float32)
+    g = rng.normal(size=(x.shape[0], cfg["out"])).astype(np.float32)
+    want = np.asarray(jmlp(tree, jnp.asarray(x), jnp.asarray(lat)))
+    jgp, jgx, jgl = jax.grad(lambda p, xx, ll: jnp.sum(jmlp(p, xx, ll) * g),
+                             argnums=(0, 1, 2))(tree, jnp.asarray(x), jnp.asarray(lat))
+    xt, lt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(lat).requires_grad_()
+    out = mlp(xt, lt)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=RTOL, atol=ATOL)
+    gx, gl, *gw = torch.autograd.grad((out * torch.from_numpy(g)).sum(),
+                                      [xt, lt, *mlp.flat_weights()])
+    _assert_input_grad_close(gx, jgx)
+    np.testing.assert_array_equal(gl.numpy(), gl.to(BF16).float().numpy())
+    _assert_input_grad_close(gl, jgl)
+    jgw = [jgp["init"]["w"], jgp["init"]["b"]]
+    for layer in jgp["layers"]:
+        jgw += [layer["w"], layer["b"]]
+    jgw += [jgp["out"]["w"], jgp["out"]["b"]]
+    for a, b in zip(gw, jgw, strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL * np.abs(b).max())
+    # guard: a float32 latent gives another function, outside the tolerance
+    with torch.no_grad():
+        unrounded = _unrounded_latent_forward(mlp, torch.from_numpy(x),
+                                              torch.from_numpy(lat)).numpy()
+    assert not np.allclose(unrounded, want, rtol=RTOL, atol=ATOL)
 
 
 # ---- (f) the slice: the mixed-precision flagship ---------------------------------------

@@ -48,7 +48,8 @@ from neural_raytracing_tpu_torch.kernels import (
     fused_min_scan_bf16, fused_mlp_apply, fused_mlp_backward,
     fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_forward_bf16,
     fused_mlp_segment_backward, fused_shadow_march, fused_shadow_march_bf16,
-    fused_sphere_sdf, launch_counts, march_plain, min_scan_plain, mlp_backward,
+    fused_sphere_sdf, launch_counts, march_plain, min_scan_blocks_per_sm,
+    min_scan_plain, mlp_backward,
     mlp_forward_bf16_operands, reset_launch_counts, set_kernel_mode,
     shadow_march_plain, sphere_sdf_eval_plain, sphere_sdf_plain, supports,
 )
@@ -195,9 +196,8 @@ def test_fused_mlp_gradients_through_the_kernel(cuda):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
-def _surface(device, stable_min=False):
-    module = SphereSDF(n=128, mlp=FusedSkipConnMLP(**FLAGSHIP["sdf_shift"]),
-                       stable_min=stable_min)
+def _surface(device, stable_min=False, shift=FLAGSHIP["sdf_shift"]):
+    module = SphereSDF(n=128, mlp=FusedSkipConnMLP(**shift), stable_min=stable_min)
     module.reset_parameters(torch.Generator().manual_seed(4))
     with torch.no_grad():
         module.shift.out.w.mul_(0.1)
@@ -310,32 +310,67 @@ def test_fused_sphere_sdf_modes_and_kernel_support():
     assert fused["auto"].mode == "off" and not sdf._use_kernel(x)
 
 
+# K3's cases: the flagship shift, a jittered step (a 0-d tensor on the card),
+# the exact smooth-min, a leaky_relu shift, a net whose widths K3 pads, and
+# one wider than 128 (the 64-row, 256-column layout)
+SCAN_SHIFTS = {
+    "leaky_relu": dict(FLAGSHIP["sdf_shift"], activation="leaky_relu"),
+    "padded": dict(in_size=3, out=1, num_layers=5, hidden_size=72, freqs=20, skip=2,
+                   activation="softplus", init="uniform"),
+    "wide": dict(in_size=3, out=1, num_layers=4, hidden_size=160, freqs=24,
+                 activation="softplus", init="uniform"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("jitter", [False, True])
-def test_fused_min_scan_matches_plain(cuda, jitter):
-    module = _surface(cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["flagship", "jitter", "stable_min", "leaky_relu",
+                                  "padded", "wide"])
+@pytest.mark.parametrize("n_rays", [1, 31, 3001])
+@pytest.mark.parametrize("steps", [1, 64, 127, 128])
+def test_fused_min_scan_matches_plain(cuda, steps, n_rays, case, dtype):
+    """K3 (f32) and K3-bf16 against min_scan_plain over the SDF of their
+    precision; K3-bf16 must differ from K3 where it has rays to show it."""
+    bf16 = dtype == torch.bfloat16
+    module = _surface(cuda, case == "stable_min",
+                      SCAN_SHIFTS.get(case, FLAGSHIP["sdf_shift"]))
     g = torch.Generator().manual_seed(7)
-    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
-    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3)[:n_rays].contiguous()
+    r_d = (torch.tensor([0.0, 0.0, -1.0])
+           + 0.3 * torch.randn(3001, 3, generator=g))[:n_rays]
     r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
-    step = 2.2 / 128
-    if jitter:
-        step = torch.tensor((2.2 + 0.3 * 2.0 / 128) / 128, device=cuda)
+    step = 2.2 / steps
+    if case == "jitter":
+        step = torch.tensor((2.2 + 0.3 * 2.0 / steps) / steps, device=cuda)
+    name = "fused_min_scan_bf16" if bf16 else "fused_min_scan"
     reset_launch_counts()
-    idx = fused_min_scan(module, r_o, r_d, step, steps=128)
-    assert launch_counts()["fused_min_scan"] == 1
+    idx = (fused_min_scan_bf16 if bf16 else fused_min_scan)(module, r_o, r_d, step,
+                                                            steps=steps)
+    counts = launch_counts()
+    assert counts[name] == 1 and sum(counts.values()) == 1
     set_kernel_mode(module, "off")
-    pidx = min_scan_plain(module, r_o, r_d, step, steps=128)
+    sdf = _bf16_sdf(module) if bf16 else module
+    pidx = min_scan_plain(sdf, r_o, r_d, step, steps=steps)
     torch.cuda.synchronize()
-    assert idx.shape == pidx.shape == (3001,) and idx.dtype == torch.float32
+    assert idx.shape == pidx.shape == (n_rays,) and idx.dtype == torch.float32
     differ = idx != pidx
-    assert (~differ).float().mean() >= 0.999
+    assert (~differ).float().mean() >= (0.99 if bf16 else 0.999)
     if differ.any():
         s = torch.as_tensor(step, device=cuda)
         with torch.no_grad():
-            sd = module(r_o[differ] + (idx[differ] * s)[:, None] * r_d[differ])
-            psd = module(r_o[differ] + (pidx[differ] * s)[:, None] * r_d[differ])
-        assert (sd - psd).abs().max() <= 1e-5
+            sd = sdf(r_o[differ] + (idx[differ] * s)[:, None] * r_d[differ])
+            psd = sdf(r_o[differ] + (pidx[differ] * s)[:, None] * r_d[differ])
+        assert (sd - psd).abs().max() <= (1e-3 if bf16 else 1e-5)
+    if bf16 and n_rays == 3001 and steps >= 64:                 # not silently f32
+        assert (idx != fused_min_scan(module, r_o, r_d, step, steps=steps)).any()
+
+
+@pytest.mark.cuda
+def test_fused_min_scan_occupancy(cuda):
+    """The flagship shift's K3 and K3-bf16 fit twice on an SM."""
+    module = _surface(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert min_scan_blocks_per_sm(module, dtype) == 2
 
 
 def _autograd_backward(mlp, x, g):
@@ -726,7 +761,7 @@ def test_bf16_net_goes_through_k1_bf16(cuda):
     out = mlp(xx)
     counts = launch_counts()
     assert counts["fused_mlp_forward_bf16"] == 1 and counts["fused_mlp_forward"] == 0
-    # the backward recomputes through the module's own (x-rounded) forward
+    # the backward recomputes through the module's own (bf16-encoding) forward
     (gx,) = torch.autograd.grad(out.sum(), xx)
     yy = x.clone().requires_grad_()
     (want,) = torch.autograd.grad(SkipConnMLP.forward(mlp, yy).sum(), yy)
@@ -759,30 +794,6 @@ def test_fused_march_bf16_matches_plain(cuda, mode):
     derr = (depth - pdepth)[hit & phit].abs()
     assert (derr <= 1e-3).float().mean() >= 0.99 and (derr <= 1e-2).float().mean() >= 0.999
     assert (depth - depth32).abs().max() > 1e-5           # not silently f32
-
-
-@pytest.mark.cuda
-def test_fused_min_scan_bf16_matches_plain(cuda):
-    module = _surface(cuda)
-    g = torch.Generator().manual_seed(7)
-    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(3001, 3).contiguous()
-    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(3001, 3, generator=g)
-    r_o, r_d = r_o.to(cuda), torch.nn.functional.normalize(r_d, dim=-1).to(cuda)
-    step = 2.2 / 128
-    reset_launch_counts()
-    idx = fused_min_scan_bf16(module, r_o, r_d, step, steps=128)
-    assert launch_counts()["fused_min_scan_bf16"] == 1
-    idx32 = fused_min_scan(module, r_o, r_d, step, steps=128)
-    sdf = _bf16_sdf(module)
-    pidx = min_scan_plain(sdf, r_o, r_d, step, steps=128)
-    torch.cuda.synchronize()
-    differ = idx != pidx
-    assert (~differ).float().mean() >= 0.99
-    if differ.any():
-        sd = sdf(r_o[differ] + (idx[differ] * step)[:, None] * r_d[differ])
-        psd = sdf(r_o[differ] + (pidx[differ] * step)[:, None] * r_d[differ])
-        assert (sd - psd).abs().max() <= 1e-3
-    assert (idx != idx32).any()                              # not silently f32
 
 
 @pytest.mark.cuda
