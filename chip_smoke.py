@@ -62,7 +62,8 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      sigmoid(normal), ts linspace(0, 2, 64), seeded), and one backward
      through its autograd.Function against autograd through the plain
      version; both timed by the profiler's device time on inputs that a
-     call finds out of the L2 cache (CUDA events beside it);
+     call finds out of the L2 cache (CUDA events beside it; the entry's
+     timed_by says which timed its ms and plain_ms);
  13. the NeRFLE eval: workloads.nerfle.build_scene() at full width, weights
      from seed 0, FoV cameras on the 8x8 colocated grid at distance 1, each
      view lit at 1.05 x its camera centre: 2 views at 200x200 through the
@@ -198,19 +199,21 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``: the device time of all its
-    kernels under the profiler over ``reps`` calls, after one warm-up call.
-    For kernels shorter than their launch, where CUDA events around a call
-    time the host's launch path.  A profiler session that records no device
-    time is tried once more, then the time is taken by CUDA events (and
-    said so)."""
+def device_ms(torch, fn, reps: int):
+    """-> (device milliseconds per call of ``fn``, what timed it): the
+    device time of all its kernels under the profiler over ``reps`` calls,
+    after one warm-up call, "profiler".  For kernels shorter than their
+    launch, where CUDA events around a call time the host's launch path.
+    The profiler traces the host too, as ``profile_step`` does: a session
+    of the device alone once came back empty.  A session that records no
+    device time is tried twice more; after that the time is taken by CUDA
+    events, the host's launch included, and said so: "cuda_events"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -218,9 +221,10 @@ def device_ms(torch, fn, reps: int) -> float:
                     if e.device_type == DeviceType.CUDA
                     and not getattr(e, "is_user_annotation", False))
         if total > 0:
-            return 1e-3 * total / reps
-    print("  device_ms: the profiler saw no device time twice; timed by CUDA events")
-    return cuda_ms(fn, reps)
+            return 1e-3 * total / reps, "profiler"
+    print("  device_ms: three profiler sessions saw no device time; timed by CUDA "
+          "events, the host's launch included (timed_by: cuda_events)")
+    return cuda_ms(fn, reps), "cuda_events"
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -584,17 +588,14 @@ def segment_split(torch, module, kernel, shapes, compute_dtype):
     one segment]), the latter timed right after the chosen split, in the
     same call."""
     fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
-    from neural_raytracing_tpu_torch.kernels import min_scan_blocks_per_sm
-    slots = (min_scan_blocks_per_sm(module, compute_dtype)
-             * torch.cuda.get_device_properties(0).multi_processor_count)
-    chosen = [fm.min_scan_segments(-(-r_o.shape[0] // 32), 129 // 4 + 1, slots)
+    chosen = [fm.min_scan_plan(module, r_o.shape[0], 128, compute_dtype, r_o.device)
               for r_o, _ in shapes]
-    saved, fm.min_scan_segments = fm.min_scan_segments, lambda *args: 1
+    saved, fm.min_scan_plan = fm.min_scan_plan, lambda *args: 1
     try:
         one = [cuda_ms(lambda: kernel(module, r_o, r_d, 2.2 / 128, steps=128), 5)
                for r_o, r_d in shapes]
     finally:
-        fm.min_scan_segments = saved
+        fm.min_scan_plan = saved
     return chosen, one
 
 
@@ -652,7 +653,7 @@ def phase_minscan(torch, dev):
           f"{one[0]:.3f} and {one[1]:.3f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, err=err,
                 segments=segs[0], one_segment_ms=one[0], half_res_one_segment_ms=one[1],
-                prev_ms=K3_PREV_MS["f32"], half_res_ms=half_ms, half_res_bound_ms=half_b,
+                half_res_ms=half_ms, half_res_bound_ms=half_b,
                 blocks_per_sm=blocks, indices_differ=n_differ)
 
 
@@ -1323,17 +1324,18 @@ def phase_composite(torch, dev):
 
         # a call lasts microseconds: device time from the profiler, beside
         # CUDA events around one call (the host's launch included)
-        ms = device_ms(torch, lambda: cold(fused_composite), 20)
-        plain_ms = device_ms(torch, lambda: cold(composite_plain), 20)
+        ms, ms_by = device_ms(torch, lambda: cold(fused_composite), 20)
+        plain_ms, plain_by = device_ms(torch, lambda: cold(composite_plain), 20)
         ev_ms = cuda_ms(lambda: cold(fused_composite), 20)
         ev_plain_ms = cuda_ms(lambda: cold(composite_plain), 20)
         b_ms, b_by = bound_ms(n_bytes, 14.0 * n_t * n_r)
         print(f"{label}: max |err| {err.max().item():.3e}, gradients max |err| {gerr:.3e}, "
-              f"kernel {ms:.4f} ms device ({ev_ms:.4f} ms by events), plain {plain_ms:.4f} "
-              f"ms device ({ev_plain_ms:.4f} ms by events), bound {b_ms:.4f} ms ({b_by}), "
-              f"{n_bytes / ms / 1e6:.1f} GB/s")
+              f"kernel {ms:.4f} ms by the {ms_by} ({ev_ms:.4f} ms by events), plain "
+              f"{plain_ms:.4f} ms by the {plain_by} ({ev_plain_ms:.4f} ms by events), "
+              f"bound {b_ms:.4f} ms ({b_by}), {n_bytes / ms / 1e6:.1f} GB/s")
         results[(n_t, n_r)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by, err=err.max().item())
+                                   bound_by=b_by, err=err.max().item(),
+                                   timed_by={"ms": ms_by, "plain_ms": plain_by})
     return results[COMPOSITE_SHAPES[0]]
 
 
@@ -1850,7 +1852,7 @@ def bf16_minscan(torch, dev, module):
     return dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
                 segments=segs[0], one_segment_ms=one[0], half_res_one_segment_ms=one[1],
                 bound_by="operations", f32_bound_ms=f32_b, tensor_core_bound_ms=tc_ms,
-                elementwise_floor_ms=floor_ms, err=err, prev_ms=K3_PREV_MS["bf16"],
+                elementwise_floor_ms=floor_ms, err=err,
                 half_res_ms=half_ms, half_res_bound_ms=half_b, blocks_per_sm=blocks,
                 indices_differ=n_differ)
 
@@ -2218,11 +2220,11 @@ def main():
                  launches=launches, max_abs_err=m["err"], ms=m["ms"],
                  plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                  bound_by=m["bound_by"], library_ms=None)
-        # K3 and K3-bf16 (redesigned): the time before, the half-res shape, the
-        # occupancy, the sample segments, and K3-bf16's two bounds
-        for key in ("prev_ms", "half_res_ms", "half_res_bound_ms", "blocks_per_sm",
+        # K3 and K3-bf16 (redesigned): the half-res shape, the occupancy, the
+        # sample segments, and K3-bf16's two bounds; K8: what timed it
+        for key in ("half_res_ms", "half_res_bound_ms", "blocks_per_sm",
                     "indices_differ", "tensor_core_bound_ms", "elementwise_floor_ms",
-                    "segments", "one_segment_ms", "half_res_one_segment_ms"):
+                    "segments", "one_segment_ms", "half_res_one_segment_ms", "timed_by"):
             if key in m:
                 e[key] = m[key]
         return e

@@ -374,11 +374,11 @@ extern "C" int nrt_fused_min_scan(const float* ro, const float* rd,
 }
 
 // Blocks of the kernel for this net that fit on one SM (its occupancy), or
-// a negative cudaError_t.
+// a negative cudaError_t; writes the rays a block takes to *rays.
 extern "C" int nrt_fused_min_scan_blocks_per_sm(int bf16, int freqs, int hidden,
-                                                int n_spheres) {
+                                                int n_spheres, int* rays) {
   if (freqs < 0 || freqs > 128 || hidden <= 0 || hidden > 256 || n_spheres <= 0 ||
-      n_spheres > NRT_SCAN_MAX_SPHERES)
+      n_spheres > NRT_SCAN_MAX_SPHERES || rays == nullptr)
     return -(int)cudaErrorInvalidValue;
   const int E = 3 + 2 * freqs, r = bf16 ? 16 : 8;
   const NrtScanLaunch c =
@@ -386,6 +386,7 @@ extern "C" int nrt_fused_min_scan_blocks_per_sm(int bf16, int freqs, int hidden,
   cudaError_t err = cudaFuncSetAttribute(
       c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
   int blocks = 0;
+  *rays = c.rays;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c.kernel, NRT_THREADS,
                                                         c.smem);

@@ -24,9 +24,9 @@ layer through shared memory in the layout ``pack_shift_weights`` makes.
 Every ray takes all samples; it is bound by the f32 FMA rate.  To fill
 the card's last wave of blocks, each ray's samples may be split into
 segments run by separate blocks and merged by a second kernel
-(``min_scan_segments`` picks the count from the ray count, the steps and
-the card's block slots).  ``min_scan_plain`` is its plain version (the ``lax.scan`` of
-``SDF.throughput``).  K3-bf16 runs the same scan with the shift net's
+(``min_scan_plan`` picks the count from the ray count, the steps and the
+block shape and occupancy the library reports).  ``min_scan_plain`` is its
+plain version (the ``lax.scan`` of ``SDF.throughput``).  K3-bf16 runs the same scan with the shift net's
 products on the tensor cores (``mma.sync`` m16n8k16, bf16 activations in
 shared memory).
 
@@ -95,7 +95,7 @@ def _minscan_lib() -> ctypes.CDLL:
         _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP (packed weights)
         _P]                                       # stream
     lib.nrt_fused_min_scan.restype = _I
-    lib.nrt_fused_min_scan_blocks_per_sm.argtypes = [_I, _I, _I, _I]
+    lib.nrt_fused_min_scan_blocks_per_sm.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.nrt_fused_min_scan_blocks_per_sm.restype = _I
     return lib
 
@@ -424,38 +424,57 @@ def _packed_pointers(mlp, packed, device, compute_dtype):
 
 # samples of one ray per evaluation (NRT_TILE_U of csrc/mlp_tiled.cuh)
 MIN_SCAN_SAMPLES = 4
+# the most segments K3 splits a ray's samples into
+MIN_SCAN_MAX_SEGMENTS = 8
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(bf16: bool, freqs: int, hidden: int, n_spheres: int,
-                   device: int) -> int:
+def _launch_shape(bf16: bool, freqs: int, hidden: int, n_spheres: int,
+                  device: int) -> tuple[int, int]:
+    """(rays a block, blocks an SM) of K3 for this net on ``device``, as the
+    library launches it."""
+    rays = _I(0)
     with torch.cuda.device(device):
         blocks = _minscan_lib().nrt_fused_min_scan_blocks_per_sm(
-            int(bf16), freqs, hidden, n_spheres)
+            int(bf16), freqs, hidden, n_spheres, ctypes.byref(rays))
     if blocks <= 0:
-        raise RuntimeError(f"min_scan_blocks_per_sm: CUDA error {-blocks}")
-    return blocks
+        raise RuntimeError(f"nrt_fused_min_scan_blocks_per_sm: CUDA error {-blocks}")
+    return rays.value, blocks
+
+
+def _module_launch_shape(module, compute_dtype, device: int) -> tuple[int, int]:
+    check_min_scan_widths(module)
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    mlp = module.shift
+    return _launch_shape(bf16, mlp.freqs, mlp.hidden_size, module.centers.shape[0], device)
 
 
 def min_scan_blocks_per_sm(module, compute_dtype=torch.float32) -> int:
     """Blocks of K3 (K3-bf16) for ``module`` that fit on one SM of the
     current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    check_min_scan_widths(module)
-    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
-    mlp = module.shift
-    return _blocks_per_sm(bf16, mlp.freqs, mlp.hidden_size, module.centers.shape[0],
-                          torch.cuda.current_device())
+    return _module_launch_shape(module, compute_dtype, torch.cuda.current_device())[1]
 
 
-def min_scan_segments(blocks: int, groups: int, slots: int, most: int = 8) -> int:
+def min_scan_plan(module, n: int, steps: int, compute_dtype, device: torch.device) -> int:
+    """The segments K3 (K3-bf16) splits each ray's samples into for ``n``
+    rays of ``steps + 1`` samples on the CUDA ``device``: its block shape
+    and occupancy from the library, through ``min_scan_segments``."""
+    if n <= 0 or steps < 0:
+        return 1
+    rays, blocks = _module_launch_shape(module, compute_dtype, device.index)
+    slots = blocks * torch.cuda.get_device_properties(device).multi_processor_count
+    return min_scan_segments(-(-n // rays), steps // MIN_SCAN_SAMPLES + 1, slots)
+
+
+def min_scan_segments(blocks: int, groups: int, slots: int) -> int:
     """Into how many segments K3 splits each ray's ``groups`` sample groups
     (``MIN_SCAN_SAMPLES`` samples each), given its ``blocks`` ray blocks and
-    the ``slots`` blocks the card holds at once: the count, up to ``most``
-    and with at least two groups a segment, that minimises the waves of
-    blocks times the groups of the longest segment (plus a quarter group
-    for a block's fixed work and the merge)."""
+    the ``slots`` blocks the card holds at once: the count, up to
+    ``MIN_SCAN_MAX_SEGMENTS`` and with at least two groups a segment, that
+    minimises the waves of blocks times the groups of the longest segment
+    (plus a quarter group for a block's fixed work and the merge)."""
     best, best_cost = 1, float("inf")
-    for seg in range(1, most + 1):
+    for seg in range(1, MIN_SCAN_MAX_SEGMENTS + 1):
         if seg > 1 and groups < 2 * seg:
             break
         cost = -(-blocks * seg // slots) * (-(-groups // seg) + 0.25)
@@ -492,14 +511,7 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     packed = pack_shift_weights(mlp, compute_dtype)
     ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
     idx = torch.empty(n, device=device, dtype=torch.float32)
-    segments = 1
-    if n > 0 and steps >= 0:
-        np_width, _ = min_scan_widths(mlp, compute_dtype)
-        rays = (128 if np_width == 128 else 64) // MIN_SCAN_SAMPLES
-        slots = _blocks_per_sm(bf16, mlp.freqs, mlp.hidden_size, spheres[3],
-                               device.index) \
-            * torch.cuda.get_device_properties(device).multi_processor_count
-        segments = min_scan_segments(-(-n // rays), steps // MIN_SCAN_SAMPLES + 1, slots)
+    segments = min_scan_plan(module, n, steps, compute_dtype, device)
     part_m = torch.empty(segments * n if segments > 1 else 0, device=device)
     part_i = torch.empty_like(part_m, dtype=torch.int32)
     with torch.cuda.device(device):

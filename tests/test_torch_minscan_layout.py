@@ -6,7 +6,9 @@ layout ``pack_shift_weights`` documents, must give the SphereSDF of
 ``sphere_sdf_eval_plain(module, p, dtype)`` in both operand modes, for the
 flagship 8 x 128 net, a net whose widths need padding and a net wider than
 128 (the 256-wide layout); the padded entries must be zero; and widths past
-K3's limits must raise before anything about devices.
+K3's limits must raise before anything about devices.  The split of each
+ray's samples into segments (``min_scan_segments``, ``min_scan_plan``) is
+held at the flagship's shapes.
 
 Tolerances: float32 rtol 1e-5 / atol 1e-6 (the padded products add exact
 zeros, but the matmuls sum in another order); bf16 the same on 99% of the
@@ -14,13 +16,18 @@ points (a float32 difference can tip the bf16 rounding of one activation,
 which moves that point's output by one bf16 step).
 """
 
+import sys
+import types
+
 import pytest
 import torch
 
 from neural_raytracing_tpu_torch.kernels import (
     MIN_SCAN_LIMITS, f32_column_order, fused_min_scan, fused_min_scan_bf16,
-    min_scan_segments, min_scan_widths, pack_shift_weights, sphere_sdf_eval_plain,
+    min_scan_plan, min_scan_segments, min_scan_widths, pack_shift_weights,
+    sphere_sdf_eval_plain,
 )
+from neural_raytracing_tpu_torch.kernels.fused_march import MIN_SCAN_MAX_SEGMENTS
 from neural_raytracing_tpu_torch.kernels.fused_sdf import sphere_min_plain
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
 from neural_raytracing_tpu_torch.nn.mlp import ACTIVATIONS
@@ -170,11 +177,29 @@ def test_min_scan_width_check_raises_before_the_device(name, limit):
 # 38,400 rays (1,200 blocks, 5 waves on an H100's 264 slots) take 3, its
 # half-res grid (300 blocks, 2 waves) 7; one ray block takes the fewest
 # segments that make its longest segment shortest, with two groups or more a
-# segment; a single group is never split.
+# segment; a single group is never split; a long ray stops at the most
+# segments.
 @pytest.mark.parametrize("blocks,groups,slots,want", [
     (1200, 33, 264, 3), (300, 33, 264, 7), (1, 33, 264, 7), (1, 17, 264, 6),
-    (1, 5, 264, 2), (94, 1, 264, 1), (264, 33, 264, 1)])
+    (1, 5, 264, 2), (94, 1, 264, 1), (264, 33, 264, 1),
+    (1, 1000, 264, MIN_SCAN_MAX_SEGMENTS)])
 def test_min_scan_segments_fill_the_last_wave(blocks, groups, slots, want):
     seg = min_scan_segments(blocks, groups, slots)
     assert seg == want
     assert seg == 1 or groups >= 2 * seg
+    assert seg <= MIN_SCAN_MAX_SEGMENTS
+
+
+# (rays, steps) -> segments, with the library's answer for the flagship
+# shift on an H100 (32 rays a block, 2 blocks an SM, 132 SMs) put in its
+# place: the training shape, the half-res grid, an empty call.
+@pytest.mark.parametrize("n,steps,want", [(38400, 128, 3), (9600, 128, 7), (0, 128, 1)])
+def test_min_scan_plan_asks_the_library(monkeypatch, n, steps, want):
+    fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+    asked = []
+    monkeypatch.setattr(fm, "_launch_shape", lambda *a: asked.append(a) or (32, 2))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=132))
+    module = _surface(SHIFTS["flagship"])
+    assert min_scan_plan(module, n, steps, BF16, torch.device("cuda", 0)) == want
+    assert asked == ([] if n == 0 else [(True, 32, 128, 16, 0)])
