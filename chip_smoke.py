@@ -9,7 +9,20 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      flagship nets at full width, 65,536 seeded points each;
   3. K2 fused_march against its plain version on a 256x256 NeRFCamera view
      (65,536 rays) through the full 128-sphere set with a non-zero 8x128
-     shift: bounded (256 steps, march_bound 1.2) and unbounded (64 steps);
+     shift: bounded (256 steps, march_bound 1.2) and unbounded (64 steps),
+     with the library's occupancy, registers and local memory, the live
+     share of the rows its steps evaluated, evaluations/ms, and its depths
+     and hits the same bit for bit in a second launch and under a random
+     permutation of the rays;
+ 3b. K2 and K2-bf16 at the shapes the main paths launch them at (one
+     flagship eval tile of 16,384 rays, bounded, 256 steps; a validation
+     tile, unbounded, 64 steps; the 38,400 rays of a training step, 64
+     steps; the NeRV checkpoint's 65,536 orbit rays at omega 1.4, 128 steps;
+     phase 3's bounded view): the SDF evaluations per ray (mean, median,
+     99th percentile, most), K2 against march_plain as phase 3 holds it,
+     both kernels' ms, evaluations/ms and live share, each also with two
+     blocks a SM; then the ms of one step by the rows a block evaluates (128,
+     64, 32; a block a SM; two);
   4. the eval slice: the flagship eval scene of scripts/nerf_synthetic.py
      (max_steps 256, march_bound 1.2) renders 3 views at 256x256 through
      pathtrace with the kernels, launch counts reset just before and read
@@ -91,7 +104,9 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      phase 8's NeRV shadow rays with
      and without the past-light exit, and a probe on phase 3's surface that
      reads K4's SDF at float32 resolution (the checkpoint's shift net is a
-     constant, so its bf16 and f32 marches agree bit for bit);
+     constant, so its bf16 and f32 marches agree bit for bit); K2-bf16's and
+     K4-bf16's bounds are the larger of the tensor-core bound and the
+     elementwise floor, as K3-bf16's;
  17. the mixed-precision flagship (bf16 weight net, lobes and light field,
      march_dtype bf16, the shift net f32): 3 eval views and one training
      step against everything plain in the same precision (plain_kernels), 12
@@ -110,7 +125,9 @@ last line is {"ok": true, "device": {...}}.
 Tolerances: K1 |kernel - plain| <= 1e-4 |plain| + 1e-5 + 4e-7 max|x.B| (the
 float32 rounding of the Fourier argument x.B, amplified by the net); K2 hit
 agreement >= 99% and |depth difference| <= 1e-3 where both hit (float32
-sums in another order, accumulated over up to 256 steps); the eval slice's
+sums in another order, accumulated over up to 256 steps), and K2's and
+K2-bf16's depths equal bit for bit across launches and permutations (a
+ray's result depends on its own evaluations only); the eval slice's
 images finite, hit fraction > 0, mask agreement >= 99% and mean |difference|
 <= 1e-3 between the kernel and plain renders; K3 index agreement >= 99.9%
 and |sd difference| <= 1e-5 where the indices differ (near ties); K6/K7 dx
@@ -144,6 +161,12 @@ its output scale); K4-bf16 as K4; each
 bf16 kernel must differ from its f32 kernel on a non-zero net (K1 by at
 least half that mean gap); the bf16 flagship against plain-in-bf16 as
 phases 4 and 7.
+
+    python3 chip_smoke.py --march-times [DIR]
+
+prints only K2's and K2-bf16's ms at phase 3b's shapes, for the package in
+DIR (this checkout's by default): unpack another commit with git archive
+into the ignored scratch_trees/ and run the two trees in turns in one call.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -329,6 +352,37 @@ def march_surface(torch, dev):
     return module.to(dev)
 
 
+def march_kernel_report(torch, module, compute_dtype, run, n):
+    """K2's (K2-bf16's) kernel as the library reports it (blocks per SM,
+    slots, registers, spills), the share of the rows its steps evaluated
+    that held a live ray (the launch statistics of one ``run(stats)``), and
+    whether its depths and hits are the same bit for bit in a second launch
+    and under a random permutation of the rays (``run(stats, perm)``)."""
+    from neural_raytracing_tpu_torch.kernels import march_info
+    info = march_info(module, compute_dtype)
+    stats = torch.zeros(3, dtype=torch.int64, device=module.centers.device)
+    d1, h1 = run(stats, None)
+    d2, h2 = run(None, None)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(9)).to(d1.device)
+    d3, h3 = run(None, perm)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=perm.device)
+    same = (torch.equal(d1, d2) and torch.equal(h1, h2) and torch.equal(d1, d3[inv])
+            and torch.equal(h1, h3[inv]))
+    steps, rows, live = (int(x) for x in stats.tolist())
+    return dict(blocks_per_sm=info["blocks_per_sm"], slots=info["slots"],
+                registers=info["registers"], local_bytes=info["local_bytes"],
+                tile_steps=steps, live_row_share=live / max(rows, 1), bitwise_same=same)
+
+
+def march_kernel_line(r) -> str:
+    return (f"{r['blocks_per_sm']} blocks per SM of {r['slots']} slots, "
+            f"{r['registers']} registers, {r['local_bytes']} bytes of local memory a thread; "
+            f"{r['tile_steps']} tile steps, live share of the rows evaluated "
+            f"{r['live_row_share']:.3f}; bit for bit the same in a second launch "
+            f"and under a permutation of the rays: {r['bitwise_same']}")
+
+
 def phase_march(torch, dev):
     from neural_raytracing_tpu_torch.kernels import (
         fused_march, march_plain, set_kernel_mode,
@@ -360,6 +414,17 @@ def phase_march(torch, dev):
         check(frac > 0, f"K2 {label}: no ray hit the surface")
         check(agree >= 0.99, f"K2 {label}: hit agreement {agree:.4f} < 0.99")
         check(derr <= 1e-3, f"K2 {label}: max |depth err| {derr:.3e} > 1e-3")
+
+        def run(stats, perm):
+            p = slice(None) if perm is None else perm
+            return fused_march(module, r_o[p].contiguous(), r_d[p].contiguous(),
+                               t1 if t0 is None else t1[p].contiguous(), max_steps=steps,
+                               epsilon=1e-3, t_start=None if t0 is None else t0[p].contiguous(),
+                               stats=stats)
+
+        rep = march_kernel_report(torch, module, torch.float32, run, N_POINTS)
+        check(rep["bitwise_same"], f"K2 {label}: depths differ between launches or "
+              "under a permutation of the rays")
         ms = cuda_ms(kernel, 5)
         plain_ms = cuda_ms(plain, 3)
         n_evals = evals.sum().item()
@@ -370,10 +435,178 @@ def phase_march(torch, dev):
               f"agreement {agree:.6f}, max |depth err| {derr:.3e}, SDF "
               f"evaluations needed {n_evals} ({n_evals / N_POINTS:.2f}/ray), "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"({b_by}), {per_eval_flops * n_evals / ms / 1e9:.1f} TFLOP/s")
+              f"({b_by}), {per_eval_flops * n_evals / ms / 1e9:.1f} TFLOP/s, "
+              f"{n_evals / ms:,.0f} evaluations/ms; {march_kernel_line(rep)}")
         results[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, err=derr)
+                              bound_by=b_by, err=derr, evals_per_ms=n_evals / ms,
+                              **{k: rep[k] for k in ("blocks_per_sm", "registers",
+                                                     "local_bytes", "live_row_share")})
     return results
+
+
+def march_shapes(torch, dev):
+    """The shapes K2 is launched at on the main paths, each as (label, the
+    SphereSDF, r_o, r_d, t_start, max_t, steps, omega): one 128^2 eval tile
+    of the flagship (seed-0 weights, bounded, 256 steps) and one validation
+    tile (unbounded, 64 steps), the 38,400 rays of a flagship training step
+    (64 steps), the 65,536 orbit rays of the NeRV checkpoint at omega 1.4
+    (128 steps, phase 15) and the 65,536 view rays of phase 3 through its
+    seeded non-zero surface (bounded, 256 steps)."""
+    from neural_raytracing_tpu_torch.kernels import set_kernel_mode
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.shapes import march_interval
+    from neural_raytracing_tpu_torch.workloads import render
+
+    flagship = flagship_scene(256, 1.2)
+    flagship.init(torch.Generator().manual_seed(0), device=dev)
+    seed0 = flagship.shape.module
+    tile = view_rays(torch, dev).reshape(SIZE, SIZE, 6)[:CHUNK, :CHUNK].reshape(-1, 6)
+    t_o, t_d = tile[:, :3].contiguous(), tile[:, 3:].contiguous()
+    s_o, s_d = scan_rays(torch, dev)
+    nerv = nerv_scene(torch, dev, 128, None, "learned").shape.module
+    orbit = torch.cat([render.frame_camera(f, ORBIT_FRAMES, 1.0, 20.0).to(dev).sample_positions(
+        _tile_positions(0.0, 0.0, ORBIT_SIZE, dev), size=ORBIT_SIZE).reshape(-1, 6)
+        for f in range(ORBIT_FRAMES)])
+    o_o, o_d = orbit[:, :3].contiguous(), orbit[:, 3:].contiguous()
+    surface = march_surface(torch, dev)
+    view = view_rays(torch, dev)
+    v_o, v_d = view[:, :3].contiguous(), view[:, 3:].contiguous()
+    for m in (seed0, nerv, surface):
+        set_kernel_mode(m, "off")    # the plain march evaluates the plain shift
+    return [("eval tile", seed0, t_o, t_d, *march_interval(t_o, t_d, 1.2, 10.0), 256, 1.0),
+            ("validation tile", seed0, t_o, t_d, None, 10.0, 64, 1.0),
+            ("training step", seed0, s_o, s_d, None, 10.0, 64, 1.0),
+            ("relaxed orbit", nerv, o_o, o_d, None, 10.0, 128, OMEGA),
+            ("table shape", surface, v_o, v_d, *march_interval(v_o, v_d, 1.2, 10.0), 256, 1.0)]
+
+
+def eval_distribution(evals) -> dict:
+    """Mean, median, 99th percentile and maximum of the SDF evaluations per
+    ray, and their sum."""
+    import torch
+    e = evals.double().flatten()
+    q = torch.quantile(e, torch.tensor([0.5, 0.99], dtype=e.dtype, device=e.device),
+                       interpolation="higher").tolist()
+    return dict(mean=e.mean().item(), p50=q[0], p99=q[1], max=int(evals.max().item()),
+                total=int(evals.sum().item()))
+
+
+class two_blocks_per_sm:
+    """Within this context K2 launches two persistent blocks a SM (as many as
+    fit; at most one a ray) instead of march_plan's one: the other grid,
+    timed in the same call."""
+
+    def __enter__(self):
+        import torch
+        self.fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+        self.saved = self.fm.march_plan
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.fm.march_plan = lambda n, device: min(n, 2 * sms)
+        return self
+
+    def __exit__(self, *exc):
+        self.fm.march_plan = self.saved
+
+
+def phase_march_shapes(torch, dev):
+    """K2 and K2-bf16 at the shapes the main paths launch them at
+    (march_shapes): the SDF evaluations each ray needs (march_plain's
+    count), K2 against march_plain as phase 3 holds it, both kernels' times,
+    evaluations/ms and the live share of the rows their steps evaluated; each
+    also with two blocks a SM."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_march, fused_march_bf16, march_plain, march_plan,
+    )
+    out = {}
+    for label, module, r_o, r_d, t0, t1, steps, omega in march_shapes(torch, dev):
+        n = r_o.shape[0]
+        kw = dict(max_steps=steps, epsilon=1e-3, t_start=t0, omega=omega)
+        pdepth, phit, evals = march_plain(module, r_o, r_d, t1, t0, max_steps=steps,
+                                          epsilon=1e-3, omega=omega)
+        stats, stats16 = (torch.zeros(3, dtype=torch.int64, device=dev) for _ in range(2))
+        depth, hit = fused_march(module, r_o, r_d, t1, stats=stats, **kw)
+        depth16, hit16 = fused_march_bf16(module, r_o, r_d, t1, stats=stats16, **kw)
+        torch.cuda.synchronize()
+        agree = (hit == phit).float().mean().item()
+        both = hit & phit
+        derr = (depth - pdepth)[both].abs().max().item() if both.any() else 0.0
+        check(agree >= 0.99, f"K2 {label}: hit agreement {agree:.4f} < 0.99")
+        check(derr <= 1e-3, f"K2 {label}: max |depth err| {derr:.3e} > 1e-3")
+        dist = eval_distribution(evals)
+        kernel = lambda: fused_march(module, r_o, r_d, t1, **kw)
+        kernel16 = lambda: fused_march_bf16(module, r_o, r_d, t1, **kw)
+        ms, ms16 = cuda_ms(kernel, 5), cuda_ms(kernel16, 5)
+        live, live16 = (int(x[2]) / max(int(x[1]), 1) for x in (stats.tolist(), stats16.tolist()))
+        res = dict(n=n, steps=steps, omega=omega, dist=dist, ms=ms, bf16_ms=ms16,
+                   evals_per_ms=dist["total"] / ms, bf16_evals_per_ms=dist["total"] / ms16,
+                   live_row_share=live, bf16_live_row_share=live16,
+                   blocks=march_plan(n, dev),
+                   tile_steps=int(stats[0]), bf16_tile_steps=int(stats16[0]))
+        with two_blocks_per_sm():
+            res["two_blocks_ms"] = cuda_ms(kernel, 5)
+            res["bf16_two_blocks_ms"] = cuda_ms(kernel16, 5)
+        extra = (f"; two blocks a SM: K2 {res['two_blocks_ms']:.3f} ms, K2-bf16 "
+                 f"{res['bf16_two_blocks_ms']:.3f} ms")
+        print(f"K2 at the {label}: {n} rays, {steps} steps, omega {omega}; SDF "
+              f"evaluations per ray mean {dist['mean']:.2f}, median {dist['p50']:.0f}, 99th "
+              f"percentile {dist['p99']:.0f}, most {dist['max']} ({dist['total']} in all); "
+              f"hit agreement {agree:.6f}, max |depth err| {derr:.3e}; K2 {ms:.3f} ms "
+              f"({res['evals_per_ms']:,.0f} evaluations/ms, live share "
+              f"{live:.3f}, {res['tile_steps']} tile steps), K2-bf16 {ms16:.3f} ms "
+              f"({res['bf16_evals_per_ms']:,.0f} evaluations/ms, live share {live16:.3f}; "
+              f"hit flags that differ from K2 {int((hit16 != hit).sum().item())}); "
+              f"{res['blocks']} blocks{extra}")
+        out[label] = res
+    out["step ms"] = march_step_times(torch, dev)
+    return out
+
+
+def march_step_times(torch, dev):
+    """Milliseconds of one K2 (K2-bf16) step by the rows it evaluates, with
+    its blocks alone on the card: rays that never hit (eps -1) and never
+    leave (max_t 1e30, pointing away from the surface) take all 64 steps;
+    one block with 128, 64 or 32 of them, and full blocks, one a SM or two."""
+    from neural_raytracing_tpu_torch.kernels import fused_march
+    module = march_surface(torch, dev)
+    fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, blocks, n in (("one block, 128 rows", 1, 128), ("one block, 64 rows", 1, 64),
+                             ("one block, 32 rows", 1, 32),
+                             ("a block a SM, 128 rows", sms, 128 * sms),
+                             ("two blocks a SM, 128 rows", 2 * sms, 256 * sms)):
+        d = torch.nn.functional.normalize(
+            torch.rand(n, 3, generator=torch.Generator().manual_seed(4)) + 0.2, dim=-1).to(dev)
+        o = (2.0 * d).contiguous()
+        saved, fm.march_plan = fm.march_plan, lambda *a, b=blocks: b
+        try:
+            out[label] = [cuda_ms(lambda: fused_march(module, o, d, 1e30, max_steps=64,
+                                                      epsilon=-1.0, compute_dtype=dt), 3) / 64
+                          for dt in (torch.float32, torch.bfloat16)]
+        finally:
+            fm.march_plan = saved
+    print("K2 step ms (f32, bf16) by the rows a block evaluates, 64 steps of rays that "
+          "never finish: " + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f}" for k, v in out.items()))
+    return out
+
+
+def march_times_main(root: str):
+    """``python3 chip_smoke.py --march-times [DIR]``: K2's and K2-bf16's ms at
+    the path's shapes (march_shapes) for the package in DIR (this checkout's
+    by default), one JSON line, to compare two trees in one call."""
+    import torch
+    sys.path.insert(0, str(Path(root).resolve()))
+    import neural_raytracing_tpu_torch
+    from neural_raytracing_tpu_torch.kernels import _build, fused_march, fused_march_bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build()
+    times = {}
+    for label, module, r_o, r_d, t0, t1, steps, omega in march_shapes(torch, dev):
+        kw = dict(max_steps=steps, epsilon=1e-3, t_start=t0, omega=omega)
+        times[label] = [cuda_ms(lambda: fused_march(module, r_o, r_d, t1, **kw), 5),
+                        cuda_ms(lambda: fused_march_bf16(module, r_o, r_d, t1, **kw), 5)]
+    print(json.dumps({"package": neural_raytracing_tpu_torch.__file__, "march_ms": times}))
 
 
 def flagship_scene(max_steps, march_bound):
@@ -1732,22 +1965,41 @@ def phase_bf16_kernels(torch, dev):
               f"{close:.4f} and <= 1e-2 on {near:.5f} of the common hits")
         check(moved > 1e-5 or bool((hit != hit32).any()),
               f"K2-bf16 {label}: depths within {moved:.3e} of the f32 kernel: it ran in f32")
+
+        def run(stats, perm, t0=t0, t1=t1, kw=kw):
+            p = slice(None) if perm is None else perm
+            return fused_march_bf16(module, r_o[p].contiguous(), r_d[p].contiguous(),
+                                    t1 if t0 is None else t1[p].contiguous(),
+                                    **dict(kw, t_start=None if t0 is None else t0[p].contiguous()),
+                                    stats=stats)
+
+        rep = march_kernel_report(torch, module, bf16, run, N_POINTS)
+        check(rep["bitwise_same"], f"K2-bf16 {label}: depths differ between launches or "
+              "under a permutation of the rays")
         ms = cuda_ms(kernel, 5)
         ms32 = cuda_ms(kernel32, 5)
         plain_ms = cuda_ms(plain, 2)
         n_evals = evals.sum().item()
         n_bytes = 4 * N_POINTS * (6 + (2 if bound else 0)) + 5 * N_POINTS \
             + weight_bytes(module.shift) + 4 * 13 * module.n
-        b_ms, b_by, f32_b = bf16_bounds(n_bytes, macs_eval * n_evals, sph_eval * n_evals)
+        tc_ms, b_by, f32_b = bf16_bounds(n_bytes, macs_eval * n_evals, sph_eval * n_evals)
+        floor_ms = n_evals * scan_elementwise_ms(module)
+        b_ms = max(tc_ms, floor_ms)
         print(f"K2-bf16 {label} ({steps} steps, omega {omega}): hit agreement {agree:.6f}, "
               f"|depth err| <= 1e-3 on {close:.6f} of the common hits, max {derr:.3e}; against the f32 kernel: max |depth diff| "
               f"{moved:.3e}, hit flags differ {int((hit != hit32).sum().item())}; "
               f"evaluations per ray {n_evals / N_POINTS:.2f} (f32 "
               f"{evals32.sum().item() / N_POINTS:.2f}); kernel {ms:.3f} ms (f32 kernel "
-              f"{ms32:.3f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms (bf16 tensor "
-              f"cores), f32-FMA bound {f32_b:.3f} ms")
+              f"{ms32:.3f} ms), {n_evals / ms:,.0f} evaluations/ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms: the larger of the bf16 tensor-core bound {tc_ms:.3f} ms "
+              f"and the elementwise floor {floor_ms:.3f} ms (f32-FMA bound {f32_b:.3f} ms); "
+              f"{march_kernel_line(rep)}")
         out[f"k2 {label}"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, f32_bound_ms=f32_b, err=derr)
+                                  bound_by=b_by, f32_bound_ms=f32_b, err=derr,
+                                  tensor_core_bound_ms=tc_ms, elementwise_floor_ms=floor_ms,
+                                  evals_per_ms=n_evals / ms,
+                                  **{k: rep[k] for k in ("blocks_per_sm", "registers",
+                                                         "local_bytes", "live_row_share")})
 
     out["k3"] = bf16_minscan(torch, dev, module)
     del module
@@ -1778,18 +2030,22 @@ def phase_bf16_kernels(torch, dev):
         check(agree >= 0.999, f"K4-bf16 {label}: not-blocked agreement {agree:.6f} < 0.999")
         ms, ms32, plain_ms = cuda_ms(kernel, 5), cuda_ms(kernel32, 5), cuda_ms(plain, 2)
         n_evals = evals.sum().item()
-        b_ms, b_by, f32_b = bf16_bounds(4 * n * 7 + n + weight_bytes(module.shift)
-                                        + 4 * 13 * module.n, macs_eval * n_evals,
-                                        sph_eval * n_evals)
+        tc_ms, b_by, f32_b = bf16_bounds(4 * n * 7 + n + weight_bytes(module.shift)
+                                         + 4 * 13 * module.n, macs_eval * n_evals,
+                                         sph_eval * n_evals)
+        floor_ms = n_evals * scan_elementwise_ms(module)
+        b_ms = max(tc_ms, floor_ms)
         print(f"K4-bf16 fused_shadow_march_bf16, {label}: {n} rays, 128 steps, not-blocked "
               f"agreement {agree:.6f}; flags that differ from the f32 kernel's "
               f"{int((nb != nb32).sum().item())} (the checkpoint's shift output spreads by "
               f"{spread:.2e} over the rays' origins); evaluations per ray {n_evals / n:.2f} "
               f"(f32 {evals32.sum().item() / n:.2f}); kernel {ms:.3f} ms (f32 kernel "
-              f"{ms32:.3f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms (bf16 tensor "
-              f"cores), f32-FMA bound {f32_b:.3f} ms")
+              f"{ms32:.3f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms: the larger of "
+              f"the bf16 tensor-core bound {tc_ms:.3f} ms and the elementwise floor "
+              f"{floor_ms:.3f} ms (f32-FMA bound {f32_b:.3f} ms)")
         out[f"k4 {label}"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, f32_bound_ms=f32_b, err=float(agree < 1.0))
+                                  bound_by=b_by, f32_bound_ms=f32_b, err=float(agree < 1.0),
+                                  tensor_core_bound_ms=tc_ms, elementwise_floor_ms=floor_ms)
     del scene
     n_moved, n_probe = k4_bf16_probe(torch, march_surface(torch, dev))
     check(n_moved > 0, f"K4-bf16: on all {n_probe} probe rays the flags equal the f32 "
@@ -2164,6 +2420,9 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an "
              "NVIDIA GPU")
+    if sys.argv[1:2] == ["--march-times"]:
+        march_times_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT))
+        return
     sys.path.insert(0, str(ROOT))
     import neural_raytracing_tpu_torch
     if not Path(neural_raytracing_tpu_torch.__file__).resolve().is_relative_to(ROOT):
@@ -2193,6 +2452,7 @@ def main():
 
     k1 = phase_mlp(torch, dev)
     k2 = phase_march(torch, dev)
+    k2_shapes = phase_march_shapes(torch, dev)
     eval_views = [(30.0, 45.0), (30.0, 165.0), (30.0, 285.0)]
     counts = phase_slice(torch, dev, "eval render (bounded, 256 steps)", 256, 1.2,
                          eval_views, profile=True)
@@ -2224,7 +2484,9 @@ def main():
         # sample segments, and K3-bf16's two bounds; K8: what timed it
         for key in ("half_res_ms", "half_res_bound_ms", "blocks_per_sm",
                     "indices_differ", "tensor_core_bound_ms", "elementwise_floor_ms",
-                    "segments", "one_segment_ms", "half_res_one_segment_ms", "timed_by"):
+                    "segments", "one_segment_ms", "half_res_one_segment_ms", "timed_by",
+                    "registers", "local_bytes", "live_row_share", "evals_per_ms",
+                    "eval_tile_ms"):
             if key in m:
                 e[key] = m[key]
         return e
@@ -2235,6 +2497,9 @@ def main():
         e["f32_fma_bound_ms"] = args[-1]["f32_bound_ms"]
         return e
 
+    # K2 and K2-bf16 (redesigned): also their time on one eval tile
+    k2["bounded"]["eval_tile_ms"] = k2_shapes["eval tile"]["ms"]
+    kb16["k2 bounded"]["eval_tile_ms"] = k2_shapes["eval tile"]["bf16_ms"]
     kernels = [
         entry("fused_mlp_forward", "fused_mlp.cu", "fused_mlp.py:129",
               counts["fused_mlp_forward"], k1),

@@ -9,9 +9,10 @@
 // as float32 (SDF.throughput then evaluates sd, with gradients, at
 // o + (idx * step) * d).  t and p use explicit round-to-nearest multiply and
 // add, as PyTorch computes them (no FMA contraction); a NaN sd propagates
-// into mn as torch.minimum does.  The sphere set is sphere_set.cuh (shared
-// with K2, both smooth-min forms), the shift net the register-tiled device
-// MLP of mlp_tiled.cuh over the weights kernels/fused_march.py packs.
+// into mn as torch.minimum does.  The SDF is the tiled one of mlp_tiled.cuh
+// (nrt_f32_sdf / nrt_bf16_sdf, shared with the march K2): the sphere set of
+// sphere_set.cuh (both smooth-min forms) and the register-tiled shift net
+// over the weights kernels/fused_march.py packs.
 //
 // Bound on an H100: f32 FMA issue.  Every ray takes all steps + 1 samples,
 // (2 x 165,504 + 31 x 128) flops each for the flagship 8x128 shift net and
@@ -48,8 +49,6 @@
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
 #include "mlp_tiled.cuh"
 
-#define NRT_SCAN_MAX_SPHERES 1024
-
 // Sample points of group i0 (samples i0 .. i0 + U - 1 of the block's rays):
 // row = ray * U + u.
 template <int M>
@@ -63,26 +62,6 @@ __device__ __forceinline__ void nrt_scan_points(const float* __restrict__ ro,
     const float d = g < n ? rd[(size_t)g * 3 + c] : 0.f;
     const float t = __fmul_rn(step, (float)(i0 + row % NRT_TILE_U));
     ps[idx] = __fadd_rn(o, __fmul_rn(t, d));
-  }
-}
-
-// The encoding [x, sin(x B), cos(x B)] of the rows' points, value c of row
-// at put(row, c, v) (x B by fmaf in ascending d, as the first kernel did).
-template <int M, typename Put>
-__device__ __forceinline__ void nrt_scan_encode(const TiledNet& m, const float* ps, Put put) {
-  const int F = m.F;
-  for (int idx = threadIdx.x; idx < M * (3 + F); idx += blockDim.x) {
-    const int row = idx % M, c = idx / M;
-    const float* x = ps + row * 3;
-    if (c < 3) {
-      put(row, c, x[c]);
-    } else {
-      const int f = c - 3;
-      float mapped = 0.f;
-      for (int d = 0; d < 3; ++d) mapped = fmaf(x[d], __ldg(m.B + d * F + f), mapped);
-      put(row, 3 + f, sinf(mapped));
-      put(row, 3 + F + f, cosf(mapped));
-    }
   }
 }
 
@@ -168,72 +147,35 @@ __global__ void nrt_minscan_merge_kernel(const NrtScanOut out, int n) {
 // ---- K3: f32 ------------------------------------------------------------------
 
 template <int NP>
-__host__ __device__ inline size_t nrt_scan_f32_smem(int EP) {
-  constexpr int M = nrt_tiled_rows(NP);
-  return sizeof(float) * ((size_t)2 * NRT_F32_KC * NP + (size_t)(NP + EP) * (M + 4) + M);
-}
-
-template <int NP>
 __global__ void __launch_bounds__(NRT_THREADS, NP == 128 ? 2 : 1)
 nrt_fused_minscan_f32_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                              const float* __restrict__ step_ptr, const NrtScanOut out,
                              int n, int steps, SphereSet S, const __grid_constant__ TiledNet m) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, R = M / NRT_TILE_U;
+  constexpr int M = nrt_tiled_rows(NP), R = M / NRT_TILE_U;
   extern __shared__ __align__(16) float smem[];
-  float* wbuf = smem;                               // [2][KC][NP]
-  float* act = wbuf + 2 * NRT_F32_KC * NP;          // [NP + EP][LD], k-major
-  float* sm = act + (size_t)(NP + m.EP) * LD;       // [M] sphere smooth-min
-  // the sphere set and the sample points borrow the h rows, which are dead
-  // from a group's output layer until its init layer writes them
-  float* sph = act;
-  float* ps = act + nrt_sphere_smem_floats(S.n);
+  const NrtF32Tile<NP> T(smem, m, S.n);
+  NrtStream<NP, false> W;   // the weights, double-buffered
 
-  // the encoding's padded rows stay zero
-  for (int i = threadIdx.x; i < (m.EP - m.E) * LD; i += blockDim.x)
-    act[(size_t)(NP + m.E) * LD + i] = 0.f;
+  nrt_f32_sdf_init(m, T);
   const int ray0 = blockIdx.x / out.segments * R;
   const float step = *step_ptr;
   // in the row-0 thread of each ray: its segment's state (nrt_scan_update)
   float mn = INFINITY;
   int best = blockIdx.x % out.segments == 0 ? 0 : -1;
   bool dead = false;
-  int buf = 0, g0, g1;
+  int g0, g1;
   nrt_scan_groups(steps, out.segments, g0, g1);
-  float acc[M / 16][NP / 16];
 
   for (int i0 = g0 * NRT_TILE_U; i0 < g1 * NRT_TILE_U; i0 += NRT_TILE_U) {
     __syncthreads();  // the previous group is done with act
-    nrt_f32_issue<NP>(static_cast<const float*>(m.w[0]), wbuf + buf * NRT_F32_KC * NP);
-    nrt_load_spheres(S, sph);
-    nrt_scan_points<M>(ro, rd, n, ray0, step, i0, ps);
+    W.start(m, T.wbuf);
+    nrt_load_spheres(S, T.sph);
+    nrt_scan_points<M>(ro, rd, n, ray0, step, i0, T.ps);
     __syncthreads();
-    nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, M);
-    nrt_scan_encode<M>(m, ps, [&](int row, int c, float v) { act[(NP + c) * LD + row] = v; });
-    // (the init layer's first barrier orders the encoding before its reads)
-
-    for (int l = 0; l <= m.L; ++l) {
-      nrt_f32_gemm<NP>(acc, act, nrt_tiled_kbase(m, l), nrt_tiled_k(m, l),
-                       static_cast<const float*>(m.w[l]), wbuf, buf);
-      __syncthreads();  // every thread is done reading act
-      if (l < m.L)
-        nrt_f32_issue<NP>(static_cast<const float*>(m.w[l + 1]),
-                          wbuf + buf * NRT_F32_KC * NP);
-      nrt_with_act(m.act, [&](auto a) {
-        nrt_f32_store<NP, decltype(a)::value>(acc, m.b[l], act);
-      });
-      if (l == 0)   // the skip layers read act(enc)
-        for (int i = threadIdx.x; i < m.E * M; i += blockDim.x) {
-          float* e = act + (size_t)(NP + i / M) * LD + i % M;
-          *e = nrt_act(*e, m.act);
-        }
-    }
-    __syncthreads();
-
+    nrt_f32_sdf<NP, M / 16>(m, S, T, W);
     if (threadIdx.x < M) {   // the output layer, one row a thread
       const int row = threadIdx.x;
-      float o = 0.f;
-      for (int k = 0; k < m.H; ++k) o = fmaf(act[k * LD + row], __ldg(m.w_out + k), o);
-      nrt_scan_update(sm[row] + (o + __ldg(m.b_out)), row, i0, steps, mn, best, dead);
+      nrt_scan_update(T.sm[row] + nrt_f32_out<NP>(m, T, row), row, i0, steps, mn, best, dead);
     }
   }
 
@@ -244,80 +186,34 @@ nrt_fused_minscan_f32_kernel(const float* __restrict__ ro, const float* __restri
 // ---- K3-bf16: the tensor cores ---------------------------------------------------
 
 template <int NP>
-__host__ __device__ inline int nrt_scan_bf16_lda(int EP) { return NP + EP + 8; }
-
-template <int NP>
-__host__ __device__ inline size_t nrt_scan_bf16_smem(int EP, int n_spheres) {
-  constexpr int M = nrt_tiled_rows(NP);
-  return sizeof(__nv_bfloat16) *
-             ((size_t)2 * NP * NRT_BF16_WLD + (size_t)M * nrt_scan_bf16_lda<NP>(EP)) +
-         sizeof(float) * ((size_t)nrt_sphere_smem_floats(n_spheres) + 3 * M + M);
-}
-
-template <int NP>
 __global__ void __launch_bounds__(NRT_THREADS, NP == 128 ? 2 : 1)
 nrt_fused_minscan_bf16_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                               const float* __restrict__ step_ptr, const NrtScanOut out,
                               int n, int steps, SphereSet S, const __grid_constant__ TiledNet m) {
   constexpr int M = nrt_tiled_rows(NP), R = M / NRT_TILE_U;
-  const int lda = nrt_scan_bf16_lda<NP>(m.EP);
   extern __shared__ __align__(16) float smem[];
-  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem);   // [2][NP][WLD]
-  __nv_bfloat16* act = wbuf + 2 * NP * NRT_BF16_WLD;              // [M][lda], row-major
-  float* sph = reinterpret_cast<float*>(act + (size_t)M * lda);
-  float* ps = sph + nrt_sphere_smem_floats(S.n);                  // [M][3]
-  float* sm = ps + 3 * M;                                         // [M]
+  const NrtBf16Tile<NP> T(smem, m, S.n);
+  NrtStream<NP, true> W;    // the weights, double-buffered
 
-  // the encoding's padded columns stay zero
-  for (int i = threadIdx.x; i < M * (m.EP - m.E); i += blockDim.x)
-    act[(size_t)(i / (m.EP - m.E)) * lda + NP + m.E + i % (m.EP - m.E)] = __float2bfloat16(0.f);
-  nrt_load_spheres(S, sph);
+  nrt_bf16_sdf_init(m, S, T);
   const int ray0 = blockIdx.x / out.segments * R;
   const float step = *step_ptr;
   // in the row-0 thread of each ray: its segment's state (nrt_scan_update)
   float mn = INFINITY;
   int best = blockIdx.x % out.segments == 0 ? 0 : -1;
   bool dead = false;
-  int buf = 0, g0, g1;
+  int g0, g1;
   nrt_scan_groups(steps, out.segments, g0, g1);
-  float acc[4][4][4];
 
   for (int i0 = g0 * NRT_TILE_U; i0 < g1 * NRT_TILE_U; i0 += NRT_TILE_U) {
     __syncthreads();  // the previous group is done with act, ps and sm
-    nrt_bf16_issue<NP>(static_cast<const __nv_bfloat16*>(m.w[0]), m.EP, 0,
-                       wbuf + buf * NP * NRT_BF16_WLD);
-    nrt_scan_points<M>(ro, rd, n, ray0, step, i0, ps);
+    W.start(m, T.wbuf);
+    nrt_scan_points<M>(ro, rd, n, ray0, step, i0, T.ps);
     __syncthreads();
-    nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, M);
-    // the encoding rounded to bf16
-    nrt_scan_encode<M>(m, ps, [&](int row, int c, float v) {
-      act[(size_t)row * lda + NP + c] = __float2bfloat16_rn(v);
-    });
-
-    for (int l = 0; l <= m.L; ++l) {
-      nrt_bf16_gemm<NP>(acc, act, lda, nrt_tiled_kbase(m, l), nrt_tiled_k(m, l),
-                        static_cast<const __nv_bfloat16*>(m.w[l]), wbuf, buf);
-      __syncthreads();  // every warp is done reading act
-      if (l < m.L)
-        nrt_bf16_issue<NP>(static_cast<const __nv_bfloat16*>(m.w[l + 1]),
-                           nrt_tiled_k(m, l + 1), 0, wbuf + buf * NP * NRT_BF16_WLD);
-      nrt_with_act(m.act, [&](auto a) {
-        nrt_bf16_store<NP, decltype(a)::value>(acc, m.b[l], act, lda);
-      });
-      if (l == 0)   // the skip layers read act of the rounded encoding, rounded
-        for (int i = threadIdx.x; i < m.E * M; i += blockDim.x) {
-          __nv_bfloat16* e = act + (size_t)(i % M) * lda + NP + i / M;
-          *e = __float2bfloat16_rn(nrt_act(__bfloat162float(*e), m.act));
-        }
-    }
-    __syncthreads();
-
+    nrt_bf16_sdf<NP, 4>(m, S, T, W);
     if (threadIdx.x < M) {   // the output layer on the CUDA cores, one row a thread
       const int row = threadIdx.x;
-      const __nv_bfloat16* h = act + (size_t)row * lda;
-      float o = 0.f;
-      for (int k = 0; k < m.H; ++k) o = fmaf(__bfloat162float(h[k]), __ldg(m.w_out + k), o);
-      nrt_scan_update(sm[row] + (o + __ldg(m.b_out)), row, i0, steps, mn, best, dead);
+      nrt_scan_update(T.sm[row] + nrt_bf16_out<NP>(m, T, row), row, i0, steps, mn, best, dead);
     }
   }
 
@@ -339,13 +235,13 @@ static NrtScanLaunch nrt_scan_config(int bf16, int NP, int EP, int n_spheres) {
   if (bf16)
     return NP == 128
                ? NrtScanLaunch{nrt_fused_minscan_bf16_kernel<128>,
-                               nrt_scan_bf16_smem<128>(EP, n_spheres), 128 / NRT_TILE_U}
+                               nrt_bf16_sdf_smem<128>(EP, n_spheres), 128 / NRT_TILE_U}
                : NrtScanLaunch{nrt_fused_minscan_bf16_kernel<256>,
-                               nrt_scan_bf16_smem<256>(EP, n_spheres), 64 / NRT_TILE_U};
+                               nrt_bf16_sdf_smem<256>(EP, n_spheres), 64 / NRT_TILE_U};
   return NP == 128 ? NrtScanLaunch{nrt_fused_minscan_f32_kernel<128>,
-                                   nrt_scan_f32_smem<128>(EP), 128 / NRT_TILE_U}
+                                   nrt_f32_sdf_smem<128>(EP), 128 / NRT_TILE_U}
                    : NrtScanLaunch{nrt_fused_minscan_f32_kernel<256>,
-                                   nrt_scan_f32_smem<256>(EP), 64 / NRT_TILE_U};
+                                   nrt_f32_sdf_smem<256>(EP), 64 / NRT_TILE_U};
 }
 
 extern "C" int nrt_fused_min_scan(const float* ro, const float* rd,
@@ -357,7 +253,7 @@ extern "C" int nrt_fused_min_scan(const float* ro, const float* rd,
                                   int num_layers, int skip, int out_size, int act,
                                   const void* const* weights, void* stream) {
   TiledNet m;
-  if (n < 0 || n_spheres <= 0 || n_spheres > NRT_SCAN_MAX_SPHERES || steps < 0 ||
+  if (n < 0 || n_spheres <= 0 || n_spheres > NRT_TILED_MAX_SPHERES || steps < 0 ||
       segments < 1 || (segments > 1 && (part_m == nullptr || part_i == nullptr)) ||
       in_size != 3 || out_size != 1 ||
       !nrt_tiled_fill(m, freqs, hidden, num_layers, skip, act, bf16, weights))
@@ -378,7 +274,7 @@ extern "C" int nrt_fused_min_scan(const float* ro, const float* rd,
 extern "C" int nrt_fused_min_scan_blocks_per_sm(int bf16, int freqs, int hidden,
                                                 int n_spheres, int* rays) {
   if (freqs < 0 || freqs > 128 || hidden <= 0 || hidden > 256 || n_spheres <= 0 ||
-      n_spheres > NRT_SCAN_MAX_SPHERES || rays == nullptr)
+      n_spheres > NRT_TILED_MAX_SPHERES || rays == nullptr)
     return -(int)cudaErrorInvalidValue;
   const int E = 3 + 2 * freqs, r = bf16 ? 16 : 8;
   const NrtScanLaunch c =

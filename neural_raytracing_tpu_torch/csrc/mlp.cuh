@@ -1,7 +1,8 @@
 // Device-side SkipConnMLP shared by the fused MLP kernel (fused_mlp.cu), the
-// fused sphere-trace march (fused_march.cu), the fused silhouette min-scan
-// (fused_minscan.cu) and the MLP backward (fused_mlp_bwd.cu), so every
-// kernel evaluates exactly the network the MLP kernel evaluates.
+// shadow march (fused_shadow.cu), the fused SDF (fused_sdf.cu) and the MLP
+// backward (fused_mlp_bwd.cu), so every kernel evaluates exactly the network
+// the MLP kernel evaluates.  The march K2 and the min-scan K3 evaluate their
+// shift net on the tiles of mlp_tiled.cuh instead.
 //
 // Math (neural_raytracing_tpu_torch/nn/mlp.py, the plain version):
 //   enc = [x, sin(x B), cos(x B)]
@@ -29,7 +30,8 @@
 //                  rounded to bf16, the skip layers act(enc) of the float32
 //                  encoding, rounded;
 //   NRT_BF16_MARCH the bf16 operands of K2-K4 (fused_march.py:113-127): the
-//                  skip layers read act() of the ROUNDED encoding, rounded.
+//                  skip layers read act() of the ROUNDED encoding, rounded
+//                  (K4-bf16 here; K2-bf16 and K3-bf16 on the bf16 tile).
 // In both bf16 modes every hidden operand is act(h) rounded to bf16 (round to
 // nearest even, as astype), and the weight matrices m.w[i] point at bf16
 // arrays (the wrapper casts them once per call); biases, B, sin/cos and the

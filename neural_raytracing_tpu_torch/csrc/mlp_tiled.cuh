@@ -1,9 +1,15 @@
-// Register-tiled device shift net of the silhouette min-scan K3
-// (fused_minscan.cu), over the packed weights that
-// kernels/fused_march.py pack_shift_weights lays out.  K1, K2 and K4-K7
-// keep the device MLP of mlp.cuh.
+// Register-tiled device SDF of the sphere-trace march K2 (fused_march.cu)
+// and the silhouette min-scan K3 (fused_minscan.cu): the sphere set's
+// smooth-min (sphere_set.cuh), the encoding and the shift net over the
+// packed weights that kernels/fused_march.py pack_shift_weights lays out,
+// one code path for both kernels (nrt_f32_sdf / nrt_bf16_sdf and the output
+// layer nrt_f32_out / nrt_bf16_out).  K1 and K4-K7 keep the device MLP of
+// mlp.cuh.
 //
-// A block evaluates the net on M rows at once.  Its activations live in ONE
+// A block evaluates the net on up to M rows at once; a caller with fewer
+// live rows (K2's tail) evaluates only the first 32 or M / 2 of them
+// (template parameter TM / MI below), and every row's sums are the same
+// whichever it takes.  Its activations live in ONE
 // shared buffer with a row per "k" of the layers' products: the hidden
 // columns h at k in [0, NP), act(enc) (the raw encoding before the init
 // layer) at k in [NP, NP + EP).  So a skip layer reads [h, act(enc)] as one
@@ -36,6 +42,7 @@
 #include "sphere_set.cuh"
 
 #define NRT_TILE_U 4          // samples of one ray per MLP evaluation
+#define NRT_TILED_MAX_SPHERES 1024  // the sphere set the f32 tile's h rows hold
 #define NRT_F32_KC 8          // k rows of W per f32 chunk
 #define NRT_BF16_KC 32        // k per bf16 chunk
 #define NRT_BF16_WLD 40       // bf16 row stride of a staged W^T chunk (20 words = 4 mod 8)
@@ -132,10 +139,13 @@ __device__ __forceinline__ void nrt_cp_async_wait_all() {
 //
 // 256 threads as 16 (ty, rows) x 16 (tx, columns); a thread owns TM = M/16
 // rows ((r / 4) * 64 + 4 ty + r % 4) by TN = NP/16 columns (tx + 16 c), TM x
-// TN = 64 sums.  Activations are stored k-major, act[k * LD + row], LD = M + 4.
+// TN = 64 sums.  With TM = 4 the tile covers the rows [0, 64), with TM = 2
+// the rows [0, 32) (2 ty + r), every thread still busy.  Activations are
+// stored k-major, act[k * LD + row], LD = M + 4.
 // Per k a thread loads TM/4 float4 of activations and TN/4 float4 of weights
 // from shared memory for 64 FMAs.  W streams through two KC x NP buffers
-// with cp.async: chunk c + 1 loads while chunk c is used, one barrier each.
+// with cp.async (NrtStream): chunk c + 1 loads while chunk c is used, one
+// barrier each.
 
 // Copies KC rows of W (a packed [K][NP] f32 matrix, row k0 at src) into dst.
 template <int NP>
@@ -145,62 +155,56 @@ __device__ __forceinline__ void nrt_f32_issue(const float* __restrict__ src, flo
   nrt_cp_async_commit();
 }
 
-// acc = act[kbase .. kbase + K) (rows of the thread's tile) x W, each sum
-// from 0 by fmaf in ascending k.  On entry chunk 0 of W is in flight to
-// wbuf[buf]; on return buf names the buffer that is free.
-template <int NP>
-__device__ __forceinline__ void nrt_f32_gemm(float (&acc)[nrt_tiled_rows(NP) / 16][NP / 16],
-                                             const float* act, int kbase, int K,
-                                             const float* __restrict__ W, float* wbuf,
-                                             int& buf) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, TM = M / 16, TN = NP / 16;
-  constexpr int KC = NRT_F32_KC;
+// acc += the KC k-rows of act at ac (rows of the thread's tile) x the chunk
+// wc of W, by fmaf in ascending k.
+template <int NP, int TM>
+__device__ __forceinline__ void nrt_f32_chunk(float (&acc)[TM][NP / 16], const float* ac,
+                                              const float* wc) {
+  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, TN = NP / 16;
+  static_assert(TM == 2 || (TM % 4 == 0 && TM <= M / 16), "rows of a thread");
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
-  const int nc = K / KC;
-  for (int ch = 0; ch < nc; ++ch) {
-    nrt_cp_async_wait_all();
-    __syncthreads();  // chunk ch landed; every thread is done with chunk ch - 1
-    if (ch + 1 < nc)
-      nrt_f32_issue<NP>(W + (size_t)(ch + 1) * KC * NP, wbuf + (buf ^ 1) * KC * NP);
-    const float* wc = wbuf + buf * KC * NP;
-    const float* ac = act + (size_t)(kbase + ch * KC) * LD;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[TM], w[TN];
+  for (int kk = 0; kk < NRT_F32_KC; ++kk) {
+    float a[TM], w[TN];
+    if constexpr (TM == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(ac + kk * LD + ty * 2);
+      a[0] = v.x; a[1] = v.y;
+    } else {
 #pragma unroll
       for (int q = 0; q < TM / 4; ++q) {
         const float4 v = *reinterpret_cast<const float4*>(ac + kk * LD + q * 64 + ty * 4);
         a[4 * q] = v.x; a[4 * q + 1] = v.y; a[4 * q + 2] = v.z; a[4 * q + 3] = v.w;
       }
-#pragma unroll
-      for (int q = 0; q < TN / 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(wc + kk * NP + q * 64 + tx * 4);
-        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
     }
-    buf ^= 1;
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(wc + kk * NP + q * 64 + tx * 4);
+      w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
   }
 }
 
 // h rows of act = ACT(acc + bias) (the caller has synchronised: nobody
 // reads act any more).
-template <int NP, int ACT>
-__device__ __forceinline__ void nrt_f32_store(const float (&acc)[nrt_tiled_rows(NP) / 16][NP / 16],
+template <int NP, int ACT, int TM = nrt_tiled_rows(NP) / 16>
+__device__ __forceinline__ void nrt_f32_store(const float (&acc)[TM][NP / 16],
                                               const float* __restrict__ bias, float* act) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, TM = M / 16, TN = NP / 16;
+  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, TN = NP / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int c = 0; c < TN; ++c) {
     const int j = tx + 16 * c;
     const float bj = __ldg(bias + j);
+    if constexpr (TM == 2) {
+      float2 v;
+      v.x = nrt_act(acc[0][c] + bj, ACT);
+      v.y = nrt_act(acc[1][c] + bj, ACT);
+      *reinterpret_cast<float2*>(act + j * LD + ty * 2) = v;
+    }
 #pragma unroll
     for (int q = 0; q < TM / 4; ++q) {
       float4 v;
@@ -217,9 +221,10 @@ __device__ __forceinline__ void nrt_f32_store(const float (&acc)[nrt_tiled_rows(
 //
 // Activations are bf16, row-major act[row * LDA + k] (LDA = NP + EP + 8, a
 // word stride of 4 mod 8: the fragment loads are conflict-free).  8 warps
-// as (M / 64) x (NP / 32 / (M / 64)); a warp owns 64 rows x 32 columns, 4 x 4
-// m16n8 tiles, 64 float32 sums a thread.  W^T streams through two NP x 32
-// chunks (row stride NRT_BF16_WLD) with cp.async, as the f32 tile does.
+// as (M / 64) x (NP / 32 / (M / 64)); a warp owns 16 MI rows x 32 columns,
+// MI x 4 m16n8 tiles, 16 MI float32 sums a thread: MI = 4 covers the M rows,
+// MI = 2 and 1 the first M / 2 and M / 4.  W^T streams through two NP x 32
+// chunks (row stride NRT_BF16_WLD) with cp.async, as the f32 tile's W does.
 
 __device__ __forceinline__ void nrt_mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                              const uint32_t (&b)[2]) {
@@ -247,73 +252,57 @@ __device__ __forceinline__ void nrt_bf16_issue(const __nv_bfloat16* __restrict__
   nrt_cp_async_commit();
 }
 
-template <int NP>
-__device__ __forceinline__ void nrt_bf16_gemm(float (&acc)[4][4][4], const __nv_bfloat16* act,
-                                              int lda, int kbase, int K,
-                                              const __nv_bfloat16* __restrict__ W,
-                                              __nv_bfloat16* wbuf, int& buf) {
+// acc += act[:, ka0 .. ka0 + 16 steps) (the warp's rows) x the chunk wc of W^T.
+template <int NP, int MI>
+__device__ __forceinline__ void nrt_bf16_chunk(float (&acc)[MI][4][4], const __nv_bfloat16* act,
+                                               int lda, int ka0, const __nv_bfloat16* wc,
+                                               int steps) {
   constexpr int WM = nrt_tiled_rows(NP) / 64, WN = 8 / WM;
-  constexpr int WCHUNK = NP * NRT_BF16_WLD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = (warp / WN) * 64, col0 = (warp % WN) * 32;
+  const int row0 = (warp / WN) * 16 * MI, col0 = (warp % WN) * 32;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int ks = 0; ks < NRT_BF16_KC / 16; ++ks) {
+    if (ks < steps) {
+      const int ka = ka0 + ks * 16 + 2 * t;
+      uint32_t a[MI][4], b[4][2];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  const int nc = (K + NRT_BF16_KC - 1) / NRT_BF16_KC;
-  for (int ch = 0; ch < nc; ++ch) {
-    nrt_cp_async_wait_all();
-    __syncthreads();  // chunk ch landed; every warp is done with chunk ch - 1
-    if (ch + 1 < nc) nrt_bf16_issue<NP>(W, K, ch + 1, wbuf + (buf ^ 1) * WCHUNK);
-    const __nv_bfloat16* wc = wbuf + buf * WCHUNK;
-    const int steps = min(NRT_BF16_KC, K - ch * NRT_BF16_KC) / 16;
-#pragma unroll
-    for (int ks = 0; ks < NRT_BF16_KC / 16; ++ks) {
-      if (ks < steps) {
-        const int ka = kbase + ch * NRT_BF16_KC + ks * 16 + 2 * t;
-        uint32_t a[4][4], b[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const __nv_bfloat16* p = act + (size_t)(row0 + mi * 16 + g) * lda + ka;
-          a[mi][0] = nrt_ld32(p);
-          a[mi][1] = nrt_ld32(p + 8 * lda);
-          a[mi][2] = nrt_ld32(p + 8);
-          a[mi][3] = nrt_ld32(p + 8 * lda + 8);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const __nv_bfloat16* p = wc + (col0 + ni * 8 + g) * NRT_BF16_WLD + ks * 16 + 2 * t;
-          b[ni][0] = nrt_ld32(p);
-          b[ni][1] = nrt_ld32(p + 8);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) nrt_mma_bf16(acc[mi][ni], a[mi], b[ni]);
+      for (int mi = 0; mi < MI; ++mi) {
+        const __nv_bfloat16* p = act + (size_t)(row0 + mi * 16 + g) * lda + ka;
+        a[mi][0] = nrt_ld32(p);
+        a[mi][1] = nrt_ld32(p + 8 * lda);
+        a[mi][2] = nrt_ld32(p + 8);
+        a[mi][3] = nrt_ld32(p + 8 * lda + 8);
       }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const __nv_bfloat16* p = wc + (col0 + ni * 8 + g) * NRT_BF16_WLD + ks * 16 + 2 * t;
+        b[ni][0] = nrt_ld32(p);
+        b[ni][1] = nrt_ld32(p + 8);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) nrt_mma_bf16(acc[mi][ni], a[mi], b[ni]);
     }
-    buf ^= 1;
   }
 }
 
 // h columns of act = bf16(ACT(acc + bias)), from the accumulator fragments.
-template <int NP, int ACT>
-__device__ __forceinline__ void nrt_bf16_store(const float (&acc)[4][4][4],
+template <int NP, int ACT, int MI = 4>
+__device__ __forceinline__ void nrt_bf16_store(const float (&acc)[MI][4][4],
                                                const float* __restrict__ bias,
                                                __nv_bfloat16* act, int lda) {
   constexpr int WM = nrt_tiled_rows(NP) / 64, WN = 8 / WM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = (warp / WN) * 64, col0 = (warp % WN) * 32;
+  const int row0 = (warp / WN) * 16 * MI, col0 = (warp % WN) * 32;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = col0 + ni * 8 + 2 * t;
     const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
+    for (int mi = 0; mi < MI; ++mi) {
       const int row = row0 + mi * 16 + g;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -324,4 +313,257 @@ __device__ __forceinline__ void nrt_bf16_store(const float (&acc)[4][4][4],
       }
     }
   }
+}
+
+// ---- the weight stream ------------------------------------------------------------
+//
+// One evaluation's weights, layer after layer (the init layer, then each
+// hidden layer), as a stream of chunks through two buffers in shared memory:
+// chunk i sits in buffer i % 2.  The caller starts it (chunk 0 in flight)
+// before the evaluation's points and spheres; before reading chunk i every
+// thread waits for it and passes a barrier, after which buffer (i + 1) % 2
+// is free and chunk i + 1 goes there, across a layer's end too.  (Four or
+// eight chunks in flight made K2 no faster: H100, PERF.md.)
+template <int NP, bool BF16>
+struct NrtStream {
+  const void* src;   // the layer of the next chunk to issue
+  int l, K, c, left; // its layer, that layer's K, its chunk there, the layer's chunks left
+  int i = 0;         // the buffer of the next chunk to read
+
+  __device__ __forceinline__ void layer(const TiledNet& m) {
+    K = nrt_tiled_k(m, l);
+    left = BF16 ? (K + NRT_BF16_KC - 1) / NRT_BF16_KC : K / NRT_F32_KC;
+    c = 0;
+    src = m.w[l];
+  }
+  template <typename T>
+  __device__ __forceinline__ static T* buffer(T* wbuf, int b) {
+    return wbuf + (size_t)b * (BF16 ? NP * NRT_BF16_WLD : NRT_F32_KC * NP);
+  }
+  // Issues the next chunk into buffer b (nothing past the stream's end).
+  template <typename T>
+  __device__ __forceinline__ void issue(const TiledNet& m, T* wbuf, int b) {
+    if (left == 0) return;
+    if constexpr (BF16)
+      nrt_bf16_issue<NP>(static_cast<const __nv_bfloat16*>(src), K, c, buffer(wbuf, b));
+    else
+      nrt_f32_issue<NP>(static_cast<const float*>(src) + (size_t)c * NRT_F32_KC * NP,
+                        buffer(wbuf, b));
+    ++c;
+    if (--left == 0 && ++l <= m.L) layer(m);
+  }
+  // A new evaluation: its first chunk in flight.
+  template <typename T>
+  __device__ __forceinline__ void start(const TiledNet& m, T* wbuf) {
+    l = 0;
+    layer(m);
+    issue(m, wbuf, i);
+  }
+  // -> the next chunk to read, once it landed and everyone is done with the
+  // one before, whose buffer the chunk after takes.
+  template <typename T>
+  __device__ __forceinline__ T* next(const TiledNet& m, T* wbuf) {
+    nrt_cp_async_wait_all();
+    __syncthreads();
+    T* chunk = buffer(wbuf, i);
+    i ^= 1;
+    issue(m, wbuf, i);
+    return chunk;
+  }
+};
+
+// ---- the SDF on the tile: one code path for K2 and K3 -------------------------------
+//
+// The caller starts the weight stream (NrtStream::start), puts the points of
+// rows [0, ROWS) in ps (and, in f32, loads the sphere set into sph) and
+// synchronises; nrt_*_sdf then writes the spheres' smooth-min of those rows
+// to sm and runs the encoding and the shift net's hidden layers, and ends
+// with a barrier, after which nrt_*_out(row) gives the shift of a row (the
+// output layer on the CUDA cores, fmaf in ascending k, then the bias).  So
+// sd = sm[row] + out(row), the same sums whichever rows or tile variant
+// evaluate a point.
+
+// The encoding [x, sin(x B), cos(x B)] of rows [0, ROWS) of the points ps
+// ([.][3]), value c of row at put(row, c, v) (x B by fmaf in ascending d,
+// as the first kernels did).
+template <int ROWS, typename Put>
+__device__ __forceinline__ void nrt_tiled_encode(const TiledNet& m, const float* ps, Put put) {
+  const int F = m.F;
+  for (int idx = threadIdx.x; idx < ROWS * (3 + F); idx += blockDim.x) {
+    const int row = idx % ROWS, c = idx / ROWS;
+    const float* x = ps + row * 3;
+    if (c < 3) {
+      put(row, c, x[c]);
+    } else {
+      const int f = c - 3;
+      float mapped = 0.f;
+      for (int d = 0; d < 3; ++d) mapped = fmaf(x[d], __ldg(m.B + d * F + f), mapped);
+      put(row, 3 + f, sinf(mapped));
+      put(row, 3 + F + f, cosf(mapped));
+    }
+  }
+}
+
+// f32: the two weight chunks, the activation buffer (k-major) and the
+// smooth-min of the M rows; the sphere set and the points borrow the h rows,
+// which are dead from an evaluation's output layer until its init layer
+// writes them.
+template <int NP>
+__host__ __device__ inline size_t nrt_f32_sdf_smem(int EP) {
+  constexpr int M = nrt_tiled_rows(NP);
+  return sizeof(float) * ((size_t)2 * NRT_F32_KC * NP + (size_t)(NP + EP) * (M + 4) + M);
+}
+
+template <int NP>
+struct NrtF32Tile {
+  float* wbuf;   // [2][KC][NP]
+  float* act;    // [NP + EP][M + 4]
+  float* sm;     // [M]
+  float* sph;    // the sphere set, in the h rows
+  float* ps;     // [M][3] the points, after it
+  __device__ NrtF32Tile(float* smem, const TiledNet& m, int n_spheres)
+      : wbuf(smem),
+        act(smem + 2 * NRT_F32_KC * NP),
+        sm(act + (size_t)(NP + m.EP) * (nrt_tiled_rows(NP) + 4)),
+        sph(act),
+        ps(act + nrt_sphere_smem_floats(n_spheres)) {}
+  // the end of the tile's shared memory
+  __device__ void* end() const { return sm + nrt_tiled_rows(NP); }
+};
+
+// Zeroes the encoding's padded rows (once per block).
+template <int NP>
+__device__ __forceinline__ void nrt_f32_sdf_init(const TiledNet& m, const NrtF32Tile<NP>& T) {
+  constexpr int LD = nrt_tiled_rows(NP) + 4;
+  for (int i = threadIdx.x; i < (m.EP - m.E) * LD; i += blockDim.x)
+    T.act[(size_t)(NP + m.E) * LD + i] = 0.f;
+}
+
+template <int NP, int TM>
+__device__ __forceinline__ void nrt_f32_sdf(const TiledNet& m, const SphereSet& S,
+                                            const NrtF32Tile<NP>& T, NrtStream<NP, false>& W) {
+  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, ROWS = 16 * TM;
+  nrt_sphere_min(T.sph, S.n, S.k, S.stable, T.ps, T.sm, M, ROWS);
+  nrt_tiled_encode<ROWS>(m, T.ps, [&](int row, int c, float v) { T.act[(NP + c) * LD + row] = v; });
+  // (the first chunk's barrier orders the encoding before its reads)
+  float acc[TM][NP / 16];
+  for (int l = 0; l <= m.L; ++l) {
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < NP / 16; ++c) acc[r][c] = 0.f;
+    const float* ac = T.act + (size_t)nrt_tiled_kbase(m, l) * LD;
+    const int nc = nrt_tiled_k(m, l) / NRT_F32_KC;
+    for (int ch = 0; ch < nc; ++ch)
+      nrt_f32_chunk<NP, TM>(acc, ac + (size_t)ch * NRT_F32_KC * LD, W.next(m, T.wbuf));
+    __syncthreads();  // every thread is done reading act
+    nrt_with_act(m.act, [&](auto a) {
+      nrt_f32_store<NP, decltype(a)::value, TM>(acc, m.b[l], T.act);
+    });
+    if (l == 0)   // the skip layers read act(enc)
+      for (int i = threadIdx.x; i < m.E * ROWS; i += blockDim.x) {
+        float* e = T.act + (size_t)(NP + i / ROWS) * LD + i % ROWS;
+        *e = nrt_act(*e, m.act);
+      }
+  }
+  __syncthreads();
+}
+
+template <int NP>
+__device__ __forceinline__ float nrt_f32_out(const TiledNet& m, const NrtF32Tile<NP>& T,
+                                             int row) {
+  constexpr int LD = nrt_tiled_rows(NP) + 4;
+  float o = 0.f;
+  for (int k = 0; k < m.H; ++k) o = fmaf(T.act[k * LD + row], __ldg(m.w_out + k), o);
+  return o + __ldg(m.b_out);
+}
+
+// bf16: the two weight chunks, the activation buffer (row-major), the sphere
+// set, the points and the smooth-min.
+template <int NP>
+__host__ __device__ inline int nrt_bf16_lda(int EP) { return NP + EP + 8; }
+
+template <int NP>
+__host__ __device__ inline size_t nrt_bf16_sdf_smem(int EP, int n_spheres) {
+  constexpr int M = nrt_tiled_rows(NP);
+  return sizeof(__nv_bfloat16) *
+             ((size_t)2 * NP * NRT_BF16_WLD + (size_t)M * nrt_bf16_lda<NP>(EP)) +
+         sizeof(float) * ((size_t)nrt_sphere_smem_floats(n_spheres) + 3 * M + M);
+}
+
+template <int NP>
+struct NrtBf16Tile {
+  __nv_bfloat16* wbuf;   // [2][NP][WLD]
+  __nv_bfloat16* act;    // [M][lda]
+  int lda;
+  float* sph;            // the sphere set
+  float* ps;             // [M][3]
+  float* sm;             // [M]
+  __device__ NrtBf16Tile(float* smem, const TiledNet& m, int n_spheres)
+      : wbuf(reinterpret_cast<__nv_bfloat16*>(smem)),
+        act(wbuf + 2 * NP * NRT_BF16_WLD),
+        lda(nrt_bf16_lda<NP>(m.EP)),
+        sph(reinterpret_cast<float*>(act + (size_t)nrt_tiled_rows(NP) * lda)),
+        ps(sph + nrt_sphere_smem_floats(n_spheres)),
+        sm(ps + 3 * nrt_tiled_rows(NP)) {}
+  __device__ void* end() const { return sm + nrt_tiled_rows(NP); }
+};
+
+// Zeroes the encoding's padded columns and loads the sphere set (once per
+// block; the caller synchronises before the first evaluation).
+template <int NP>
+__device__ __forceinline__ void nrt_bf16_sdf_init(const TiledNet& m, const SphereSet& S,
+                                                  const NrtBf16Tile<NP>& T) {
+  constexpr int M = nrt_tiled_rows(NP);
+  for (int i = threadIdx.x; i < M * (m.EP - m.E); i += blockDim.x)
+    T.act[(size_t)(i / (m.EP - m.E)) * T.lda + NP + m.E + i % (m.EP - m.E)] =
+        __float2bfloat16(0.f);
+  nrt_load_spheres(S, T.sph);
+}
+
+// The bf16 operands of the JAX _make_sdf_eval: the rounded encoding, act of
+// the rounded encoding on the skip layers, every act(h) rounded, bf16
+// weights, float32 sums.  MI as nrt_bf16_chunk: rows [0, 16 MI M / 64).
+template <int NP, int MI>
+__device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet& S,
+                                             const NrtBf16Tile<NP>& T, NrtStream<NP, true>& W) {
+  constexpr int M = nrt_tiled_rows(NP), ROWS = 16 * MI * (M / 64);
+  const int lda = T.lda;
+  nrt_sphere_min(T.sph, S.n, S.k, S.stable, T.ps, T.sm, M, ROWS);
+  // the encoding rounded to bf16
+  nrt_tiled_encode<ROWS>(m, T.ps, [&](int row, int c, float v) {
+    T.act[(size_t)row * lda + NP + c] = __float2bfloat16_rn(v);
+  });
+  float acc[MI][4][4];
+  for (int l = 0; l <= m.L; ++l) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    const int K = nrt_tiled_k(m, l), kbase = nrt_tiled_kbase(m, l);
+    for (int ch = 0; ch * NRT_BF16_KC < K; ++ch)
+      nrt_bf16_chunk<NP, MI>(acc, T.act, lda, kbase + ch * NRT_BF16_KC, W.next(m, T.wbuf),
+                             min(NRT_BF16_KC, K - ch * NRT_BF16_KC) / 16);
+    __syncthreads();  // every warp is done reading act
+    nrt_with_act(m.act, [&](auto a) {
+      nrt_bf16_store<NP, decltype(a)::value, MI>(acc, m.b[l], T.act, lda);
+    });
+    if (l == 0)   // the skip layers read act of the rounded encoding, rounded
+      for (int i = threadIdx.x; i < m.E * ROWS; i += blockDim.x) {
+        __nv_bfloat16* e = T.act + (size_t)(i % ROWS) * lda + NP + i / ROWS;
+        *e = __float2bfloat16_rn(nrt_act(__bfloat162float(*e), m.act));
+      }
+  }
+  __syncthreads();
+}
+
+template <int NP>
+__device__ __forceinline__ float nrt_bf16_out(const TiledNet& m, const NrtBf16Tile<NP>& T,
+                                              int row) {
+  const __nv_bfloat16* h = T.act + (size_t)row * T.lda;
+  float o = 0.f;
+  for (int k = 0; k < m.H; ++k) o = fmaf(__bfloat162float(h[k]), __ldg(m.w_out + k), o);
+  return o + __ldg(m.b_out);
 }

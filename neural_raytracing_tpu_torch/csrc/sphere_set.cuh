@@ -1,10 +1,12 @@
-// Device SphereSDF sphere set shared by the fused march (fused_march.cu, K2)
-// and the fused silhouette min-scan (fused_minscan.cu, K3), so both kernels
-// evaluate exactly the same field:
+// Device SphereSDF sphere set shared by the fused march (fused_march.cu, K2),
+// the fused silhouette min-scan (fused_minscan.cu, K3), the shadow march
+// (fused_shadow.cu, K4) and the fused SDF (fused_sdf.cu, K5), so every
+// kernel evaluates exactly the same field:
 //   sd(p) = smooth_min_i(|T_i p - c_i| - r_i) + shift_mlp(p)
 // The smooth-min is the clamped -log(max(sum exp(-k d), 1e-4)) / k of the
 // reference, or the exact logsumexp form (stable = 1).  The shift MLP is the
-// device MLP of mlp.cuh.
+// tiled net of mlp_tiled.cuh in K2 and K3, the device MLP of mlp.cuh in K4
+// and K5.
 #pragma once
 
 #include "mlp.cuh"
@@ -33,11 +35,15 @@ __device__ inline void nrt_load_spheres(const SphereSet& S, float* sph) {
 
 // Smooth-min of the sphere set at the R points ps ([R][3]) -> sm[R].
 // blockDim.x / R threads share a row (a power of two, at most 32, with
-// R * (blockDim.x / R) == blockDim.x); each takes every tpr-th sphere.
+// R * (blockDim.x / R) == blockDim.x); each takes every tpr-th sphere.  With
+// rows >= 0 only the rows [0, rows) are evaluated, each in the same order as
+// with all R (rows a multiple of the rows a warp holds, 32 / tpr).
 __device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
-                               int stable, const float* ps, float* sm, int R) {
+                               int stable, const float* ps, float* sm, int R,
+                               int rows = -1) {
   const int tpr = blockDim.x / R;
   const int r = threadIdx.x / tpr, lane = threadIdx.x % tpr;
+  if (rows >= 0 && r >= rows) return;   // whole warps
   const float px = ps[r * 3 + 0], py = ps[r * 3 + 1], pz = ps[r * 3 + 2];
   float m = -INFINITY, s = 0.f;  // stable: running max of -k d and sum exp(-k d - m)
   for (int i = lane; i < n_sph; i += tpr) {

@@ -13,7 +13,8 @@ from .composite import (
 from .fused_march import (
     MIN_SCAN_LIMITS, f32_column_order, fused_march, fused_march_bf16,
     fused_min_scan, fused_min_scan_bf16, fused_shadow_march,
-    fused_shadow_march_bf16, march_plain, min_scan_blocks_per_sm,
+    fused_shadow_march_bf16, march_info, march_plain, march_plan,
+    march_slots_plain, min_scan_blocks_per_sm,
     min_scan_plain, min_scan_plan, min_scan_segments, min_scan_widths,
     pack_shift_weights, shadow_march_plain, sphere_sdf_eval_plain, supports,
 )

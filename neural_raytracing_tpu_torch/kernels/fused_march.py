@@ -5,22 +5,26 @@ versions.
 K2 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_march.py``
 (``fused_march``, body ``_build_march_kernel`` with ``_make_sdf_eval``), the
 plain march (omega = 1) and the over-relaxed one (1 < omega < 2).  The
-kernel (``csrc/fused_march.cu``) runs the whole march per block of 32 rays:
-the sphere set in shared memory, the shift MLP through the device MLP that
-K1 uses, the three per-ray values of the relaxation (previous SDF, last
-step, the ray's omega) in shared memory, and an early exit once no ray of
-the block remains.  It is bound by the f32 FMA rate of the shift MLP over
-the steps the rays need.  ``march_plain`` below is its plain version
-(``SDF._march``'s loops).
+kernel (``csrc/fused_march.cu``) keeps persistent blocks (``march_plan``
+launches one a SM), each with 128 ray slots (64 when hidden > 128): a step
+evaluates the SDF of every live slot through the tiled SDF that K3 uses,
+and a slot whose ray is done takes the next ray from a queue; once the
+queue is dry the live slots move to the front and a step evaluates only
+the first 128, 64 or 32 rows.
+A ray's state (depth, previous SDF, last step, its omega, its evaluation
+count) lives in global memory, so a ray's result depends on nothing but its
+own evaluations.  ``march_plain`` below is its plain version (``SDF._march``'s
+loops); ``march_slots_plain`` is a plain model of the kernel's schedule, for
+tests.
 
 K3 replaces ``fused_min_scan`` (body ``_build_minscan_kernel``): the index of
 the earliest strict minimum of the SDF over the ``steps + 1`` samples
 ``t = step * i`` of each ray.  The kernel (``csrc/fused_minscan.cu``) shares
-the sphere set (``csrc/sphere_set.cuh``) with K2; its shift net is the
-register-tiled device MLP of ``csrc/mlp_tiled.cuh``: four samples of 32
-rays (128 rows) share one evaluation, each thread an 8 x 8 tile of a
-layer's output on the CUDA cores, the weights streamed once per block and
-layer through shared memory in the layout ``pack_shift_weights`` makes.
+its SDF (``csrc/mlp_tiled.cuh`` over ``csrc/sphere_set.cuh``) with K2, a
+register-tiled shift net: four samples of 32 rays (128 rows) share one
+evaluation, each thread an 8 x 8 tile of a layer's output on the CUDA
+cores, the weights streamed once per block and layer through shared memory
+in the layout ``pack_shift_weights`` makes.
 Every ray takes all samples; it is bound by the f32 FMA rate.  To fill
 the card's last wave of blocks, each ray's samples may be split into
 segments run by separate blocks and merged by a second kernel
@@ -35,8 +39,9 @@ of ``SDF.intersect_test``, which differs from K2's in four places (depth
 starts at ``1e2 * eps``, the hit test is a strict ``sd < eps``, the hit
 step's distance is still applied, and zero-direction rays are left out of
 the block's exit gate).  The kernel (``csrc/fused_shadow.cu``) shares the
-sphere set and the device MLP with K2 and K3; it is bound by the f32 FMA
-rate over the live ray-steps.  ``shadow_march_plain`` is its plain version.
+sphere set with K2 and K3 and the device MLP of ``csrc/mlp.cuh`` with K1;
+it is bound by the f32 FMA rate over the live ray-steps.
+``shadow_march_plain`` is its plain version.
 
 The three kernels take a ``SphereSDF`` or a ``FusedSphereSDF`` (the same
 parameters) whose shift is a 3 -> 1 ``SkipConnMLP`` without a latent.
@@ -49,8 +54,9 @@ K2-bf16, K3-bf16 and K4-bf16 (``compute_dtype=torch.bfloat16``, the JAX
 kernels over the bf16 operands of the JAX ``_make_sdf_eval``: the shift
 net's matmul operands rounded to bf16, its skip layers reading ``act`` of
 the ROUNDED encoding (K1-bf16 takes ``act`` of the float32 one), the weight
-matrices cast once per call; the sphere set, the smooth-min, ``x @ B``,
-sin/cos, the biases and the loops stay float32.  Their plain versions are
+matrices cast once per call (K2-bf16 and K3-bf16 on the tensor cores);
+the sphere set, the smooth-min, ``x @ B``, sin/cos, the biases and the
+loops stay float32.  Their plain versions are
 the three loops above over ``sphere_sdf_eval_plain(module, p,
 torch.bfloat16)``.
 """
@@ -76,12 +82,16 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 def _lib() -> ctypes.CDLL:
     lib = library("fused_march")
     lib.nrt_fused_march.argtypes = [
-        _P, _P, _P, _P, _F, _P, _P, _I, _I, _F, _F,  # rays, interval, outputs, loop
+        _P, _P, _P, _P, _F, _P, _P,               # rays, interval, outputs
+        _P, _P, _P,                               # ray states, queue, statistics
+        _I, _I, _I, _F, _F,                       # rays, blocks, loop
         _I,                                       # bf16 operands
         _P, _P, _P, _I, _F, _I,                   # sphere set
-        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP (packed weights)
         _P]                                       # stream
     lib.nrt_fused_march.restype = _I
+    lib.nrt_fused_march_info.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.nrt_fused_march_info.restype = _I
     return lib
 
 
@@ -238,22 +248,94 @@ def march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t,
     return depths, hit, evals
 
 
+@torch.no_grad()
+def march_slots_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t,
+                      t_start=None, *, slots: int, max_steps: int, epsilon: float,
+                      omega: float = 1.0):
+    """A plain model of K2's schedule in one block of ``slots`` slots, for
+    tests; not on any path.
+
+    The kernel's control flow (``csrc/fused_march.cu``): a free slot takes
+    rays from a queue in order until one needs an evaluation (a ray with no
+    steps or ``t_start >= max_t`` resolves at once); each step evaluates
+    ``sdf`` on the points of the live slots only, and each of them takes
+    ``march_plain``'s step with its own relaxation state and evaluation
+    count, both starting afresh when the ray enters its slot; a ray that
+    hits, leaves its interval or has had ``max_steps`` evaluations frees its
+    slot.  Once the queue is dry the live slots move to the front and the
+    step covers the first ``slots``, ``slots / 2``, ... rows that hold them
+    (down to 32).  Returns ``(depths, hit, evals, schedule)``: the first
+    three as ``march_plain``'s, ``schedule`` the (live slots, rows) of each
+    step.
+    """
+    check_omega(omega)
+    batch = r_o.shape[:-1]
+    o, d = r_o.reshape(-1, 3), r_d.reshape(-1, 3)
+    n, device = o.shape[0], r_o.device
+    t0 = torch.zeros(n, device=device) if t_start is None else torch.as_tensor(
+        t_start, dtype=torch.float32, device=device).expand(batch).reshape(-1)
+    mt = torch.as_tensor(max_t, dtype=torch.float32, device=device).expand(batch).reshape(-1)
+    depths, hit = t0.clone(), torch.zeros(n, dtype=torch.bool, device=device)
+    evals = torch.zeros(n, dtype=torch.int32, device=device)
+    prev, slen = torch.zeros(n, device=device), torch.zeros(n, device=device)
+    om = torch.full((n,), omega, dtype=torch.float32, device=device)
+    slot, queue, schedule = [-1] * slots, 0, []
+    while True:
+        for s in range(slots):                       # refill
+            while slot[s] < 0 and queue < n:
+                g, queue = queue, queue + 1
+                if max_steps > 0 and bool(t0[g] < mt[g]):
+                    prev[g], slen[g], om[g], evals[g] = 0.0, 0.0, omega, 0
+                    slot[s] = g
+        live = [g for g in slot if g >= 0]
+        if not live:
+            break
+        rows = slots
+        while rows // 2 >= 32 and len(live) <= rows // 2:
+            rows //= 2
+        if rows < slots:                             # compact
+            slot = live + [-1] * (slots - len(live))
+        schedule.append((len(live), rows))
+        g = torch.tensor(live, device=device)
+        sd = sdf(o[g] + d[g] * depths[g][:, None])
+        evals[g] += 1
+        fail = (om[g] > 1.0) & ((torch.abs(sd) + torch.abs(prev[g]) <= slen[g])
+                                | (sd < -epsilon))
+        hits = ~fail & (sd <= epsilon)
+        step = torch.where(fail, (1.0 - om[g]) * slen[g], om[g] * sd)
+        go = ~hits
+        hit[g[hits]] = True
+        gg = g[go]
+        depths[gg] = depths[gg] + step[go]
+        slen[gg], prev[gg] = step[go], sd[go]
+        om[gg] = torch.where(fail[go], 1.0, om[gg])
+        done = hits.clone()
+        done[go] = (evals[gg] >= max_steps) | ~(depths[gg] < mt[gg])
+        finished = set(g[done].tolist())
+        slot = [-1 if s in finished else s for s in slot]
+    return depths.reshape(batch), hit.reshape(batch), evals.reshape(batch), schedule
+
+
 def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                 max_steps: int, epsilon: float, omega: float = 1.0,
-                t_start=None, compute_dtype=torch.float32):
+                t_start=None, compute_dtype=torch.float32, stats=None):
     """Launch K2 on CUDA tensors.  Returns ``(depths [...], hit [...])``.
 
     ``max_t`` is a scalar (unbounded) or, with ``t_start``, a per-ray end of
     the ``[t_start, max_t]`` interval (bounded); ``omega`` in [1, 2) is the
     over-relaxation of ``march_plain``; ``compute_dtype=torch.bfloat16``
-    launches K2-bf16 (counted as ``fused_march_bf16``).  Launches on the
-    current stream and does not synchronise.
+    launches K2-bf16 (counted as ``fused_march_bf16``).  The shift net's
+    weights are packed once per call (``pack_shift_weights``).  ``stats``, an
+    int64 CUDA tensor ``[3]``, gets the launch's tile steps, rows evaluated
+    and live rows added to it.  Launches on the current stream and does not
+    synchronise.
     """
     check_omega(omega)
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if not supports(module):
         raise ValueError("fused_march supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
+    check_min_scan_widths(module, "fused_march")
     batches = r_o.shape[:-1]
     device = r_o.device
     ro, rd, n = _rays(r_o, r_d)
@@ -271,18 +353,26 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
         check_cuda_f32("max_t", mt, (n,), device)
         scalar_max_t = 0.0
 
+    if stats is not None:
+        check_cuda_f32("stats", stats, (3,), device, torch.int64)
     # the tensors stay alive until the launch
-    spheres, _tensors = _sphere_set(module, device, compute_dtype)
-
+    spheres, _tensors = _spheres(module, device)
+    mlp = module.shift
+    packed = pack_shift_weights(mlp, compute_dtype)
+    ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
     depths = torch.empty(n, device=device, dtype=torch.float32)
     hit = torch.empty(n, device=device, dtype=torch.bool)
+    state = torch.empty(n, 4, device=device, dtype=torch.float32)
+    queue = torch.empty(1, device=device, dtype=torch.int32)
+    blocks = march_plan(n, device)
     with torch.cuda.device(device):
         rc = _lib().nrt_fused_march(
             ro.data_ptr(), rd.data_ptr(),
             None if t0 is None else t0.data_ptr(),
             None if mt is None else mt.data_ptr(), scalar_max_t,
-            depths.data_ptr(), hit.data_ptr(), n, max_steps, epsilon,
-            float(omega), int(bf16), *spheres,
+            depths.data_ptr(), hit.data_ptr(), state.data_ptr(), queue.data_ptr(),
+            None if stats is None else stats.data_ptr(), n, blocks, max_steps, epsilon,
+            float(omega), int(bf16), *spheres, *_net_args(mlp, ptrs),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_march: CUDA error {rc} at launch")
@@ -320,20 +410,22 @@ def min_scan_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     return idx.to(torch.float32)
 
 
-# K3's widths: the limits of csrc/mlp_tiled.cuh and csrc/fused_minscan.cu
+# K2's and K3's widths: the limits of csrc/mlp_tiled.cuh, csrc/fused_march.cu
+# and csrc/fused_minscan.cu
 MIN_SCAN_LIMITS = {"hidden_size": 256, "freqs": 128, "num_layers": MAX_LAYERS,
                    "spheres": 1024}
 
 
-def check_min_scan_widths(module) -> None:
-    """Raise ValueError, naming the limit, if K3 cannot take ``module``'s
-    shift net or sphere set (checked before anything about devices)."""
+def check_min_scan_widths(module, kernel: str = "fused_min_scan") -> None:
+    """Raise ValueError, naming the limit, if K3 (or K2, which shares its
+    tile: ``kernel``) cannot take ``module``'s shift net or sphere set
+    (checked before anything about devices)."""
     mlp = module.shift
     sizes = {"hidden_size": mlp.hidden_size, "freqs": mlp.freqs,
              "num_layers": mlp.num_layers, "spheres": module.centers.shape[0]}
     for name, limit in MIN_SCAN_LIMITS.items():
         if sizes[name] > limit:
-            raise ValueError(f"fused_min_scan takes at most {name} = {limit}, "
+            raise ValueError(f"{kernel} takes at most {name} = {limit}, "
                              f"got {sizes[name]}")
 
 
@@ -481,6 +573,41 @@ def min_scan_segments(blocks: int, groups: int, slots: int) -> int:
         if cost < best_cost:
             best, best_cost = seg, cost
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def _march_info(bf16: bool, freqs: int, hidden: int, n_spheres: int, device: int) -> dict:
+    info = (_I * 5)()
+    with torch.cuda.device(device):
+        rc = _lib().nrt_fused_march_info(int(bf16), freqs, hidden, n_spheres, info)
+    if rc != 0 or info[0] <= 0:
+        raise RuntimeError(f"nrt_fused_march_info: CUDA error {rc}, {info[0]} blocks per SM")
+    return dict(blocks_per_sm=info[0], slots=info[1], registers=info[2],
+                local_bytes=info[3], smem_bytes=info[4])
+
+
+def march_info(module, compute_dtype=torch.float32, device=None) -> dict:
+    """K2's (K2-bf16's) kernel for ``module`` on the CUDA ``device`` (the
+    current one by default), as the library reports it: ``blocks_per_sm``
+    (its occupancy), ``slots`` (the rays a block marches at once),
+    ``registers`` a thread, ``local_bytes`` (local memory a thread: stack
+    frame and spills; ptxas's log tells them apart) and
+    ``smem_bytes`` (dynamic shared memory a block)."""
+    check_min_scan_widths(module, "fused_march")
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    mlp = module.shift
+    return _march_info(bf16, mlp.freqs, mlp.hidden_size, module.centers.shape[0], index)
+
+
+def march_plan(n: int, device: torch.device) -> int:
+    """The persistent blocks K2 (K2-bf16) launches for ``n`` rays on the CUDA
+    ``device``: one a SM, at most one a ray.  The kernel fits twice on an SM
+    (``march_info``), but one block a SM marches faster: a step's cost has a
+    large fixed part, so the tail is shorter in fewer, fuller blocks."""
+    if n <= 0:
+        return 0
+    return min(n, torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,

@@ -48,7 +48,7 @@ from neural_raytracing_tpu_torch.kernels import (
     fused_min_scan_bf16, fused_mlp_apply, fused_mlp_backward,
     fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_forward_bf16,
     fused_mlp_segment_backward, fused_shadow_march, fused_shadow_march_bf16,
-    fused_sphere_sdf, launch_counts, march_plain, min_scan_blocks_per_sm,
+    fused_sphere_sdf, launch_counts, march_info, march_plain, min_scan_blocks_per_sm,
     min_scan_plain, mlp_backward,
     mlp_forward_bf16_operands, reset_launch_counts, set_kernel_mode,
     shadow_march_plain, sphere_sdf_eval_plain, sphere_sdf_plain, supports,
@@ -794,6 +794,130 @@ def test_fused_march_bf16_matches_plain(cuda, mode):
     derr = (depth - pdepth)[hit & phit].abs()
     assert (derr <= 1e-3).float().mean() >= 0.99 and (derr <= 1e-2).float().mean() >= 0.999
     assert (depth - depth32).abs().max() > 1e-5           # not silently f32
+
+
+def _march_rays(device, n, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    r_o = torch.tensor([0.0, 0.0, 2.0]).expand(n, 3).contiguous()
+    r_d = torch.tensor([0.0, 0.0, -1.0]) + 0.3 * torch.randn(n, 3, generator=g)
+    return r_o.to(device), torch.nn.functional.normalize(r_d, dim=-1).to(device)
+
+
+def _assert_march_close(depth, hit, pdepth, phit, bf16):
+    """K2's tolerances (chip_smoke.py): hit agreement >= 99%, |depth
+    difference| <= 1e-3 where both hit; K2-bf16's: the depths within 1e-3 on
+    99% and within 1e-2 on 99.9% of the common hits."""
+    assert (hit == phit).float().mean() >= 0.99
+    derr = (depth - pdepth)[hit & phit].abs()
+    if bf16:
+        assert (derr <= 1e-3).float().mean() >= 0.99 and (derr <= 1e-2).float().mean() >= 0.999
+    else:
+        assert derr.numel() == 0 or derr.max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 16_384])
+def test_fused_march_ray_counts(cuda, n, dtype):
+    """K2 and K2-bf16 around one block's 128 slots and at an eval tile's
+    16,384 rays (fewer rays than the card's slots), bounded, 256 steps."""
+    bf16 = dtype == BF16
+    module = _surface(cuda)
+    r_o, r_d = _march_rays(cuda, n)
+    t0, t1 = march_interval(r_o, r_d, 1.2, 10.0)
+    name = "fused_march_bf16" if bf16 else "fused_march"
+    reset_launch_counts()
+    depth, hit = fused_march(module, r_o, r_d, t1, max_steps=256, epsilon=1e-3, t_start=t0,
+                             compute_dtype=dtype)
+    assert launch_counts()[name] == (1 if n else 0) and sum(launch_counts().values()) <= 1
+    set_kernel_mode(module, "off")
+    sdf = _bf16_sdf(module) if bf16 else module
+    pdepth, phit, _ = march_plain(sdf, r_o, r_d, t1, t0, max_steps=256, epsilon=1e-3)
+    torch.cuda.synchronize()
+    assert depth.shape == hit.shape == (n,) and hit.dtype == torch.bool
+    if n:
+        assert phit.any() or n == 1
+        _assert_march_close(depth, hit, pdepth, phit, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_march_rays_that_never_step(cuda, dtype):
+    """max_steps = 0 leaves every ray at its start, not hit; a ray whose
+    t_start >= max_t resolves at once at t_start, between rays that march."""
+    module = _surface(cuda)
+    r_o, r_d = _march_rays(cuda, 3001)
+    t0, t1 = march_interval(r_o, r_d, 1.2, 10.0)
+    kw = dict(epsilon=1e-3, compute_dtype=dtype)
+    depth, hit = fused_march(module, r_o, r_d, t1, max_steps=0, t_start=t0, **kw)
+    assert torch.equal(depth, t0) and not hit.any()
+    depth, hit = fused_march(module, r_o, r_d, 10.0, max_steps=0, **kw)
+    assert not depth.any() and not hit.any()
+    t0 = t0.clone()
+    t0[::3] = t1[::3] + 0.25
+    depth, hit = fused_march(module, r_o, r_d, t1, max_steps=256, t_start=t0, **kw)
+    assert torch.equal(depth[::3], t0[::3]) and not hit[::3].any()
+    set_kernel_mode(module, "off")
+    sdf = _bf16_sdf(module) if dtype == BF16 else module
+    pdepth, phit, _ = march_plain(sdf, r_o, r_d, t1, t0, max_steps=256, epsilon=1e-3)
+    torch.cuda.synchronize()
+    assert phit.any()
+    _assert_march_close(depth, hit, pdepth, phit, dtype == BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("omega", [1.0, 1.4])
+@pytest.mark.parametrize("bound", [None, 1.2])
+def test_fused_march_results_depend_on_the_ray_alone(cuda, bound, omega, dtype):
+    """A ray's depth and hit come from its own evaluations only: the same
+    bit for bit in a second launch and under a random permutation of the
+    rays (another slot, block and start step), with one block or the
+    planned grid; the launch statistics count every evaluation once."""
+    module = _surface(cuda)
+    n = 20_001
+    r_o, r_d = _march_rays(cuda, n)
+    t0, t1 = (None, 10.0) if bound is None else march_interval(r_o, r_d, bound, 10.0)
+    kw = dict(max_steps=128, epsilon=1e-3, omega=omega, compute_dtype=dtype)
+
+    def run(p, stats=None):
+        return fused_march(module, r_o[p].contiguous(), r_d[p].contiguous(),
+                           t1 if t0 is None else t1[p].contiguous(),
+                           t_start=None if t0 is None else t0[p].contiguous(), stats=stats, **kw)
+
+    every = torch.arange(n, device=cuda)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    depth, hit = run(every, stats)
+    again = run(every)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(8)).to(cuda)
+    shuffled = run(perm)
+    fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+    plan, fm.march_plan = fm.march_plan, lambda *a: 1
+    try:
+        one_block = run(perm)
+    finally:
+        fm.march_plan = plan
+    torch.cuda.synchronize()
+    assert hit.any()
+    for d, h in (again, (shuffled[0][perm.argsort()], shuffled[1][perm.argsort()]),
+                 (one_block[0][perm.argsort()], one_block[1][perm.argsort()])):
+        assert torch.equal(d, depth) and torch.equal(h, hit)
+    steps, rows, live = stats.tolist()
+    set_kernel_mode(module, "off")
+    sdf = _bf16_sdf(module) if dtype == BF16 else module
+    evals = march_plain(sdf, r_o, r_d, t1, t0, max_steps=128, epsilon=1e-3, omega=omega)[2]
+    assert 0 < live <= rows <= 128 * steps
+    assert abs(live - int(evals.sum())) <= 0.01 * int(evals.sum())
+
+
+@pytest.mark.cuda
+def test_fused_march_occupancy(cuda):
+    """K2 and K2-bf16 for the flagship shift: 128 slots, and the block fits
+    twice on an SM (the launch takes one a SM)."""
+    module = _surface(cuda)
+    for dtype in (torch.float32, BF16):
+        info = march_info(module, dtype)
+        assert info["slots"] == 128 and info["blocks_per_sm"] == 2, info
 
 
 @pytest.mark.cuda
