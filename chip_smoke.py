@@ -22,7 +22,8 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      99th percentile, most), K2 against march_plain as phase 3 holds it,
      both kernels' ms, evaluations/ms and live share, each also with two
      blocks a SM; then the ms of one step by the rows a block evaluates (128,
-     64, 32; a block a SM; two);
+     64, 32; a block a SM; two), on rays that converge on the surface and
+     never finish (unending_rays);
   4. the eval slice: the flagship eval scene of scripts/nerf_synthetic.py
      (max_steps 256, march_bound 1.2) renders 3 views at 256x256 through
      pathtrace with the kernels, launch counts reset just before and read
@@ -46,17 +47,28 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      through the kernels (launch counts reset just before, read just after);
      3 iterations each with K6, K7 and everything plain; a profile of one
      step; evaluate on 2 views;
-  8. K4 fused_shadow_march against shadow_march_plain on the shadow rays of
-     the trained NeRV scene (scripts/models_seed_dir/nerv_mesh_gear_mirror200b):
-     from the march end points (the hit points where a ray hit) of every
-     pixel of one 200x200 view at distance 2 towards light 0, as the render
-     casts them (128 steps, past-light exit; once without it), and of 3
-     views x 64^2 crops, one light each (12,288 rays, 64 steps); blocked
-     fraction, ms,
-     plain ms, bound ms and the mean evaluations per ray;
+  8. K4 fused_shadow_march against shadow_march_plain at the shapes the NeRV
+     paths launch it at (shadow_shapes), on the shadow rays of the trained
+     NeRV scene (scripts/models_seed_dir/nerv_mesh_gear_mirror200b) from the
+     march end points (the hit points where a ray hit) of the camera rays
+     towards the light, as the render casts them: (a) the four 100^2 eval
+     chunks of one 200x200 view at distance 2, light 0 (10,000 rays a launch,
+     128 steps, past-light exit), (b) 3 views x 64^2 crops, one light each
+     (12,288 rays, 64 steps), (c) the whole view in one launch (the table's
+     shape), (d) (c) without the exit; at each: the SDF evaluations per ray
+     (mean, median, 99th percentile, most), blocked fraction (in (0, 1)
+     over each shape's launches, so the comparisons are not empty), not-blocked
+     agreement, the same flags bit for bit in a second launch and under a
+     permutation, zero-direction rays (the directions of the rays whose
+     camera ray missed, and of every 97th, set to zero) equal to the plain
+     loop's, ms a launch, plain ms, bound ms, evaluations/ms, tile steps and
+     the live share of the rows, and the schedule model's ms (slot_model);
+     the kernel as the library reports it, and one step's ms by the rows a
+     block evaluates (128, 64, 32, 16, 8; bf16 128, 64, 32);
   9. K5 fused_sphere_sdf against SphereSDF.forward on 65,536 seeded points
      with the trained shape weights, and one backward and one double
-     backward through its autograd.Function against the plain version;
+     backward through its autograd.Function against the plain version; its
+     ms also at a NeRV eval chunk's 10,000 points (the path's);
  10. the NeRV eval: workloads.nerv.build_scene(max_steps=128,
      march_bound=1.2) loaded from the checkpoint renders 3 views at 200x200
      through evaluate with light_update (the checkpoint's 3 lights), with
@@ -100,9 +112,8 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      and non-zero surface, bounded (256 steps), unbounded (64) and omega 1.4;
      K3-bf16 at phase 5's shapes, as phase 5 reports K3, its bound the
      larger of the tensor-core bound and the elementwise floor (the SFU and
-     f32 work of its softplus epilogue, encoding and spheres); K4-bf16 on
-     phase 8's NeRV shadow rays with
-     and without the past-light exit, and a probe on phase 3's surface that
+     f32 work of its softplus epilogue, encoding and spheres); K4-bf16 at
+     phase 8's shapes as phase 8 holds K4, and a probe on phase 3's surface that
      reads K4's SDF at float32 resolution (the checkpoint's shift net is a
      constant, so its bf16 and f32 marches agree bit for bit); K2-bf16's and
      K4-bf16's bounds are the larger of the tensor-core bound and the
@@ -139,7 +150,9 @@ in one order and moves its row); the training step: loss within 1e-4 (relative),
 1e-2 relative L2 (the kernels sum in another order, and a flipped hit or a
 near-tie argmin moves its ray's whole contribution); K4 not-blocked
 agreement >= 99.9% (a step that lands within rounding of eps goes either
-way); K5 as K1, its derivatives within 1e-4 of max|plain| (the backward
+way), its flags the same bit for bit across launches and permutations, and
+zero-direction rays exactly the plain loop's (one evaluation decides them);
+K5 as K1, its derivatives within 1e-4 of max|plain| (the backward
 recomputes through the plain version); the NeRV renders and step as the
 flagship's, the occlusion net's gradient included; K8 2e-5 absolute + 2e-5
 relative (as tests/test_kernels.py holds the TPU kernel), its gradients 1e-4
@@ -164,9 +177,12 @@ phases 4 and 7.
 
     python3 chip_smoke.py --march-times [DIR]
 
-prints only K2's and K2-bf16's ms at phase 3b's shapes, for the package in
-DIR (this checkout's by default): unpack another commit with git archive
-into the ignored scratch_trees/ and run the two trees in turns in one call.
+prints only K2's and K2-bf16's ms at phase 3b's shapes, K4's and K4-bf16's
+ms a launch at phase 8's and K3's and K3-bf16's at phase 5's, with a digest
+of K2's depths and hits and of K3's indices, for the package in DIR (this
+checkout's by default):
+unpack another commit with git archive into the ignored scratch_trees/ and
+run the two trees in turns in one call.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -561,11 +577,20 @@ def phase_march_shapes(torch, dev):
     return out
 
 
+def unending_rays(torch, n: int, dev):
+    """``n`` rays from distance 2 towards the surface of march_surface: with
+    eps -1 none hits and with max_t 1e30 none leaves, so each takes all its
+    steps, its points converging on the surface, as a path's rays march near
+    it (rays that march away double their depth a step).  -> (r_o, r_d)."""
+    d = torch.nn.functional.normalize(
+        torch.rand(n, 3, generator=torch.Generator().manual_seed(4)) + 0.2, dim=-1).to(dev)
+    return (2.0 * d).contiguous(), (-d).contiguous()
+
+
 def march_step_times(torch, dev):
     """Milliseconds of one K2 (K2-bf16) step by the rows it evaluates, with
-    its blocks alone on the card: rays that never hit (eps -1) and never
-    leave (max_t 1e30, pointing away from the surface) take all 64 steps;
-    one block with 128, 64 or 32 of them, and full blocks, one a SM or two."""
+    its blocks alone on the card: unending_rays take all 64 steps; one
+    block with 128, 64 or 32 of them, and full blocks, one a SM or two."""
     from neural_raytracing_tpu_torch.kernels import fused_march
     module = march_surface(torch, dev)
     fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
@@ -575,9 +600,7 @@ def march_step_times(torch, dev):
                              ("one block, 32 rows", 1, 32),
                              ("a block a SM, 128 rows", sms, 128 * sms),
                              ("two blocks a SM, 128 rows", 2 * sms, 256 * sms)):
-        d = torch.nn.functional.normalize(
-            torch.rand(n, 3, generator=torch.Generator().manual_seed(4)) + 0.2, dim=-1).to(dev)
-        o = (2.0 * d).contiguous()
+        o, d = unending_rays(torch, n, dev)
         saved, fm.march_plan = fm.march_plan, lambda *a, b=blocks: b
         try:
             out[label] = [cuda_ms(lambda: fused_march(module, o, d, 1e30, max_steps=64,
@@ -585,28 +608,72 @@ def march_step_times(torch, dev):
                           for dt in (torch.float32, torch.bfloat16)]
         finally:
             fm.march_plan = saved
-    print("K2 step ms (f32, bf16) by the rows a block evaluates, 64 steps of rays that "
-          "never finish: " + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f}" for k, v in out.items()))
+    print("K2 step ms (f32, bf16) by the rows a block evaluates, 64 steps of unending rays: "
+          + "; ".join(f"{k} {v[0]:.4f}, {v[1]:.4f}" for k, v in out.items()))
     return out
+
+
+def one_block_step_ms(torch, module, run, rows: int, compute_dtype) -> float:
+    """Milliseconds of one step of a slot kernel with one block of 128 slots
+    on the card evaluating ``rows`` unending_rays: ``run(module, o, d,
+    compute_dtype)`` launches 64 steps (eps -1, max_t 1e30)."""
+    fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+    o, d = unending_rays(torch, rows, module.centers.device)
+    saved = fm.march_plan, fm.shadow_plan
+    fm.march_plan, fm.shadow_plan = (lambda *a: 1), (lambda *a: (1, 128))
+    try:
+        return cuda_ms(lambda: run(module, o, d, compute_dtype), 3) / 64
+    finally:
+        fm.march_plan, fm.shadow_plan = saved
 
 
 def march_times_main(root: str):
     """``python3 chip_smoke.py --march-times [DIR]``: K2's and K2-bf16's ms at
-    the path's shapes (march_shapes) for the package in DIR (this checkout's
-    by default), one JSON line, to compare two trees in one call."""
+    the path's shapes (march_shapes), and K4's and K4-bf16's ms a launch at
+    theirs (shadow_shapes), and K3's and K3-bf16's at phase 5's, for the
+    package in DIR (this checkout's by default), one JSON line, to compare
+    two trees in one call; with a digest of K2's depths and hits at each
+    shape and of K3's indices (both operand types), to show two trees give
+    the same bits."""
+    import hashlib
     import torch
     sys.path.insert(0, str(Path(root).resolve()))
     import neural_raytracing_tpu_torch
-    from neural_raytracing_tpu_torch.kernels import _build, fused_march, fused_march_bf16
+    from neural_raytracing_tpu_torch.kernels import (
+        _build, fused_march, fused_march_bf16, fused_shadow_march, fused_shadow_march_bf16,
+    )
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.build()
+    from neural_raytracing_tpu_torch.kernels import fused_min_scan, fused_min_scan_bf16
+    digest = hashlib.sha256()
     times = {}
     for label, module, r_o, r_d, t0, t1, steps, omega in march_shapes(torch, dev):
         kw = dict(max_steps=steps, epsilon=1e-3, t_start=t0, omega=omega)
+        for k in (fused_march, fused_march_bf16):
+            for t in k(module, r_o, r_d, t1, **kw):
+                digest.update(t.cpu().numpy().tobytes())
         times[label] = [cuda_ms(lambda: fused_march(module, r_o, r_d, t1, **kw), 5),
                         cuda_ms(lambda: fused_march_bf16(module, r_o, r_d, t1, **kw), 5)]
-    print(json.dumps({"package": neural_raytracing_tpu_torch.__file__, "march_ms": times}))
+    k2_digest = digest.hexdigest()[:16]
+    digest = hashlib.sha256()
+    surface = march_surface(torch, dev)
+    s_o, s_d = scan_rays(torch, dev)
+    scan_ms = []
+    for k in (fused_min_scan, fused_min_scan_bf16):
+        digest.update(k(surface, s_o, s_d, 2.2 / 128, steps=128).cpu().numpy().tobytes())
+        scan_ms.append(cuda_ms(lambda: k(surface, s_o, s_d, 2.2 / 128, steps=128), 5))
+    k3_digest = digest.hexdigest()[:16]
+    shadow = {}
+    module, shapes = shadow_shapes(torch, dev)
+    for label, launches, steps, ple in shapes:
+        kw = dict(max_steps=steps, epsilon=1e-3, past_light_exit=ple)
+        shadow[label] = [[cuda_ms(lambda: k(module, r_o, r_d, mt, **kw), 5)
+                          for r_o, r_d, mt, _ in launches]
+                         for k in (fused_shadow_march, fused_shadow_march_bf16)]
+    print(json.dumps({"package": neural_raytracing_tpu_torch.__file__, "march_ms": times,
+                      "shadow_ms": shadow, "min_scan_ms": scan_ms, "k2_digest": k2_digest,
+                      "k3_digest": k3_digest}))
 
 
 def flagship_scene(max_steps, march_bound):
@@ -1151,67 +1218,256 @@ def nerv_camera(torch, views, dist=2.0):
     return NeRFCamera(torch.from_numpy(c2w), NERV_FOCAL)
 
 
-def shadow_rays(torch, scene, camera, positions, locs):
+def shadow_rays(torch, scene, camera, positions, locs, with_hit=False):
     """Shadow rays from the march end points of ``camera``'s rays at
     ``positions`` (the hit points where they hit) towards each view's light
-    -> (r_o, r_d, distance to the light), flat."""
+    -> (r_o, r_d, distance to the light), flat; with ``with_hit`` also
+    whether the camera ray hit."""
     rays = camera.sample_positions(positions, size=NERV_SIZE)
     with torch.no_grad():
-        it, _ = scene.shape.intersect(rays, primary=False)
+        it, hit = scene.shape.intersect(rays, primary=False)
         loc = locs.reshape(-1, 1, 1, 1, 3)
         d = loc - it.p
         dist = d.norm(dim=-1)
         d = d / dist[..., None]
-    return (it.p.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
-            dist.reshape(-1).contiguous())
+    out = (it.p.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
+           dist.reshape(-1).contiguous())
+    return out + (hit.reshape(-1),) if with_hit else out
 
 
-def phase_shadow(torch, dev):
-    """K4 against shadow_march_plain on the trained NeRV scene's shadow rays."""
-    from neural_raytracing_tpu_torch.kernels import (
-        fused_shadow_march, set_kernel_mode, shadow_march_plain,
-    )
+def shadow_shapes(torch, dev):
+    """The shapes K4 is launched at on the NeRV paths, built on the trained
+    checkpoint from the march end points of the camera rays towards the
+    light (eps 1e-3) -> (the SphereSDF, [(label, launches [(r_o, r_d,
+    max_t, the camera ray hit)], steps, past_light_exit)]):
+    (a) an eval chunk: the four 100^2 chunks of one 200^2 view, one launch
+    each (10,000 rays, 128 steps); (b) a training call: 3 views x 64^2
+    crops (12,288 rays, 64 steps); (c) the whole 200^2 view in one launch
+    (40,000 rays, 128 steps, the table's shape); (d) (c) without the
+    past-light exit."""
+    from neural_raytracing_tpu_torch.kernels import set_kernel_mode
     from neural_raytracing_tpu_torch.render import _tile_positions
     scene = nerv_scene(torch, dev, 128, 1.2, "hard")
     locs = scene.lights.location.detach()
-    module = scene.shape.module
-    per_eval_flops = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
-    view = shadow_rays(torch, scene, nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev),
-                       _tile_positions(0.0, 0.0, NERV_SIZE, dev), locs[:1])
+    cam = nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev)
+    tiles = range(NERV_SIZE // NERV_CHUNK)
+    chunks = [shadow_rays(torch, scene, cam, _tile_positions(
+        float(i * NERV_CHUNK), float(j * NERV_CHUNK), NERV_CHUNK, dev), locs[:1], True)
+        for i in tiles for j in tiles]
+    view = shadow_rays(torch, scene, cam, _tile_positions(0.0, 0.0, NERV_SIZE, dev),
+                       locs[:1], True)
     c0 = float((NERV_SIZE - NERV_CROP) // 2)
     crops = shadow_rays(torch, scene, nerv_camera(torch, NERV_EVAL_VIEWS).to(dev),
-                        _tile_positions(c0, c0, NERV_CROP, dev), locs)
+                        _tile_positions(c0, c0, NERV_CROP, dev), locs, True)
+    module = scene.shape.module
     set_kernel_mode(scene, "off")      # the plain march evaluates the plain shift
-    results = {}
-    for label, (r_o, r_d, dist), steps, ple in (
-            ("eval (128 steps, past-light exit)", view, 128, True),
-            ("training (64 steps, past-light exit)", crops, 64, True),
-            ("eval (128 steps, no past-light exit)", view, 128, False)):
-        n = r_o.shape[0]
-        kernel = lambda: fused_shadow_march(module, r_o, r_d, dist, max_steps=steps,
-                                            epsilon=1e-3, past_light_exit=ple)
-        plain = lambda: shadow_march_plain(module, r_o, r_d, dist, max_steps=steps,
-                                           epsilon=1e-3, past_light_exit=ple)
-        nb = kernel()
-        pnb, evals = plain()
-        torch.cuda.synchronize()
-        agree = (nb == pnb).float().mean().item()
-        blocked = (~pnb).float().mean().item()
-        check(0.0 < blocked < 1.0, f"K4 {label}: blocked fraction {blocked:.4f} not in (0, 1)")
-        check(agree >= 0.999, f"K4 {label}: not-blocked agreement {agree:.6f} < 0.999")
-        ms = cuda_ms(kernel, 5)
-        plain_ms = cuda_ms(plain, 3)
-        n_evals = evals.sum().item()
-        n_bytes = 4 * n * 7 + n + weight_bytes(module.shift) + 4 * 13 * module.n
-        b_ms, b_by = bound_ms(n_bytes, per_eval_flops * n_evals)
-        print(f"K4 fused_shadow_march, {label}: {n} rays, blocked fraction {blocked:.4f}, "
-              f"agreement {agree:.6f}, SDF evaluations needed {n_evals} "
-              f"({n_evals / n:.2f}/ray), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({b_by}), {per_eval_flops * n_evals / ms / 1e9:.1f} TFLOP/s")
-        # not_blocked is boolean: max |kernel - plain| is 1 if any ray differs
-        results[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              err=float(agree < 1.0))
-    return results["eval (128 steps, past-light exit)"]
+    return module, [("(a) eval chunk", chunks, 128, True),
+                    ("(b) training call", [crops], 64, True),
+                    ("(c) eval view", [view], 128, True),
+                    ("(d) eval view, no exit", [view], 128, False)]
+
+
+def slot_model(evals, blocks: int, slots: int, step_ms: dict, min_rows: int = 32) -> dict:
+    """A plain model of a persistent slot kernel's time from the SDF
+    evaluations each ray needs (``evals``, in queue order) and one step's ms
+    by the rows it evaluates (``step_ms`` {rows: ms}): ``blocks`` blocks of
+    ``slots`` slots, the first fill even (block b takes rays b * per ..., per =
+    min(ceil(n / blocks), slots)), then a free slot takes the next ray of the
+    queue, the block whose clock is least asking first; a step evaluates
+    ``slots`` rows, or once the live slots fit, half of them down to
+    ``min_rows``.  -> {"ms": the slowest block's clock, "steps", "rows",
+    "live" (summed over blocks), "block_most" (the most evaluations a ray of
+    one block's first fill needs, over the blocks)}."""
+    import heapq
+
+    import numpy as np
+    e = np.asarray(evals, dtype=np.int64).reshape(-1)
+    n = e.shape[0]
+    per = min(-(-n // max(blocks, 1)), slots)
+    left = [np.zeros(0, np.int64) for _ in range(blocks)]
+    heap = [(0.0, b, True) for b in range(blocks)]
+    queue, ms, steps, rows_sum, live_sum, most = 0, 0.0, 0, 0, 0, 0
+    while heap:
+        clock, b, first = heapq.heappop(heap)
+        cur = left[b]
+        free = (per if first else slots) - cur.shape[0]
+        if free > 0 and queue < n:
+            take = e[queue:queue + free]
+            queue += take.shape[0]
+            if first and take.shape[0]:
+                most = max(most, int(take.max()))
+            cur = np.concatenate([cur, take[take > 0]])
+        live = cur.shape[0]
+        if live == 0:
+            if queue >= n:
+                ms = max(ms, clock)
+                continue
+            heapq.heappush(heap, (clock, b, False))
+            continue
+        rows = slots
+        while rows // 2 >= min_rows and live <= rows // 2:
+            rows //= 2
+        steps, rows_sum, live_sum = steps + 1, rows_sum + rows, live_sum + live
+        cur = cur - 1
+        left[b] = cur[cur > 0]
+        heapq.heappush(heap, (clock + step_ms[rows], b, False))
+    return dict(ms=ms, steps=steps, rows=rows_sum, live=live_sum, block_most=most)
+
+
+def shadow_check(torch, label, kernel, sdf, launch, kw):
+    """K4 (K4-bf16: ``kernel(r_o, r_d, max_t, **kw)``) on one launch against
+    shadow_march_plain over ``sdf``: not-blocked agreement >= 0.999; the
+    same flags bit for bit in a second launch and under a random
+    permutation of the rays; then with the directions of the rays whose
+    camera ray missed (the render's masked light samples) and of every 97th
+    ray that hit set to zero, the plain flags exactly on those rays.  ->
+    (plain flags, evaluations per ray, launch statistics [steps, rows, live],
+    agreement, zero-direction rays, of which blocked)."""
+    from neural_raytracing_tpu_torch.kernels import shadow_march_plain
+    r_o, r_d, mt, hit = launch
+    n = r_o.shape[0]
+    stats = torch.zeros(3, dtype=torch.int64, device=r_o.device)
+    nb = kernel(r_o, r_d, mt, stats=stats, **kw)
+    pnb, evals = shadow_march_plain(sdf, r_o, r_d, mt, **kw)
+    nb2 = kernel(r_o, r_d, mt, **kw)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(9)).to(r_o.device)
+    nb3 = kernel(r_o[perm].contiguous(), r_d[perm].contiguous(), mt[perm].contiguous(), **kw)
+    agree = (nb == pnb).float().mean().item()
+    check(agree >= 0.999, f"{label}: not-blocked agreement {agree:.6f} < 0.999")
+    check(torch.equal(nb, nb2) and torch.equal(nb[perm], nb3),
+          f"{label}: flags differ between launches or under a permutation of the rays")
+    zero = ~hit | (torch.arange(n, device=hit.device) % 97 == 0)
+    zd = torch.where(zero[:, None], 0.0, r_d).contiguous()
+    znb = kernel(r_o, zd, mt, **kw)
+    zp, _ = shadow_march_plain(sdf, r_o, zd, mt, **kw)
+    check(torch.equal(znb[zero], zp[zero]),
+          f"{label}: {int((znb != zp)[zero].sum())} zero-direction rays differ from the plain loop")
+    check((znb == zp).float().mean().item() >= 0.999,
+          f"{label}: not-blocked agreement with zero-direction rays < 0.999")
+    return pnb, evals, [int(x) for x in stats.tolist()], agree, int(zero.sum()), \
+        int((~zp[zero]).sum())
+
+
+def shadow_shape_report(torch, name, module, shapes, kernel, compute_dtype, sdf, bound_fn,
+                        step_ms):
+    """K4 or K4-bf16 (``kernel(r_o, r_d, max_t, **kw)``, called ``name``, with
+    ``compute_dtype`` operands) at
+    each of ``shapes`` (shadow_shapes): shadow_check on every launch, some
+    rays blocked and some not over each shape's launches (else the
+    comparisons hold trivially; one 100^2 chunk of (a) has no blocked ray),
+    the SDF evaluations per ray, ms a launch, plain ms, bound (``bound_fn(n,
+    evaluations) -> (ms, by)``), evaluations/ms, the live share of the rows
+    the steps evaluated, and slot_model's ms from this kernel's ``step_ms``
+    by rows.  -> {label: {...}}."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import shadow_march_plain
+    fm = sys.modules["neural_raytracing_tpu_torch.kernels.fused_march"]
+    out = {}
+    for label, launches, steps, ple in shapes:
+        kw = dict(max_steps=steps, epsilon=1e-3, past_light_exit=ple)
+        res = dict(ms=[], plain_ms=[], bound_ms=[], model_ms=[], evals=[], steps=0,
+                   rows=0, live=0, agree=1.0, zero=0, zero_blocked=0, blocked=0, n=0)
+        for r_o, r_d, mt, hit in launches:
+            pnb, evals, st, agree, n_zero, z_blocked = shadow_check(
+                torch, f"{name} {label}", kernel, sdf, (r_o, r_d, mt, hit), kw)
+            n = r_o.shape[0]
+            res["ms"].append(cuda_ms(lambda: kernel(r_o, r_d, mt, **kw), 5))
+            res["plain_ms"].append(cuda_ms(lambda: shadow_march_plain(sdf, r_o, r_d, mt, **kw), 3))
+            b_ms, res["bound_by"] = bound_fn(n, float(evals.sum().item()))
+            res["bound_ms"].append(b_ms)
+            e = evals.cpu().numpy()
+            blocks, slots = fm.shadow_plan(
+                n, r_o.device, fm.shadow_info(module, compute_dtype)["slots"])
+            res["model_ms"].append(slot_model(
+                e, blocks, slots, {r: v for r, v in step_ms.items() if r <= slots},
+                min(step_ms))["ms"])
+            res["evals"].append(e)
+            res["steps"] += st[0]
+            res["rows"] += st[1]
+            res["live"] += st[2]
+            res["agree"] = min(res["agree"], agree)
+            res["zero"] += n_zero
+            res["zero_blocked"] += z_blocked
+            res["blocked"] += int((~pnb).sum().item())
+            res["n"] += n
+        blocked = res["blocked"] / res["n"]
+        check(0.0 < blocked < 1.0,
+              f"{name} {label}: blocked fraction {blocked:.4f} not in (0, 1)")
+        e = np.concatenate(res.pop("evals"))
+        dist = eval_distribution(torch.from_numpy(e))
+        res["dist"] = dist
+        res["live_row_share"] = res["live"] / max(res["rows"], 1)
+        res["evals_per_ms"] = dist["total"] / sum(res["ms"])
+        fmt = lambda xs: ", ".join(f"{x:.3f}" for x in xs)
+        print(f"{name} at {label}: {len(launches)} launch(es) of {launches[0][0].shape[0]} rays, "
+              f"{steps} steps, past-light exit {ple}; SDF evaluations per ray mean "
+              f"{dist['mean']:.2f}, median {dist['p50']:.0f}, 99th percentile "
+              f"{dist['p99']:.0f}, most {dist['max']}; blocked fraction "
+              f"{blocked:.4f}, not-blocked agreement (least) "
+              f"{res['agree']:.6f}, zero-direction rays {res['zero']} ({res['zero_blocked']} "
+              f"blocked) equal to the plain loop's, bit for bit the same across launches and "
+              f"permutations; kernel ms a launch {fmt(res['ms'])}, plain {fmt(res['plain_ms'])}, "
+              f"bound {fmt(res['bound_ms'])} ({res['bound_by']}), {res['evals_per_ms']:,.0f} "
+              f"evaluations/ms, {res['steps']} tile steps, live share of the rows "
+              f"{res['live_row_share']:.3f}; slot_model at this kernel's step ms: "
+              f"{fmt(res['model_ms'])}")
+        out[label] = res
+    return out
+
+
+# the rows a K4 (K4-bf16) step may evaluate
+SHADOW_ROWS = {"f32": (128, 64, 32, 16, 8), "bf16": (128, 64, 32)}
+
+
+def shadow_step_ms(torch, dev):
+    """One K4 (K4-bf16) step's ms by the rows its block evaluates
+    (one_block_step_ms on march_surface): {"f32" / "bf16": {rows: ms}}."""
+    from neural_raytracing_tpu_torch.kernels import fused_shadow_march
+    module = march_surface(torch, dev)
+    run = lambda m, o, d, dt: fused_shadow_march(m, o, d, 1e30, max_steps=64, epsilon=-1.0,
+                                                 compute_dtype=dt)
+    out = {tag: {rows: one_block_step_ms(torch, module, run, rows, dt)
+                 for rows in SHADOW_ROWS[tag]}
+           for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    print("K4 step ms (f32, bf16) by the rows a block evaluates, one block, 64 steps of "
+          "unending rays: f32 " + ", ".join(f"{r} rows {v:.4f}" for r, v in out["f32"].items())
+          + "; bf16 " + ", ".join(f"{r} rows {v:.4f}" for r, v in out["bf16"].items()))
+    return out
+
+
+def shadow_entry(res) -> dict:
+    """The kernels-line numbers of K4 (K4-bf16) from shadow_shape_report: the
+    table's shape (c), and the path's shapes (a) per launch and (b)."""
+    c, a, b = res["(c) eval view"], res["(a) eval chunk"], res["(b) training call"]
+    return dict(ms=c["ms"][0], plain_ms=c["plain_ms"][0], bound_ms=c["bound_ms"][0],
+                bound_by=c["bound_by"], err=float(c["agree"] < 1.0),
+                eval_chunk_ms=sum(a["ms"]) / len(a["ms"]),
+                eval_chunk_bound_ms=sum(a["bound_ms"]) / len(a["bound_ms"]),
+                training_call_ms=b["ms"][0], training_call_bound_ms=b["bound_ms"][0],
+                live_row_share=c["live_row_share"], evals_per_ms=c["evals_per_ms"])
+
+
+def phase_shadow(torch, dev):
+    """K4 against shadow_march_plain at the shapes the NeRV paths launch it
+    at (shadow_shapes), on the trained checkpoint."""
+    from neural_raytracing_tpu_torch.kernels import fused_shadow_march, shadow_info
+    module, shapes = shadow_shapes(torch, dev)
+    per_eval_flops = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
+
+    def bound(n, n_evals):
+        return bound_ms(4 * n * 7 + n + weight_bytes(module.shift) + 4 * 13 * module.n,
+                        per_eval_flops * n_evals)
+
+    steps = shadow_step_ms(torch, dev)
+    info = shadow_info(module)
+    print(f"K4: {info['blocks_per_sm']} blocks per SM of {info['slots']} slots, "
+          f"{info['registers']} registers, {info['local_bytes']} bytes of local memory a "
+          f"thread, {info['smem_bytes']} bytes of shared memory a block")
+    kernel = lambda r_o, r_d, mt, **kw: fused_shadow_march(module, r_o, r_d, mt, **kw)
+    res = shadow_shape_report(torch, "K4 fused_shadow_march", module, shapes, kernel,
+                              torch.float32, module, bound, steps["f32"])
+    return dict(shadow_entry(res), registers=info["registers"],
+                local_bytes=info["local_bytes"], shapes=res, step_ms=steps)
 
 
 def phase_fused_sdf(torch, dev):
@@ -1249,18 +1505,23 @@ def phase_fused_sdf(torch, dev):
         e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
         worst = max(worst, e)
     check(worst <= 1e-4, f"K5 derivatives: max |err| / max |plain| {worst:.3e} > 1e-4")
+    n_path = NERV_CHUNK * NERV_CHUNK       # a NeRV eval chunk's points
     with torch.no_grad():
         ms = cuda_ms(lambda: fused_sphere_sdf(fused, x), 5)
         plain_ms = cuda_ms(lambda: plain(x), 5)
-    flops = N_POINTS * (2.0 * mlp_macs(fused.shift) + 31.0 * fused.n)
-    n_bytes = 4 * N_POINTS * 4 + weight_bytes(fused.shift) + 4 * 13 * fused.n
-    b_ms, b_by = bound_ms(n_bytes, flops)
+        path_ms = cuda_ms(lambda: fused_sphere_sdf(fused, x[:n_path]), 5)
+    per_point = 2.0 * mlp_macs(fused.shift) + 31.0 * fused.n
+    fixed_bytes = weight_bytes(fused.shift) + 4 * 13 * fused.n
+    b_ms, b_by = bound_ms(4 * N_POINTS * 4 + fixed_bytes, N_POINTS * per_point)
+    path_b, _ = bound_ms(4 * n_path * 4 + fixed_bytes, n_path * per_point)
+    flops = N_POINTS * per_point
     print(f"K5 fused_sphere_sdf: {N_POINTS} points, max |err| {err.max().item():.3e}, "
           f"first and second derivatives max rel err {worst:.3e}, kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
+          f"{flops / ms / 1e9:.1f} TFLOP/s; at a NeRV eval chunk's {n_path} points "
+          f"{path_ms:.4f} ms, bound {path_b:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                err=err.max().item())
+                err=err.max().item(), path_ms=path_ms, path_bound_ms=path_b)
 
 
 def nerv_evaluate(torch, scene, camera_fn, n_views, locs, exp=None):
@@ -1874,19 +2135,18 @@ def check_k1_bf16(label, got, want, got_f32, want_f32):
                 gap=gap, moved=moved)
 
 
-def phase_bf16_kernels(torch, dev):
+def phase_bf16_kernels(torch, dev, k4_steps):
     """K1-bf16 on three flagship nets, K2-bf16 (bounded, unbounded, omega 1.4)
-    and K3-bf16 on phase 3's non-zero surface, K4-bf16 on the trained NeRV
-    checkpoint's shadow rays: each against its plain version, beside its f32
+    and K3-bf16 on phase 3's non-zero surface, K4-bf16 at phase 8's shapes
+    on the trained NeRV checkpoint (``k4_steps``: phase 8's step ms by rows,
+    for its schedule model): each against its plain version, beside its f32
     kernel on the same inputs."""
     from neural_raytracing_tpu_torch.kernels import (
         fused_march, fused_march_bf16, fused_mlp_forward, fused_mlp_forward_bf16,
         fused_shadow_march, fused_shadow_march_bf16, march_plain,
-        mlp_forward_bf16_operands, set_kernel_mode, shadow_march_plain,
-        sphere_sdf_eval_plain,
+        mlp_forward_bf16_operands, set_kernel_mode, sphere_sdf_eval_plain,
     )
     from neural_raytracing_tpu_torch.nn import SkipConnMLP
-    from neural_raytracing_tpu_torch.render import _tile_positions
     from neural_raytracing_tpu_torch.shapes import march_interval
 
     bf16 = torch.bfloat16
@@ -2004,49 +2264,37 @@ def phase_bf16_kernels(torch, dev):
     out["k3"] = bf16_minscan(torch, dev, module)
     del module
 
-    # K4-bf16 on the trained checkpoint's shadow rays (phase 8)
-    scene = nerv_scene(torch, dev, 128, 1.2, "hard")
-    module = scene.shape.module
-    view = shadow_rays(torch, scene, nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev),
-                       _tile_positions(0.0, 0.0, NERV_SIZE, dev),
-                       scene.lights.location.detach()[:1])
-    set_kernel_mode(scene, "off")
+    # K4-bf16 at phase 8's shapes on the trained checkpoint, beside K4
+    module, shapes = shadow_shapes(torch, dev)
     sdf16 = lambda p: sphere_sdf_eval_plain(module, p, bf16)
+    n_bytes = lambda n: 4 * n * 7 + n + weight_bytes(module.shift) + 4 * 13 * module.n
+
+    def bound16(n, n_evals):
+        tc_ms, b_by, _ = bf16_bounds(n_bytes(n), macs_eval * n_evals, sph_eval * n_evals)
+        return max(tc_ms, n_evals * scan_elementwise_ms(module)), b_by
+
+    kernel = lambda r_o, r_d, mt, **kw: fused_shadow_march_bf16(module, r_o, r_d, mt, **kw)
+    res = shadow_shape_report(torch, "K4-bf16 fused_shadow_march_bf16", module, shapes, kernel,
+                              bf16, sdf16, bound16, k4_steps["bf16"])
+    _, launches, steps, ple = shapes[2]                       # (c), the table's shape
+    r_o, r_d, dist, _ = launches[0]
+    kw = dict(max_steps=steps, epsilon=1e-3, past_light_exit=ple)
+    nb, nb32 = kernel(r_o, r_d, dist, **kw), fused_shadow_march(module, r_o, r_d, dist, **kw)
+    ms32 = cuda_ms(lambda: fused_shadow_march(module, r_o, r_d, dist, **kw), 5)
+    n_evals = float(res["(c) eval view"]["dist"]["total"])
+    tc_ms, _, f32_b = bf16_bounds(n_bytes(r_o.shape[0]), macs_eval * n_evals,
+                                  sph_eval * n_evals)
     with torch.no_grad():
-        spread = module.shift(view[0]).std().item()
-    for label, ple in (("past-light exit", True), ("no past-light exit", False)):
-        r_o, r_d, dist = view
-        n = r_o.shape[0]
-        kw = dict(max_steps=128, epsilon=1e-3, past_light_exit=ple)
-        kernel = lambda: fused_shadow_march_bf16(module, r_o, r_d, dist, **kw)
-        kernel32 = lambda: fused_shadow_march(module, r_o, r_d, dist, **kw)
-        plain = lambda: shadow_march_plain(sdf16, r_o, r_d, dist, **kw)
-        nb, nb32 = kernel(), kernel32()
-        pnb, evals = plain()
-        evals32 = shadow_march_plain(module, r_o, r_d, dist, **kw)[1]
-        torch.cuda.synchronize()
-        agree = (nb == pnb).float().mean().item()
-        check(0.0 < (~pnb).float().mean().item() < 1.0, f"K4-bf16 {label}: blocked fraction")
-        check(agree >= 0.999, f"K4-bf16 {label}: not-blocked agreement {agree:.6f} < 0.999")
-        ms, ms32, plain_ms = cuda_ms(kernel, 5), cuda_ms(kernel32, 5), cuda_ms(plain, 2)
-        n_evals = evals.sum().item()
-        tc_ms, b_by, f32_b = bf16_bounds(4 * n * 7 + n + weight_bytes(module.shift)
-                                         + 4 * 13 * module.n, macs_eval * n_evals,
-                                         sph_eval * n_evals)
-        floor_ms = n_evals * scan_elementwise_ms(module)
-        b_ms = max(tc_ms, floor_ms)
-        print(f"K4-bf16 fused_shadow_march_bf16, {label}: {n} rays, 128 steps, not-blocked "
-              f"agreement {agree:.6f}; flags that differ from the f32 kernel's "
-              f"{int((nb != nb32).sum().item())} (the checkpoint's shift output spreads by "
-              f"{spread:.2e} over the rays' origins); evaluations per ray {n_evals / n:.2f} "
-              f"(f32 {evals32.sum().item() / n:.2f}); kernel {ms:.3f} ms (f32 kernel "
-              f"{ms32:.3f} ms), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms: the larger of "
-              f"the bf16 tensor-core bound {tc_ms:.3f} ms and the elementwise floor "
-              f"{floor_ms:.3f} ms (f32-FMA bound {f32_b:.3f} ms)")
-        out[f"k4 {label}"] = dict(ms=ms, f32_ms=ms32, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, f32_bound_ms=f32_b, err=float(agree < 1.0),
-                                  tensor_core_bound_ms=tc_ms, elementwise_floor_ms=floor_ms)
-    del scene
+        spread = module.shift(r_o).std().item()
+    print(f"K4-bf16 at (c): flags that differ from the f32 kernel's "
+          f"{int((nb != nb32).sum().item())} (the checkpoint's shift output spreads by "
+          f"{spread:.2e} over the rays' origins); f32 kernel {ms32:.3f} ms; bound: the larger "
+          f"of the bf16 tensor-core bound {tc_ms:.3f} ms and the elementwise floor "
+          f"{n_evals * scan_elementwise_ms(module):.3f} ms (f32-FMA bound {f32_b:.3f} ms)")
+    out["k4"] = dict(shadow_entry(res), f32_ms=ms32, f32_bound_ms=f32_b,
+                     tensor_core_bound_ms=tc_ms,
+                     elementwise_floor_ms=n_evals * scan_elementwise_ms(module), shapes=res)
+    del module, shapes
     n_moved, n_probe = k4_bf16_probe(torch, march_surface(torch, dev))
     check(n_moved > 0, f"K4-bf16: on all {n_probe} probe rays the flags equal the f32 "
           "kernel's: it ran in f32")
@@ -2118,10 +2366,12 @@ def k4_bf16_probe(torch, module):
     inside the surface (sd < eps at its first point p) hits on its one step
     and advances to 1e2 eps + sd(p), so with max_t = 1e2 eps + sd32(p) - 1e-5
     the f32 kernel says not-blocked on every such ray, and a kernel whose SDF
-    moved by more than 1e-5 (bf16 operands) says blocked on some.
+    moved by more than 1e-5 (bf16 operands) says blocked on some.  The same
+    points with a zero direction are blocked in both kernels.
     -> (rays where K4-bf16's flag differs from K4's, probe rays)."""
     from neural_raytracing_tpu_torch.kernels import (
-        fused_shadow_march, fused_shadow_march_bf16, sphere_sdf_eval_plain,
+        fused_shadow_march, fused_shadow_march_bf16, shadow_march_plain,
+        sphere_sdf_eval_plain,
     )
     dev = module.centers.device
     gen = torch.Generator().manual_seed(17)
@@ -2137,6 +2387,17 @@ def k4_bf16_probe(torch, module):
     nb32 = fused_shadow_march(module, r_o, d, max_t, **kw)
     nb = fused_shadow_march_bf16(module, r_o, d, max_t, **kw)
     check(bool(nb32.all()), "K4 probe: the f32 kernel's depths are not the plain version's")
+    # zero-direction rays at the same points (sd < eps there): blocked after
+    # their one evaluation, as the plain loop says, whatever max_steps
+    # (K4-bf16 as its plain loop over the bf16 SDF, which may tip near eps)
+    zero, kw = torch.zeros_like(r_o), dict(max_steps=64, epsilon=1e-3)
+    check(not bool(fused_shadow_march(module, p.contiguous(), zero, 10.0, **kw).any()),
+          "K4 probe: a zero-direction ray inside the surface was let through")
+    nb0 = fused_shadow_march_bf16(module, p.contiguous(), zero, 10.0, **kw)
+    pnb0, _ = shadow_march_plain(lambda x: sphere_sdf_eval_plain(module, x, torch.bfloat16),
+                                 p, zero, 10.0, **kw)
+    check((nb0 == pnb0).float().mean().item() >= 0.999,
+          "K4-bf16 probe: zero-direction rays inside the surface differ from the plain loop")
     return int((nb != nb32).sum().item()), int(p.shape[0])
 
 
@@ -2470,7 +2731,7 @@ def main():
     le_counts = phase_nerfle_eval(torch, dev, le_data)
     le_train_counts, le_step_s = phase_nerfle_train(torch, dev, le_data)
     k2r, orbit_counts = phase_relaxed_march(torch, dev)
-    kb16 = phase_bf16_kernels(torch, dev)
+    kb16 = phase_bf16_kernels(torch, dev, k4["step_ms"])
     bf16_eval_counts, bf16_train_counts = phase_bf16_flagship(torch, dev)
     bf16_nerv_counts = phase_bf16_nerv(torch, dev)
 
@@ -2486,7 +2747,9 @@ def main():
                     "indices_differ", "tensor_core_bound_ms", "elementwise_floor_ms",
                     "segments", "one_segment_ms", "half_res_one_segment_ms", "timed_by",
                     "registers", "local_bytes", "live_row_share", "evals_per_ms",
-                    "eval_tile_ms"):
+                    "eval_tile_ms", "eval_chunk_ms", "eval_chunk_bound_ms",
+                    "training_call_ms", "training_call_bound_ms", "path_ms",
+                    "path_bound_ms"):
             if key in m:
                 e[key] = m[key]
         return e
@@ -2532,8 +2795,7 @@ def main():
               bf16_train_counts["fused_min_scan_bf16"], kb16["k3"]),
         entry16("fused_shadow_march_bf16", "fused_shadow.cu",
               "fused_march.py:445 (bf16 operands: fused_march.py:65-75,78-130)",
-              bf16_nerv_counts["learned"]["fused_shadow_march_bf16"],
-              kb16["k4 past-light exit"]),
+              bf16_nerv_counts["learned"]["fused_shadow_march_bf16"], kb16["k4"]),
     ]
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "

@@ -24,7 +24,8 @@
 // 99th percentile 24, most 71), so the design keeps the tile full while rays
 // finish at different steps:
 //   * persistent blocks, one a SM (fewer for fewer rays: the wrapper's
-//     march_plan), each with M slots: the rows of the tiled SDF of
+//     march_plan), each with M slots (march_slots.cuh, shared with the
+//     shadow march K4): the rows of the tiled SDF of
 //     mlp_tiled.cuh (the f32 register tile or the bf16 tensor-core tile,
 //     over the weights pack_shift_weights lays out; the same SDF code and
 //     double-buffered weight stream as the min-scan K3);
@@ -60,6 +61,7 @@
 // C interface for ctypes: returns a cudaError_t as int (0 = launched).
 #include <limits.h>
 
+#include "march_slots.cuh"
 #include "mlp_tiled.cuh"
 
 
@@ -76,104 +78,23 @@ struct NrtMarch {
   unsigned long long* stats;    // nullptr, or [3] += steps, rows evaluated, live rows
   int n, max_steps;
   int first;                    // the slots a block fills before its first step
+  int slots;                    // the slots a block fills (all M)
   float eps, omega;
-};
 
-// The block's slots and counters, in shared memory after the tile.
-struct NrtSlots {
-  unsigned long long* count;    // [3] this block's steps, rows evaluated, live rows
-  int* slot;                    // [M] the ray in each slot (row), -1 if none
-  int* warp_live;               // [M / 32]
-  volatile int* dry;            // the queue handed out its last ray
-  __device__ NrtSlots(void* end, int M)
-      : count(static_cast<unsigned long long*>(end)),
-        slot(reinterpret_cast<int*>(count + 3)),
-        warp_live(slot + M),
-        dry(warp_live + M / 32) {}
-};
-
-__host__ __device__ constexpr size_t nrt_slots_bytes(int M) {
-  return 3 * sizeof(unsigned long long) + sizeof(int) * (M + M / 32 + 1);
-}
-
-// Threads t < M (whole warps): a free slot takes rays from the queue until
-// one needs an evaluation or the queue is dry; a ray that needs none (no
-// steps, or t0 >= max_t) is resolved at once.
-__device__ __forceinline__ void nrt_march_refill(const NrtMarch& a, const NrtSlots& Q,
-                                                 bool want) {
-  const int t = threadIdx.x, lane = t % 32;
-  bool need = want && Q.slot[t] < 0 && !*Q.dry;
-  while (__any_sync(0xffffffffu, need)) {
-    const unsigned ask = __ballot_sync(0xffffffffu, need);
-    int base = 0;
-    if (lane == 0) base = atomicAdd(a.queue, __popc(ask));
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (need) {
-      const int g = base + __popc(ask & ((1u << lane) - 1u));
-      if (g >= a.n) {
-        *Q.dry = 1;
-        need = false;
-      } else {
-        const float t0 = a.t0 ? a.t0[g] : 0.f;
-        a.depth[g] = t0;
-        if (a.max_steps > 0 && t0 < (a.mt ? a.mt[g] : a.max_t)) {
-          a.state[g] = make_float4(0.f, 0.f, a.omega, __int_as_float(0));
-          Q.slot[t] = g;
-          need = false;
-        } else {
-          a.hit[g] = 0;
-        }
-      }
+  // Ray g enters a slot at t0 (or 0); one with no steps or t0 >= its max_t
+  // is resolved at once (no hit).
+  __device__ bool enter(int g) const {
+    const float t = t0 ? t0[g] : 0.f;
+    depth[g] = t;
+    if (max_steps > 0 && t < (mt ? mt[g] : max_t)) {
+      state[g] = make_float4(0.f, 0.f, omega, __int_as_float(0));
+      return true;
     }
+    hit[g] = 0;
+    return false;
   }
-}
-
-// Refills the free slots, counts the live ones and, when they fit in fewer
-// rows, moves them to the front.  -> the rows the step evaluates (M, M / 2
-// or 32), or 0 when no slot is live (the queue is dry).
-template <int M>
-__device__ __forceinline__ int nrt_march_schedule(const NrtMarch& a, const NrtSlots& Q,
-                                                  bool first) {
-  const int t = threadIdx.x, lane = t % 32;
-  if (t < M) nrt_march_refill(a, Q, !first || t < a.first);
-  const int s = t < M ? Q.slot[t] : -1;
-  const int live = __syncthreads_count(s >= 0);
-  if (live == 0) return 0;
-  int rows = M;
-  while (rows / 2 >= 32 && live <= rows / 2) rows /= 2;
-  if (rows < M) {   // compact: the live slots, in order, to rows [0, live)
-    const unsigned mask = __ballot_sync(0xffffffffu, s >= 0);
-    if (t < M && lane == 0) Q.warp_live[t / 32] = __popc(mask);
-    __syncthreads();
-    if (t < M) {
-      int rank = __popc(mask & ((1u << lane) - 1u));
-      for (int w = 0; w < t / 32; ++w) rank += Q.warp_live[w];
-      if (s >= 0) Q.slot[rank] = s;
-      if (t >= live) Q.slot[t] = -1;
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-    Q.count[0] += 1;
-    Q.count[1] += rows;
-    Q.count[2] += live;
-  }
-  return rows;
-}
-
-// The march points of rows [0, rows): a dead row's point is 0, evaluated and
-// ignored.
-__device__ __forceinline__ void nrt_march_points(const NrtMarch& a, const NrtSlots& Q,
-                                                 float* ps, int rows) {
-  const int t = threadIdx.x;
-  if (t >= rows) return;
-  const int g = Q.slot[t];
-  const float depth = g >= 0 ? a.depth[g] : 0.f;
-  for (int c = 0; c < 3; ++c)
-    ps[t * 3 + c] = g >= 0 ? __fadd_rn(a.ro[(size_t)g * 3 + c],
-                                       __fmul_rn(a.rd[(size_t)g * 3 + c], depth))
-                           : 0.f;
-}
+  __device__ float march_depth(int g) const { return depth[g]; }
+};
 
 // One step of ray g with its SDF value sd; frees the slot when the ray is
 // done.
@@ -195,17 +116,6 @@ __device__ __forceinline__ void nrt_march_update(const NrtMarch& a, int g, float
     if (done) a.hit[g] = 0;
   }
   if (done) *slot = -1;
-}
-
-__device__ __forceinline__ void nrt_march_finish(const NrtMarch& a, const NrtSlots& Q) {
-  if (threadIdx.x == 0 && a.stats)
-    for (int i = 0; i < 3; ++i) atomicAdd(a.stats + i, Q.count[i]);
-}
-
-__device__ __forceinline__ void nrt_march_begin(const NrtSlots& Q, int M) {
-  for (int i = threadIdx.x; i < M; i += blockDim.x) Q.slot[i] = -1;
-  if (threadIdx.x < 3) Q.count[threadIdx.x] = 0;
-  if (threadIdx.x == 0) *Q.dry = 0;
 }
 
 // ---- K2: f32 --------------------------------------------------------------------
@@ -343,7 +253,7 @@ extern "C" int nrt_fused_march(const float* ro, const float* rd, const float* t0
   const int per_block = (n + grid - 1) / grid;
   const NrtMarch a{ro, rd, t0, mt, max_t, depth, hit, static_cast<float4*>(state),
                    queue, stats, n, max_steps, per_block < c.slots ? per_block : c.slots,
-                   eps, omega};
+                   c.slots, eps, omega};
   const cudaError_t err = cudaMemsetAsync(queue, 0, sizeof(int), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return nrt_launch(c.kernel, grid, c.smem, stream, a,

@@ -175,7 +175,7 @@ nrt_fused_minscan_f32_kernel(const float* __restrict__ ro, const float* __restri
     nrt_f32_sdf<NP, M / 16>(m, S, T, W);
     if (threadIdx.x < M) {   // the output layer, one row a thread
       const int row = threadIdx.x;
-      nrt_scan_update(T.sm[row] + nrt_f32_out<NP>(m, T, row), row, i0, steps, mn, best, dead);
+      nrt_scan_update(T.sm[row] + nrt_f32_out(m, T, row), row, i0, steps, mn, best, dead);
     }
   }
 
@@ -213,7 +213,7 @@ nrt_fused_minscan_bf16_kernel(const float* __restrict__ ro, const float* __restr
     nrt_bf16_sdf<NP, 4>(m, S, T, W);
     if (threadIdx.x < M) {   // the output layer on the CUDA cores, one row a thread
       const int row = threadIdx.x;
-      nrt_scan_update(T.sm[row] + nrt_bf16_out<NP>(m, T, row), row, i0, steps, mn, best, dead);
+      nrt_scan_update(T.sm[row] + nrt_bf16_out(m, T, row), row, i0, steps, mn, best, dead);
     }
   }
 

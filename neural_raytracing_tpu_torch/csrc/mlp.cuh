@@ -1,8 +1,8 @@
 // Device-side SkipConnMLP shared by the fused MLP kernel (fused_mlp.cu), the
-// shadow march (fused_shadow.cu), the fused SDF (fused_sdf.cu) and the MLP
-// backward (fused_mlp_bwd.cu), so every kernel evaluates exactly the network
-// the MLP kernel evaluates.  The march K2 and the min-scan K3 evaluate their
-// shift net on the tiles of mlp_tiled.cuh instead.
+// fused SDF (fused_sdf.cu) and the MLP backward (fused_mlp_bwd.cu), so every
+// kernel evaluates exactly the network the MLP kernel evaluates.  The march
+// K2, the min-scan K3 and the shadow march K4 evaluate their shift net on
+// the tiles of mlp_tiled.cuh instead.
 //
 // Math (neural_raytracing_tpu_torch/nn/mlp.py, the plain version):
 //   enc = [x, sin(x B), cos(x B)]
@@ -22,17 +22,16 @@
 // use tensor cores, to stay in IEEE float32 like the reference).
 //
 // Operand modes (a template parameter, so the float32 path's code and
-// registers do not depend on the bf16 ones), the compute_dtype of the JAX
+// registers do not depend on the bf16 one), the compute_dtype of the JAX
 // kernels:
 //   NRT_F32        float32 operands, as above;
 //   NRT_BF16_MLP   K1's bf16 operands (neural_raytracing_tpu/kernels/
 //                  fused_mlp.py:77-91): the init layer reads the encoding
 //                  rounded to bf16, the skip layers act(enc) of the float32
-//                  encoding, rounded;
-//   NRT_BF16_MARCH the bf16 operands of K2-K4 (fused_march.py:113-127): the
-//                  skip layers read act() of the ROUNDED encoding, rounded
-//                  (K4-bf16 here; K2-bf16 and K3-bf16 on the bf16 tile).
-// In both bf16 modes every hidden operand is act(h) rounded to bf16 (round to
+//                  encoding, rounded (the march kernels' bf16 operands,
+//                  which take act() of the ROUNDED encoding, are the bf16
+//                  tile of mlp_tiled.cuh).
+// In the bf16 mode every hidden operand is act(h) rounded to bf16 (round to
 // nearest even, as astype), and the weight matrices m.w[i] point at bf16
 // arrays (the wrapper casts them once per call); biases, B, sin/cos and the
 // output stay float32.  Activations are kept in shared memory as bf16-valued
@@ -63,13 +62,11 @@ enum NrtAct {
 enum NrtOperands {
   NRT_F32 = 0,
   NRT_BF16_MLP = 1,
-  NRT_BF16_MARCH = 2,
 };
 
 // The type the weight matrices are stored in, by operand mode.
 template <int MODE> struct NrtWeight { typedef float T; };
 template <> struct NrtWeight<NRT_BF16_MLP> { typedef __nv_bfloat16 T; };
-template <> struct NrtWeight<NRT_BF16_MARCH> { typedef __nv_bfloat16 T; };
 
 __device__ __forceinline__ float nrt_ldw(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float nrt_ldw(const __nv_bfloat16* p) {
@@ -305,9 +302,7 @@ __device__ void nrt_mlp_block(const MLPWeights& m, const float* xs, int R,
   } else {
     for (int idx = threadIdx.x; idx < R * E; idx += blockDim.x) {
       const int r = idx / E, c = idx % E;
-      float v = nrt_act(enc[r * es + c], m.act);
-      if (MODE == NRT_BF16_MARCH) v = nrt_bf16(v);
-      enc[r * es + c] = v;
+      enc[r * es + c] = nrt_act(enc[r * es + c], m.act);
     }
   }
   __syncthreads();

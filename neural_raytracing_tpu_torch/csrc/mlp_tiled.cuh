@@ -2,12 +2,12 @@
 // and the silhouette min-scan K3 (fused_minscan.cu): the sphere set's
 // smooth-min (sphere_set.cuh), the encoding and the shift net over the
 // packed weights that kernels/fused_march.py pack_shift_weights lays out,
-// one code path for both kernels (nrt_f32_sdf / nrt_bf16_sdf and the output
-// layer nrt_f32_out / nrt_bf16_out).  K1 and K4-K7 keep the device MLP of
-// mlp.cuh.
+// one code path for K2, K3 and the shadow march K4 (fused_shadow.cu)
+// (nrt_f32_sdf / nrt_bf16_sdf and the output layer nrt_f32_out /
+// nrt_bf16_out).  K1 and K5-K7 keep the device MLP of mlp.cuh.
 //
 // A block evaluates the net on up to M rows at once; a caller with fewer
-// live rows (K2's tail) evaluates only the first 32 or M / 2 of them
+// live rows (K2's and K4's tail) evaluates only the first 32 or M / 2 of them
 // (template parameter TM / MI below), and every row's sums are the same
 // whichever it takes.  Its activations live in ONE
 // shared buffer with a row per "k" of the layers' products: the hidden
@@ -45,7 +45,6 @@
 #define NRT_TILED_MAX_SPHERES 1024  // the sphere set the f32 tile's h rows hold
 #define NRT_F32_KC 8          // k rows of W per f32 chunk
 #define NRT_BF16_KC 32        // k per bf16 chunk
-#define NRT_BF16_WLD 40       // bf16 row stride of a staged W^T chunk (20 words = 4 mod 8)
 
 struct TiledNet {
   const float* B;                        // [3, F]
@@ -131,9 +130,6 @@ __device__ __forceinline__ void nrt_cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void nrt_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void nrt_cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // ---- f32: an outer-product tile on the CUDA cores ------------------------------
 //
@@ -147,12 +143,13 @@ __device__ __forceinline__ void nrt_cp_async_wait_all() {
 // with cp.async (NrtStream): chunk c + 1 loads while chunk c is used, one
 // barrier each.
 
-// Copies KC rows of W (a packed [K][NP] f32 matrix, row k0 at src) into dst.
+// Copies `rows` k-rows of W (a packed [K][NP] f32 matrix, row k0 at src)
+// into dst.
 template <int NP>
-__device__ __forceinline__ void nrt_f32_issue(const float* __restrict__ src, float* dst) {
-  for (int p = threadIdx.x; p < NRT_F32_KC * NP / 4; p += blockDim.x)
+__device__ __forceinline__ void nrt_f32_issue(const float* __restrict__ src, float* dst,
+                                              int rows) {
+  for (int p = threadIdx.x; p < rows * NP / 4; p += blockDim.x)
     nrt_cp_async16(dst + 4 * p, src + 4 * p);
-  nrt_cp_async_commit();
 }
 
 // acc += the KC k-rows of act at ac (rows of the thread's tile) x the chunk
@@ -224,7 +221,7 @@ __device__ __forceinline__ void nrt_f32_store(const float (&acc)[TM][NP / 16],
 // as (M / 64) x (NP / 32 / (M / 64)); a warp owns 16 MI rows x 32 columns,
 // MI x 4 m16n8 tiles, 16 MI float32 sums a thread: MI = 4 covers the M rows,
 // MI = 2 and 1 the first M / 2 and M / 4.  W^T streams through two NP x 32
-// chunks (row stride NRT_BF16_WLD) with cp.async, as the f32 tile's W does.
+// chunks (row stride nrt_bf16_wld(32)) with cp.async, as the f32 tile's W does.
 
 __device__ __forceinline__ void nrt_mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                              const uint32_t (&b)[2]) {
@@ -239,21 +236,24 @@ __device__ __forceinline__ uint32_t nrt_ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Copies chunk ch (k in [32 ch, 32 ch + kc)) of W^T ([NP][K] bf16) into dst.
-template <int NP>
+// The row stride of a staged W^T chunk of KC k (KC + 8 bf16: a word stride
+// of 4 mod 8, so the fragment loads are conflict-free).
+__host__ __device__ constexpr int nrt_bf16_wld(int KC) { return KC + 8; }
+
+// Copies chunk ch (k in [KC ch, KC ch + kc)) of W^T ([NP][K] bf16) into dst.
+template <int NP, int KC>
 __device__ __forceinline__ void nrt_bf16_issue(const __nv_bfloat16* __restrict__ W, int K,
                                                int ch, __nv_bfloat16* dst) {
-  const int k0 = ch * NRT_BF16_KC;
-  const int per_row = min(NRT_BF16_KC, K - k0) / 8;   // 16-byte pieces
+  const int k0 = ch * KC;
+  const int per_row = min(KC, K - k0) / 8;   // 16-byte pieces
   for (int p = threadIdx.x; p < NP * per_row; p += blockDim.x) {
     const int n = p / per_row, piece = p % per_row;
-    nrt_cp_async16(dst + n * NRT_BF16_WLD + 8 * piece, W + (size_t)n * K + k0 + 8 * piece);
+    nrt_cp_async16(dst + n * nrt_bf16_wld(KC) + 8 * piece, W + (size_t)n * K + k0 + 8 * piece);
   }
-  nrt_cp_async_commit();
 }
 
 // acc += act[:, ka0 .. ka0 + 16 steps) (the warp's rows) x the chunk wc of W^T.
-template <int NP, int MI>
+template <int NP, int MI, int KC = NRT_BF16_KC>
 __device__ __forceinline__ void nrt_bf16_chunk(float (&acc)[MI][4][4], const __nv_bfloat16* act,
                                                int lda, int ka0, const __nv_bfloat16* wc,
                                                int steps) {
@@ -262,7 +262,7 @@ __device__ __forceinline__ void nrt_bf16_chunk(float (&acc)[MI][4][4], const __n
   const int g = lane / 4, t = lane % 4;
   const int row0 = (warp / WN) * 16 * MI, col0 = (warp % WN) * 32;
 #pragma unroll
-  for (int ks = 0; ks < NRT_BF16_KC / 16; ++ks) {
+  for (int ks = 0; ks < KC / 16; ++ks) {
     if (ks < steps) {
       const int ka = ka0 + ks * 16 + 2 * t;
       uint32_t a[MI][4], b[4][2];
@@ -276,7 +276,7 @@ __device__ __forceinline__ void nrt_bf16_chunk(float (&acc)[MI][4][4], const __n
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* p = wc + (col0 + ni * 8 + g) * NRT_BF16_WLD + ks * 16 + 2 * t;
+        const __nv_bfloat16* p = wc + (col0 + ni * 8 + g) * nrt_bf16_wld(KC) + ks * 16 + 2 * t;
         b[ni][0] = nrt_ld32(p);
         b[ni][1] = nrt_ld32(p + 8);
       }
@@ -318,56 +318,70 @@ __device__ __forceinline__ void nrt_bf16_store(const float (&acc)[MI][4][4],
 // ---- the weight stream ------------------------------------------------------------
 //
 // One evaluation's weights, layer after layer (the init layer, then each
-// hidden layer), as a stream of chunks through two buffers in shared memory:
-// chunk i sits in buffer i % 2.  The caller starts it (chunk 0 in flight)
-// before the evaluation's points and spheres; before reading chunk i every
-// thread waits for it and passes a barrier, after which buffer (i + 1) % 2
-// is free and chunk i + 1 goes there, across a layer's end too.  (Four or
-// eight chunks in flight made K2 no faster: H100, PERF.md.)
-template <int NP, bool BF16>
+// hidden layer), as a stream of chunks of KC k-rows (the last of a layer
+// may be shorter) through STAGES buffers in shared memory: chunk i sits in
+// buffer i % STAGES.  The caller starts it (chunks 0 .. STAGES - 2 in
+// flight) before the evaluation's points and spheres; before reading chunk
+// i every thread waits for it and passes a barrier, after which the buffer
+// of chunk i - 1 is free and chunk i + STAGES - 1 goes there, across a
+// layer's end too.  K2 and K3 take 2 buffers of 8 k-rows (f32) or 32 k
+// (bf16); K4 three of 32 k-rows (f32) or 64 k (bf16).
+template <int NP, bool BF16, int KC_ = (BF16 ? NRT_BF16_KC : NRT_F32_KC), int STAGES = 2>
 struct NrtStream {
+  static constexpr int KC = KC_;
+  // elements (floats, or bf16 with BF16) of one buffer and of the ring
+  static constexpr int BUF = BF16 ? NP * nrt_bf16_wld(KC) : KC * NP;
+  static constexpr int RING = STAGES * BUF;
+  static_assert(KC % (BF16 ? 16 : 8) == 0 && STAGES >= 2, "stream shape");
+
   const void* src;   // the layer of the next chunk to issue
   int l, K, c, left; // its layer, that layer's K, its chunk there, the layer's chunks left
-  int i = 0;         // the buffer of the next chunk to read
+  unsigned i = 0;    // the chunk to read next
 
   __device__ __forceinline__ void layer(const TiledNet& m) {
     K = nrt_tiled_k(m, l);
-    left = BF16 ? (K + NRT_BF16_KC - 1) / NRT_BF16_KC : K / NRT_F32_KC;
+    left = (K + KC - 1) / KC;
     c = 0;
     src = m.w[l];
   }
   template <typename T>
-  __device__ __forceinline__ static T* buffer(T* wbuf, int b) {
-    return wbuf + (size_t)b * (BF16 ? NP * NRT_BF16_WLD : NRT_F32_KC * NP);
+  __device__ __forceinline__ static T* buffer(T* wbuf, unsigned b) {
+    return wbuf + (size_t)(b % STAGES) * BUF;
   }
-  // Issues the next chunk into buffer b (nothing past the stream's end).
+  // Issues the next chunk into buffer b and commits it (an empty group past
+  // the stream's end).
   template <typename T>
-  __device__ __forceinline__ void issue(const TiledNet& m, T* wbuf, int b) {
-    if (left == 0) return;
-    if constexpr (BF16)
-      nrt_bf16_issue<NP>(static_cast<const __nv_bfloat16*>(src), K, c, buffer(wbuf, b));
-    else
-      nrt_f32_issue<NP>(static_cast<const float*>(src) + (size_t)c * NRT_F32_KC * NP,
-                        buffer(wbuf, b));
-    ++c;
-    if (--left == 0 && ++l <= m.L) layer(m);
+  __device__ __forceinline__ void issue(const TiledNet& m, T* wbuf, unsigned b) {
+    if (left > 0) {
+      if constexpr (BF16)
+        nrt_bf16_issue<NP, KC>(static_cast<const __nv_bfloat16*>(src), K, c, buffer(wbuf, b));
+      else
+        nrt_f32_issue<NP>(static_cast<const float*>(src) + (size_t)c * KC * NP,
+                          buffer(wbuf, b), KC == NRT_F32_KC ? KC : min(KC, K - c * KC));
+      ++c;
+      if (--left == 0 && ++l <= m.L) layer(m);
+    }
+    nrt_cp_async_commit();
   }
-  // A new evaluation: its first chunk in flight.
+  // A new evaluation: its first STAGES - 1 chunks in flight (every buffer
+  // is free: the caller synchronised after the last evaluation's reads).
   template <typename T>
   __device__ __forceinline__ void start(const TiledNet& m, T* wbuf) {
     l = 0;
     layer(m);
-    issue(m, wbuf, i);
+    i = 0;
+#pragma unroll
+    for (unsigned s = 0; s < STAGES - 1; ++s) issue(m, wbuf, s);
   }
   // -> the next chunk to read, once it landed and everyone is done with the
-  // one before, whose buffer the chunk after takes.
+  // one before, whose buffer the chunk STAGES - 1 ahead takes.
   template <typename T>
   __device__ __forceinline__ T* next(const TiledNet& m, T* wbuf) {
-    nrt_cp_async_wait_all();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
     __syncthreads();
     T* chunk = buffer(wbuf, i);
-    i ^= 1;
-    issue(m, wbuf, i);
+    issue(m, wbuf, i + STAGES - 1);
+    ++i;
     return chunk;
   }
 };
@@ -404,26 +418,41 @@ __device__ __forceinline__ void nrt_tiled_encode(const TiledNet& m, const float*
   }
 }
 
-// f32: the two weight chunks, the activation buffer (k-major) and the
+// The spheres' smooth-min of rows [0, ROWS) of the tile's M: with TPR = 0
+// blockDim.x / M lanes a row (K2 and K3: a row's order whatever ROWS), else
+// TPR lanes a row over all the threads (K4: more threads in a thin step,
+// one order whatever ROWS).
+template <int M, int ROWS, int TPR>
+__device__ __forceinline__ void nrt_tiled_sphere_min(const SphereSet& S, const float* sph,
+                                                     const float* ps, float* sm) {
+  if constexpr (TPR == 0)
+    nrt_sphere_min(sph, S.n, S.k, S.stable, ps, sm, M, ROWS);
+  else
+    nrt_sphere_min_lanes<TPR>(sph, S.n, S.k, S.stable, ps, sm, ROWS);
+}
+
+// f32: the weight stream's buffers, the activation buffer (k-major) and the
 // smooth-min of the M rows; the sphere set and the points borrow the h rows,
 // which are dead from an evaluation's output layer until its init layer
 // writes them.
-template <int NP>
+// RING: the floats of the weight stream's buffers (NrtStream::RING).
+template <int NP, int RING = 2 * NRT_F32_KC * NP>
 __host__ __device__ inline size_t nrt_f32_sdf_smem(int EP) {
   constexpr int M = nrt_tiled_rows(NP);
-  return sizeof(float) * ((size_t)2 * NRT_F32_KC * NP + (size_t)(NP + EP) * (M + 4) + M);
+  return sizeof(float) * ((size_t)RING + (size_t)(NP + EP) * (M + 4) + M);
 }
 
-template <int NP>
+template <int NP, int RING = 2 * NRT_F32_KC * NP>
 struct NrtF32Tile {
-  float* wbuf;   // [2][KC][NP]
+  static constexpr int kNP = NP;
+  float* wbuf;   // [RING] the stream's buffers
   float* act;    // [NP + EP][M + 4]
   float* sm;     // [M]
   float* sph;    // the sphere set, in the h rows
   float* ps;     // [M][3] the points, after it
   __device__ NrtF32Tile(float* smem, const TiledNet& m, int n_spheres)
       : wbuf(smem),
-        act(smem + 2 * NRT_F32_KC * NP),
+        act(smem + RING),
         sm(act + (size_t)(NP + m.EP) * (nrt_tiled_rows(NP) + 4)),
         sph(act),
         ps(act + nrt_sphere_smem_floats(n_spheres)) {}
@@ -432,33 +461,133 @@ struct NrtF32Tile {
 };
 
 // Zeroes the encoding's padded rows (once per block).
-template <int NP>
-__device__ __forceinline__ void nrt_f32_sdf_init(const TiledNet& m, const NrtF32Tile<NP>& T) {
+template <typename Tile>
+__device__ __forceinline__ void nrt_f32_sdf_init(const TiledNet& m, const Tile& T) {
+  constexpr int NP = Tile::kNP;
   constexpr int LD = nrt_tiled_rows(NP) + 4;
   for (int i = threadIdx.x; i < (m.EP - m.E) * LD; i += blockDim.x)
     T.act[(size_t)(NP + m.E) * LD + i] = 0.f;
 }
 
+// The outputs a thread of the f32 tile owns in a layer: MAP::R rows x MAP::C
+// columns of the MAP::ROWS rows evaluated, with MAP::chunk (acc += 8 k-rows
+// of act x W) and MAP::store (the epilogue).  Each output's sum is the same
+// fmaf in ascending k in every map.
 template <int NP, int TM>
+struct NrtF32Wide {   // the 16 x 16 thread layout above: rows [0, 16 TM)
+  static constexpr int ROWS = 16 * TM, R = TM, C = NP / 16;
+  __device__ __forceinline__ static void chunk(float (&acc)[R][C], const float* ac,
+                                               const float* wc) {
+    nrt_f32_chunk<NP, TM>(acc, ac, wc);
+  }
+  template <int ACT>
+  __device__ __forceinline__ static void store(const float (&acc)[R][C],
+                                               const float* __restrict__ bias, float* act) {
+    nrt_f32_store<NP, ACT, TM>(acc, bias, act);
+  }
+};
+
+// A thin step of ROWS = 32, 16 or 8 rows (K4's tail) with every warp on its
+// own columns, so a block reads each weight from shared memory once (the 16
+// x 16 layout reads it once a warp): 8 warps at 32 rows, 4 at 16 and 8
+// (on an H100 faster than 2 or 8 there), each own 4 rows x CPT columns a
+// thread, thread t the rows 4 (t % (ROWS / 4)) .. + 3 and the physical
+// columns [CPT c, CPT c + CPT), c = t / (ROWS / 4), of the packed matrix
+// (the logical columns nrt_tiled_col(p)); the other threads only pass the
+// barriers.  Per k a thread loads one float4 of activations and CPT weights
+// for 4 CPT FMAs.  (Loading a thread's operands of 8 k-rows before their
+// products made no difference on an H100.)
+template <int NP, int ROWS_>
+struct NrtF32Thin {
+  static constexpr int ROWS = ROWS_, RQ = ROWS / 4, LD = nrt_tiled_rows(NP) + 4;
+  static constexpr int WARPS = ROWS == 32 ? 8 : 4;
+  static constexpr int CPT0 = RQ * NP / (32 * WARPS);   // columns a thread at WARPS
+  static constexpr int CPT = CPT0 < 1 ? 1 : (CPT0 > NP / 32 ? NP / 32 : CPT0);
+  static constexpr int THREADS = RQ * (NP / CPT), R = 4, C = CPT;
+  static_assert(ROWS == 32 || ROWS == 16 || ROWS == 8, "thin rows");
+  static_assert(THREADS <= NRT_THREADS && (CPT == 1 || CPT == 2 || CPT % 4 == 0), "thin map");
+  __device__ __forceinline__ static int row0() { return 4 * (threadIdx.x % RQ); }
+  __device__ __forceinline__ static int col0() { return CPT * (threadIdx.x / RQ); }
+  // the CPT weights of k-row kk at the thread's columns
+  __device__ __forceinline__ static void weights(const float* wk, float (&w)[CPT]) {
+    if constexpr (CPT == 1) {
+      w[0] = wk[0];
+    } else if constexpr (CPT == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(wk);
+      w[0] = v.x; w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < CPT / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(wk + 4 * q);
+        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
+      }
+    }
+  }
+  __device__ __forceinline__ static void chunk(float (&acc)[R][C], const float* ac,
+                                               const float* wc) {
+    if (threadIdx.x >= THREADS) return;
+    const int r0 = row0(), c0 = col0();
+#pragma unroll
+    for (int kk = 0; kk < NRT_F32_KC; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(ac + kk * LD + r0);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      float w[CPT];
+      weights(wc + kk * NP + c0, w);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av[r], w[c], acc[r][c]);
+    }
+  }
+  template <int ACT>
+  __device__ __forceinline__ static void store(const float (&acc)[R][C],
+                                               const float* __restrict__ bias, float* act) {
+    if (threadIdx.x >= THREADS) return;
+    const int r0 = row0(), c0 = col0();
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int j = nrt_tiled_col(c0 + c);
+      const float bj = __ldg(bias + j);
+      float4 v;
+      v.x = nrt_act(acc[0][c] + bj, ACT);
+      v.y = nrt_act(acc[1][c] + bj, ACT);
+      v.z = nrt_act(acc[2][c] + bj, ACT);
+      v.w = nrt_act(acc[3][c] + bj, ACT);
+      *reinterpret_cast<float4*>(act + j * LD + r0) = v;
+    }
+  }
+};
+
+// MAP: NrtF32Wide<NP, TM> (rows [0, 16 TM)) or NrtF32Thin<NP, ROWS>.
+template <int NP, int TM, int TPR = 0, typename MAP = NrtF32Wide<NP, TM>, typename Tile,
+          typename Stream>
 __device__ __forceinline__ void nrt_f32_sdf(const TiledNet& m, const SphereSet& S,
-                                            const NrtF32Tile<NP>& T, NrtStream<NP, false>& W) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, ROWS = 16 * TM;
-  nrt_sphere_min(T.sph, S.n, S.k, S.stable, T.ps, T.sm, M, ROWS);
+                                            const Tile& T, Stream& W) {
+  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, ROWS = MAP::ROWS, KC = Stream::KC;
+  nrt_tiled_sphere_min<M, ROWS, TPR>(S, T.sph, T.ps, T.sm);
   nrt_tiled_encode<ROWS>(m, T.ps, [&](int row, int c, float v) { T.act[(NP + c) * LD + row] = v; });
   // (the first chunk's barrier orders the encoding before its reads)
-  float acc[TM][NP / 16];
+  float acc[MAP::R][MAP::C];
   for (int l = 0; l <= m.L; ++l) {
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
+    for (int r = 0; r < MAP::R; ++r)
 #pragma unroll
-      for (int c = 0; c < NP / 16; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < MAP::C; ++c) acc[r][c] = 0.f;
     const float* ac = T.act + (size_t)nrt_tiled_kbase(m, l) * LD;
-    const int nc = nrt_tiled_k(m, l) / NRT_F32_KC;
-    for (int ch = 0; ch < nc; ++ch)
-      nrt_f32_chunk<NP, TM>(acc, ac + (size_t)ch * NRT_F32_KC * LD, W.next(m, T.wbuf));
+    const int K = nrt_tiled_k(m, l);
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      const float* wc = W.next(m, T.wbuf);
+      if constexpr (KC == NRT_F32_KC) {
+        MAP::chunk(acc, ac + (size_t)k0 * LD, wc);
+      } else {   // the same sums, 8 k-rows at a time
+        const int kc = min(KC, K - k0);
+        for (int s = 0; s < kc; s += NRT_F32_KC)
+          MAP::chunk(acc, ac + (size_t)(k0 + s) * LD, wc + s * NP);
+      }
+    }
     __syncthreads();  // every thread is done reading act
     nrt_with_act(m.act, [&](auto a) {
-      nrt_f32_store<NP, decltype(a)::value, TM>(acc, m.b[l], T.act);
+      MAP::template store<decltype(a)::value>(acc, m.b[l], T.act);
     });
     if (l == 0)   // the skip layers read act(enc)
       for (int i = threadIdx.x; i < m.E * ROWS; i += blockDim.x) {
@@ -469,31 +598,32 @@ __device__ __forceinline__ void nrt_f32_sdf(const TiledNet& m, const SphereSet& 
   __syncthreads();
 }
 
-template <int NP>
-__device__ __forceinline__ float nrt_f32_out(const TiledNet& m, const NrtF32Tile<NP>& T,
-                                             int row) {
+template <typename Tile>
+__device__ __forceinline__ float nrt_f32_out(const TiledNet& m, const Tile& T, int row) {
+  constexpr int NP = Tile::kNP;
   constexpr int LD = nrt_tiled_rows(NP) + 4;
   float o = 0.f;
   for (int k = 0; k < m.H; ++k) o = fmaf(T.act[k * LD + row], __ldg(m.w_out + k), o);
   return o + __ldg(m.b_out);
 }
 
-// bf16: the two weight chunks, the activation buffer (row-major), the sphere
+// bf16: the weight stream's buffers, the activation buffer (row-major), the sphere
 // set, the points and the smooth-min.
 template <int NP>
 __host__ __device__ inline int nrt_bf16_lda(int EP) { return NP + EP + 8; }
 
-template <int NP>
+// RING: the bf16 elements of the weight stream's buffers (NrtStream::RING).
+template <int NP, int RING = 2 * NP * nrt_bf16_wld(NRT_BF16_KC)>
 __host__ __device__ inline size_t nrt_bf16_sdf_smem(int EP, int n_spheres) {
   constexpr int M = nrt_tiled_rows(NP);
-  return sizeof(__nv_bfloat16) *
-             ((size_t)2 * NP * NRT_BF16_WLD + (size_t)M * nrt_bf16_lda<NP>(EP)) +
+  return sizeof(__nv_bfloat16) * ((size_t)RING + (size_t)M * nrt_bf16_lda<NP>(EP)) +
          sizeof(float) * ((size_t)nrt_sphere_smem_floats(n_spheres) + 3 * M + M);
 }
 
-template <int NP>
+template <int NP, int RING = 2 * NP * nrt_bf16_wld(NRT_BF16_KC)>
 struct NrtBf16Tile {
-  __nv_bfloat16* wbuf;   // [2][NP][WLD]
+  static constexpr int kNP = NP;
+  __nv_bfloat16* wbuf;   // [RING] the stream's buffers
   __nv_bfloat16* act;    // [M][lda]
   int lda;
   float* sph;            // the sphere set
@@ -501,7 +631,7 @@ struct NrtBf16Tile {
   float* sm;             // [M]
   __device__ NrtBf16Tile(float* smem, const TiledNet& m, int n_spheres)
       : wbuf(reinterpret_cast<__nv_bfloat16*>(smem)),
-        act(wbuf + 2 * NP * NRT_BF16_WLD),
+        act(wbuf + RING),
         lda(nrt_bf16_lda<NP>(m.EP)),
         sph(reinterpret_cast<float*>(act + (size_t)nrt_tiled_rows(NP) * lda)),
         ps(sph + nrt_sphere_smem_floats(n_spheres)),
@@ -511,9 +641,10 @@ struct NrtBf16Tile {
 
 // Zeroes the encoding's padded columns and loads the sphere set (once per
 // block; the caller synchronises before the first evaluation).
-template <int NP>
+template <typename Tile>
 __device__ __forceinline__ void nrt_bf16_sdf_init(const TiledNet& m, const SphereSet& S,
-                                                  const NrtBf16Tile<NP>& T) {
+                                                  const Tile& T) {
+  constexpr int NP = Tile::kNP;
   constexpr int M = nrt_tiled_rows(NP);
   for (int i = threadIdx.x; i < M * (m.EP - m.E); i += blockDim.x)
     T.act[(size_t)(i / (m.EP - m.E)) * T.lda + NP + m.E + i % (m.EP - m.E)] =
@@ -524,12 +655,12 @@ __device__ __forceinline__ void nrt_bf16_sdf_init(const TiledNet& m, const Spher
 // The bf16 operands of the JAX _make_sdf_eval: the rounded encoding, act of
 // the rounded encoding on the skip layers, every act(h) rounded, bf16
 // weights, float32 sums.  MI as nrt_bf16_chunk: rows [0, 16 MI M / 64).
-template <int NP, int MI>
+template <int NP, int MI, int TPR = 0, typename Tile, typename Stream>
 __device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet& S,
-                                             const NrtBf16Tile<NP>& T, NrtStream<NP, true>& W) {
-  constexpr int M = nrt_tiled_rows(NP), ROWS = 16 * MI * (M / 64);
+                                             const Tile& T, Stream& W) {
+  constexpr int M = nrt_tiled_rows(NP), ROWS = 16 * MI * (M / 64), KC = Stream::KC;
   const int lda = T.lda;
-  nrt_sphere_min(T.sph, S.n, S.k, S.stable, T.ps, T.sm, M, ROWS);
+  nrt_tiled_sphere_min<M, ROWS, TPR>(S, T.sph, T.ps, T.sm);
   // the encoding rounded to bf16
   nrt_tiled_encode<ROWS>(m, T.ps, [&](int row, int c, float v) {
     T.act[(size_t)row * lda + NP + c] = __float2bfloat16_rn(v);
@@ -543,9 +674,9 @@ __device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet&
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
     const int K = nrt_tiled_k(m, l), kbase = nrt_tiled_kbase(m, l);
-    for (int ch = 0; ch * NRT_BF16_KC < K; ++ch)
-      nrt_bf16_chunk<NP, MI>(acc, T.act, lda, kbase + ch * NRT_BF16_KC, W.next(m, T.wbuf),
-                             min(NRT_BF16_KC, K - ch * NRT_BF16_KC) / 16);
+    for (int ch = 0; ch * KC < K; ++ch)
+      nrt_bf16_chunk<NP, MI, KC>(acc, T.act, lda, kbase + ch * KC, W.next(m, T.wbuf),
+                                 min(KC, K - ch * KC) / 16);
     __syncthreads();  // every warp is done reading act
     nrt_with_act(m.act, [&](auto a) {
       nrt_bf16_store<NP, decltype(a)::value, MI>(acc, m.b[l], T.act, lda);
@@ -559,9 +690,8 @@ __device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet&
   __syncthreads();
 }
 
-template <int NP>
-__device__ __forceinline__ float nrt_bf16_out(const TiledNet& m, const NrtBf16Tile<NP>& T,
-                                              int row) {
+template <typename Tile>
+__device__ __forceinline__ float nrt_bf16_out(const TiledNet& m, const Tile& T, int row) {
   const __nv_bfloat16* h = T.act + (size_t)row * T.lda;
   float o = 0.f;
   for (int k = 0; k < m.H; ++k) o = fmaf(__bfloat162float(h[k]), __ldg(m.w_out + k), o);

@@ -5,8 +5,7 @@
 //   sd(p) = smooth_min_i(|T_i p - c_i| - r_i) + shift_mlp(p)
 // The smooth-min is the clamped -log(max(sum exp(-k d), 1e-4)) / k of the
 // reference, or the exact logsumexp form (stable = 1).  The shift MLP is the
-// tiled net of mlp_tiled.cuh in K2 and K3, the device MLP of mlp.cuh in K4
-// and K5.
+// tiled net of mlp_tiled.cuh in K2-K4, the device MLP of mlp.cuh in K5.
 #pragma once
 
 #include "mlp.cuh"
@@ -33,17 +32,13 @@ __device__ inline void nrt_load_spheres(const SphereSet& S, float* sph) {
   }
 }
 
-// Smooth-min of the sphere set at the R points ps ([R][3]) -> sm[R].
-// blockDim.x / R threads share a row (a power of two, at most 32, with
-// R * (blockDim.x / R) == blockDim.x); each takes every tpr-th sphere.  With
-// rows >= 0 only the rows [0, rows) are evaluated, each in the same order as
-// with all R (rows a multiple of the rows a warp holds, 32 / tpr).
-__device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
-                               int stable, const float* ps, float* sm, int R,
-                               int rows = -1) {
-  const int tpr = blockDim.x / R;
-  const int r = threadIdx.x / tpr, lane = threadIdx.x % tpr;
-  if (rows >= 0 && r >= rows) return;   // whole warps
+// The smooth-min of the sphere set at row r of the points ps ([.][3]) -> sm[r],
+// summed by tpr lanes of one warp (contiguous, a power of two, at most 32):
+// lane `lane` takes every tpr-th sphere from `lane`, then the lanes' sums
+// meet in a butterfly.  Every lane of the warp calls it.
+__device__ __forceinline__ void nrt_sphere_row(const float* sph, int n_sph, float k,
+                                               int stable, const float* ps, float* sm,
+                                               int r, int lane, int tpr) {
   const float px = ps[r * 3 + 0], py = ps[r * 3 + 1], pz = ps[r * 3 + 2];
   float m = -INFINITY, s = 0.f;  // stable: running max of -k d and sum exp(-k d - m)
   for (int i = lane; i < n_sph; i += tpr) {
@@ -79,4 +74,30 @@ __device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
   }
   if (lane == 0)
     sm[r] = stable ? -(m + logf(s)) / k : -logf(fmaxf(s, 1e-4f)) / k;
+}
+
+// Smooth-min of the sphere set at the R points ps ([R][3]) -> sm[R].
+// blockDim.x / R threads share a row (a power of two, at most 32, with
+// R * (blockDim.x / R) == blockDim.x); each takes every tpr-th sphere.  With
+// rows >= 0 only the rows [0, rows) are evaluated, each in the same order as
+// with all R (rows a multiple of the rows a warp holds, 32 / tpr).
+__device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
+                               int stable, const float* ps, float* sm, int R,
+                               int rows = -1) {
+  const int tpr = blockDim.x / R;
+  const int r = threadIdx.x / tpr, lane = threadIdx.x % tpr;
+  if (rows >= 0 && r >= rows) return;   // whole warps
+  nrt_sphere_row(sph, n_sph, k, stable, ps, sm, r, lane, tpr);
+}
+
+// The same for the rows [0, rows) with TPR lanes a row whatever rows (K4's
+// order, and K5's: 32 rows of 256 threads): the block's threads take
+// blockDim.x / TPR rows at a time, so a thin step keeps every thread busy
+// (rows a multiple of the 32 / TPR rows of a warp).
+template <int TPR>
+__device__ void nrt_sphere_min_lanes(const float* sph, int n_sph, float k, int stable,
+                                     const float* ps, float* sm, int rows) {
+  const int per = blockDim.x / TPR;
+  for (int r = threadIdx.x / TPR; r < rows; r += per)   // whole warps
+    nrt_sphere_row(sph, n_sph, k, stable, ps, sm, r, threadIdx.x % TPR, TPR);
 }

@@ -16,7 +16,8 @@ from .fused_march import (
     fused_shadow_march_bf16, march_info, march_plain, march_plan,
     march_slots_plain, min_scan_blocks_per_sm,
     min_scan_plain, min_scan_plan, min_scan_segments, min_scan_widths,
-    pack_shift_weights, shadow_march_plain, sphere_sdf_eval_plain, supports,
+    pack_shift_weights, shadow_info, shadow_march_plain, shadow_plan, shadow_slots_plain,
+    sphere_sdf_eval_plain, supports,
 )
 from .fused_mlp import (
     FusedSkipConnMLP, ckpt_forward_plain, fused_mlp_apply, fused_mlp_backward,

@@ -37,11 +37,18 @@ shared memory).
 K4 replaces ``fused_shadow_march`` (body ``_build_shadow_kernel``): the loop
 of ``SDF.intersect_test``, which differs from K2's in four places (depth
 starts at ``1e2 * eps``, the hit test is a strict ``sd < eps``, the hit
-step's distance is still applied, and zero-direction rays are left out of
-the block's exit gate).  The kernel (``csrc/fused_shadow.cu``) shares the
-sphere set with K2 and K3 and the device MLP of ``csrc/mlp.cuh`` with K1;
-it is bound by the f32 FMA rate over the live ray-steps.
-``shadow_march_plain`` is its plain version.
+step's distance is still applied, and the past-light exit gates a ray on
+``depth < max_t``).  The kernel (``csrc/fused_shadow.cu``) runs on K2's
+persistent slots (``csrc/march_slots.cuh``; ``shadow_plan``'s blocks and
+slots) over the tiled SDF, with steps made for the thin tails of its small
+launches (a 10,000-ray eval chunk, a 12,288-ray training call): the live
+slots compact down to 8 rows (f32), a thin step puts each warp on its own
+weight columns, the weights stream in larger chunks through three buffers
+and all threads sum the sphere set.  A zero-direction ray (a masked light sample) never moves, so its one
+evaluation decides it: it leaves with the plain loop's flag.  The ray's
+depth and evaluation count live in global memory, so its flag depends on
+nothing but its own evaluations.  ``shadow_march_plain`` is its plain
+version; ``shadow_slots_plain`` models its schedule, for tests.
 
 The three kernels take a ``SphereSDF`` or a ``FusedSphereSDF`` (the same
 parameters) whose shift is a 3 -> 1 ``SkipConnMLP`` without a latent.
@@ -71,8 +78,7 @@ import torch
 from ..nn.mlp import SkipConnMLP, check_compute_dtype
 from ._build import library
 from .fused_mlp import (
-    ACT_CODES, MAX_LAYERS, check_cuda_f32, mlp_forward_bf16_operands,
-    operand_weights, weight_pointers,
+    ACT_CODES, MAX_LAYERS, check_cuda_f32, mlp_forward_bf16_operands, weight_pointers,
 )
 from .fused_sdf import sphere_min_plain, sphere_sdf_plain
 
@@ -113,12 +119,16 @@ def _minscan_lib() -> ctypes.CDLL:
 def _shadow_lib() -> ctypes.CDLL:
     lib = library("fused_shadow")
     lib.nrt_fused_shadow_march.argtypes = [
-        _P, _P, _P, _P, _I, _I, _F, _F, _I,       # rays, max_t, output, loop
+        _P, _P, _P, _P,                           # rays, max_t, output
+        _P, _P, _P,                               # ray states, queue, statistics
+        _I, _I, _I, _I, _F, _F, _I,               # rays, blocks, slots, loop
         _I,                                       # bf16 operands
         _P, _P, _P, _I, _F, _I,                   # sphere set
-        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP
+        _I, _I, _I, _I, _I, _I, _I, _P,           # shift MLP (packed weights)
         _P]                                       # stream
     lib.nrt_fused_shadow_march.restype = _I
+    lib.nrt_fused_shadow_march_info.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.nrt_fused_shadow_march_info.restype = _I
     return lib
 
 
@@ -154,14 +164,14 @@ def _net_args(mlp, ptrs):
             mlp.out_size, ACT_CODES[mlp.activation_name], ptrs)
 
 
-def _sphere_set(module, device, compute_dtype=torch.float32):
+def _sphere_set(module, device):
     """Check the SphereSDF's tensors on ``device`` -> (the C arguments of the
-    sphere set and the shift net, the tensors they point into); the shift
-    net's matrices in ``compute_dtype``."""
+    sphere set and the float32 shift net of ``csrc/mlp.cuh``, the tensors
+    they point into)."""
     args, tensors = _spheres(module, device)
     mlp = module.shift
-    weights = operand_weights([w.detach() for w in mlp.flat_weights()], compute_dtype)
-    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device, compute_dtype)
+    weights = [w.detach() for w in mlp.flat_weights()]
+    ptrs = weight_pointers(mlp, mlp.B.detach(), weights, device)
     return args + _net_args(mlp, ptrs), tensors + (weights,)
 
 
@@ -601,13 +611,25 @@ def march_info(module, compute_dtype=torch.float32, device=None) -> dict:
 
 
 def march_plan(n: int, device: torch.device) -> int:
-    """The persistent blocks K2 (K2-bf16) launches for ``n`` rays on the CUDA
-    ``device``: one a SM, at most one a ray.  The kernel fits twice on an SM
-    (``march_info``), but one block a SM marches faster: a step's cost has a
-    large fixed part, so the tail is shorter in fewer, fuller blocks."""
+    """The persistent blocks K2 and K4 (and their bf16 variants) launch for
+    ``n`` rays on the CUDA ``device``: one a SM, at most one a ray.  K2 fits
+    twice on an SM (``march_info``), but one block a SM marches faster: a
+    step's cost has a large fixed part, so the tail is shorter in fewer,
+    fuller blocks; K4's wider weight stream fits once (``shadow_info``)."""
     if n <= 0:
         return 0
     return min(n, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def shadow_plan(n: int, device: torch.device, slots: int) -> tuple:
+    """``(blocks, slots)`` of K4 (K4-bf16) for ``n`` rays on the CUDA
+    ``device``, whose kernel holds ``slots`` rays a block (``shadow_info``):
+    ``march_plan``'s blocks, and the slots a block fills: at most 64 where
+    one fill of the kernel's slots would hold every ray (a NeRV eval chunk or
+    training call: the queue never refills, and a block's first steps then
+    evaluate 64 rows, not 128), else all of them."""
+    blocks = march_plan(n, device)
+    return blocks, (min(64, slots) if n <= slots * blocks else slots)
 
 
 def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
@@ -690,34 +712,137 @@ def shadow_march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
     return (depths >= max_t) | remaining, evals
 
 
+@torch.no_grad()
+def shadow_slots_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
+                       slots: int, max_steps: int, epsilon: float,
+                       past_light_exit: bool = True, min_rows: int = 8):
+    """A plain model of K4's schedule in one block of ``slots`` slots, for
+    tests; not on any path.
+
+    The kernel's control flow (``csrc/fused_shadow.cu`` on the slots of
+    ``csrc/march_slots.cuh``): a free slot takes rays from a queue in order
+    until one needs an evaluation (a ray with no steps, or with the exit one
+    whose ``1e2 * epsilon`` start is not below ``max_t``, resolves at once,
+    not blocked); each step evaluates ``sdf`` on the points of the live
+    slots only, and each of them takes ``shadow_march_plain``'s step with its
+    own evaluation count; a ray leaves its slot when it hits (not blocked if
+    its advanced depth reaches ``max_t``), with the exit when its depth
+    reaches ``max_t``, after ``max_steps`` evaluations, or after its first
+    evaluation if its direction is zero (its point never moves, so no later
+    step can hit); the last three are not blocked.  Once the queue is dry
+    the live slots move to the front and the step covers the first
+    ``slots``, ``slots / 2``, ... rows that hold them, down to ``min_rows``
+    (8 in K4, 32 in K4-bf16).
+    Returns ``(not_blocked, evals, schedule)``: ``not_blocked`` as
+    ``shadow_march_plain``'s, ``evals`` the evaluations the kernel makes
+    (one for a zero-direction ray), ``schedule`` the (live slots, rows) of
+    each step.
+    """
+    batch = r_o.shape[:-1]
+    o, d = r_o.reshape(-1, 3), r_d.reshape(-1, 3)
+    n, device = o.shape[0], r_o.device
+    mt = torch.as_tensor(max_t, dtype=torch.float32, device=device).expand(batch).reshape(-1)
+    depth0 = torch.tensor(1e2 * epsilon, dtype=torch.float32)
+    depths = torch.full((n,), float(depth0), device=device)
+    evals = torch.zeros(n, dtype=torch.int32, device=device)
+    not_blocked = torch.ones(n, dtype=torch.bool, device=device)
+    still = d.abs().sum(dim=-1) == 0
+    slot, queue, schedule = [-1] * slots, 0, []
+    while True:
+        for s in range(slots):                       # refill
+            while slot[s] < 0 and queue < n:
+                g, queue = queue, queue + 1
+                if max_steps > 0 and (not past_light_exit or bool(depth0 < mt[g])):
+                    slot[s] = g
+        live = [g for g in slot if g >= 0]
+        if not live:
+            break
+        rows = slots
+        while rows // 2 >= min_rows and len(live) <= rows // 2:
+            rows //= 2
+        if rows < slots:                             # compact
+            slot = live + [-1] * (slots - len(live))
+        schedule.append((len(live), rows))
+        g = torch.tensor(live, device=device)
+        sd = sdf(o[g] + d[g] * depths[g][:, None])
+        evals[g] += 1
+        depths[g] = depths[g] + sd
+        hits = sd < epsilon
+        not_blocked[g[hits]] = depths[g[hits]] >= mt[g[hits]]
+        done = hits | (evals[g] >= max_steps) | still[g]
+        if past_light_exit:
+            done |= ~(depths[g] < mt[g])
+        finished = set(g[done].tolist())
+        slot = [-1 if s in finished else s for s in slot]
+    return not_blocked.reshape(batch), evals.reshape(batch), schedule
+
+
+@functools.lru_cache(maxsize=None)
+def _shadow_info(bf16: bool, freqs: int, hidden: int, n_spheres: int, device: int) -> dict:
+    info = (_I * 5)()
+    with torch.cuda.device(device):
+        rc = _shadow_lib().nrt_fused_shadow_march_info(int(bf16), freqs, hidden, n_spheres,
+                                                       info)
+    if rc != 0 or info[0] <= 0:
+        raise RuntimeError(f"nrt_fused_shadow_march_info: CUDA error {rc}, "
+                           f"{info[0]} blocks per SM")
+    return dict(blocks_per_sm=info[0], slots=info[1], registers=info[2],
+                local_bytes=info[3], smem_bytes=info[4])
+
+
+def shadow_info(module, compute_dtype=torch.float32, device=None) -> dict:
+    """K4's (K4-bf16's) kernel for ``module`` on the CUDA ``device``, as the
+    library reports it, with the keys of ``march_info``."""
+    check_min_scan_widths(module, "fused_shadow_march")
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    mlp = module.shift
+    return _shadow_info(bf16, mlp.freqs, mlp.hidden_size, module.centers.shape[0], index)
+
+
 def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                        max_steps: int, epsilon: float,
                        past_light_exit: bool = True,
-                       compute_dtype=torch.float32) -> torch.Tensor:
+                       compute_dtype=torch.float32, stats=None) -> torch.Tensor:
     """Launch K4 on CUDA tensors.  Returns ``not_blocked [...]`` (bool).
 
     ``max_t`` is a scalar or per-ray; ``compute_dtype=torch.bfloat16``
-    launches K4-bf16 (counted as ``fused_shadow_march_bf16``).  Launches on
-    the current stream and does not synchronise.
+    launches K4-bf16 (counted as ``fused_shadow_march_bf16``).  The shift
+    net's weights are packed once per call (``pack_shift_weights``);
+    ``shadow_plan`` gives the blocks and their slots.  ``stats``, an int64
+    CUDA tensor
+    ``[3]``, gets the launch's tile steps, rows evaluated and live rows added
+    to it.  Launches on the current stream and does not synchronise.
     """
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
     if not supports(module):
         raise ValueError("fused_shadow_march supports SphereSDF surfaces with a "
                          "3 -> 1 shift net and no latent")
+    check_min_scan_widths(module, "fused_shadow_march")
     batches = r_o.shape[:-1]
     device = r_o.device
     ro, rd, n = _rays(r_o, r_d)
     mt = torch.as_tensor(max_t, dtype=torch.float32, device=device
                          ).detach().expand(batches).reshape(-1).contiguous()
     check_cuda_f32("max_t", mt, (n,), device)
+    if stats is not None:
+        check_cuda_f32("stats", stats, (3,), device, torch.int64)
     # the tensors stay alive until the launch
-    spheres, _tensors = _sphere_set(module, device, compute_dtype)
+    spheres, _tensors = _spheres(module, device)
+    mlp = module.shift
+    packed = pack_shift_weights(mlp, compute_dtype)
+    ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
     not_blocked = torch.empty(n, device=device, dtype=torch.bool)
+    state = torch.empty(n, 2, device=device, dtype=torch.float32)
+    queue = torch.empty(1, device=device, dtype=torch.int32)
+    blocks, slots = shadow_plan(n, device, shadow_info(module, compute_dtype, device)["slots"])
     with torch.cuda.device(device):
         rc = _shadow_lib().nrt_fused_shadow_march(
             ro.data_ptr(), rd.data_ptr(), mt.data_ptr(), not_blocked.data_ptr(),
-            n, max_steps, epsilon, 1e2 * epsilon, int(past_light_exit), int(bf16),
-            *spheres, torch.cuda.current_stream(device).cuda_stream)
+            state.data_ptr(), queue.data_ptr(),
+            None if stats is None else stats.data_ptr(), n, blocks, slots, max_steps, epsilon,
+            1e2 * epsilon, int(past_light_exit), int(bf16), *spheres,
+            *_net_args(mlp, ptrs), torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_shadow_march: CUDA error {rc} at launch")
     if n > 0:

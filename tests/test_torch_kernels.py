@@ -14,7 +14,9 @@ net); K2 hit agreement >= 99% and |depth difference| <= 1e-3 where both hit
 ties, float32 sums in another order); K6/K7 each gradient within 1e-4 of
 max|plain| (float32 sums in another order, atomics in a varying one); K4
 not-blocked agreement >= 99.9% (a near-eps step may fall on either side in
-another sum order); K5 as K1, its first and second derivatives (recomputed
+another sum order), the same flags bit for bit across launches and
+permutations, zero-direction rays exactly the plain loop's, and its launch
+statistics within 1% of the plain loop's evaluations; K5 as K1, its first and second derivatives (recomputed
 through the plain version) rtol/atol 1e-4; K8 2e-5 absolute + 2e-5 relative
 (exp and products in another order), its gradients (recomputed through the
 plain version) 1e-4 absolute + 1e-3 relative; K2 relaxed as K2, and on the
@@ -569,6 +571,73 @@ def test_fused_shadow_march_rules(cuda):
     nb = fused_shadow_march(_one_sphere(cuda), r_o.to(cuda), r_d.to(cuda),
                             max_t.to(cuda), max_steps=64, epsilon=eps)
     assert nb.tolist() == [True, True, True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_fused_shadow_march_same_flags_across_launches_and_permutations(cuda, compute_dtype):
+    """A ray's flag depends on its own evaluations only (its state lives in
+    global memory, its sums run in one order whatever rows a step
+    evaluates): the same bits in a second launch and under a permutation."""
+    module = _surface(cuda)
+    r_o, r_d, dist = _shadow_rays(cuda, n=20_001)
+    kw = dict(max_steps=64, epsilon=1e-3, compute_dtype=compute_dtype)
+    nb = fused_shadow_march(module, r_o, r_d, dist, **kw)
+    nb2 = fused_shadow_march(module, r_o, r_d, dist, **kw)
+    perm = torch.randperm(20_001, generator=torch.Generator().manual_seed(9)).to(cuda)
+    nb3 = fused_shadow_march(module, r_o[perm].contiguous(), r_d[perm].contiguous(),
+                             dist[perm].contiguous(), **kw)
+    assert torch.equal(nb, nb2) and torch.equal(nb[perm], nb3)
+    assert 0.0 < (~nb).float().mean().item() < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past_light_exit", [True, False])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_fused_shadow_march_zero_direction_rays_match_plain(cuda, compute_dtype,
+                                                            past_light_exit):
+    """Zero-direction rays (masked light samples) never move, so their one
+    evaluation decides them: blocked inside the surface, free outside, as
+    the plain loop that marches them on (points 0.01 from the surface, so
+    neither operand type's rounding tips a flag)."""
+    module = _surface(cuda)
+    set_kernel_mode(module, "off")
+    sdf = (lambda p: sphere_sdf_eval_plain(module, p, compute_dtype))
+    p = (1.6 * torch.rand(20_000, 3, generator=torch.Generator().manual_seed(15))
+         - 0.8).to(cuda)
+    sd = sdf(p)
+    p = torch.cat([p[sd < -0.01][:2000], p[sd > 0.01][:2000]]).contiguous()
+    zero = torch.zeros_like(p)
+    kw = dict(max_steps=64, epsilon=1e-3, past_light_exit=past_light_exit)
+    reset_launch_counts()
+    nb = fused_shadow_march(module, p, zero, 10.0, compute_dtype=compute_dtype, **kw)
+    name = "fused_shadow_march" + ("_bf16" if compute_dtype == BF16 else "")
+    assert launch_counts()[name] == 1
+    pnb, _ = shadow_march_plain(sdf, p, zero, 10.0, **kw)
+    assert p.shape[0] == 4000 and torch.equal(nb, pnb)
+    assert not nb[:2000].any() and nb[2000:].all()
+
+
+@pytest.mark.cuda
+def test_fused_shadow_march_stats_add_up(cuda):
+    """stats= adds a launch's tile steps, rows evaluated and live rows: the
+    live rows are the rays' evaluations (a moving ray's as the plain loop
+    counts them, a zero-direction ray's one), as many again in a second
+    launch; a step evaluates no more rows than a block's slots."""
+    module = _surface(cuda)
+    r_o, r_d, dist = _shadow_rays(cuda, n=5000)
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+    nb = fused_shadow_march(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3, stats=stats)
+    set_kernel_mode(module, "off")
+    _, evals = shadow_march_plain(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3)
+    steps, rows, live = stats.tolist()
+    moving = r_d.abs().sum(-1) > 0
+    want = int(evals[moving].sum()) + int((~moving).sum())
+    assert abs(live - want) <= 0.01 * want
+    assert live <= rows <= 128 * steps and steps >= int(evals.max())
+    fused_shadow_march(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3, stats=stats)
+    assert stats[2].item() == 2 * live
+    assert nb.dtype == torch.bool
 
 
 def _composite_inputs(device, n_t=64, n_r=10_001, seed=14):
