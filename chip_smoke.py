@@ -6,7 +6,15 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
   1. the card's name and power limit; build the CUDA kernels from
      neural_raytracing_tpu_torch/csrc (nvcc, sm_90a) and print the build time;
   2. K1 fused_mlp_forward against its plain version on each of the four
-     flagship nets at full width, 65,536 seeded points each;
+     flagship nets at full width, 65,536 seeded points each, on the tile
+     (csrc/fused_mlp_tile.cu): its float32 outputs the same bits as the
+     parent's kernel (the general route, csrc/fused_mlp.cu) with their
+     digests; in turns beside the parent's kernel its ms, the plain ms, the
+     bound, TFLOP/s and the share of the bound, the kernel as the library
+     reports it (rows a block, registers, local and shared memory, blocks a
+     SM); the same at the rows the main paths launch it at (K1_PATH_ROWS);
+     one eval tile's 11 launches; then the pack kernel (pack_tile_weights)
+     against its plain version bit for bit;
   3. K2 fused_march against its plain version on a 256x256 NeRFCamera view
      (65,536 rays) through the full 128-sphere set with a non-zero 8x128
      shift: bounded (256 steps, march_bound 1.2) and unbounded (64 steps),
@@ -108,7 +116,9 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      --omega 1.4 (counts reset just before, read just after) and 1.0;
  16. the bf16-operand variants, each against its plain version and beside
      its f32 kernel on the same inputs: K1-bf16 on the weight net, one lobe
-     and the light field (65,536 seeded points); K2-bf16 on phase 3's rays
+     and the light field (65,536 seeded points and the path's rows, as
+     phase 2 reports K1, beside the parent's kernel; its bound the larger
+     of the tensor-core bound and the elementwise floor); K2-bf16 on phase 3's rays
      and non-zero surface, bounded (256 steps), unbounded (64) and omega 1.4;
      K3-bf16 at phase 5's shapes, as phase 5 reports K3, its bound the
      larger of the tensor-core bound and the elementwise floor (the SFU and
@@ -130,11 +140,19 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
  18. the NeRV eval of phase 10 with march_dtype bf16, learned and hard
      shadows: ms/view, PSNR against the f32 render, hit and not-blocked
      agreement on one view.
+Every counted run of a main path also holds K1's route counts (every fused
+net takes the tile: k1_routes) and the pack's launches (none in an eval
+view after the first, at most one a packed net and training step:
+packed_nets), and
+every profile prints K1's and the pack's device ms and launches.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
 Tolerances: K1 |kernel - plain| <= 1e-4 |plain| + 1e-5 + 4e-7 max|x.B| (the
-float32 rounding of the Fourier argument x.B, amplified by the net); K2 hit
+float32 rounding of the Fourier argument x.B, amplified by the net), and
+its float32 outputs equal to the parent kernel's bit for bit (the same
+fmaf sums in the same order); the pack equal to its plain version bit for
+bit; K2 hit
 agreement >= 99% and |depth difference| <= 1e-3 where both hit (float32
 sums in another order, accumulated over up to 256 steps), and K2's and
 K2-bf16's depths equal bit for bit across launches and permutations (a
@@ -175,12 +193,17 @@ bf16 kernel must differ from its f32 kernel on a non-zero net (K1 by at
 least half that mean gap); the bf16 flagship against plain-in-bf16 as
 phases 4 and 7.
 
+    python3 chip_smoke.py --k1
+
+runs phases 1 and 2 and phase 16's K1-bf16 part only (K1's and K1-bf16's
+checks and times; no result line).
+
     python3 chip_smoke.py --march-times [DIR]
 
 prints only K2's and K2-bf16's ms at phase 3b's shapes, K4's and K4-bf16's
 ms a launch at phase 8's and K3's and K3-bf16's at phase 5's, with a digest
-of K2's depths and hits and of K3's indices, for the package in DIR (this
-checkout's by default):
+of K2's depths and hits, of K3's indices and of K4's flags, for the package
+in DIR (this checkout's by default):
 unpack another commit with git archive into the ignored scratch_trees/ and
 run the two trees in turns in one call.
 
@@ -304,44 +327,207 @@ def flagship_nets():
     }
 
 
-def phase_mlp(torch, dev):
-    from neural_raytracing_tpu_torch.kernels import fused_mlp_forward
-    from neural_raytracing_tpu_torch.nn import SkipConnMLP
+# the rows K1 launches a net at on the main paths: a flagship eval tile, a
+# flagship training step's rays, a NeRV eval chunk, a NeRV training step's rays
+K1_PATH_ROWS = {"eval tile": 16_384, "training step": 38_400, "NeRV eval chunk": 10_000,
+                "NeRV training": 12_288}
+# each flagship net's K1 launches on one eval tile (11 in all; the 8 lobes
+# share a shape)
+EVAL_TILE_LAUNCHES = {"sdf_shift 8x128 F32": 1, "weight_net 16x256 F128": 1,
+                      "lobe 6x96 F64": 8, "light_field 10x256 F16": 1}
 
+
+def digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def in_turns(fns: dict, reps: int = 5) -> dict:
+    """Median ms of each function of ``fns`` timed in turns (a, b, b, a)."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            times[k].append(cuda_ms(fns[k], reps))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def k1_elementwise_ms(mlp) -> float:
+    """Milliseconds per row of K1-bf16's work beside the tensor cores,
+    counted from the code: the encoding twice (a sin and a cos per frequency
+    on the SFU, x.B by 3 fmaf each), each activation ((L + 1) x hidden
+    outputs and act(enc); leaky_relu 3 f32 operations, softplus 4 and an exp
+    and a log1p on the SFU) with its bias add and bf16 rounding (2), the
+    output layer's out x hidden fmaf on the CUDA cores; the larger of the
+    SFU's and the f32 pipe's time."""
+    n_act = (mlp.num_layers + 1) * mlp.hidden_size + mlp.enc_size
+    softplus = mlp.activation_name == "softplus"
+    sfu = 4 * mlp.freqs + (2 * n_act if softplus else 0)
+    f32 = (6 * mlp.freqs + n_act * ((4 if softplus else 3) + 2)
+           + mlp.out_size * mlp.hidden_size)
+    return 1e3 * max(sfu / PEAK_SFU, f32 / PEAK_F32_OPS)
+
+
+def k1_bound(mlp, n: int, dtype) -> dict:
+    """K1's (K1-bf16's) least time on ``n`` rows: bound_ms and bound_by
+    ("bytes"/"operations"); f32_bound_ms, the f32-FMA bound; and for
+    K1-bf16, whose bound is the larger of the two, tensor_core_bound_ms and
+    elementwise_floor_ms."""
+    import torch
+    macs = float(mlp_macs(mlp)) * n
+    n_bytes = 4 * n * (mlp.in_size + mlp.out_size) + weight_bytes(mlp)
+    f32_ms, f32_by = bound_ms(n_bytes, 2.0 * macs)
+    if dtype == torch.float32:
+        return dict(bound_ms=f32_ms, bound_by=f32_by, f32_bound_ms=f32_ms)
+    tc_ms, tc_by, _ = bf16_bounds(n_bytes, macs)
+    floor = n * k1_elementwise_ms(mlp)
+    return dict(bound_ms=max(tc_ms, floor), bound_by=tc_by if tc_ms >= floor else "operations",
+                f32_bound_ms=f32_ms, tensor_core_bound_ms=tc_ms, elementwise_floor_ms=floor)
+
+
+def k1_net_report(torch, name, mlp, dtype, x) -> dict:
+    """K1 (K1-bf16 with ``dtype`` bf16) of one net on the seeded points
+    ``x``: against its plain version (and the f32 kernel and plain version,
+    for K1-bf16's check); in turns beside the parent's kernel (the general
+    route, ``csrc/fused_mlp.cu``) with the f32 outputs' digests against its;
+    the plain ms and the bound; the kernel as the library reports it (its
+    rows a block among it); then at each of K1_PATH_ROWS the ms, the
+    parent's ms and the bound."""
+    from neural_raytracing_tpu_torch.kernels import (
+        fused_mlp_forward, mlp_forward_bf16_operands, tile_info,
+    )
+    from neural_raytracing_tpu_torch.nn import SkipConnMLP
+    bf16 = dtype == torch.bfloat16
+    label = f"K1{'-bf16' if bf16 else ''} {name}"
+    ws = [w.detach() for w in mlp.flat_weights()]
+    k1 = lambda xs, **kw: fused_mlp_forward(mlp, xs, mlp.B, ws, dtype, **kw)
+    plain = ((lambda xs: mlp_forward_bf16_operands(mlp, xs, mlp.B, ws)) if bf16
+             else (lambda xs: SkipConnMLP.forward(mlp, xs)))
+    n = x.shape[0]
+    r = dict(name=name)
+    with torch.no_grad():
+        got, parent, want = k1(x), k1(x, route="general"), plain(x)
+        torch.cuda.synchronize()
+        if bf16:
+            got32 = fused_mlp_forward(mlp, x, mlp.B, ws)
+            st = check_k1_bf16(label, got, want, got32, SkipConnMLP.forward(mlp, x))
+            r.update(rows_ok=st["rows_ok"], mean_err=st["mean_err"])
+            err = (got - want).abs()
+        else:
+            err = (got - want).abs()
+            arg = (x @ mlp.B).abs().max().item()
+            check(torch.isfinite(got).all().item(), f"{label}: non-finite output")
+            check(bool((err <= 1e-4 * want.abs() + 1e-5 + 4e-7 * arg).all()),
+                  f"{label}: max |err| {err.max().item():.3e} over tolerance")
+        r.update(err=err.max().item(), digest=digest(got), parent_digest=digest(parent),
+                 same_bits=bool(torch.equal(got, parent)))
+        t = in_turns({"ms": lambda: k1(x), "parent_ms": lambda: k1(x, route="general")})
+        t["plain_ms"] = cuda_ms(lambda: plain(x), 5)
+    r.update(t)
+    r.update(k1_bound(mlp, n, dtype))
+    r["info"] = tile_info(mlp, dtype)
+    print(f"{label}: {n} points, max |err| {r['err']:.3e}, tile {t['ms']:.4f} ms, parent's "
+          f"kernel {t['parent_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}; f32-FMA {r['f32_bound_ms']:.4f}), "
+          f"{2.0 * mlp_macs(mlp) * n / t['ms'] / 1e9:.1f} TFLOP/s, share of the bound "
+          f"{r['bound_ms'] / t['ms']:.3f}; digest {r['digest']} (parent's "
+          f"{r['parent_digest']}, same bits {r['same_bits']}); tile {r['info']}")
+    r["path"] = {}
+    for shape, rows in K1_PATH_ROWS.items():
+        xs = x[:rows].contiguous()
+        with torch.no_grad():
+            got, want = k1(xs), plain(xs)
+            if not bf16:
+                check(bool(torch.equal(got, k1(xs, route="general"))),
+                      f"{label} at {rows} rows: not the parent kernel's bits")
+            check(bool(torch.isfinite(got).all()), f"{label} at {rows} rows: non-finite")
+            pt = in_turns({"ms": lambda: k1(xs), "parent_ms": lambda: k1(xs, route="general")})
+        pt["bound_ms"] = k1_bound(mlp, rows, dtype)["bound_ms"]
+        r["path"][shape] = pt
+        print(f"  {label} at the {shape} ({rows} rows): {pt['ms']:.4f} ms, parent's kernel "
+              f"{pt['parent_ms']:.4f} ms, bound {pt['bound_ms']:.4f} ms, share "
+              f"{pt['bound_ms'] / pt['ms']:.3f}, max |err| {(got - want).abs().max().item():.3e}")
+    return r
+
+
+def k1_totals(reports, nets) -> dict:
+    """Phase 2's (16's) totals of K1 (K1-bf16) over ``nets``, the entry of
+    the kernels line: at N_POINTS, and per launch of an eval tile (each net
+    times its EVAL_TILE_LAUNCHES) as path_ms / path_bound_ms."""
+    tot = {k: sum(reports[n][k] for n in nets)
+           for k in ("ms", "parent_ms", "plain_ms", "bound_ms", "f32_bound_ms",
+                     "tensor_core_bound_ms", "elementwise_floor_ms") if k in reports[nets[0]]}
+    tot["err"] = max(reports[n]["err"] for n in nets)
+    tot["bound_by"] = "operations"
+    launches = sum(EVAL_TILE_LAUNCHES[n] for n in nets)
+    tile = {k: sum(EVAL_TILE_LAUNCHES[n] * reports[n]["path"]["eval tile"][k] for n in nets)
+            for k in ("ms", "parent_ms", "bound_ms")}
+    tot.update(eval_tile_ms=tile["ms"], eval_tile_parent_ms=tile["parent_ms"],
+               path_ms=tile["ms"] / launches, path_bound_ms=tile["bound_ms"] / launches)
+    return tot
+
+
+def pack_report(torch, dev) -> dict:
+    """The pack kernel (pack_tile_weights) against its plain version
+    (tile_pack_plain), bit for bit, on the four flagship nets in both
+    operand types; its ms and the plain ms by the profiler's device time
+    (a launch is shorter than its host call; device_ms), and the bound
+    (bytes: the float32 weights read once, the packed buffer written
+    once)."""
+    from neural_raytracing_tpu_torch.kernels import (
+        pack_tile_weights, tile_layout, tile_pack_plain,
+    )
+    gen = torch.Generator().manual_seed(3)
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, err=0.0)
+    for name, mlp in flagship_nets().items():
+        mlp.reset_parameters(gen)
+        mlp.to(dev)
+        ws = [w.detach() for w in mlp.flat_weights()]
+        for dtype in (torch.float32, torch.bfloat16):
+            got = pack_tile_weights(mlp, mlp.B, ws, dtype)
+            want = tile_pack_plain(mlp, mlp.B, ws, dtype)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want, strict=True)):
+                check(torch.equal(a, b), f"pack {name} {dtype}: slot {i} differs from the "
+                      "plain pack")
+            ms, tot["timed_by"] = device_ms(torch, lambda: pack_tile_weights(mlp, mlp.B, ws, dtype),
+                                            5)
+            plain_ms, _ = device_ms(torch, lambda: tile_pack_plain(mlp, mlp.B, ws, dtype), 5)
+            n_bytes = weight_bytes(mlp) + tile_layout(mlp, dtype)[1]
+            print(f"pack {name} {str(dtype)[6:]}: the same bits as the plain pack; device "
+                  f"{ms:.4f} ms ({tot['timed_by']}), plain {plain_ms:.4f} ms, bound "
+                  f"{1e3 * n_bytes / PEAK_BYTES:.4f} ms (bytes)")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bytes"] += n_bytes
+        mlp.cpu()
+    tot["bound_ms"], tot["bound_by"] = 1e3 * tot["bytes"] / PEAK_BYTES, "bytes"
+    print(f"pack, 4 nets x 2 operand types: {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+          f"ms, bound {tot['bound_ms']:.4f} ms")
+    return tot
+
+
+def phase_mlp(torch, dev):
+    """Phase 2: K1 on the four flagship nets (k1_net_report), its totals,
+    and the pack kernel."""
     gen = torch.Generator().manual_seed(1)
-    totals = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flops=0.0, err=0.0)
+    reports = {}
     for name, mlp in flagship_nets().items():
         mlp.reset_parameters(gen)
         mlp.to(dev)
         x = (torch.rand(N_POINTS, 3, generator=gen) - 0.5).to(dev)
-        weights = [w.detach() for w in mlp.flat_weights()]
-        with torch.no_grad():
-            got = fused_mlp_forward(mlp, x, mlp.B, weights)
-            want = SkipConnMLP.forward(mlp, x)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            arg = (x @ mlp.B).abs().max().item()
-            tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * arg
-            check(torch.isfinite(got).all().item(), f"K1 {name}: non-finite output")
-            check(bool((err <= tol).all()),
-                  f"K1 {name}: max |err| {err.max().item():.3e} over tolerance")
-            ms = cuda_ms(lambda: fused_mlp_forward(mlp, x, mlp.B, weights), 5)
-            plain_ms = cuda_ms(lambda: SkipConnMLP.forward(mlp, x), 5)
-        flops = 2.0 * mlp_macs(mlp) * N_POINTS
-        n_bytes = 4 * N_POINTS * (mlp.in_size + mlp.out_size) + weight_bytes(mlp)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        max_err = err.max().item()
-        rel = max_err / max(want.abs().max().item(), 1e-30)
-        print(f"K1 {name}: {N_POINTS} points, max |err| {max_err:.3e} "
-              f"(rel {rel:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
-        totals["ms"] += ms
-        totals["plain_ms"] += plain_ms
-        totals["bytes"] += n_bytes
-        totals["flops"] += flops
-        totals["err"] = max(totals["err"], max_err)
-    totals["bound_ms"], totals["bound_by"] = bound_ms(totals["bytes"], totals["flops"])
-    return totals
+        reports[name] = k1_net_report(torch, name, mlp, torch.float32, x)
+        mlp.cpu()
+    tot = k1_totals(reports, list(reports))
+    print(f"K1, 4 nets at {N_POINTS} points: tile {tot['ms']:.3f} ms, parent's kernel "
+          f"{tot['parent_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms (share {tot['bound_ms'] / tot['ms']:.3f}); one eval "
+          f"tile (11 launches) {tot['eval_tile_ms']:.3f} ms, parent's kernel "
+          f"{tot['eval_tile_parent_ms']:.3f} ms, bound {11 * tot['path_bound_ms']:.3f} ms")
+    check(all(r["same_bits"] for r in reports.values()),
+          "K1: the tile's float32 outputs are not the parent kernel's bits")
+    tot["pack"] = pack_report(torch, dev)
+    return tot
 
 
 def view_rays(torch, dev, elev=30.0, azim=45.0):
@@ -633,8 +819,8 @@ def march_times_main(root: str):
     theirs (shadow_shapes), and K3's and K3-bf16's at phase 5's, for the
     package in DIR (this checkout's by default), one JSON line, to compare
     two trees in one call; with a digest of K2's depths and hits at each
-    shape and of K3's indices (both operand types), to show two trees give
-    the same bits."""
+    shape, of K3's indices and of K4's flags (both operand types), to show
+    two trees give the same bits."""
     import hashlib
     import torch
     sys.path.insert(0, str(Path(root).resolve()))
@@ -665,15 +851,19 @@ def march_times_main(root: str):
         scan_ms.append(cuda_ms(lambda: k(surface, s_o, s_d, 2.2 / 128, steps=128), 5))
     k3_digest = digest.hexdigest()[:16]
     shadow = {}
+    digest = hashlib.sha256()
     module, shapes = shadow_shapes(torch, dev)
     for label, launches, steps, ple in shapes:
         kw = dict(max_steps=steps, epsilon=1e-3, past_light_exit=ple)
+        for k in (fused_shadow_march, fused_shadow_march_bf16):
+            for r_o, r_d, mt, _ in launches:
+                digest.update(k(module, r_o, r_d, mt, **kw).cpu().numpy().tobytes())
         shadow[label] = [[cuda_ms(lambda: k(module, r_o, r_d, mt, **kw), 5)
                           for r_o, r_d, mt, _ in launches]
                          for k in (fused_shadow_march, fused_shadow_march_bf16)]
     print(json.dumps({"package": neural_raytracing_tpu_torch.__file__, "march_ms": times,
                       "shadow_ms": shadow, "min_scan_ms": scan_ms, "k2_digest": k2_digest,
-                      "k3_digest": k3_digest}))
+                      "k3_digest": k3_digest, "k4_digest": digest.hexdigest()[:16]}))
 
 
 def flagship_scene(max_steps, march_bound):
@@ -738,6 +928,35 @@ def profile_step(torch, fn, label):
         print(f"    {1e-3 * e.self_device_time_total:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
     print(f"    {1e-3 * sum(e.self_device_time_total for e in rest):9.3f} ms  "
           f"x{sum(e.count for e in rest):<5d} the other {len(rest)} kernels")
+    k1 = {label: [e for e in kernels if any(k in e.key for k in keys)] for label, keys in (
+        ("K1 tile", ("nrt_mlp_tile_f32_kernel",)), ("K1-bf16 tile", ("nrt_mlp_tile_bf16_kernel",)),
+        ("K1 first kernel", ("nrt_fused_mlp_kernel",)), ("pack", ("nrt_mlp_tile_pack_kernel",)))}
+    print("    K1: " + ", ".join(
+        f"{label} {1e-3 * sum(e.self_device_time_total for e in es):.3f} ms x"
+        f"{sum(e.count for e in es)}" for label, es in k1.items()))
+
+
+def k1_routes(label) -> dict:
+    """K1's and K1-bf16's launches by route since the counts were reset:
+    every fused net of the main paths takes the tile."""
+    from neural_raytracing_tpu_torch.kernels import route_counts
+    routes = route_counts()
+    check(all(r["general"] == 0 for r in routes.values()),
+          f"{label}: a fused net took K1's general route: {routes}")
+    return routes
+
+
+def packed_nets(scene) -> int:
+    """The (net, operand type) pairs the tile kernels pack in ``scene``:
+    each fused MLP at its compute dtype, and each SDF's shift net at its
+    march dtype (K2-K4 read it from the same cache)."""
+    from neural_raytracing_tpu_torch.kernels import FusedSkipConnMLP, supports
+    from neural_raytracing_tpu_torch.shapes import SDF
+    pairs = {(id(m), m.compute_dtype) for m in scene.modules()
+             if isinstance(m, FusedSkipConnMLP)}
+    pairs |= {(id(m.module.shift), m.march_dtype) for m in scene.modules()
+              if isinstance(m, SDF) and supports(m.module)}
+    return len(pairs)
 
 
 def phase_slice(torch, dev, label, max_steps, march_bound, views, profile=False):
@@ -750,6 +969,9 @@ def phase_slice(torch, dev, label, max_steps, march_bound, views, profile=False)
     reset_launch_counts()
     got, secs = render_views(torch, scene, views, dev)
     counts = launch_counts()
+    routes = k1_routes(label)
+    # the warm-up view packed every net's weights; the counted views reuse them
+    check(counts["pack_tile_weights"] == 0, f"{label}: the views packed weights again")
     if profile:
         profile_step(torch, lambda: render_views(torch, scene, views[:1], dev),
                      "one view")
@@ -778,7 +1000,7 @@ def phase_slice(torch, dev, label, max_steps, march_bound, views, profile=False)
           f"{[round(1e3 * s, 1) for s in plain_secs]}; hit fraction "
           f"{frac:.4f}, mask agreement {agree:.6f}, mean |diff| "
           f"{diff.mean().item():.3e}, max |diff| {diff.max().item():.3e}; "
-          f"launches {counts}")
+          f"launches {counts}; K1 routes {routes}")
     return counts
 
 
@@ -1145,10 +1367,16 @@ def phase_train(torch, dev):
         torch.cuda.synchronize()
         secs = time.perf_counter() - start
         counts = launch_counts()
+        routes = k1_routes(label)
         check(len(losses) == iters and np.isfinite(losses).all(), f"{label}: loss {losses}")
+        # the optimizer's in-place update invalidates each net's pack: at most
+        # one pack a packed net and step
+        check(counts["pack_tile_weights"] <= packed_nets(scene) * iters,
+              f"{label}: {counts['pack_tile_weights']} packs in {iters} steps")
         print(f"{label}: {iters} steps, {iters / secs:.3f} steps/s, "
               f"{iters * N_RAYS / secs:,.0f} rays/s, {1e3 * secs / iters:.1f} ms/step, "
-              f"losses {[round(x, 3) for x in losses]}; launches {counts}")
+              f"losses {[round(x, 3) for x in losses]}; launches {counts}; K1 routes "
+              f"{routes}")
         return counts, secs / iters
 
     run(2, "training warm-up", 100)
@@ -1158,7 +1386,7 @@ def phase_train(torch, dev):
           f"device time 221.5 ms, K3 119.9 ms of it")
     changed = sum(not torch.equal(before[k], p) for k, p in scene.named_parameters())
     check(changed > 0, "training: no parameter changed")
-    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan"):
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "pack_tile_weights"):
         check(counts[name] > 0, f"training: kernel {name} was not launched on the path")
     launches = dict(counts)
     routes = {}
@@ -1571,6 +1799,7 @@ def phase_nerv_eval(torch, dev):
         reset_launch_counts()
         _, got, s_view = nerv_evaluate(torch, scene, camera_fn, NERV_VIEWS, locs)
         counts[occlusion] = launch_counts()
+        k1_routes(f"NeRV eval ({occlusion})")
         check(scene.lights.location.shape == (3, 3), "evaluate changed the light location")
         for name in ("fused_mlp_forward", "fused_march", "fused_shadow_march"):
             check(counts[occlusion][name] > 0,
@@ -1607,6 +1836,7 @@ def phase_nerv_eval(torch, dev):
     reset_launch_counts()
     _, got, s_view = nerv_evaluate(torch, scene, camera_fn, 1, locs)
     counts["fused_sdf"] = launch_counts()
+    k1_routes("NeRV eval (fused_sdf)")
     for name in ("fused_sphere_sdf", "fused_march", "fused_shadow_march"):
         check(counts["fused_sdf"][name] > 0,
               f"NeRV eval (fused_sdf): kernel {name} was not launched on the path")
@@ -1730,6 +1960,7 @@ def phase_nerv_train(torch, dev):
     torch.cuda.synchronize()
     secs = (time.perf_counter() - start) / iters
     counts = launch_counts()
+    k1_routes("NeRV training")
     check(len(losses) == iters and np.isfinite(losses).all(), f"NeRV training: loss {losses}")
     for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
         check(counts[name] > 0, f"NeRV training: kernel {name} was not launched on the path")
@@ -2067,6 +2298,7 @@ def phase_relaxed_march(torch, dev):
             secs[omega] = (time.perf_counter() - start) / ORBIT_FRAMES
             if omega == OMEGA:
                 counts = launch_counts()
+                k1_routes("orbit render")
     check(counts["fused_march"] > 0, "orbit render: K2 was not launched on the path")
     check(all(np.isfinite(f).all() for f in frames.values()), "orbit render: non-finite")
     diff = np.abs(frames[OMEGA] - frames[1.0])
@@ -2135,6 +2367,34 @@ def check_k1_bf16(label, got, want, got_f32, want_f32):
                 gap=gap, moved=moved)
 
 
+def bf16_k1(torch, dev) -> dict:
+    """Phase 16's K1-bf16: k1_net_report on BF16_NETS, beside the f32 tile on
+    the same points, and its totals."""
+    from neural_raytracing_tpu_torch.kernels import fused_mlp_forward
+    gen = torch.Generator().manual_seed(1)
+    nets = flagship_nets()
+    reports = {}
+    for name in BF16_NETS:
+        mlp = nets[name]
+        mlp.reset_parameters(gen)
+        mlp.to(dev)
+        x = (torch.rand(N_POINTS, 3, generator=gen) - 0.5).to(dev)
+        reports[name] = k1_net_report(torch, name, mlp, torch.bfloat16, x)
+        ws = [w.detach() for w in mlp.flat_weights()]
+        with torch.no_grad():
+            reports[name]["f32_ms"] = cuda_ms(lambda: fused_mlp_forward(mlp, x, mlp.B, ws), 5)
+        mlp.cpu()
+    tot = k1_totals(reports, list(BF16_NETS))
+    tot["f32_ms"] = sum(r["f32_ms"] for r in reports.values())
+    print(f"K1-bf16, 3 nets: tile {tot['ms']:.3f} ms (f32 tile {tot['f32_ms']:.3f} ms), "
+          f"parent's kernel {tot['parent_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms (tensor cores {tot['tensor_core_bound_ms']:.4f}, "
+          f"elementwise floor {tot['elementwise_floor_ms']:.4f}), f32-FMA bound "
+          f"{tot['f32_bound_ms']:.3f} ms; one eval tile's 10 launches {tot['eval_tile_ms']:.3f} "
+          f"ms, parent's kernel {tot['eval_tile_parent_ms']:.3f} ms")
+    return tot
+
+
 def phase_bf16_kernels(torch, dev, k4_steps):
     """K1-bf16 on three flagship nets, K2-bf16 (bounded, unbounded, omega 1.4)
     and K3-bf16 on phase 3's non-zero surface, K4-bf16 at phase 8's shapes
@@ -2142,54 +2402,14 @@ def phase_bf16_kernels(torch, dev, k4_steps):
     for its schedule model): each against its plain version, beside its f32
     kernel on the same inputs."""
     from neural_raytracing_tpu_torch.kernels import (
-        fused_march, fused_march_bf16, fused_mlp_forward, fused_mlp_forward_bf16,
-        fused_shadow_march, fused_shadow_march_bf16, march_plain,
-        mlp_forward_bf16_operands, set_kernel_mode, sphere_sdf_eval_plain,
+        fused_march, fused_march_bf16, fused_mlp_forward, fused_shadow_march,
+        fused_shadow_march_bf16, march_plain, set_kernel_mode, sphere_sdf_eval_plain,
     )
-    from neural_raytracing_tpu_torch.nn import SkipConnMLP
     from neural_raytracing_tpu_torch.shapes import march_interval
 
     bf16 = torch.bfloat16
     out = {}
-    # K1-bf16
-    gen = torch.Generator().manual_seed(1)
-    nets = flagship_nets()
-    tot = dict(ms=0.0, f32_ms=0.0, plain_ms=0.0, bytes=0.0, macs=0.0, err=0.0)
-    for name in BF16_NETS:
-        mlp = nets[name]
-        mlp.reset_parameters(gen)
-        mlp.to(dev)
-        x = (torch.rand(N_POINTS, 3, generator=gen) - 0.5).to(dev)
-        ws = [w.detach() for w in mlp.flat_weights()]
-        with torch.no_grad():
-            got = fused_mlp_forward_bf16(mlp, x, mlp.B, ws)
-            got32 = fused_mlp_forward(mlp, x, mlp.B, ws)
-            want = mlp_forward_bf16_operands(mlp, x, mlp.B, ws)
-            want32 = SkipConnMLP.forward(mlp, x)
-            torch.cuda.synchronize()
-            st = check_k1_bf16(f"K1-bf16 {name}", got, want, got32, want32)
-            ms = cuda_ms(lambda: fused_mlp_forward_bf16(mlp, x, mlp.B, ws), 5)
-            ms32 = cuda_ms(lambda: fused_mlp_forward(mlp, x, mlp.B, ws), 5)
-            plain_ms = cuda_ms(lambda: mlp_forward_bf16_operands(mlp, x, mlp.B, ws), 5)
-        macs = float(mlp_macs(mlp)) * N_POINTS
-        n_bytes = 4 * N_POINTS * (mlp.in_size + mlp.out_size) + weight_bytes(mlp)
-        b_ms, _, f32_b = bf16_bounds(n_bytes, macs)
-        print(f"K1-bf16 {name}: {N_POINTS} points, rows within K1's tolerance "
-              f"{st['rows_ok']:.4f}, max |err| {st['max_err']:.3e}, mean |err| "
-              f"{st['mean_err']:.3e}; mean |plain bf16 - plain f32| {st['gap']:.3e}, mean "
-              f"|kernel bf16 - kernel f32| {st['moved']:.3e}; kernel {ms:.4f} ms (f32 kernel "
-              f"{ms32:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (bf16 tensor "
-              f"cores), f32-FMA bound {f32_b:.4f} ms")
-        for k, v in (("ms", ms), ("f32_ms", ms32), ("plain_ms", plain_ms),
-                     ("bytes", n_bytes), ("macs", macs)):
-            tot[k] += v
-        tot["err"] = max(tot["err"], st["max_err"])
-        mlp.cpu()
-    tot["bound_ms"], tot["bound_by"], tot["f32_bound_ms"] = bf16_bounds(tot["bytes"], tot["macs"])
-    out["k1"] = tot
-    print(f"K1-bf16, 3 nets: kernel {tot['ms']:.3f} ms (f32 kernel {tot['f32_ms']:.3f} ms), "
-          f"plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, f32-FMA bound "
-          f"{tot['f32_bound_ms']:.3f} ms")
+    out["k1"] = bf16_k1(torch, dev)
 
     # K2-bf16 on phase 3's rays and its non-zero surface
     module = march_surface(torch, dev)
@@ -2499,6 +2719,8 @@ def phase_bf16_flagship(torch, dev):
     reset_launch_counts()
     got, secs = render_views(torch, scene, views, dev)
     counts = launch_counts()
+    k1_routes("bf16 eval")
+    check(counts["pack_tile_weights"] == 0, "bf16 eval: the views packed weights again")
     f32_img, f32_secs = render_views(torch, f32_scene, views, dev)
     f32_secs += render_views(torch, f32_scene, views, dev)[1]
     secs += render_views(torch, scene, views, dev)[1]
@@ -2604,6 +2826,9 @@ def phase_bf16_flagship(torch, dev):
     reset_launch_counts()
     losses, step_s = run(scene, iters, 0)
     counts = launch_counts()
+    k1_routes("bf16 training")
+    check(0 < counts["pack_tile_weights"] <= packed_nets(scene) * iters,
+          f"bf16 training: {counts['pack_tile_weights']} packs in {iters} steps")
     f32_times = [run(f32_scene, iters, 0)[1], run(f32_scene, iters, 1)[1]]
     step_times = [step_s, run(scene, iters, 1)[1]]
     del f32_scene
@@ -2642,6 +2867,7 @@ def phase_bf16_nerv(torch, dev):
         reset_launch_counts()
         _, got, s_view = nerv_evaluate(torch, scene, camera_fn, NERV_VIEWS, locs)
         counts[occlusion] = launch_counts()
+        k1_routes(f"bf16 NeRV eval ({occlusion})")
         for name in ("fused_march_bf16", "fused_shadow_march_bf16"):
             check(counts[occlusion][name] > 0, f"bf16 NeRV eval: {name} was not launched")
         for name in ("fused_march", "fused_shadow_march"):
@@ -2712,6 +2938,9 @@ def main():
                 print(f"  {stem}: {line.strip()}")
 
     k1 = phase_mlp(torch, dev)
+    if sys.argv[1:2] == ["--k1"]:
+        bf16_k1(torch, dev)
+        return
     k2 = phase_march(torch, dev)
     k2_shapes = phase_march_shapes(torch, dev)
     eval_views = [(30.0, 45.0), (30.0, 165.0), (30.0, 285.0)]
@@ -2749,7 +2978,7 @@ def main():
                     "registers", "local_bytes", "live_row_share", "evals_per_ms",
                     "eval_tile_ms", "eval_chunk_ms", "eval_chunk_bound_ms",
                     "training_call_ms", "training_call_bound_ms", "path_ms",
-                    "path_bound_ms"):
+                    "path_bound_ms", "parent_ms", "eval_tile_ms", "eval_tile_parent_ms"):
             if key in m:
                 e[key] = m[key]
         return e
@@ -2764,8 +2993,11 @@ def main():
     k2["bounded"]["eval_tile_ms"] = k2_shapes["eval tile"]["ms"]
     kb16["k2 bounded"]["eval_tile_ms"] = k2_shapes["eval tile"]["bf16_ms"]
     kernels = [
-        entry("fused_mlp_forward", "fused_mlp.cu", "fused_mlp.py:129",
+        entry("fused_mlp_forward", "fused_mlp_tile.cu", "fused_mlp.py:129",
               counts["fused_mlp_forward"], k1),
+        entry("pack_tile_weights", "fused_mlp_tile.cu",
+              "fused_mlp.py:129 (the weights _pallas_forward hands its kernel, cast at :77-91)",
+              train_counts["pack_tile_weights"], k1["pack"]),
         entry("fused_march", "fused_march.cu", "fused_march.py:405",
               counts["fused_march"], k2["bounded"]),
         entry("fused_min_scan", "fused_minscan.cu", "fused_march.py:482",
@@ -2784,7 +3016,7 @@ def main():
               le_counts["fused_composite"], k8),
         entry("K2_relaxed_fused_march", "fused_march.cu", "fused_march.py:405",
               orbit_counts["fused_march"], k2r),
-        entry16("fused_mlp_forward_bf16", "fused_mlp.cu",
+        entry16("fused_mlp_forward_bf16", "fused_mlp_tile.cu",
               "fused_mlp.py:129 (bf16 operands: fused_mlp.py:44-91)",
               bf16_eval_counts["fused_mlp_forward_bf16"], kb16["k1"]),
         entry16("fused_march_bf16", "fused_march.cu",

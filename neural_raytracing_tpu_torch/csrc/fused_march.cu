@@ -27,7 +27,7 @@
 //     march_plan), each with M slots (march_slots.cuh, shared with the
 //     shadow march K4): the rows of the tiled SDF of
 //     mlp_tiled.cuh (the f32 register tile or the bf16 tensor-core tile,
-//     over the weights pack_shift_weights lays out; the same SDF code and
+//     over the weights of kernels/fused_mlp.py tile_layout; the same SDF code and
 //     double-buffered weight stream as the min-scan K3);
 //   * a step evaluates the SDF of every live slot at once; a slot whose ray
 //     hits, leaves its interval or runs out of steps writes depth and hit and

@@ -12,7 +12,7 @@
 // into mn as torch.minimum does.  The SDF is the tiled one of mlp_tiled.cuh
 // (nrt_f32_sdf / nrt_bf16_sdf, shared with the march K2): the sphere set of
 // sphere_set.cuh (both smooth-min forms) and the register-tiled shift net
-// over the weights kernels/fused_march.py packs.
+// over the weights of kernels/fused_mlp.py tile_layout.
 //
 // Bound on an H100: f32 FMA issue.  Every ray takes all steps + 1 samples,
 // (2 x 165,504 + 31 x 128) flops each for the flagship 8x128 shift net and

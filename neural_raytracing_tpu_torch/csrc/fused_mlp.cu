@@ -1,4 +1,6 @@
-// K1: fused Fourier-encode + SkipConnMLP forward.
+// K1: fused Fourier-encode + SkipConnMLP forward, its general route: the
+// nets off the tile of fused_mlp_tile.cu (in_size other than 3, hidden > 256
+// or freqs > 128; kernels/fused_mlp.py k1_route).
 //
 // Replaces the TPU kernel neural_raytracing_tpu/kernels/fused_mlp.py
 // (_pallas_forward / _build_kernel).  One thread block evaluates NRT_ROWS

@@ -1,8 +1,9 @@
-// Device-side SkipConnMLP shared by the fused MLP kernel (fused_mlp.cu), the
-// fused SDF (fused_sdf.cu) and the MLP backward (fused_mlp_bwd.cu), so every
-// kernel evaluates exactly the network the MLP kernel evaluates.  The march
-// K2, the min-scan K3 and the shadow march K4 evaluate their shift net on
-// the tiles of mlp_tiled.cuh instead.
+// Device-side SkipConnMLP shared by the fused MLP kernel's general route
+// (fused_mlp.cu: K1 for a net off the tile), the fused SDF (fused_sdf.cu) and
+// the MLP backward (fused_mlp_bwd.cu), so every kernel evaluates exactly the
+// network the MLP kernel evaluates.  The march K2, the min-scan K3, the
+// shadow march K4 and K1 for the nets the port builds (fused_mlp_tile.cu)
+// run on the tiles of mlp_tiled.cuh instead, with the same float32 sums.
 //
 // Math (neural_raytracing_tpu_torch/nn/mlp.py, the plain version):
 //   enc = [x, sin(x B), cos(x B)]
@@ -129,7 +130,10 @@ inline int nrt_launch(Kernel kernel, int grid, size_t smem, void* stream,
                       Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) {   // e.g. more shared memory than a block has
+    cudaGetLastError();       // not left for the next launch's check
+    return (int)err;
+  }
   if (grid == 0) return 0;
   kernel<<<grid, NRT_THREADS, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();

@@ -1,10 +1,15 @@
 // Register-tiled device SDF of the sphere-trace march K2 (fused_march.cu)
 // and the silhouette min-scan K3 (fused_minscan.cu): the sphere set's
 // smooth-min (sphere_set.cuh), the encoding and the shift net over the
-// packed weights that kernels/fused_march.py pack_shift_weights lays out,
+// packed weights of kernels/fused_mlp.py tile_layout (fused_mlp_tile.cu's
+// pack kernel writes them),
 // one code path for K2, K3 and the shadow march K4 (fused_shadow.cu)
 // (nrt_f32_sdf / nrt_bf16_sdf and the output layer nrt_f32_out /
-// nrt_bf16_out).  K1 and K5-K7 keep the device MLP of mlp.cuh.
+// nrt_bf16_out).  The fused MLP forward K1 (fused_mlp_tile.cu) runs the
+// same net without the sphere set (nrt_f32_net / nrt_bf16_net) over the
+// layout kernels/fused_mlp.py tile_layout gives, with out_size output
+// columns.  K5-K7, and K1 for a net off the tile, keep the device MLP of
+// mlp.cuh.
 //
 // A block evaluates the net on up to M rows at once; a caller with fewer
 // live rows (K2's and K4's tail) evaluates only the first 32 or M / 2 of them
@@ -18,10 +23,11 @@
 // every thread has finished reading the buffer, then overwrites the h rows.
 //
 // Widths: NP = 128 (hidden <= 128, M = 128 rows) or 256 (hidden <= 256,
-// M = 64 rows); EP = the encoding width 3 + 2 * freqs rounded up to 8 (f32)
-// or 16 (bf16).  Padded weight rows and columns and padded biases are zero,
-// so a padded output column is act(0), finite, and every later layer meets
-// it with a zero weight row: it adds exactly 0.
+// M = 64 rows; K1 gives an f32 buffer of 64 rows at NP 128); EP = the
+// encoding width 3 + 2 * freqs rounded up to 8 (f32) or 16 (bf16).  Padded
+// weight rows and columns and padded biases are zero, so a padded output
+// column is act(0), finite, and every later layer meets it with a zero
+// weight row: it adds exactly 0.
 //
 // Packed layout (the pointer table [B, init w, init b, layer 0 w, layer 0 b,
 // ..., out w, out b]):
@@ -32,7 +38,9 @@
 //          logical output column nrt_tiled_col(p);
 //   bf16   layer weights W^T [NP][K] bf16 (n-major, k contiguous): the
 //          "col" B operand of mma.m16n8k16;
-//   out w  [NP] float32 (bf16 values in the bf16 mode), out b [1].
+//   out w  [out_size][NP] float32 (bf16 values in the bf16 mode), k
+//          contiguous for each output column; out b [out_size].  The
+//          march kernels' shift net has out_size 1.
 // K of layer l: EP (l = 0, the init layer), NP + EP (hidden layer l - 1 is a
 // skip layer), NP otherwise.
 #pragma once
@@ -137,7 +145,8 @@ __device__ __forceinline__ void nrt_cp_async_commit() {
 // rows ((r / 4) * 64 + 4 ty + r % 4) by TN = NP/16 columns (tx + 16 c), TM x
 // TN = 64 sums.  With TM = 4 the tile covers the rows [0, 64), with TM = 2
 // the rows [0, 32) (2 ty + r), every thread still busy.  Activations are
-// stored k-major, act[k * LD + row], LD = M + 4.
+// stored k-major, act[k * LD + row], LD = M + 4 (M a template parameter of
+// the buffer's users, nrt_tiled_rows(NP) unless K1 gives its 64).
 // Per k a thread loads TM/4 float4 of activations and TN/4 float4 of weights
 // from shared memory for 64 FMAs.  W streams through two KC x NP buffers
 // with cp.async (NrtStream): chunk c + 1 loads while chunk c is used, one
@@ -154,10 +163,10 @@ __device__ __forceinline__ void nrt_f32_issue(const float* __restrict__ src, flo
 
 // acc += the KC k-rows of act at ac (rows of the thread's tile) x the chunk
 // wc of W, by fmaf in ascending k.
-template <int NP, int TM>
+template <int NP, int TM, int M = nrt_tiled_rows(NP)>
 __device__ __forceinline__ void nrt_f32_chunk(float (&acc)[TM][NP / 16], const float* ac,
                                               const float* wc) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, TN = NP / 16;
+  constexpr int LD = M + 4, TN = NP / 16;
   static_assert(TM == 2 || (TM % 4 == 0 && TM <= M / 16), "rows of a thread");
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
@@ -187,10 +196,10 @@ __device__ __forceinline__ void nrt_f32_chunk(float (&acc)[TM][NP / 16], const f
 
 // h rows of act = ACT(acc + bias) (the caller has synchronised: nobody
 // reads act any more).
-template <int NP, int ACT, int TM = nrt_tiled_rows(NP) / 16>
+template <int NP, int ACT, int TM = nrt_tiled_rows(NP) / 16, int M = nrt_tiled_rows(NP)>
 __device__ __forceinline__ void nrt_f32_store(const float (&acc)[TM][NP / 16],
                                               const float* __restrict__ bias, float* act) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, TN = NP / 16;
+  constexpr int LD = M + 4, TN = NP / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int c = 0; c < TN; ++c) {
@@ -436,15 +445,14 @@ __device__ __forceinline__ void nrt_tiled_sphere_min(const SphereSet& S, const f
 // which are dead from an evaluation's output layer until its init layer
 // writes them.
 // RING: the floats of the weight stream's buffers (NrtStream::RING).
-template <int NP, int RING = 2 * NRT_F32_KC * NP>
+template <int NP, int RING = 2 * NRT_F32_KC * NP, int M = nrt_tiled_rows(NP)>
 __host__ __device__ inline size_t nrt_f32_sdf_smem(int EP) {
-  constexpr int M = nrt_tiled_rows(NP);
   return sizeof(float) * ((size_t)RING + (size_t)(NP + EP) * (M + 4) + M);
 }
 
-template <int NP, int RING = 2 * NRT_F32_KC * NP>
+template <int NP, int RING = 2 * NRT_F32_KC * NP, int M = nrt_tiled_rows(NP)>
 struct NrtF32Tile {
-  static constexpr int kNP = NP;
+  static constexpr int kNP = NP, kM = M;   // kM: its rows (K1's 64 at NP 128)
   float* wbuf;   // [RING] the stream's buffers
   float* act;    // [NP + EP][M + 4]
   float* sm;     // [M]
@@ -453,18 +461,19 @@ struct NrtF32Tile {
   __device__ NrtF32Tile(float* smem, const TiledNet& m, int n_spheres)
       : wbuf(smem),
         act(smem + RING),
-        sm(act + (size_t)(NP + m.EP) * (nrt_tiled_rows(NP) + 4)),
+        sm(act + (size_t)(NP + m.EP) * (M + 4)),
         sph(act),
         ps(act + nrt_sphere_smem_floats(n_spheres)) {}
   // the end of the tile's shared memory
-  __device__ void* end() const { return sm + nrt_tiled_rows(NP); }
+  __device__ void* end() const { return sm + M; }
 };
 
-// Zeroes the encoding's padded rows (once per block).
+// Zeroes the encoding's padded rows (once per block; nrt_f32_net's first
+// barrier orders it before their reads).
 template <typename Tile>
 __device__ __forceinline__ void nrt_f32_sdf_init(const TiledNet& m, const Tile& T) {
   constexpr int NP = Tile::kNP;
-  constexpr int LD = nrt_tiled_rows(NP) + 4;
+  constexpr int LD = Tile::kM + 4;
   for (int i = threadIdx.x; i < (m.EP - m.E) * LD; i += blockDim.x)
     T.act[(size_t)(NP + m.E) * LD + i] = 0.f;
 }
@@ -473,17 +482,17 @@ __device__ __forceinline__ void nrt_f32_sdf_init(const TiledNet& m, const Tile& 
 // columns of the MAP::ROWS rows evaluated, with MAP::chunk (acc += 8 k-rows
 // of act x W) and MAP::store (the epilogue).  Each output's sum is the same
 // fmaf in ascending k in every map.
-template <int NP, int TM>
-struct NrtF32Wide {   // the 16 x 16 thread layout above: rows [0, 16 TM)
+template <int NP, int TM, int M = nrt_tiled_rows(NP)>
+struct NrtF32Wide {   // the 16 x 16 thread layout above: rows [0, 16 TM) of a tile of M
   static constexpr int ROWS = 16 * TM, R = TM, C = NP / 16;
   __device__ __forceinline__ static void chunk(float (&acc)[R][C], const float* ac,
                                                const float* wc) {
-    nrt_f32_chunk<NP, TM>(acc, ac, wc);
+    nrt_f32_chunk<NP, TM, M>(acc, ac, wc);
   }
   template <int ACT>
   __device__ __forceinline__ static void store(const float (&acc)[R][C],
                                                const float* __restrict__ bias, float* act) {
-    nrt_f32_store<NP, ACT, TM>(acc, bias, act);
+    nrt_f32_store<NP, ACT, TM, M>(acc, bias, act);
   }
 };
 
@@ -558,13 +567,12 @@ struct NrtF32Thin {
   }
 };
 
-// MAP: NrtF32Wide<NP, TM> (rows [0, 16 TM)) or NrtF32Thin<NP, ROWS>.
-template <int NP, int TM, int TPR = 0, typename MAP = NrtF32Wide<NP, TM>, typename Tile,
-          typename Stream>
-__device__ __forceinline__ void nrt_f32_sdf(const TiledNet& m, const SphereSet& S,
-                                            const Tile& T, Stream& W) {
-  constexpr int M = nrt_tiled_rows(NP), LD = M + 4, ROWS = MAP::ROWS, KC = Stream::KC;
-  nrt_tiled_sphere_min<M, ROWS, TPR>(S, T.sph, T.ps, T.sm);
+// The net on rows [0, MAP::ROWS) of the points T.ps: the encoding, then
+// every layer but the output layer, ending with a barrier.  MAP:
+// NrtF32Wide<NP, TM> (rows [0, 16 TM)) or NrtF32Thin<NP, ROWS>.
+template <int NP, typename MAP, typename Tile, typename Stream>
+__device__ __forceinline__ void nrt_f32_net(const TiledNet& m, const Tile& T, Stream& W) {
+  constexpr int LD = Tile::kM + 4, ROWS = MAP::ROWS, KC = Stream::KC;
   nrt_tiled_encode<ROWS>(m, T.ps, [&](int row, int c, float v) { T.act[(NP + c) * LD + row] = v; });
   // (the first chunk's barrier orders the encoding before its reads)
   float acc[MAP::R][MAP::C];
@@ -598,13 +606,25 @@ __device__ __forceinline__ void nrt_f32_sdf(const TiledNet& m, const SphereSet& 
   __syncthreads();
 }
 
+// The SDF: the spheres' smooth-min of the rows, then the net.
+template <int NP, int TM, int TPR = 0, typename MAP = NrtF32Wide<NP, TM>, typename Tile,
+          typename Stream>
+__device__ __forceinline__ void nrt_f32_sdf(const TiledNet& m, const SphereSet& S,
+                                            const Tile& T, Stream& W) {
+  nrt_tiled_sphere_min<nrt_tiled_rows(NP), MAP::ROWS, TPR>(S, T.sph, T.ps, T.sm);
+  nrt_f32_net<NP, MAP>(m, T, W);
+}
+
+// Output column j of a row: fmaf in ascending k, then the bias.
 template <typename Tile>
-__device__ __forceinline__ float nrt_f32_out(const TiledNet& m, const Tile& T, int row) {
+__device__ __forceinline__ float nrt_f32_out(const TiledNet& m, const Tile& T, int row,
+                                             int j = 0) {
   constexpr int NP = Tile::kNP;
-  constexpr int LD = nrt_tiled_rows(NP) + 4;
+  constexpr int LD = Tile::kM + 4;
+  const float* w = m.w_out + (size_t)j * NP;
   float o = 0.f;
-  for (int k = 0; k < m.H; ++k) o = fmaf(T.act[k * LD + row], __ldg(m.w_out + k), o);
-  return o + __ldg(m.b_out);
+  for (int k = 0; k < m.H; ++k) o = fmaf(T.act[k * LD + row], __ldg(w + k), o);
+  return o + __ldg(m.b_out + j);
 }
 
 // bf16: the weight stream's buffers, the activation buffer (row-major), the sphere
@@ -639,28 +659,36 @@ struct NrtBf16Tile {
   __device__ void* end() const { return sm + nrt_tiled_rows(NP); }
 };
 
-// Zeroes the encoding's padded columns and loads the sphere set (once per
-// block; the caller synchronises before the first evaluation).
+// Zeroes the encoding's padded columns (once per block; the caller
+// synchronises before the first evaluation).
 template <typename Tile>
-__device__ __forceinline__ void nrt_bf16_sdf_init(const TiledNet& m, const SphereSet& S,
-                                                  const Tile& T) {
+__device__ __forceinline__ void nrt_bf16_pad_init(const TiledNet& m, const Tile& T) {
   constexpr int NP = Tile::kNP;
   constexpr int M = nrt_tiled_rows(NP);
   for (int i = threadIdx.x; i < M * (m.EP - m.E); i += blockDim.x)
     T.act[(size_t)(i / (m.EP - m.E)) * T.lda + NP + m.E + i % (m.EP - m.E)] =
         __float2bfloat16(0.f);
+}
+
+// ... and loads the sphere set.
+template <typename Tile>
+__device__ __forceinline__ void nrt_bf16_sdf_init(const TiledNet& m, const SphereSet& S,
+                                                  const Tile& T) {
+  nrt_bf16_pad_init(m, T);
   nrt_load_spheres(S, T.sph);
 }
 
-// The bf16 operands of the JAX _make_sdf_eval: the rounded encoding, act of
-// the rounded encoding on the skip layers, every act(h) rounded, bf16
-// weights, float32 sums.  MI as nrt_bf16_chunk: rows [0, 16 MI M / 64).
-template <int NP, int MI, int TPR = 0, typename Tile, typename Stream>
-__device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet& S,
-                                             const Tile& T, Stream& W) {
+// The net on rows [0, ROWS) of the points T.ps with bf16 operands: the
+// encoding rounded, every act(h) rounded, bf16 weights, float32 sums; the
+// skip layers read the columns skip_operand() writes over the rounded
+// encoding after the init layer (the march's act of the rounded encoding,
+// or K1's act of the float32 one).  Ends with a barrier.  MI as
+// nrt_bf16_chunk: rows [0, 16 MI M / 64).
+template <int NP, int MI, typename Tile, typename Stream, typename SkipOperand>
+__device__ __forceinline__ void nrt_bf16_net(const TiledNet& m, const Tile& T, Stream& W,
+                                             SkipOperand skip_operand) {
   constexpr int M = nrt_tiled_rows(NP), ROWS = 16 * MI * (M / 64), KC = Stream::KC;
   const int lda = T.lda;
-  nrt_tiled_sphere_min<M, ROWS, TPR>(S, T.sph, T.ps, T.sm);
   // the encoding rounded to bf16
   nrt_tiled_encode<ROWS>(m, T.ps, [&](int row, int c, float v) {
     T.act[(size_t)row * lda + NP + c] = __float2bfloat16_rn(v);
@@ -681,19 +709,33 @@ __device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet&
     nrt_with_act(m.act, [&](auto a) {
       nrt_bf16_store<NP, decltype(a)::value, MI>(acc, m.b[l], T.act, lda);
     });
-    if (l == 0)   // the skip layers read act of the rounded encoding, rounded
-      for (int i = threadIdx.x; i < m.E * ROWS; i += blockDim.x) {
-        __nv_bfloat16* e = T.act + (size_t)(i % ROWS) * lda + NP + i / ROWS;
-        *e = __float2bfloat16_rn(nrt_act(__bfloat162float(*e), m.act));
-      }
+    if (l == 0) skip_operand();
   }
   __syncthreads();
 }
 
+// The SDF of the JAX _make_sdf_eval: the spheres' smooth-min, then the net
+// with the skip layers reading act of the rounded encoding, rounded.
+template <int NP, int MI, int TPR = 0, typename Tile, typename Stream>
+__device__ __forceinline__ void nrt_bf16_sdf(const TiledNet& m, const SphereSet& S,
+                                             const Tile& T, Stream& W) {
+  constexpr int M = nrt_tiled_rows(NP), ROWS = 16 * MI * (M / 64);
+  nrt_tiled_sphere_min<M, ROWS, TPR>(S, T.sph, T.ps, T.sm);
+  nrt_bf16_net<NP, MI>(m, T, W, [&] {
+    for (int i = threadIdx.x; i < m.E * ROWS; i += blockDim.x) {
+      __nv_bfloat16* e = T.act + (size_t)(i % ROWS) * T.lda + NP + i / ROWS;
+      *e = __float2bfloat16_rn(nrt_act(__bfloat162float(*e), m.act));
+    }
+  });
+}
+
+// Output column j of a row: fmaf in ascending k, then the bias.
 template <typename Tile>
-__device__ __forceinline__ float nrt_bf16_out(const TiledNet& m, const Tile& T, int row) {
+__device__ __forceinline__ float nrt_bf16_out(const TiledNet& m, const Tile& T, int row,
+                                              int j = 0) {
   const __nv_bfloat16* h = T.act + (size_t)row * T.lda;
+  const float* w = m.w_out + (size_t)j * Tile::kNP;
   float o = 0.f;
-  for (int k = 0; k < m.H; ++k) o = fmaf(__bfloat162float(h[k]), __ldg(m.w_out + k), o);
-  return o + __ldg(m.b_out);
+  for (int k = 0; k < m.H; ++k) o = fmaf(__bfloat162float(h[k]), __ldg(w + k), o);
+  return o + __ldg(m.b_out + j);
 }

@@ -11,20 +11,22 @@ from .composite import (
     composite_apply, composite_plain, fused_composite,
 )
 from .fused_march import (
-    MIN_SCAN_LIMITS, f32_column_order, fused_march, fused_march_bf16,
+    MIN_SCAN_LIMITS, fused_march, fused_march_bf16,
     fused_min_scan, fused_min_scan_bf16, fused_shadow_march,
     fused_shadow_march_bf16, march_info, march_plain, march_plan,
     march_slots_plain, min_scan_blocks_per_sm,
-    min_scan_plain, min_scan_plan, min_scan_segments, min_scan_widths,
-    pack_shift_weights, shadow_info, shadow_march_plain, shadow_plan, shadow_slots_plain,
+    min_scan_plain, min_scan_plan, min_scan_segments, shadow_info,
+    shadow_march_plain, shadow_plan, shadow_slots_plain,
     sphere_sdf_eval_plain, supports,
 )
 from .fused_mlp import (
-    FusedSkipConnMLP, ckpt_forward_plain, fused_mlp_apply, fused_mlp_backward,
+    TILE_LIMITS, FusedSkipConnMLP, ckpt_forward_plain, f32_column_order, fused_mlp_apply,
+    fused_mlp_backward,
     fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_forward_bf16,
-    fused_mlp_segment_backward, mlp_backward, mlp_backward_plain,
-    mlp_forward_bf16_operands, segment_backward_plain, segment_bounds,
-    segmented_backward,
+    fused_mlp_segment_backward, k1_route, mlp_backward, mlp_backward_plain,
+    mlp_forward_bf16_operands, pack_tile_weights, segment_backward_plain, segment_bounds,
+    segmented_backward, tile_forward_plain, tile_info, tile_layout, tile_pack,
+    tile_pack_key, tile_pack_plain, tile_pointers, tile_widths,
 )
 from .fused_sdf import (
     FusedSphereSDF, fused_sphere_sdf, fused_sphere_sdf_apply, sphere_sdf_plain,
@@ -45,16 +47,27 @@ KERNELS = {
     "fused_march_bf16": fused_march_bf16,
     "fused_min_scan_bf16": fused_min_scan_bf16,
     "fused_shadow_march_bf16": fused_shadow_march_bf16,
+    # K1's tile reads its weights packed by this kernel, once per net and version
+    "pack_tile_weights": pack_tile_weights,
 }
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in (fused_mlp_forward, fused_mlp_forward_bf16):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_counts() -> dict:
+    """K1's and K1-bf16's launches by route: ``{"fused_mlp_forward":
+    {"tile": n, "general": n}, "fused_mlp_forward_bf16": {...}}``."""
+    return {name: dict(KERNELS[name].route_launches)
+            for name in ("fused_mlp_forward", "fused_mlp_forward_bf16")}
 
 
 def set_kernel_mode(module: nn.Module, mode: str):

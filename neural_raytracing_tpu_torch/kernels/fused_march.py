@@ -24,7 +24,8 @@ its SDF (``csrc/mlp_tiled.cuh`` over ``csrc/sphere_set.cuh``) with K2, a
 register-tiled shift net: four samples of 32 rays (128 rows) share one
 evaluation, each thread an 8 x 8 tile of a layer's output on the CUDA
 cores, the weights streamed once per block and layer through shared memory
-in the layout ``pack_shift_weights`` makes.
+in the layout of ``kernels/fused_mlp.py`` ``tile_layout``, packed once per
+net and weight version by the pack kernel K1 uses (``tile_pack``).
 Every ray takes all samples; it is bound by the f32 FMA rate.  To fill
 the card's last wave of blocks, each ray's samples may be split into
 segments run by separate blocks and merged by a second kernel
@@ -78,7 +79,8 @@ import torch
 from ..nn.mlp import SkipConnMLP, check_compute_dtype
 from ._build import library
 from .fused_mlp import (
-    ACT_CODES, MAX_LAYERS, check_cuda_f32, mlp_forward_bf16_operands, weight_pointers,
+    ACT_CODES, MAX_LAYERS, check_cuda_f32, mlp_forward_bf16_operands, tile_pointers,
+    weight_pointers,
 )
 from .fused_sdf import sphere_min_plain, sphere_sdf_plain
 
@@ -335,7 +337,7 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
     the ``[t_start, max_t]`` interval (bounded); ``omega`` in [1, 2) is the
     over-relaxation of ``march_plain``; ``compute_dtype=torch.bfloat16``
     launches K2-bf16 (counted as ``fused_march_bf16``).  The shift net's
-    weights are packed once per call (``pack_shift_weights``).  ``stats``, an
+    weights are packed once per weight version (``tile_pack``).  ``stats``, an
     int64 CUDA tensor ``[3]``, gets the launch's tile steps, rows evaluated
     and live rows added to it.  Launches on the current stream and does not
     synchronise.
@@ -368,8 +370,7 @@ def fused_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
     # the tensors stay alive until the launch
     spheres, _tensors = _spheres(module, device)
     mlp = module.shift
-    packed = pack_shift_weights(mlp, compute_dtype)
-    ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
+    ptrs = tile_pointers(mlp, mlp.B, mlp.flat_weights(), device, compute_dtype)
     depths = torch.empty(n, device=device, dtype=torch.float32)
     hit = torch.empty(n, device=device, dtype=torch.bool)
     state = torch.empty(n, 4, device=device, dtype=torch.float32)
@@ -437,91 +438,6 @@ def check_min_scan_widths(module, kernel: str = "fused_min_scan") -> None:
         if sizes[name] > limit:
             raise ValueError(f"{kernel} takes at most {name} = {limit}, "
                              f"got {sizes[name]}")
-
-
-def min_scan_widths(mlp, compute_dtype=torch.float32):
-    """``(NP, EP)``: the padded hidden width (128 or 256) and encoding width
-    (a multiple of 8, or 16 with bf16 operands) of K3's packed layout."""
-    r = 16 if check_compute_dtype(compute_dtype) == torch.bfloat16 else 8
-    return (128 if mlp.hidden_size <= 128 else 256), -(-mlp.enc_size // r) * r
-
-
-def f32_column_order(np_width: int) -> torch.Tensor:
-    """The logical output column of each physical column of a packed f32
-    matrix (``nrt_tiled_col`` of ``csrc/mlp_tiled.cuh``)."""
-    p = torch.arange(np_width)
-    return (p % 64) // 4 + 16 * (4 * (p // 64) + p % 4)
-
-
-@torch.no_grad()
-def pack_shift_weights(mlp: SkipConnMLP, compute_dtype=torch.float32) -> list:
-    """The shift net's weights as K3 reads them (``csrc/mlp_tiled.cuh``), in
-    kernel order ``[B, init w, init b, layer 0 w, layer 0 b, ..., out w,
-    out b]``, on the net's device.
-
-    With ``(NP, EP) = min_scan_widths(mlp, compute_dtype)``, the activation
-    buffer holds h at rows ``[0, NP)`` and the encoding (then ``act(enc)``)
-    at ``[NP, NP + EP)``; a layer's matrix has a row for each buffer row it
-    reads: the init layer the ``EP`` encoding rows, a skip layer all
-    ``NP + EP``, any other layer the ``NP`` h rows.  The layer's weights sit
-    in the rows of their inputs and in its first ``hidden_size`` columns;
-    every other entry, and the biases past ``hidden_size``, are zero.
-      - float32: each matrix ``[K, NP]`` float32, its columns in the order
-        of ``f32_column_order(NP)`` (physical column p holds logical column
-        ``f32_column_order(NP)[p]``);
-      - bfloat16: each matrix transposed, ``[NP, K]`` bf16, the one cast of
-        each weight (as ``operand_weights``);
-    biases ``[NP]`` float32; out w ``[NP]`` float32 (rounded to bf16 with
-    bf16 operands), out b ``[1]``; ``B`` as the module's.
-    """
-    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
-    NP, EP = min_scan_widths(mlp, compute_dtype)
-    H, E = mlp.hidden_size, mlp.enc_size
-    ws = [w.detach() for w in mlp.flat_weights()]
-    dev = ws[0].device
-    order = f32_column_order(NP).to(dev)
-
-    def matrix(w, h_rows: bool, enc_rows: bool):
-        k_h = NP if h_rows else 0
-        out = torch.zeros(k_h + (EP if enc_rows else 0), NP, device=dev)
-        if h_rows:
-            out[:H, :H] = w[:H]
-        if enc_rows:
-            out[k_h:k_h + E, :H] = w[H if h_rows else 0:]
-        if bf16:
-            return out.t().contiguous().to(compute_dtype)
-        return out[:, order].contiguous()
-
-    def vector(v):
-        out = torch.zeros(NP, device=dev)
-        out[:H] = v
-        return out
-
-    packed = [mlp.B.detach().contiguous(), matrix(ws[0], False, True), vector(ws[1])]
-    for i in range(mlp.num_layers):
-        packed += [matrix(ws[2 + 2 * i], True, mlp.is_skip_layer(i)),
-                   vector(ws[3 + 2 * i])]
-    out_w = vector(ws[-2][:, 0])
-    if bf16:
-        out_w = out_w.to(compute_dtype).float()
-    return packed + [out_w, ws[-1].contiguous()]
-
-
-def _packed_pointers(mlp, packed, device, compute_dtype):
-    """Check the packed tensors on ``device`` -> the C pointer table."""
-    NP, EP = min_scan_widths(mlp, compute_dtype)
-    bf16 = compute_dtype == torch.bfloat16
-    check_cuda_f32("B", packed[0], (mlp.in_size, mlp.freqs), device)
-    for l in range(mlp.num_layers + 1):
-        k = EP if l == 0 else (NP + EP if mlp.is_skip_layer(l - 1) else NP)
-        if bf16:
-            check_cuda_f32(f"packed w {l}", packed[1 + 2 * l], (NP, k), device, compute_dtype)
-        else:
-            check_cuda_f32(f"packed w {l}", packed[1 + 2 * l], (k, NP), device)
-        check_cuda_f32(f"packed b {l}", packed[2 + 2 * l], (NP,), device)
-    check_cuda_f32("packed out w", packed[-2], (NP,), device)
-    check_cuda_f32("packed out b", packed[-1], (1,), device)
-    return (_P * len(packed))(*(t.data_ptr() for t in packed))
 
 
 # samples of one ray per evaluation (NRT_TILE_U of csrc/mlp_tiled.cuh)
@@ -640,7 +556,7 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     card it is read there, so a jittered step costs no synchronisation).
     ``compute_dtype=torch.bfloat16`` launches K3-bf16 (counted as
     ``fused_min_scan_bf16``).  The shift net's weights are packed once per
-    call (``pack_shift_weights``).  Launches on the current stream and does
+    weight version (``tile_pack``).  Launches on the current stream and does
     not synchronise.
     """
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
@@ -657,8 +573,7 @@ def fused_min_scan(module, r_o: torch.Tensor, r_d: torch.Tensor, step, *,
     # the tensors stay alive until the launch
     spheres, _tensors = _spheres(module, device)
     mlp = module.shift
-    packed = pack_shift_weights(mlp, compute_dtype)
-    ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
+    ptrs = tile_pointers(mlp, mlp.B, mlp.flat_weights(), device, compute_dtype)
     idx = torch.empty(n, device=device, dtype=torch.float32)
     segments = min_scan_plan(module, n, steps, compute_dtype, device)
     part_m = torch.empty(segments * n if segments > 1 else 0, device=device)
@@ -808,7 +723,7 @@ def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
 
     ``max_t`` is a scalar or per-ray; ``compute_dtype=torch.bfloat16``
     launches K4-bf16 (counted as ``fused_shadow_march_bf16``).  The shift
-    net's weights are packed once per call (``pack_shift_weights``);
+    net's weights are packed once per weight version (``tile_pack``);
     ``shadow_plan`` gives the blocks and their slots.  ``stats``, an int64
     CUDA tensor
     ``[3]``, gets the launch's tile steps, rows evaluated and live rows added
@@ -830,8 +745,7 @@ def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
     # the tensors stay alive until the launch
     spheres, _tensors = _spheres(module, device)
     mlp = module.shift
-    packed = pack_shift_weights(mlp, compute_dtype)
-    ptrs = _packed_pointers(mlp, packed, device, compute_dtype)
+    ptrs = tile_pointers(mlp, mlp.B, mlp.flat_weights(), device, compute_dtype)
     not_blocked = torch.empty(n, device=device, dtype=torch.bool)
     state = torch.empty(n, 2, device=device, dtype=torch.float32)
     queue = torch.empty(1, device=device, dtype=torch.int32)

@@ -2,22 +2,32 @@
 backward, CUDA kernels for Hopper.
 
 K1 replaces the TPU kernel ``neural_raytracing_tpu/kernels/fused_mlp.py``
-(``_pallas_forward``, body ``_build_kernel``).  The kernel
-(``csrc/fused_mlp.cu`` over the device MLP in ``csrc/mlp.cuh``) evaluates a
-whole net per block of 32 points with every intermediate in shared memory;
-it is bound by the f32 FMA rate.  Its plain version is
-``SkipConnMLP.forward`` (``nn/mlp.py``).
+(``_pallas_forward``, body ``_build_kernel``), bound by the f32 FMA rate.
+It has two routes, chosen by the net's shape before the launch
+(``k1_route``): a net with ``in_size`` 3, ``hidden_size`` <= 256,
+``freqs`` <= 128 and at most 32 layers (every fused net the port builds)
+takes the tile (``csrc/fused_mlp_tile.cu`` over the register and
+tensor-core tiles of ``csrc/mlp_tiled.cuh`` that K2-K4 use), any other the
+first kernel (``csrc/fused_mlp.cu`` over the device MLP of
+``csrc/mlp.cuh``, 32 points a block).  The tile reads the weights packed
+once per net and weight version (``tile_pack``: one launch of
+``pack_tile_weights``, cached for the module; K2-K4 read their shift net
+from the same cache) and evaluates 64 rows a block: the whole tile at
+``hidden_size`` > 128, half of the 128-row tile below, whose two blocks a
+SM finish the path's launches sooner.  Both routes give the same float32
+bits.  Its plain version is ``SkipConnMLP.forward`` (``nn/mlp.py``).
 
 K1-bf16 (``fused_mlp_forward_bf16``) is K1 for a net with
 ``compute_dtype=torch.bfloat16``, the JAX ``_build_kernel`` with
 ``compute_dtype=bfloat16``: every matmul operand is rounded to bf16 (the
 encoding, ``act(enc)`` of the float32 encoding on the skip layers, every
 ``act(h)``, the weight matrices), the products accumulate in float32, and
-``x @ B``, sin/cos and the biases stay float32.  The same kernel source
-compiles it over the ``NRT_BF16_MLP`` operands of ``csrc/mlp.cuh``; the
-wrapper casts the weight matrices to bf16 once per call.  Its plain version
-is ``mlp_forward_bf16_operands``.  The product of two bf16 values is exact
-in float32, so kernel and plain version differ by float32 sums in another
+``x @ B``, sin/cos and the biases stay float32.  The tile runs its products
+on the tensor cores (``mma.sync``), over the weights the pack casts; the
+first kernel over the ``NRT_BF16_MLP`` operands of ``csrc/mlp.cuh``, with
+the weight matrices cast once per call.  Its plain version is
+``mlp_forward_bf16_operands``.  The product of two bf16 values is exact in
+float32, so kernel and plain version differ by float32 sums in another
 order (and by a bf16 rounding that such a difference tips over).
 
 K6 (``fused_mlp_backward``, replacing ``_pallas_backward``) and K7
@@ -55,6 +65,8 @@ of the function the K1-bf16 forward computed; the port keeps this.
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import numpy as np
 import torch
@@ -78,6 +90,16 @@ def _lib() -> ctypes.CDLL:
     lib.nrt_fused_mlp_forward.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _P, _P]
     lib.nrt_fused_mlp_forward.restype = _I
+    return lib
+
+
+def _tile_lib() -> ctypes.CDLL:
+    lib = library("fused_mlp_tile")
+    lib.nrt_mlp_tile_forward.argtypes = [_P, _P, *_NET, _I, _P, _P]
+    lib.nrt_mlp_tile_info.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.nrt_mlp_tile_pack.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P]
+    for fn in (lib.nrt_mlp_tile_forward, lib.nrt_mlp_tile_info, lib.nrt_mlp_tile_pack):
+        fn.restype = _I
     return lib
 
 
@@ -113,66 +135,355 @@ def operand_weights(weights, compute_dtype):
     return out
 
 
-def weight_pointers(mlp: SkipConnMLP, basis: torch.Tensor, weights,
-                    device: torch.device, compute_dtype=torch.float32):
-    """Check the net's tensors and pack their addresses in kernel order
-    ``[B, init_w, init_b, layer_w, layer_b, ..., out_w, out_b]``; the
-    matrices are of ``compute_dtype``, everything else float32."""
+def weight_shapes(mlp: SkipConnMLP) -> list:
+    """The shapes of ``[B, init_w, init_b, layer_w, layer_b, ..., out_w,
+    out_b]``, the kernels' order."""
+    H = mlp.hidden_size
+    shapes = [(mlp.in_size, mlp.freqs), (mlp.enc_size, H), (H,)]
+    for i in range(mlp.num_layers):
+        shapes += [(mlp.skip_size if mlp.is_skip_layer(i) else H, H), (H,)]
+    return shapes + [(H, mlp.out_size), (mlp.out_size,)]
+
+
+def check_weights(mlp: SkipConnMLP, basis: torch.Tensor, weights,
+                  device: torch.device, compute_dtype=torch.float32) -> list:
+    """Raise unless the net's tensors are contiguous CUDA tensors on
+    ``device`` of their shapes, the matrices of ``compute_dtype`` and
+    everything else float32 -> them in kernel order ``[B, init_w, init_b,
+    layer_w, layer_b, ..., out_w, out_b]``."""
     if mlp.latent_size:
         raise ValueError("the fused MLP kernel takes no latent input")
     if mlp.num_layers > MAX_LAYERS:
         raise ValueError(f"the fused MLP kernel takes at most {MAX_LAYERS} "
                          f"layers, got {mlp.num_layers}")
-    H = mlp.hidden_size
-    shapes = [(mlp.in_size, mlp.freqs), (mlp.enc_size, H), (H,)]
-    for i in range(mlp.num_layers):
-        shapes += [(mlp.skip_size if mlp.is_skip_layer(i) else H, H), (H,)]
-    shapes += [(H, mlp.out_size), (mlp.out_size,)]
+    shapes = weight_shapes(mlp)
     tensors = [basis, *weights]
     if len(tensors) != len(shapes):
         raise ValueError(f"expected {len(shapes)} weight tensors, got {len(tensors)}")
     for i, (t, shape) in enumerate(zip(tensors, shapes)):
         dtype = compute_dtype if i % 2 == 1 else torch.float32   # the matrices
         check_cuda_f32(f"weight {i}", t, shape, device, dtype)
+    return tensors
+
+
+def weight_pointers(mlp: SkipConnMLP, basis: torch.Tensor, weights,
+                    device: torch.device, compute_dtype=torch.float32):
+    """``check_weights``, then the tensors' addresses in kernel order as a
+    C pointer table."""
+    tensors = check_weights(mlp, basis, weights, device, compute_dtype)
     return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+# ---- K1's routes ----------------------------------------------------------------
+
+# the nets the tile takes (csrc/fused_mlp_tile.cu, csrc/mlp_tiled.cuh)
+TILE_LIMITS = {"in_size": 3, "hidden_size": 256, "freqs": 128, "num_layers": MAX_LAYERS}
+ROUTES = ("tile", "general")
+
+
+def k1_route(mlp: SkipConnMLP) -> str:
+    """The K1 kernel ``mlp`` takes, by its shape: "tile" within
+    ``TILE_LIMITS``, else "general" (the first kernel, whose C entry
+    refuses a net past the block's shared memory).  Raises ValueError,
+    before anything touches a device, for a net neither takes: a latent or
+    more than ``MAX_LAYERS`` layers."""
+    if mlp.latent_size:
+        raise ValueError("the fused MLP kernel takes no latent input")
+    if mlp.num_layers > MAX_LAYERS:
+        raise ValueError(f"the fused MLP kernel takes at most {MAX_LAYERS} "
+                         f"layers, got {mlp.num_layers}")
+    if (mlp.in_size == TILE_LIMITS["in_size"]
+            and all(getattr(mlp, k) <= v for k, v in TILE_LIMITS.items() if k != "in_size")):
+        return "tile"
+    return "general"
+
+
 def fused_mlp_forward(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor,
-                      weights, compute_dtype=torch.float32) -> torch.Tensor:
+                      weights, compute_dtype=torch.float32, *, route=None) -> torch.Tensor:
     """Launch K1: ``x [n, in_size] -> [n, out]`` on CUDA tensors, with
     float32 or (K1-bf16, counted as ``fused_mlp_forward_bf16``) bf16
-    operands.
+    operands, through ``k1_route(mlp)``'s kernel.
 
-    ``weights`` are in ``SkipConnMLP.flat_weights`` order.  Launches on the
-    current stream and does not synchronise.
+    ``weights`` are in ``SkipConnMLP.flat_weights`` order, float32 on
+    ``x``'s device.  For measuring, ``route="general"`` runs the first
+    kernel on a tile net.  Launches on the current stream and does not
+    synchronise.
     """
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    chosen = k1_route(mlp)
+    route = chosen if route is None else route
+    if route not in ROUTES or (route == "tile" and chosen != "tile"):
+        raise ValueError(f"fused_mlp_forward: route {route!r} does not take this net "
+                         f"(its route is {chosen!r})")
     n = x.shape[0]
     check_cuda_f32("x", x, (n, mlp.in_size))
-    weights = operand_weights(weights, compute_dtype)   # alive until the launch
-    ptrs = weight_pointers(mlp, basis, weights, x.device, compute_dtype)
     out = torch.empty(n, mlp.out_size, device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    net = _net_args(mlp, n)
     with torch.cuda.device(x.device):
-        rc = _lib().nrt_fused_mlp_forward(
-            x.data_ptr(), out.data_ptr(), n, mlp.in_size, mlp.freqs,
-            mlp.hidden_size, mlp.num_layers, mlp.skip, mlp.out_size,
-            ACT_CODES[mlp.activation_name], int(bf16), ptrs,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if route == "tile":
+            ptrs = tile_pointers(mlp, basis, weights, x.device, compute_dtype)
+            rc = _tile_lib().nrt_mlp_tile_forward(
+                x.data_ptr(), out.data_ptr(), *net, int(bf16), ptrs, stream)
+        else:
+            weights = operand_weights(weights, compute_dtype)   # alive until the launch
+            ptrs = weight_pointers(mlp, basis, weights, x.device, compute_dtype)
+            rc = _lib().nrt_fused_mlp_forward(
+                x.data_ptr(), out.data_ptr(), *net, int(bf16), ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"fused_mlp_forward: CUDA error {rc} at launch")
     if n > 0:
-        (fused_mlp_forward_bf16 if bf16 else fused_mlp_forward).launches += 1
+        wrapper = fused_mlp_forward_bf16 if bf16 else fused_mlp_forward
+        wrapper.launches += 1
+        wrapper.route_launches[route] += 1
     return out
 
 
 def fused_mlp_forward_bf16(mlp: SkipConnMLP, x: torch.Tensor,
-                           basis: torch.Tensor, weights) -> torch.Tensor:
+                           basis: torch.Tensor, weights, **kw) -> torch.Tensor:
     """Launch K1-bf16: ``fused_mlp_forward`` with bf16 operands."""
-    return fused_mlp_forward(mlp, x, basis, weights, torch.bfloat16)
+    return fused_mlp_forward(mlp, x, basis, weights, torch.bfloat16, **kw)
 
 
 fused_mlp_forward.launches = 0
 fused_mlp_forward_bf16.launches = 0
+# launches by route ("tile", "general"); launches is their sum
+fused_mlp_forward.route_launches = dict.fromkeys(ROUTES, 0)
+fused_mlp_forward_bf16.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+# ---- the tile's weights: layout, pack, cache -------------------------------------
+
+def tile_widths(mlp: SkipConnMLP, compute_dtype=torch.float32):
+    """``(NP, EP)``: the padded hidden width (128 or 256) and encoding width
+    (a multiple of 8, or 16 with bf16 operands) of the tile's packed layout
+    (``csrc/mlp_tiled.cuh``; K2-K4's shift net has the same)."""
+    r = 16 if check_compute_dtype(compute_dtype) == torch.bfloat16 else 8
+    return (128 if mlp.hidden_size <= 128 else 256), -(-mlp.enc_size // r) * r
+
+
+def f32_column_order(np_width: int) -> torch.Tensor:
+    """The logical output column of each physical column of a packed f32
+    matrix (``nrt_tiled_col`` of ``csrc/mlp_tiled.cuh``)."""
+    p = torch.arange(np_width)
+    return (p % 64) // 4 + 16 * (4 * (p // 64) + p % 4)
+
+
+def tile_layout(mlp: SkipConnMLP, compute_dtype=torch.float32):
+    """The tile's packed weights as one buffer: ``([(byte offset, shape,
+    dtype), ...], total bytes)`` in kernel order ``[B, init w, init b,
+    layer 0 w, layer 0 b, ..., out w, out b]``, each slot 16-byte aligned.
+
+    With ``(NP, EP) = tile_widths(mlp, compute_dtype)`` the activation
+    buffer holds h at rows ``[0, NP)`` and the encoding (then ``act(enc)``)
+    at ``[NP, NP + EP)``; a layer's matrix has a row for each buffer row it
+    reads: the init layer the ``EP`` encoding rows, a skip layer all
+    ``NP + EP``, any other layer the ``NP`` h rows.  Its weights sit in the
+    rows of their inputs and in its first ``hidden_size`` columns; every
+    other entry, and the biases past ``hidden_size``, are zero.
+      - float32: each matrix ``[K, NP]``, its columns in the order of
+        ``f32_column_order(NP)`` (physical column p holds logical column
+        ``f32_column_order(NP)[p]``);
+      - bfloat16: each matrix transposed, ``[NP, K]`` bf16, rounded to
+        nearest even;
+    biases ``[NP]`` float32 (logical order); out w ``[out_size, NP]``
+    float32, k contiguous for each output column (rounded to bf16 with bf16
+    operands); out b ``[out_size]``; ``B`` as the module's."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    NP, EP = tile_widths(mlp, compute_dtype)
+    f32 = torch.float32
+    slots = [((mlp.in_size, mlp.freqs), f32)]
+    for l in range(mlp.num_layers + 1):
+        k = EP if l == 0 else (NP + EP if mlp.is_skip_layer(l - 1) else NP)
+        slots += [((NP, k), compute_dtype) if bf16 else ((k, NP), f32), ((NP,), f32)]
+    slots += [((mlp.out_size, NP), f32), ((mlp.out_size,), f32)]
+    layout, offset = [], 0
+    for shape, dtype in slots:
+        layout.append((offset, shape, dtype))
+        offset += -(-int(np.prod(shape)) * dtype.itemsize // 16) * 16
+    return layout, offset
+
+
+def _tile_views(buf: torch.Tensor, layout) -> list:
+    """The slots of ``tile_layout`` as views of the byte buffer ``buf``."""
+    return [buf[off:off + int(np.prod(shape)) * dtype.itemsize].view(dtype).view(shape)
+            for off, shape, dtype in layout]
+
+
+@torch.no_grad()
+def tile_pack_plain(mlp: SkipConnMLP, basis: torch.Tensor, weights,
+                    compute_dtype=torch.float32) -> list:
+    """The pack in PyTorch ops (``pack_tile_weights``' plain version): the
+    views of one byte buffer on the weights' device, ``tile_layout``'s
+    slots."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    NP, EP = tile_widths(mlp, compute_dtype)
+    H, E = mlp.hidden_size, mlp.enc_size
+    ws = [w.detach() for w in weights]
+    layout, total = tile_layout(mlp, compute_dtype)
+    buf = torch.zeros(total, dtype=torch.uint8, device=ws[0].device)
+    views = _tile_views(buf, layout)
+    order = f32_column_order(NP).to(buf.device)
+
+    def matrix(view, w, h_rows: bool, enc_rows: bool):
+        k_h = NP if h_rows else 0
+        m = torch.zeros(k_h + (EP if enc_rows else 0), NP, device=buf.device)
+        if h_rows:
+            m[:H, :H] = w[:H]
+        if enc_rows:
+            m[k_h:k_h + E, :H] = w[H if h_rows else 0:]
+        view.copy_(m.t() if bf16 else m[:, order])
+
+    views[0].copy_(basis.detach())
+    matrix(views[1], ws[0], False, True)
+    for i in range(mlp.num_layers):
+        matrix(views[3 + 2 * i], ws[2 + 2 * i], True, mlp.is_skip_layer(i))
+    for l in range(mlp.num_layers + 1):
+        views[2 + 2 * l][:H] = ws[1 + 2 * l]
+    out_w = views[-2]
+    out_w[:, :H] = ws[-2].t()
+    if bf16:
+        out_w.copy_(out_w.to(compute_dtype).float())
+    views[-1].copy_(ws[-1])
+    return views
+
+
+def pack_tile_weights(mlp: SkipConnMLP, basis: torch.Tensor, weights,
+                      compute_dtype=torch.float32, out=None) -> list:
+    """Launch the pack on CUDA tensors: ``tile_pack_plain``'s views, written
+    in one launch from the module's float32 arrays (``weights`` in
+    ``flat_weights`` order; ``basis`` is ``B``), into ``out`` (an earlier
+    pack of this net, on its device) or a new buffer.  On CPU tensors the
+    plain version."""
+    tensors = [basis.detach(), *(w.detach() for w in weights)]
+    if not tensors[0].is_cuda:
+        return tile_pack_plain(mlp, basis, weights, compute_dtype)
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    dev = tensors[0].device
+    for i, (t, shape) in enumerate(zip(tensors, weight_shapes(mlp), strict=True)):
+        check_cuda_f32(f"weight {i}", t, shape, dev)
+    views = out
+    if views is None:
+        layout, total = tile_layout(mlp, compute_dtype)
+        views = _tile_views(torch.empty(total, dtype=torch.uint8, device=dev), layout)
+    with torch.cuda.device(dev):
+        _check("nrt_mlp_tile_pack", _tile_lib().nrt_mlp_tile_pack(
+            _ptr_table(tensors), _ptr_table(views), mlp.freqs, mlp.hidden_size,
+            mlp.num_layers, mlp.skip, mlp.out_size, int(bf16), _stream(dev)))
+    pack_tile_weights.launches += 1
+    return views
+
+
+pack_tile_weights.launches = 0
+
+
+def tile_pack_key(basis: torch.Tensor, weights, compute_dtype) -> tuple:
+    """What a cached pack is valid for: the compute dtype and each tensor's
+    address and version (an in-place update, ``load_state_dict`` or
+    ``.to()`` changes it; the cache keeps the tensors alive, so no other
+    tensor takes their addresses)."""
+    return (compute_dtype,) + tuple((t.data_ptr(), t._version) for t in (basis, *weights))
+
+
+# module -> {compute dtype: (key, the keyed tensors, packed views, their C
+# pointer table)}; beside the module, not in it, so copies and pickles of a
+# module carry no pack
+_TILE_PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _tile_pack_entry(mlp: SkipConnMLP, basis: torch.Tensor, weights, compute_dtype):
+    """(the packed views, their C pointer table), cached for the module by
+    ``tile_pack_key``.  A new version of the weights is packed into the same
+    buffer (on the current stream, after every launch that read it), so a
+    repack costs the host one launch."""
+    key = tile_pack_key(basis, weights, compute_dtype)
+    cache = _TILE_PACKS.setdefault(mlp, {})
+    hit = cache.get(compute_dtype)
+    if hit is not None and hit[0] == key:
+        return hit[2], hit[3]
+    reuse = hit[2] if hit is not None and hit[2][0].device == basis.device else None
+    packed = pack_tile_weights(mlp, basis, weights, compute_dtype, out=reuse)
+    cache[compute_dtype] = (key, [t.detach() for t in (basis, *weights)], packed,
+                            _ptr_table(packed))
+    return packed, cache[compute_dtype][3]
+
+
+def tile_pack(mlp: SkipConnMLP, basis: torch.Tensor, weights,
+              compute_dtype=torch.float32) -> list:
+    """The tile's packed weights of ``mlp`` (``pack_tile_weights``), cached
+    for the module by ``tile_pack_key``: an eval view packs once per net, a
+    training step once per net after the optimizer's in-place update."""
+    return _tile_pack_entry(mlp, basis, weights, compute_dtype)[0]
+
+
+def tile_pointers(mlp: SkipConnMLP, basis: torch.Tensor, weights, device: torch.device,
+                  compute_dtype=torch.float32):
+    """Check the net's float32 tensors on the CUDA ``device`` (a hit of the
+    cache included) -> the C pointer table of its cached pack, what the
+    tile kernels K1-K4 read."""
+    check_weights(mlp, basis, weights, device)
+    return _tile_pack_entry(mlp, basis, weights, compute_dtype)[1]
+
+
+@torch.no_grad()
+def tile_forward_plain(mlp: SkipConnMLP, x: torch.Tensor, packed,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    """The tile's forward in PyTorch ops over the packed arrays alone
+    (``tile_layout``'s slots, ``packed``) and ``x [n, 3]``: the encoding
+    and ``act(enc)`` padded to ``EP`` columns with zeros, each layer's
+    product over its ``K`` rows of ``[h, act(enc)]``, the float32 columns
+    put back in logical order before the bias, the output layer over the
+    first ``hidden_size`` columns.  With bf16 operands every operand is
+    rounded as K1-bf16 rounds it (the skip layers read ``act`` of the
+    float32 encoding).  For tests of the layout: the kernel's sums run in
+    another order."""
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    NP, EP = tile_widths(mlp, compute_dtype)
+    H, act = mlp.hidden_size, mlp.activation
+    enc = fourier_encode(x.reshape(-1, mlp.in_size), packed[0])
+    pad = torch.zeros(enc.shape[0], EP - enc.shape[1], dtype=enc.dtype, device=enc.device)
+    rnd = _bf16 if bf16 else (lambda t: t)
+    order = f32_column_order(NP).to(enc.device)
+
+    def layer(a, l):
+        if bf16:
+            return a @ packed[1 + 2 * l].float().t() + packed[2 + 2 * l]
+        h = torch.empty(a.shape[0], NP, dtype=a.dtype, device=a.device)
+        h[:, order] = a @ packed[1 + 2 * l]
+        return h + packed[2 + 2 * l]
+
+    skip_op = torch.cat([rnd(act(enc)), pad], dim=-1)
+    h = layer(torch.cat([rnd(enc), pad], dim=-1), 0)
+    for i in range(mlp.num_layers):
+        a = rnd(act(h))
+        h = layer(torch.cat([a, skip_op], dim=-1) if mlp.is_skip_layer(i) else a, i + 1)
+    return rnd(act(h))[:, :H] @ packed[-2][:, :H].t() + packed[-1]
+
+
+# ---- the tile kernel as the library reports it ------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _tile_info(bf16: bool, freqs: int, hidden: int, device: int) -> dict:
+    info = (_I * 5)()
+    with torch.cuda.device(device):
+        rc = _tile_lib().nrt_mlp_tile_info(int(bf16), freqs, hidden, info)
+    if rc != 0 or info[0] <= 0:
+        raise RuntimeError(f"nrt_mlp_tile_info: CUDA error {rc}, {info[0]} blocks per SM")
+    return dict(blocks_per_sm=info[0], rows=info[1], registers=info[2],
+                local_bytes=info[3], smem_bytes=info[4])
+
+
+def tile_info(mlp: SkipConnMLP, compute_dtype=torch.float32, device=None) -> dict:
+    """The tile kernel for ``mlp`` on the CUDA ``device`` (the current one
+    by default), as the library reports it: ``blocks_per_sm`` (its
+    occupancy), ``rows`` a block, ``registers`` a thread, ``local_bytes``
+    (local memory a thread) and ``smem_bytes`` (dynamic shared memory a
+    block)."""
+    if k1_route(mlp) != "tile":
+        raise ValueError("tile_info: this net is off the tile")
+    bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return _tile_info(bf16, mlp.freqs, mlp.hidden_size, index)
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:

@@ -55,7 +55,9 @@ from neural_raytracing_tpu_torch.kernels import (
     mlp_forward_bf16_operands, reset_launch_counts, set_kernel_mode,
     shadow_march_plain, sphere_sdf_eval_plain, sphere_sdf_plain, supports,
 )
-from neural_raytracing_tpu_torch.kernels import _build
+from neural_raytracing_tpu_torch.kernels import (
+    _build, pack_tile_weights, route_counts, tile_info, tile_pack, tile_pack_plain,
+)
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
 from neural_raytracing_tpu_torch.shapes import (
     SDF, NeRFLE, SphereSDF, march_interval, volumetric_integrate,
@@ -68,7 +70,8 @@ KERNEL_NAMES = ("fused_mlp_forward", "fused_march", "fused_min_scan",
                 "fused_mlp_backward", "fused_mlp_ckpt_forward",
                 "fused_mlp_segment_backward", "fused_shadow_march",
                 "fused_sphere_sdf", "fused_composite", "fused_mlp_forward_bf16",
-                "fused_march_bf16", "fused_min_scan_bf16", "fused_shadow_march_bf16")
+                "fused_march_bf16", "fused_min_scan_bf16", "fused_shadow_march_bf16",
+                "pack_tile_weights")
 
 FLAGSHIP = {
     "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
@@ -142,7 +145,7 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    assert set(_build.library_paths()) == {"fused_mlp", "fused_march",
+    assert set(_build.library_paths()) == {"fused_mlp", "fused_mlp_tile", "fused_march",
                                            "fused_minscan", "fused_mlp_bwd",
                                            "fused_shadow", "fused_sdf",
                                            "composite"}
@@ -349,7 +352,9 @@ def test_fused_min_scan_matches_plain(cuda, steps, n_rays, case, dtype):
     idx = (fused_min_scan_bf16 if bf16 else fused_min_scan)(module, r_o, r_d, step,
                                                             steps=steps)
     counts = launch_counts()
-    assert counts[name] == 1 and sum(counts.values()) == 1
+    # and one pack of the new module's shift net, which the next launches reuse
+    assert counts[name] == 1 and counts["pack_tile_weights"] == 1
+    assert sum(counts.values()) == 2
     set_kernel_mode(module, "off")
     sdf = _bf16_sdf(module) if bf16 else module
     pidx = min_scan_plain(sdf, r_o, r_d, step, steps=steps)
@@ -898,7 +903,10 @@ def test_fused_march_ray_counts(cuda, n, dtype):
     reset_launch_counts()
     depth, hit = fused_march(module, r_o, r_d, t1, max_steps=256, epsilon=1e-3, t_start=t0,
                              compute_dtype=dtype)
-    assert launch_counts()[name] == (1 if n else 0) and sum(launch_counts().values()) <= 1
+    counts = launch_counts()
+    # and one pack of the new module's shift net, which the next launches reuse
+    assert counts[name] == (1 if n else 0) and counts["pack_tile_weights"] == 1
+    assert sum(counts.values()) == counts[name] + 1
     set_kernel_mode(module, "off")
     sdf = _bf16_sdf(module) if bf16 else module
     pdepth, phit, _ = march_plain(sdf, r_o, r_d, t1, t0, max_steps=256, epsilon=1e-3)
@@ -1043,3 +1051,211 @@ def test_bf16_sdf_goes_through_the_bf16_kernels(cuda):
     assert hit.any() and torch.isfinite(it.throughput).all()
     for name in ("fused_march", "fused_min_scan", "fused_shadow_march"):
         assert counts[name + "_bf16"] == 1 and counts[name] == 0, name
+
+
+# ---- K1 on the tiles (csrc/fused_mlp_tile.cu) ---------------------------------------
+
+# the rows the main paths launch K1 at (a flagship eval tile, a training
+# step, a NeRV eval chunk and training step), one row, none and a ragged count
+K1_ROWS = (16_384, 38_400, 10_000, 12_288, 0, 1, 4_099)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FLAGSHIP))
+def test_k1_tile_matches_plain_at_the_path_rows(cuda, name, dtype):
+    """The tile against the plain version at each row count, on the tile
+    route, 64 rows a block; the float32 outputs the first kernel's bits; a
+    row's outputs the same whatever the launch it is in."""
+    mlp = _net(FLAGSHIP[name], 0, cuda)
+    x = (torch.rand(38_400, 3, generator=torch.Generator().manual_seed(1)) - 0.5).to(cuda)
+    ws = mlp.flat_weights()
+    assert tile_info(mlp, dtype)["rows"] == 64
+    with torch.no_grad():
+        big = fused_mlp_forward(mlp, x, mlp.B, ws, dtype)
+        if dtype == torch.float32:
+            want = SkipConnMLP.forward(mlp, x)
+            tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ mlp.B).abs().max()
+            assert ((big - want).abs() <= tol).all(), (big - want).abs().max().item()
+            assert torch.equal(big, fused_mlp_forward(mlp, x, mlp.B, ws, route="general"))
+        else:
+            _assert_k1_bf16_close(big, mlp_forward_bf16_operands(mlp, x, mlp.B, ws),
+                                  fused_mlp_forward(mlp, x, mlp.B, ws),
+                                  SkipConnMLP.forward(mlp, x))
+        for n in K1_ROWS:
+            xs = x[:n].contiguous()
+            reset_launch_counts()
+            got = fused_mlp_forward(mlp, xs, mlp.B, ws, dtype)
+            assert got.shape == (n, mlp.out_size)
+            assert torch.equal(got, big[:n]), n
+            name_ = "fused_mlp_forward_bf16" if dtype == BF16 else "fused_mlp_forward"
+            assert launch_counts()[name_] == (1 if n > 0 else 0)
+            assert route_counts()[name_] == {"tile": 1 if n > 0 else 0, "general": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_k1_tile_same_bits_under_a_permutation(cuda, dtype):
+    mlp = _net(FLAGSHIP["weight_net"], 3, cuda)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand(10_000, 3, generator=g) - 0.5).to(cuda)
+    perm = torch.randperm(10_000, generator=g).to(cuda)
+    with torch.no_grad():
+        out = fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
+        out_p = fused_mlp_forward(mlp, x[perm].contiguous(), mlp.B, mlp.flat_weights(), dtype)
+    assert torch.equal(out[perm], out_p)
+
+
+@pytest.mark.cuda
+def test_k1_bf16_tile_follows_k1s_rounding(cuda):
+    """The tile's bf16 rows are K1's function (the skip layers read act() of
+    the float32 encoding, rounded), not the march kernels' (act() of the
+    rounded encoding)."""
+    mlp = _net(FLAGSHIP["lobe"], 5, cuda)
+    x = (torch.rand(8_192, 3, generator=torch.Generator().manual_seed(6)) - 0.5).to(cuda)
+    ws = mlp.flat_weights()
+    with torch.no_grad():
+        got = fused_mlp_forward_bf16(mlp, x, mlp.B, ws)
+        k1 = mlp_forward_bf16_operands(mlp, x, mlp.B, ws)
+        march = mlp_forward_bf16_operands(mlp, x, mlp.B, ws, act_of_rounded_enc=True)
+    tol = lambda want: 1e-4 * want.abs() + 1e-5
+    near_k1 = ((got - k1).abs() <= tol(k1)).all(dim=-1).float().mean().item()
+    near_march = ((got - march).abs() <= tol(march)).all(dim=-1).float().mean().item()
+    # (on an H100: 0.992 of the rows within tolerance of K1's rounding, 0.60
+    # of the march's)
+    assert near_k1 >= 0.9 and near_march <= near_k1 - 0.2, (near_k1, near_march)
+    assert (got - k1).abs().mean() < 0.5 * (got - march).abs().mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FLAGSHIP))
+def test_pack_kernel_matches_the_plain_pack(cuda, name, dtype):
+    mlp = _net(FLAGSHIP[name], 7, cuda)
+    reset_launch_counts()
+    got = pack_tile_weights(mlp, mlp.B, mlp.flat_weights(), dtype)
+    want = tile_pack_plain(mlp, mlp.B, mlp.flat_weights(), dtype)
+    torch.cuda.synchronize()
+    assert launch_counts()["pack_tile_weights"] == 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pack_is_refreshed_after_an_adamw_step(cuda):
+    """The optimizer training/optim.py builds updates the weights in place,
+    which moves their versions: the next forward packs again and computes
+    with the new weights."""
+    from neural_raytracing_tpu_torch.training import make_optimizer
+    mlp = _net(FLAGSHIP["lobe"], 8, cuda)
+    x = (torch.rand(4_096, 3, generator=torch.Generator().manual_seed(9)) - 0.5).to(cuda)
+    opt = make_optimizer({}, default_lr=1e-2).init(torch.nn.ModuleDict({"net": mlp}))
+    reset_launch_counts()
+    with torch.no_grad():
+        before = fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights())
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights())
+    assert launch_counts()["pack_tile_weights"] == 1
+    packed = [t.clone() for t in tile_pack(mlp, mlp.B, mlp.flat_weights())]
+    versions = [w._version for w in mlp.flat_weights()]
+    fused_mlp_apply(mlp, x).square().mean().backward()
+    opt.step()
+    assert all(w._version > v for w, v in zip(mlp.flat_weights(), versions))
+    with torch.no_grad():
+        after = fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights())
+        want = SkipConnMLP.forward(mlp, x)
+    assert launch_counts()["pack_tile_weights"] == 2
+    repacked = tile_pack(mlp, mlp.B, mlp.flat_weights())
+    assert not all(torch.equal(a, b) for a, b in zip(repacked, packed))
+    assert all(torch.equal(a, b) for a, b in zip(
+        repacked, tile_pack_plain(mlp, mlp.B, mlp.flat_weights())))
+    assert not torch.equal(after, before)
+    tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ mlp.B).abs().max()
+    assert ((after - want).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_net_off_the_tile_runs_the_first_kernel(cuda, dtype):
+    mlp = _net(dict(in_size=5, out=2, num_layers=3, hidden_size=512, freqs=16), 10, cuda)
+    x = (torch.rand(3_001, 5, generator=torch.Generator().manual_seed(11)) - 0.5).to(cuda)
+    ws = mlp.flat_weights()
+    reset_launch_counts()
+    with torch.no_grad():
+        got = fused_mlp_forward(mlp, x, mlp.B, ws, dtype)
+        name = "fused_mlp_forward_bf16" if dtype == BF16 else "fused_mlp_forward"
+        assert route_counts()[name] == {"tile": 0, "general": 1}
+        assert launch_counts()["pack_tile_weights"] == 0
+        if dtype == torch.float32:
+            want = SkipConnMLP.forward(mlp, x)
+            tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ mlp.B).abs().max()
+            assert ((got - want).abs() <= tol).all()
+        else:
+            _assert_k1_bf16_close(got, mlp_forward_bf16_operands(mlp, x, mlp.B, ws),
+                                  fused_mlp_forward(mlp, x, mlp.B, ws),
+                                  SkipConnMLP.forward(mlp, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_k1_tile_checks_the_weights_against_the_inputs_device(cuda, dtype):
+    """A net on the CPU with inputs on the card is refused with a
+    ValueError before anything is packed or launched, also after the net
+    was packed on the card and moved back (a cache entry for it exists)."""
+    mlp = _net(FLAGSHIP["lobe"], 12, "cpu")
+    x = (torch.rand(256, 3, generator=torch.Generator().manual_seed(13)) - 0.5).to(cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
+    assert all(v == 0 for v in launch_counts().values())
+    mlp.to(cuda)
+    with torch.no_grad():
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
+    mlp.cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_first_kernel_refuses_a_net_past_its_shared_memory(cuda):
+    """The first kernel's C entry refuses a net whose rows do not fit a
+    block's shared memory; the wrapper raises from its code, counts
+    nothing, and the next launch is not affected."""
+    mlp = _net(dict(in_size=5, out=1, num_layers=2, hidden_size=1024, freqs=16), 14, cuda)
+    x = torch.zeros(64, 5, device=cuda)
+    reset_launch_counts()
+    with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA error"):
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights())
+    assert all(v == 0 for v in launch_counts().values())
+    small = _net(FLAGSHIP["lobe"], 15, cuda)
+    with torch.no_grad():
+        out = fused_mlp_forward(small, x[:, :3].contiguous(), small.B, small.flat_weights())
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+def test_march_kernels_share_k1s_cached_pack(cuda, dtype):
+    """K2, K3 and K4 read the shift net through K1's pack cache: the net is
+    packed once per operand type and weight version, whichever kernel reads
+    it first, and again after an in-place update."""
+    module = _surface(cuda)
+    mlp = module.shift
+    r_o, r_d, dist = _shadow_rays(cuda, n=512)
+    x = (torch.rand(512, 3, generator=torch.Generator().manual_seed(16)) - 0.5).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        fused_march(module, r_o, r_d, 4.0, max_steps=16, epsilon=1e-3, compute_dtype=dtype)
+        fused_min_scan(module, r_o, r_d, 0.05, steps=8, compute_dtype=dtype)
+        fused_shadow_march(module, r_o, r_d, dist, max_steps=16, epsilon=1e-3,
+                           compute_dtype=dtype)
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
+        assert launch_counts()["pack_tile_weights"] == 1
+        mlp.out.b.add_(0.01)
+        fused_march(module, r_o, r_d, 4.0, max_steps=16, epsilon=1e-3, compute_dtype=dtype)
+        fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
+    assert launch_counts()["pack_tile_weights"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(
+        tile_pack(mlp, mlp.B, mlp.flat_weights(), dtype),
+        tile_pack_plain(mlp, mlp.B, mlp.flat_weights(), dtype)))

@@ -1,8 +1,9 @@
-"""K3's packed shift-net layout (``pack_shift_weights``) on the CPU.
+"""K3's packed shift-net layout (``tile_pack_plain``, the layout K1's tile
+reads too) on the CPU.
 
 The kernels of ``csrc/fused_minscan.cu`` read the shift net only through
 the packed arrays.  A plain forward that reads nothing else, through the
-layout ``pack_shift_weights`` documents, must give the SphereSDF of
+layout ``tile_layout`` documents, must give the SphereSDF of
 ``sphere_sdf_eval_plain(module, p, dtype)`` in both operand modes, for the
 flagship 8 x 128 net, a net whose widths need padding and a net wider than
 128 (the 256-wide layout); the padded entries must be zero; and widths past
@@ -24,8 +25,7 @@ import torch
 
 from neural_raytracing_tpu_torch.kernels import (
     MIN_SCAN_LIMITS, f32_column_order, fused_min_scan, fused_min_scan_bf16,
-    min_scan_plan, min_scan_segments, min_scan_widths, pack_shift_weights,
-    sphere_sdf_eval_plain,
+    min_scan_plan, min_scan_segments, sphere_sdf_eval_plain, tile_pack_plain, tile_widths,
 )
 from neural_raytracing_tpu_torch.kernels.fused_march import MIN_SCAN_MAX_SEGMENTS
 from neural_raytracing_tpu_torch.kernels.fused_sdf import sphere_min_plain
@@ -92,7 +92,7 @@ def packed_shift(packed, cfg, p, dtype):
     for i in range(L):
         k = NP + EP if (i % skip == 0 and i != L - 1) else NP
         buf[:, :NP] = rnd(act(buf[:, :k] @ weights(1 + i) + biases[1 + i]))
-    return buf[:, :NP] @ packed[-2] + packed[-1]
+    return buf[:, :NP] @ packed[-2][0] + packed[-1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
@@ -101,7 +101,8 @@ def test_packed_layout_gives_the_plain_sdf(net, dtype):
     cfg = SHIFTS[net]
     module = _surface(cfg)
     p = _points()
-    packed = pack_shift_weights(module.shift, dtype)
+    mlp = module.shift
+    packed = tile_pack_plain(mlp, mlp.B, mlp.flat_weights(), dtype)
     with torch.no_grad():
         got = sphere_min_plain(module, p, module.centers, module.radii, module.tfs) \
             + packed_shift(packed, cfg, p, dtype)
@@ -118,8 +119,8 @@ def test_packed_layout_gives_the_plain_sdf(net, dtype):
 @pytest.mark.parametrize("net", sorted(SHIFTS))
 def test_packed_weights_in_place_and_padding_zero(net, dtype):
     mlp = _surface(SHIFTS[net]).shift
-    packed = pack_shift_weights(mlp, dtype)
-    NP, EP = min_scan_widths(mlp, dtype)
+    packed = tile_pack_plain(mlp, mlp.B, mlp.flat_weights(), dtype)
+    NP, EP = tile_widths(mlp, dtype)
     H, E = mlp.hidden_size, mlp.enc_size
     assert NP == (128 if H <= 128 else 256) and EP >= E
     assert EP % (16 if dtype == BF16 else 8) == 0
@@ -147,8 +148,9 @@ def test_packed_weights_in_place_and_padding_zero(net, dtype):
         assert torch.equal(w, rnd(want)), l
         b = packed[2 + 2 * l]
         assert torch.equal(b[:H], ws[2 * l + 1].detach()) and not b[H:].any()
-    assert torch.equal(packed[-2][:H], rnd(ws[-2].detach()[:, 0]))
-    assert not packed[-2][H:].any() and torch.equal(packed[-1], ws[-1].detach())
+    assert packed[-2].shape == (1, NP)
+    assert torch.equal(packed[-2][0, :H], rnd(ws[-2].detach()[:, 0]))
+    assert not packed[-2][0, H:].any() and torch.equal(packed[-1], ws[-1].detach())
     # the column order is a permutation
     assert torch.equal(torch.sort(f32_column_order(NP)).values, torch.arange(NP))
 
