@@ -45,8 +45,14 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      leaky_relu twin (the epilogue's cost) and each shape with one sample
      segment a ray (the split's gain, in the same call);
   6. K6 fused_mlp_backward (segments 0) and K7 fused_mlp_ckpt_forward +
-     fused_mlp_segment_backward (segments 4) against the autograd recompute
-     backward on the weight net, one lobe and the light field, 38,400 rows;
+     fused_mlp_segment_backward (segments 4) on the tile
+     (csrc/fused_mlp_bwd_tile.cu) against the autograd recompute backward
+     on the weight net, one lobe and the light field, 38,400 rows, dx/dW/db
+     the same bits in a second run; in turns with the parent's kernels (the
+     general route, csrc/fused_mlp_bwd.cu) and the plain versions; each
+     tile kernel's device ms and launches (store forward, chain, dW, its
+     reduction) and each product's share of its bound; the transposed
+     pack (pack_tile_transposes) against its plain version bit for bit;
   7. the training slice: the flagship training scene (max_steps 64,
      throughput_steps 128, dist 2.2, AdamW 8e-5 / 8e-4 / 8e-5, 6 views x
      80^2 crops, mask weight 15, SSIM, eikonal) on ground truth made here (8
@@ -54,7 +60,10 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      one with every kernel off from the same state; 20 iterations of train
      through the kernels (launch counts reset just before, read just after);
      3 iterations each with K6, K7 and everything plain; a profile of one
-     step; evaluate on 2 views;
+     step; the step with each backward route of the shading nets (the
+     autograd recompute, K6, K7) timed in turns, then one profile each
+     (device busy ms, launches), every net on the tile route; evaluate on 2
+     views;
   8. K4 fused_shadow_march against shadow_march_plain at the shapes the NeRV
      paths launch it at (shadow_shapes), on the shadow rays of the trained
      NeRV scene (scripts/models_seed_dir/nerv_mesh_gear_mirror200b) from the
@@ -197,6 +206,11 @@ phases 4 and 7.
 
 runs phases 1 and 2 and phase 16's K1-bf16 part only (K1's and K1-bf16's
 checks and times; no result line).
+
+    python3 chip_smoke.py --bwd
+
+runs phases 1 and 6 only (K6's and K7's checks and times; no result
+line).
 
     python3 chip_smoke.py --march-times [DIR]
 
@@ -902,7 +916,9 @@ def render_views(torch, scene, views, dev):
 
 
 def profile_step(torch, fn, label):
-    """Device time by kernel and the idle share of one call of ``fn``."""
+    """Device time by kernel and the idle share of one call of ``fn`` ->
+    {busy_ms, wall_ms, launches} (None when the profiler saw no device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -934,15 +950,21 @@ def profile_step(torch, fn, label):
     print("    K1: " + ", ".join(
         f"{label} {1e-3 * sum(e.self_device_time_total for e in es):.3f} ms x"
         f"{sum(e.count for e in es)}" for label, es in k1.items()))
+    bwd = {part: [e for e in kernels if key in e.key] for part, key in BWD_PARTS.items()}
+    if any(bwd.values()):
+        print("    K6/K7 tile: " + ", ".join(
+            f"{part} {1e-3 * sum(e.self_device_time_total for e in es):.3f} ms x"
+            f"{sum(e.count for e in es)}" for part, es in bwd.items()))
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=sum(e.count for e in kernels))
 
 
 def k1_routes(label) -> dict:
-    """K1's and K1-bf16's launches by route since the counts were reset:
-    every fused net of the main paths takes the tile."""
+    """The launches by route of K1, K1-bf16 and the backward K6/K7 since the
+    counts were reset: every fused net of the main paths takes the tile."""
     from neural_raytracing_tpu_torch.kernels import route_counts
     routes = route_counts()
     check(all(r["general"] == 0 for r in routes.values()),
-          f"{label}: a fused net took K1's general route: {routes}")
+          f"{label}: a fused net took a kernel's general route: {routes}")
     return routes
 
 
@@ -1179,22 +1201,84 @@ def phase_minscan(torch, dev):
                 blocks_per_sm=blocks, indices_differ=n_differ)
 
 
+def kernel_profile(torch, fn, reps: int = 3) -> dict:
+    """{kernel name: (device ms a call, launches a call)} of ``fn`` under the
+    profiler over ``reps`` calls, after one warm-up call: a launch's mean
+    ms times its launches a call, rounded (a trace may miss a launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (1e-3 * e.self_device_time_total / e.count * round(e.count / reps),
+                    round(e.count / reps))
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.count > 0}
+
+
+def host_ms(torch, fn, reps: int = 5) -> float:
+    """Median host milliseconds of a call of ``fn`` that only launches (the
+    card idle and synchronised before each)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - start))
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+# K6's and K7's tile kernels (csrc/fused_mlp_bwd_tile.cu) by the names the
+# profiler gives them
+BWD_PARTS = {"store forward": "nrt_bwd_store_fwd_kernel", "chain": "nrt_bwd_chain_kernel",
+             "dW": "nrt_dw_kernel", "dW reduce": "nrt_dw_reduce_kernel",
+             "transposed pack": "nrt_mlp_tile_pack_t_kernel"}
+
+
+def bwd_parts(prof: dict) -> dict:
+    """``kernel_profile``'s entries grouped into BWD_PARTS (ms, launches) and
+    "other" (every other kernel)."""
+    out = {part: [0.0, 0.0] for part in (*BWD_PARTS, "other")}
+    for key, (ms, count) in prof.items():
+        part = next((p for p, k in BWD_PARTS.items() if k in key), "other")
+        out[part][0] += ms
+        out[part][1] += count
+    return out
+
+
+def parts_line(parts: dict) -> str:
+    return ", ".join(f"{p} {ms:.3f} ms x{count:g}" for p, (ms, count) in parts.items() if count)
+
+
 def phase_backward(torch, dev):
-    """K6 (segments 0) and K7 (segments 4) against the autograd recompute
-    backward on the weight net, one lobe and the light field, 38,400 rows
-    each with a seeded upstream gradient."""
+    """K6 (segments 0) and K7 (segments 4) on the weight net, one lobe and
+    the light field, 38,400 rows each with a seeded upstream gradient: on
+    the tile (csrc/fused_mlp_bwd_tile.cu) against the autograd recompute
+    backward, dW the same bits in two runs; in turns with the parent's
+    kernels (the general route, csrc/fused_mlp_bwd.cu) and the plain
+    versions; each sub-kernel's device ms and launches from the profiler and
+    each product's share of its bound; the transposed pack against its
+    plain version."""
     from neural_raytracing_tpu_torch.kernels import (
-        ckpt_forward_plain, fused_mlp_backward, fused_mlp_ckpt_forward,
-        fused_mlp_segment_backward, mlp_backward, segment_backward_plain,
-        segment_bounds,
+        ckpt_forward_plain, dw_plan, fused_mlp_backward, fused_mlp_ckpt_forward,
+        fused_mlp_segment_backward, mlp_backward, pack_tile_transposes, route_counts,
+        reset_launch_counts, segment_backward_plain, segment_bounds, tile_bwd_info,
+        tile_transpose_layout, tile_transposes_plain,
     )
     from neural_raytracing_tpu_torch.nn import ACTIVATION_GRADS, mlp_forward
 
     gen = torch.Generator().manual_seed(3)
     nets = flagship_nets()
     names = ["weight_net 16x256 F128", "lobe 6x96 F64", "light_field 10x256 F16"]
-    tot = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    tot = {k: dict(ms=0.0, parent_ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
            for k in ("k6", "k7a", "k7b")}
+    pack = dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    k6_parts = {p: [0.0, 0.0] for p in (*BWD_PARTS, "other")}
+    k7b_parts = {p: [0.0, 0.0] for p in (*BWD_PARTS, "other")}
     for name in names:
         mlp = nets[name]
         mlp.reset_parameters(gen)
@@ -1211,8 +1295,12 @@ def phase_backward(torch, dev):
         want = plain()
         for seg in (0, 4):
             label = f"{'K6' if seg == 0 else 'K7'} {name} (segments {seg})"
+            reset_launch_counts()
             dx, grads = mlp_backward(mlp, x, g, mlp.B, ws, seg)
+            routes = route_counts()
             torch.cuda.synchronize()
+            check(all(r["general"] == 0 for r in routes.values()),
+                  f"{label}: a kernel took the general route: {routes}")
             absm = max((a - b).abs().max().item() for a, b in zip([dx, *grads], want))
             # a pre-activation within rounding of a leaky_relu kink takes the
             # other slope in one of the two sum orders: that row's dx moves
@@ -1224,51 +1312,115 @@ def phase_backward(torch, dev):
             check(off_rows <= 1e-3 * N_RAYS, f"{label}: {off_rows} rows of dx off "
                   "by more than 1e-4 max |plain|")
             check(rel_l2 <= 1e-3, f"{label}: dW/db rel L2 {rel_l2:.3e} > 1e-3")
+            dx2, grads2 = mlp_backward(mlp, x, g, mlp.B, ws, seg)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip([dx, *grads], [dx2, *grads2]))
+            check(same, f"{label}: dx/dW/db not the same bits in a second run")
             tot["k6" if seg == 0 else "k7b"]["err"] = max(
                 tot["k6" if seg == 0 else "k7b"]["err"], absm)
             print(f"{label}: max |err| {absm:.3e}; dx rows off by > 1e-4 max|plain| "
-                  f"{off_rows} of {N_RAYS}; worst dW/db rel L2 {rel_l2:.3e}")
+                  f"{off_rows} of {N_RAYS}; worst dW/db rel L2 {rel_l2:.3e}; the same bits "
+                  f"in a second run {same}; routes {routes}")
+        del dx, grads, dx2, grads2
         macs = layer_macs(mlp)
         L = mlp.num_layers
-        plain_ms = cuda_ms(plain, 3)
-        # K6 whole
-        ms = cuda_ms(lambda: fused_mlp_backward(mlp, x, g, mlp.B, ws), 3)
+        info = tile_bwd_info(mlp)
+        dw_shapes = [(w.shape[0], w.shape[1]) for w in ws[0::2]]
+        print(f"  {name}: tile kernels {info}; dW plan at {N_RAYS} rows "
+              f"{dw_plan(N_RAYS, dw_shapes)}")
+        # the transposed pack, bit for bit, and its device ms
+        got, want_t = pack_tile_transposes(mlp, ws), tile_transposes_plain(mlp, ws)
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want_t)),
+              f"transposed pack {name}: differs from the plain pack")
+        p_ms, _ = device_ms(torch, lambda: pack_tile_transposes(mlp, ws), 5)
+        p_plain, _ = device_ms(torch, lambda: tile_transposes_plain(mlp, ws), 5)
+        p_bytes = 4 * (sum(w.numel() for w in ws[0:2 * L + 1:2]) + tile_transpose_layout(mlp)[1])
+        _add(pack, p_ms, p_plain, 0.0, p_bytes)
+        del got, want_t
+        # K6: tile, parent, plain in turns; its sub-kernels
+        k6 = lambda route=None: fused_mlp_backward(mlp, x, g, mlp.B, ws, route=route)
+        t = in_turns({"ms": k6, "parent_ms": lambda: k6("general"), "plain_ms": plain}, 3)
         flops = 6.0 * sum(macs) * N_RAYS
         io = 4 * N_RAYS * (2 * mlp.in_size + mlp.out_size) + 2 * weight_bytes(mlp)
-        _add(tot["k6"], ms, plain_ms, flops, io)
+        _add(tot["k6"], t["ms"], t["plain_ms"], flops, io)
+        tot["k6"]["parent_ms"] += t["parent_ms"]
+        parts = bwd_parts(kernel_profile(torch, k6))
+        parent_launches = sum(c for _, c in kernel_profile(torch, lambda: k6("general")).values())
+        host = host_ms(torch, k6)
+        for p, (ms, count) in parts.items():
+            k6_parts[p][0] += ms
+            k6_parts[p][1] += count
+        product_bound = 1e3 * 2.0 * sum(macs) * N_RAYS / PEAK_F32
+        fwd_bound = 1e3 * 2.0 * sum(macs[:-1]) * N_RAYS / PEAK_F32
+        shares = {p: b / parts[p][0] for p, b in (("store forward", fwd_bound),
+                                                  ("chain", product_bound), ("dW", product_bound))
+                  if parts[p][0] > 0}
+        print(f"K6 {name}: tile {t['ms']:.3f} ms, parent's kernels {t['parent_ms']:.3f} ms, "
+              f"autograd recompute {t['plain_ms']:.3f} ms, bound {1e3 * flops / PEAK_F32:.3f} "
+              f"ms; launches a call: tile {sum(c for _, c in parts.values()):g}, parent's "
+              f"{parent_launches:g}; the host's time in a call {host:.3f} ms; by kernel: "
+              f"{parts_line(parts)}; share of each product's "
+              f"bound ({product_bound:.3f} ms; the forward {fwd_bound:.3f}): "
+              + ", ".join(f"{p} {v:.3f}" for p, v in shares.items()))
         # K7a: the boundary checkpoint forward
         segs = segment_bounds(L, 4)
         bounds = sorted({s0 for s0, _ in segs} | {L})
-        ms = cuda_ms(lambda: fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, bounds), 3)
-        p_ms = cuda_ms(lambda: ckpt_forward_plain(mlp, x, mlp.B, ws, bounds), 3)
+        k7a = lambda route=None: fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, bounds, route=route)
+        t = in_turns({"ms": k7a, "parent_ms": lambda: k7a("general"),
+                      "plain_ms": lambda: ckpt_forward_plain(mlp, x, mlp.B, ws, bounds)}, 3)
         flops = 2.0 * sum(macs[:-1]) * N_RAYS
         io = 4 * N_RAYS * (mlp.in_size + mlp.enc_size + len(bounds) * mlp.hidden_size) \
             + weight_bytes(mlp)
-        _add(tot["k7a"], ms, p_ms, flops, io)
+        _add(tot["k7a"], t["ms"], t["plain_ms"], flops, io)
+        tot["k7a"]["parent_ms"] += t["parent_ms"]
+        print(f"K7a {name}: tile {t['ms']:.3f} ms, parent's kernel {t['parent_ms']:.3f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, bound {1e3 * flops / PEAK_F32:.3f} ms")
         # K7b: every segment, deepest first, on the inputs of one K7 run
         hs_at, enc = fused_mlp_ckpt_forward(mlp, x, mlp.B, ws, bounds)
         dact = ACTIVATION_GRADS[mlp.activation_name]
         gh = ((g @ ws[-2].t()) * dact(hs_at[L])).contiguous()
+        seg_args = []
         for l0, l1 in reversed(segs):
             args = (mlp, x, mlp.B, ws, enc, hs_at[l0], gh, l0, l1)
-            ms = cuda_ms(lambda: fused_mlp_segment_backward(*args), 3)
-            p_ms = cuda_ms(lambda: segment_backward_plain(*args), 3)
-            flops = 2.0 * N_RAYS * (sum(macs[1 + l0:l1]) + 2 * sum(macs[1 + l0:1 + l1]))
-            io = 4 * N_RAYS * (mlp.in_size + mlp.enc_size + 4 * mlp.hidden_size) \
-                + 2 * 4 * sum(ws[2 + 2 * k].numel() for k in range(l0, l1))
-            _add(tot["k7b"], ms, p_ms, flops, io)
+            seg_args.append(args)
             gh = fused_mlp_segment_backward(*args)[0]
-        del want, hs_at, enc, gh
+        k7b = lambda route=None: [fused_mlp_segment_backward(*a, route=route) for a in seg_args]
+        t = in_turns({"ms": k7b, "parent_ms": lambda: k7b("general"),
+                      "plain_ms": lambda: [segment_backward_plain(*a) for a in seg_args]}, 3)
+        flops = sum(2.0 * N_RAYS * (sum(macs[1 + l0:l1]) + 2 * sum(macs[1 + l0:1 + l1]))
+                    for l0, l1 in segs)
+        io = sum(4 * N_RAYS * (mlp.in_size + mlp.enc_size + 4 * mlp.hidden_size)
+                 + 2 * 4 * sum(ws[2 + 2 * k].numel() for k in range(l0, l1)) for l0, l1 in segs)
+        _add(tot["k7b"], t["ms"], t["plain_ms"], flops, io)
+        tot["k7b"]["parent_ms"] += t["parent_ms"]
+        parts = bwd_parts(kernel_profile(torch, k7b))
+        for p, (ms, count) in parts.items():
+            k7b_parts[p][0] += ms
+            k7b_parts[p][1] += count
+        print(f"K7b {name} ({len(segs)} segments): tile {t['ms']:.3f} ms, parent's kernels "
+              f"{t['parent_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{1e3 * flops / PEAK_F32:.3f} ms; by kernel: {parts_line(parts)}")
+        del want, hs_at, enc, gh, seg_args
         mlp.cpu()
         torch.cuda.empty_cache()
     for key, label in (("k6", "K6 fused_mlp_backward"), ("k7a", "K7a fused_mlp_ckpt_forward"),
                        ("k7b", "K7b fused_mlp_segment_backward (all segments)")):
         t = tot[key]
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
-        print(f"{label}, 3 nets x {N_RAYS} rows: kernel {t['ms']:.3f} ms, plain "
-              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
-              f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+        print(f"{label}, 3 nets x {N_RAYS} rows: tile {t['ms']:.3f} ms, parent's kernels "
+              f"{t['parent_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms ({t['bound_by']}), {t['flops'] / t['ms'] / 1e9:.1f} "
+              f"TFLOP/s, share of the bound {t['bound_ms'] / t['ms']:.3f}")
+    print(f"K6, 3 nets, by kernel: {parts_line(k6_parts)}")
+    print(f"K7b, 3 nets, by kernel: {parts_line(k7b_parts)}")
+    print(f"K7a + K7b: tile {tot['k7a']['ms'] + tot['k7b']['ms']:.3f} ms, plain "
+          f"{tot['k7a']['plain_ms'] + tot['k7b']['plain_ms']:.3f} ms")
     tot["k7a"]["err"] = tot["k7b"]["err"]
+    pack["bound_ms"], pack["bound_by"] = 1e3 * pack["bytes"] / PEAK_BYTES, "bytes"
+    print(f"transposed pack, 3 nets: the same bits as the plain pack; device {pack['ms']:.4f} "
+          f"ms, plain {pack['plain_ms']:.4f} ms, bound {pack['bound_ms']:.4f} ms (bytes)")
+    tot["pack"] = pack
     return tot
 
 
@@ -1288,6 +1440,47 @@ def set_kernel_bwd(torch, scene, on: bool, segments: int = 4):
             if isinstance(m, FusedSkipConnMLP):
                 m.kernel_bwd = on
                 m.kernel_bwd_segments = segments
+
+
+# the shading nets' backward routes of a training step: (kernel_bwd, segments)
+STEP_ROUTES = {"recompute": (False, 4), "K6": (True, 0), "K7": (True, 4)}
+
+
+def step_routes(torch, scene, one_step, reps: int = 3):
+    """The flagship step with each of STEP_ROUTES: the wall ms a step (host
+    clock, synchronised; the median of ``reps`` steps a turn, the routes in
+    turns a, b, c, c, b, a), then one profile each (device busy ms,
+    launches); every shading net on the tile route."""
+    from neural_raytracing_tpu_torch.kernels import reset_launch_counts
+
+    def timed(route):
+        set_kernel_bwd(torch, scene, *STEP_ROUTES[route])
+        one_step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - start))
+        return sorted(times)[len(times) // 2]
+
+    walls = {route: [] for route in STEP_ROUTES}
+    for order in (list(STEP_ROUTES), list(STEP_ROUTES)[::-1]):
+        for route in order:
+            walls[route].append(timed(route))
+    out = {}
+    for route, (on, segments) in STEP_ROUTES.items():
+        set_kernel_bwd(torch, scene, on, segments)
+        reset_launch_counts()
+        prof = profile_step(torch, one_step, f"one training step, backward route {route}")
+        routes = k1_routes(f"step, backward route {route}")
+        out[route] = dict(walls=walls[route], **(prof or {}))
+        print(f"step with the backward route {route}: wall {walls[route]} ms/step (in "
+              f"turns), device busy {out[route].get('busy_ms', float('nan')):.1f} ms, "
+              f"{out[route].get('launches', 0)} launches; routes {routes}")
+    set_kernel_bwd(torch, scene, False)
+    return out
 
 
 def phase_train(torch, dev):
@@ -1390,7 +1583,8 @@ def phase_train(torch, dev):
         check(counts[name] > 0, f"training: kernel {name} was not launched on the path")
     launches = dict(counts)
     routes = {}
-    for label, seg, names in (("K6 (kernel_bwd, segments 0)", 0, ["fused_mlp_backward"]),
+    for label, seg, names in (("K6 (kernel_bwd, segments 0)", 0,
+                               ["fused_mlp_backward", "pack_tile_transposes"]),
                               ("K7 (kernel_bwd, segments 4)", 4,
                                ["fused_mlp_ckpt_forward", "fused_mlp_segment_backward"])):
         set_kernel_bwd(torch, scene, True, seg)
@@ -1404,8 +1598,9 @@ def phase_train(torch, dev):
     set_kernel_mode(scene, "auto")
 
     step = build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
-    profile_step(torch, lambda: step(state, make_camera(idxs), (u, v), exp, mask, gen),
-                 "one training step (kernels)")
+    one_step = lambda: step(state, make_camera(idxs), (u, v), exp, mask, gen)
+    profile_step(torch, one_step, "one training step (kernels)")
+    step_routes(torch, scene, one_step)
 
     start = time.perf_counter()
     out = evaluate(scene, lambda i: make_camera([i]), imgs[:2], Direct(training=False),
@@ -2927,6 +3122,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     print("kernels: fused_mlp_forward, fused_march, fused_min_scan, "
           "fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward, "
+          "pack_tile_transposes, "
           "fused_shadow_march, fused_sphere_sdf, fused_composite, and the bf16-operand "
           "fused_mlp_forward_bf16, fused_march_bf16, fused_min_scan_bf16, "
           "fused_shadow_march_bf16")
@@ -2937,6 +3133,9 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
 
+    if sys.argv[1:2] == ["--bwd"]:
+        phase_backward(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -3002,11 +3201,14 @@ def main():
               counts["fused_march"], k2["bounded"]),
         entry("fused_min_scan", "fused_minscan.cu", "fused_march.py:482",
               train_counts["fused_min_scan"], k3),
-        entry("fused_mlp_backward", "fused_mlp_bwd.cu", "fused_mlp.py:268",
+        entry("fused_mlp_backward", "fused_mlp_bwd_tile.cu", "fused_mlp.py:268",
               train_counts["fused_mlp_backward"], kb["k6"]),
-        entry("fused_mlp_ckpt_forward", "fused_mlp_bwd.cu", "fused_mlp.py:449",
+        entry("pack_tile_transposes", "fused_mlp_bwd_tile.cu",
+              "fused_mlp.py:268 (the W^T _build_bwd_kernel takes in its body, :206-222)",
+              train_counts["pack_tile_transposes"], kb["pack"]),
+        entry("fused_mlp_ckpt_forward", "fused_mlp_bwd_tile.cu", "fused_mlp.py:449",
               train_counts["fused_mlp_ckpt_forward"], kb["k7a"]),
-        entry("fused_mlp_segment_backward", "fused_mlp_bwd.cu", "fused_mlp.py:476",
+        entry("fused_mlp_segment_backward", "fused_mlp_bwd_tile.cu", "fused_mlp.py:476",
               train_counts["fused_mlp_segment_backward"], kb["k7b"]),
         entry("fused_shadow_march", "fused_shadow.cu", "fused_march.py:445",
               nerv_counts["learned"]["fused_shadow_march"], k4),

@@ -1,4 +1,6 @@
-// K6 and K7: the fused SkipConnMLP backward, monolithic and checkpointed.
+// K6 and K7: the fused SkipConnMLP backward, monolithic and checkpointed,
+// for a net off K1's tile (kernels/fused_mlp.py k1_route "general"); a net on
+// the tile runs fused_mlp_bwd_tile.cu.
 //
 // Replaces the TPU kernels of neural_raytracing_tpu/kernels/fused_mlp.py:
 //   K6  _pallas_backward            (recompute the forward, backprop every layer)
@@ -341,7 +343,7 @@ extern "C" int nrt_mlp_store_forward(const float* x, const float* h_in, int l_st
   if (n < 0 || !nrt_fill_weights(m, in_size, freqs, hidden, num_layers, skip,
                                  out_size, act, weights) ||
       l_start < 0 || l_end > num_layers || l_start > l_end ||
-      (h_in == nullptr && l_start != 0))
+      (h_in == nullptr && l_start != 0 && n > 0))   // (an empty tensor's address may be null)
     return (int)cudaErrorInvalidValue;
   nrt_fill_layer_ptrs(hs, num_layers, hs_ptrs);
   const int R = NRT_ROWS;
@@ -395,7 +397,7 @@ extern "C" int nrt_mlp_outer(const float* A1, int lda1, int K1, int act1,
                              const float* A2, int lda2, int K2, int act2, int bias,
                              const float* G, int ldg, int N, int n, float* dst,
                              void* stream) {
-  if (n < 0 || K1 < 0 || K2 < 0 || N <= 0 || (K2 > 0 && A2 == nullptr))
+  if (n < 0 || K1 < 0 || K2 < 0 || N <= 0 || (K2 > 0 && A2 == nullptr && n > 0))
     return (int)cudaErrorInvalidValue;
   const int K = K1 + K2 + (bias ? 1 : 0);
   if (n == 0 || K == 0) return 0;

@@ -1,8 +1,9 @@
 // Device-side SkipConnMLP shared by the fused MLP kernel's general route
 // (fused_mlp.cu: K1 for a net off the tile), the fused SDF (fused_sdf.cu) and
-// the MLP backward (fused_mlp_bwd.cu), so every kernel evaluates exactly the
-// network the MLP kernel evaluates.  The march K2, the min-scan K3, the
-// shadow march K4 and K1 for the nets the port builds (fused_mlp_tile.cu)
+// the MLP backward's general route (fused_mlp_bwd.cu: K6/K7 for a net off the
+// tile), so every kernel evaluates exactly the network the MLP kernel
+// evaluates.  The march K2, the min-scan K3, the shadow march K4, and K1 and
+// K6/K7 for the nets the port builds (fused_mlp_tile.cu, fused_mlp_bwd_tile.cu)
 // run on the tiles of mlp_tiled.cuh instead, with the same float32 sums.
 //
 // Math (neural_raytracing_tpu_torch/nn/mlp.py, the plain version):

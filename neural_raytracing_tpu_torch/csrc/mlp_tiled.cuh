@@ -8,8 +8,9 @@
 // nrt_bf16_out).  The fused MLP forward K1 (fused_mlp_tile.cu) runs the
 // same net without the sphere set (nrt_f32_net / nrt_bf16_net) over the
 // layout kernels/fused_mlp.py tile_layout gives, with out_size output
-// columns.  K5-K7, and K1 for a net off the tile, keep the device MLP of
-// mlp.cuh.
+// columns; the backward K6/K7 (fused_mlp_bwd_tile.cu) runs its forward on
+// nrt_f32_chunk and its gradient chain on the same register tile.  K5, and
+// K1 and K6/K7 for a net off the tile, keep the device MLP of mlp.cuh.
 //
 // A block evaluates the net on up to M rows at once; a caller with fewer
 // live rows (K2's and K4's tail) evaluates only the first 32 or M / 2 of them

@@ -20,13 +20,15 @@ from .fused_march import (
     sphere_sdf_eval_plain, supports,
 )
 from .fused_mlp import (
-    TILE_LIMITS, FusedSkipConnMLP, ckpt_forward_plain, f32_column_order, fused_mlp_apply,
-    fused_mlp_backward,
+    TILE_LIMITS, FusedSkipConnMLP, ckpt_forward_plain, dw_plan, f32_column_order,
+    fused_mlp_apply, fused_mlp_backward,
     fused_mlp_ckpt_forward, fused_mlp_forward, fused_mlp_forward_bf16,
     fused_mlp_segment_backward, k1_route, mlp_backward, mlp_backward_plain,
-    mlp_forward_bf16_operands, pack_tile_weights, segment_backward_plain, segment_bounds,
-    segmented_backward, tile_forward_plain, tile_info, tile_layout, tile_pack,
-    tile_pack_key, tile_pack_plain, tile_pointers, tile_widths,
+    mlp_forward_bf16_operands, pack_tile_transposes, pack_tile_weights,
+    segment_backward_plain, segment_bounds, segmented_backward, tile_backward_plain,
+    tile_bwd_info, tile_bwd_widths, tile_dw_plain, tile_forward_plain, tile_info,
+    tile_layout, tile_pack, tile_pack_key, tile_pack_plain, tile_pointers,
+    tile_transpose_layout, tile_transposes, tile_transposes_plain, tile_widths,
 )
 from .fused_sdf import (
     FusedSphereSDF, fused_sphere_sdf, fused_sphere_sdf_apply, sphere_sdf_plain,
@@ -49,14 +51,19 @@ KERNELS = {
     "fused_shadow_march_bf16": fused_shadow_march_bf16,
     # K1's tile reads its weights packed by this kernel, once per net and version
     "pack_tile_weights": pack_tile_weights,
+    # ... and K6/K7's tile their transposes, packed by this one
+    "pack_tile_transposes": pack_tile_transposes,
 }
+# the kernels with two routes (the tile and the general one), counted by route
+ROUTED = ("fused_mlp_forward", "fused_mlp_forward_bf16", "fused_mlp_backward",
+          "fused_mlp_ckpt_forward", "fused_mlp_segment_backward")
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
-    for fn in (fused_mlp_forward, fused_mlp_forward_bf16):
-        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+    for name in ROUTED:
+        KERNELS[name].route_launches = dict.fromkeys(KERNELS[name].route_launches, 0)
 
 
 def launch_counts() -> dict:
@@ -64,10 +71,9 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """K1's and K1-bf16's launches by route: ``{"fused_mlp_forward":
-    {"tile": n, "general": n}, "fused_mlp_forward_bf16": {...}}``."""
-    return {name: dict(KERNELS[name].route_launches)
-            for name in ("fused_mlp_forward", "fused_mlp_forward_bf16")}
+    """The launches by route of K1, K1-bf16, K6, K7a and K7b:
+    ``{"fused_mlp_forward": {"tile": n, "general": n}, ...}``."""
+    return {name: dict(KERNELS[name].route_launches) for name in ROUTED}
 
 
 def set_kernel_mode(module: nn.Module, mode: str):

@@ -32,13 +32,21 @@ order (and by a bf16 rounding that such a difference tips over).
 
 K6 (``fused_mlp_backward``, replacing ``_pallas_backward``) and K7
 (``fused_mlp_ckpt_forward`` + ``fused_mlp_segment_backward``, replacing the
-two kernels of ``_pallas_backward_segmented``) are the hand-written backward
-(``csrc/fused_mlp_bwd.cu``): recompute the forward, backprop every layer,
-dW/db summed over the rows by a split-over-rows product, dx through the
-Fourier chain; dB = 0.  They are first-order only.  Their plain versions
-are ``mlp_backward_plain`` (K6), ``ckpt_forward_plain`` and
+two kernels of ``_pallas_backward_segmented``) are the hand-written backward:
+recompute the forward, backprop every layer, dW/db summed over the rows,
+dx through the Fourier chain; dB = 0.  They are first-order only and take
+K1's routes: a net on the tile runs ``csrc/fused_mlp_bwd_tile.cu`` (K1's
+forward that stores the pre-activations, the gradient chain on the same
+register tile over the transposed weights ``pack_tile_transposes`` writes
+once per net and version, cached beside the module as K1's pack is, and
+one grouped dW launch whose rows split into the fixed slices of
+``dw_plan``, added in slice order: the same dW bits from run to run); a
+net off it the three kernels of ``csrc/fused_mlp_bwd.cu`` over
+``csrc/mlp.cuh`` (dW by atomics).  Their plain versions are
+``mlp_backward_plain`` (K6), ``ckpt_forward_plain`` and
 ``segment_backward_plain`` (K7), the same math in PyTorch ops, and the
-autograd recompute of ``_FusedMLP.backward``.
+autograd recompute of ``_FusedMLP.backward``; ``tile_backward_plain``
+computes K6's and K7's function from the two packs alone.
 
 Gradients: ``fused_mlp_apply`` wraps K1 in an ``autograd.Function``.  By
 default its backward recomputes through the plain version, as the JAX
@@ -198,6 +206,17 @@ def k1_route(mlp: SkipConnMLP) -> str:
     return "general"
 
 
+def _pick_route(name: str, mlp: SkipConnMLP, route) -> str:
+    """``route`` (``k1_route(mlp)``'s when None), refused where the tile
+    does not take the net."""
+    chosen = k1_route(mlp)
+    route = chosen if route is None else route
+    if route not in ROUTES or (route == "tile" and chosen != "tile"):
+        raise ValueError(f"{name}: route {route!r} does not take this net "
+                         f"(its route is {chosen!r})")
+    return route
+
+
 def fused_mlp_forward(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor,
                       weights, compute_dtype=torch.float32, *, route=None) -> torch.Tensor:
     """Launch K1: ``x [n, in_size] -> [n, out]`` on CUDA tensors, with
@@ -210,11 +229,7 @@ def fused_mlp_forward(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor,
     synchronise.
     """
     bf16 = check_compute_dtype(compute_dtype) == torch.bfloat16
-    chosen = k1_route(mlp)
-    route = chosen if route is None else route
-    if route not in ROUTES or (route == "tile" and chosen != "tile"):
-        raise ValueError(f"fused_mlp_forward: route {route!r} does not take this net "
-                         f"(its route is {chosen!r})")
+    route = _pick_route("fused_mlp_forward", mlp, route)
     n = x.shape[0]
     check_cuda_f32("x", x, (n, mlp.in_size))
     out = torch.empty(n, mlp.out_size, device=x.device, dtype=torch.float32)
@@ -378,34 +393,40 @@ pack_tile_weights.launches = 0
 
 
 def tile_pack_key(basis: torch.Tensor, weights, compute_dtype) -> tuple:
-    """What a cached pack is valid for: the compute dtype and each tensor's
+    """What a cached pack is valid for: the compute dtype (or the pack's
+    kind, ``"transposes"`` for the backward's) and each tensor's
     address and version (an in-place update, ``load_state_dict`` or
     ``.to()`` changes it; the cache keeps the tensors alive, so no other
     tensor takes their addresses)."""
     return (compute_dtype,) + tuple((t.data_ptr(), t._version) for t in (basis, *weights))
 
 
-# module -> {compute dtype: (key, the keyed tensors, packed views, their C
+# module -> {kind (K1's pack: its compute dtype; the backward's transposed
+# pack: "transposes"): (key, the keyed tensors, packed views, their C
 # pointer table)}; beside the module, not in it, so copies and pickles of a
 # module carry no pack
 _TILE_PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _tile_pack_entry(mlp: SkipConnMLP, basis: torch.Tensor, weights, compute_dtype):
-    """(the packed views, their C pointer table), cached for the module by
-    ``tile_pack_key``.  A new version of the weights is packed into the same
-    buffer (on the current stream, after every launch that read it), so a
-    repack costs the host one launch."""
-    key = tile_pack_key(basis, weights, compute_dtype)
+def _cached_pack(mlp: SkipConnMLP, basis: torch.Tensor, weights, kind, pack):
+    """(the packed views of ``kind``, their C pointer table), cached for the
+    module by ``tile_pack_key``.  A new version of the weights is packed by
+    ``pack(out=...)`` into the same buffer (on the current stream, after
+    every launch that read it), so a repack costs the host one launch."""
+    key = tile_pack_key(basis, weights, kind)
     cache = _TILE_PACKS.setdefault(mlp, {})
-    hit = cache.get(compute_dtype)
+    hit = cache.get(kind)
     if hit is not None and hit[0] == key:
         return hit[2], hit[3]
     reuse = hit[2] if hit is not None and hit[2][0].device == basis.device else None
-    packed = pack_tile_weights(mlp, basis, weights, compute_dtype, out=reuse)
-    cache[compute_dtype] = (key, [t.detach() for t in (basis, *weights)], packed,
-                            _ptr_table(packed))
-    return packed, cache[compute_dtype][3]
+    packed = pack(out=reuse)
+    cache[kind] = (key, [t.detach() for t in (basis, *weights)], packed, _ptr_table(packed))
+    return packed, cache[kind][3]
+
+
+def _tile_pack_entry(mlp: SkipConnMLP, basis: torch.Tensor, weights, compute_dtype):
+    return _cached_pack(mlp, basis, weights, compute_dtype, lambda out: pack_tile_weights(
+        mlp, basis, weights, compute_dtype, out=out))
 
 
 def tile_pack(mlp: SkipConnMLP, basis: torch.Tensor, weights,
@@ -643,15 +664,301 @@ def _check_rows(mlp, x, basis, weights, rows=None, width=None):
     return n, weight_pointers(mlp, basis, weights, x.device)
 
 
+# ---- K6 / K7 on the tile: the transposed pack, the dW plan -------------------------
+
+def _bwd_tile_lib() -> ctypes.CDLL:
+    lib = library("fused_mlp_bwd_tile")
+    lib.nrt_mlp_tile_store_forward.argtypes = [_P, _P, _I, _I, _P, _P, *_NET, _P, _P]
+    lib.nrt_mlp_tile_backward.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, *_NET,
+                                          _P, _P, _P]
+    lib.nrt_mlp_tile_dw.argtypes = [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+                                    _I, _P, _P, _P]
+    lib.nrt_mlp_tile_pack_transposes.argtypes = [_P, _P, _I, _I, _I, _P]
+    lib.nrt_mlp_tile_bwd_info.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    for fn in (lib.nrt_mlp_tile_store_forward, lib.nrt_mlp_tile_backward, lib.nrt_mlp_tile_dw,
+               lib.nrt_mlp_tile_pack_transposes, lib.nrt_mlp_tile_bwd_info):
+        fn.restype = _I
+    return lib
+
+
+def tile_bwd_widths(mlp: SkipConnMLP):
+    """``(NP, EPT)``: the padded hidden width of K1's tile and the encoding
+    width rounded up to 64, the widths of the transposed pack's matrices
+    (``csrc/fused_mlp_bwd_tile.cu``)."""
+    return tile_widths(mlp)[0], -(-mlp.enc_size // 64) * 64
+
+
+def tile_transpose_layout(mlp: SkipConnMLP):
+    """The backward's transposed pack as one float32 buffer: ``([(float
+    offset, shape) or None, ...], total floats)`` in the table order
+    ``[W0T, h_0, e_0, ..., h_{L-1}, e_{L-1}]``, ``e_i`` None on a plain layer.
+
+    With ``(NP, EPT) = tile_bwd_widths(mlp)``: ``W0T [NP, EPT]`` holds the
+    init layer's ``W^T`` (row j, column e = ``init w[e, j]``), ``h_i [NP,
+    NP]`` hidden layer i's h rows transposed (row j, column c = ``w[c,
+    j]``), ``e_i [NP, EPT]`` a skip layer's encoding rows transposed (row j,
+    column e = ``w[hidden + e, j]``); every entry past ``hidden_size`` and
+    the encoding is zero.  Row j of a matrix is output column j of its
+    layer: the chain's product ``gH W^T`` reads them k-row by k-row."""
+    NP, EPT = tile_bwd_widths(mlp)
+    shapes = [(NP, EPT)]
+    for i in range(mlp.num_layers):
+        shapes += [(NP, NP), (NP, EPT) if mlp.is_skip_layer(i) else None]
+    layout, offset = [], 0
+    for shape in shapes:
+        layout.append(None if shape is None else (offset, shape))
+        offset += 0 if shape is None else shape[0] * shape[1]
+    return layout, offset
+
+
+def _transpose_views(buf: torch.Tensor, layout) -> list:
+    """The slots of ``tile_transpose_layout`` as views of ``buf``."""
+    return [None if slot is None else buf[slot[0]:].view(-1)[:int(np.prod(slot[1]))].view(slot[1])
+            for slot in layout]
+
+
+@torch.no_grad()
+def tile_transposes_plain(mlp: SkipConnMLP, weights) -> list:
+    """The transposed pack in PyTorch ops (``pack_tile_transposes``' plain
+    version): ``tile_transpose_layout``'s views of one float32 buffer on the
+    weights' device."""
+    H = mlp.hidden_size
+    ws = [w.detach() for w in weights[0::2]]
+    layout, total = tile_transpose_layout(mlp)
+    views = _transpose_views(torch.zeros(total, device=ws[0].device), layout)
+    views[0][:H, :mlp.enc_size] = ws[0].t()
+    for i in range(mlp.num_layers):
+        views[1 + 2 * i][:H, :H] = ws[1 + i][:H].t()
+        if views[2 + 2 * i] is not None:
+            views[2 + 2 * i][:H, :mlp.enc_size] = ws[1 + i][H:].t()
+    return views
+
+
+def pack_tile_transposes(mlp: SkipConnMLP, weights, out=None) -> list:
+    """Launch the transposed pack on CUDA tensors: ``tile_transposes_plain``'s
+    views, written in one launch from the module's float32 arrays
+    (``weights`` in ``flat_weights`` order) into ``out`` (an earlier pack of
+    this net, on its device) or a new buffer.  On CPU tensors the plain
+    version."""
+    mats = [w.detach() for w in weights[0::2]][:mlp.num_layers + 1]
+    if not mats[0].is_cuda:
+        return tile_transposes_plain(mlp, weights)
+    dev = mats[0].device
+    for i, (t, shape) in enumerate(zip(mats, weight_shapes(mlp)[1::2])):
+        check_cuda_f32(f"weight {2 * i}", t, shape, dev)
+    views = out
+    if views is None:
+        layout, total = tile_transpose_layout(mlp)
+        views = _transpose_views(torch.empty(total, device=dev), layout)
+    with torch.cuda.device(dev):
+        _check("nrt_mlp_tile_pack_transposes", _bwd_tile_lib().nrt_mlp_tile_pack_transposes(
+            _ptr_table(mats), _ptr_table(views), mlp.freqs, mlp.hidden_size, mlp.num_layers,
+            _stream(dev)))
+    pack_tile_transposes.launches += 1
+    return views
+
+
+pack_tile_transposes.launches = 0
+
+
+def tile_transposes(mlp: SkipConnMLP, basis: torch.Tensor, weights) -> list:
+    """The transposed pack of ``mlp`` (``pack_tile_transposes``), cached
+    beside the module as K1's pack is (``tile_pack_key``, kind
+    ``"transposes"``): a training step packs it once per net after the
+    optimizer's in-place update."""
+    return _transposes_entry(mlp, basis, weights)[0]
+
+
+def _transposes_entry(mlp: SkipConnMLP, basis: torch.Tensor, weights):
+    return _cached_pack(mlp, basis, weights, "transposes",
+                        lambda out: pack_tile_transposes(mlp, weights, out=out))
+
+
+def _tile_bwd_pointers(mlp: SkipConnMLP, basis: torch.Tensor, weights, device):
+    """The C pointer tables of K1's f32 pack and of the transposed pack of
+    the net's tensors, for a launch on the CUDA ``device``.  Where both
+    cached packs hold these very tensors, unmodified (``tile_pack_key``),
+    the tensors passed ``check_weights`` when they were packed, and only the
+    packs' device is checked against ``device``; otherwise every tensor is
+    checked before anything is packed."""
+    key = tuple((t.data_ptr(), t._version) for t in (basis, *weights))
+    cache = _TILE_PACKS.get(mlp, {})
+    fwd, bwd = cache.get(torch.float32), cache.get("transposes")
+    if (fwd is not None and bwd is not None and fwd[0][1:] == key and bwd[0][1:] == key
+            and fwd[2][0].device == device == bwd[2][0].device):
+        return fwd[3], bwd[3]
+    check_weights(mlp, basis, weights, device)
+    return (_tile_pack_entry(mlp, basis, weights, torch.float32)[1],
+            _transposes_entry(mlp, basis, weights)[1])
+
+
+# the dW kernel: 128 x 128 output tiles, slices of a multiple of 32 rows;
+# DW_BLOCKS, the blocks a launch aims at, is 4 waves of its 2 blocks a SM
+# on the 132 SMs of an H100; a slice keeps at least DW_MIN_ROWS rows
+DW_TILE, DW_CHUNK, DW_BLOCKS, DW_MIN_ROWS = 128, 32, 1056, 256
+
+
+def dw_plan(n: int, shapes) -> dict:
+    """How the dW kernel splits a launch of layers whose outputs are
+    ``shapes`` ``[(K, N), ...]`` (dW ``[K, N]``; db beside) over ``n`` rows:
+    ``tiles`` (128 x 128 output tiles), ``slices`` (row slices, each summed
+    by its own blocks, then added in slice order) and ``rows`` a slice.  A
+    function of ``n`` and the widths alone, so the same inputs give the same
+    sums."""
+    tiles = sum(-(-k // DW_TILE) * -(-width // DW_TILE) for k, width in shapes)
+    slices = max(1, min(DW_BLOCKS // tiles, -(-n // DW_MIN_ROWS)))
+    rows = -(-(-(-max(n, 1) // slices)) // DW_CHUNK) * DW_CHUNK
+    return dict(tiles=tiles, slices=max(1, -(-n // rows)), rows=rows)
+
+
+def _dw_offsets(shapes):
+    """Each layer's offset in the dW kernel's output (``[K + 1, N]`` each:
+    dW, then db) and the total floats."""
+    offsets, total = [], 0
+    for k, width in shapes:
+        offsets.append(total)
+        total += (k + 1) * width
+    return offsets, total
+
+
+@torch.no_grad()
+def tile_dw_plain(a: torch.Tensor, g: torch.Tensor, rows: int) -> torch.Tensor:
+    """The dW kernel's function for one layer in PyTorch ops: ``[a | 1]^T g``
+    (``[K + 1, N]``: dW, then db) as the sums of ``rows``-row slices added in
+    slice order, as the kernel's second launch adds them."""
+    a1 = torch.cat([a, a.new_ones(a.shape[0], 1)], dim=-1)
+    parts = [a1[r:r + rows].t() @ g[r:r + rows] for r in range(0, a.shape[0], rows)]
+    if not parts:
+        return a1.new_zeros(a1.shape[1], g.shape[1])
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+@functools.lru_cache(maxsize=256)
+def _dw_layout(n: int, spec: tuple):
+    """What a dW launch over ``n`` rows of the layers ``spec`` ``((k1, act
+    a1?, k2, act a2?, N), ...)`` needs besides its pointers: (dw_plan's
+    plan, the output's floats, the C arrays of the dims and offsets, the
+    outputs' shapes, the sizes that split the output into dW, db, ...)."""
+    shapes = [(k1 + k2, width) for k1, _, k2, _, width in spec]
+    offsets, total = _dw_offsets(shapes)
+    dims = (_I * (5 * len(spec)))(*(v for job in spec for v in job))
+    return (dw_plan(n, shapes), total, dims, (ctypes.c_longlong * len(spec))(*offsets),
+            shapes, [v for k, width in shapes for v in (k * width, width)])
+
+
+def _tile_dw(mlp: SkipConnMLP, n: int, spec, ptrs, dev) -> list:
+    """Launch the dW kernel (and, with more than one slice, its reduction)
+    for the layers ``spec`` (``_dw_layout``'s) whose arrays are at ``ptrs``
+    ``[(a1, a2 or None, g), ...]`` -> ``[(dW, db), ...]``, views of one
+    buffer."""
+    plan, total, dims, offsets, shapes, sizes = _dw_layout(n, tuple(spec))
+    out = torch.empty(total, device=dev)
+    part = torch.empty(plan["slices"] * total, device=dev) if plan["slices"] > 1 else None
+    table = lambda i: (_P * len(ptrs))(*(p[i] for p in ptrs))
+    _check("nrt_mlp_tile_dw", _bwd_tile_lib().nrt_mlp_tile_dw(
+        len(spec), table(0), table(1), table(2), dims, offsets, total, n, plan["slices"],
+        plan["rows"], ACT_CODES[mlp.activation_name],
+        None if part is None else part.data_ptr(), out.data_ptr(), _stream(dev)))
+    pieces = out.split(sizes)
+    return [(pieces[2 * i].view(shape), pieces[2 * i + 1]) for i, shape in enumerate(shapes)]
+
+
+def _hidden_spec(mlp: SkipConnMLP, k: int) -> tuple:
+    """dW of hidden layer k: A = [act(hs[k]), act(enc) on a skip layer]."""
+    skip = mlp.is_skip_layer(k)
+    return (mlp.hidden_size, 1, mlp.enc_size if skip else 0, int(skip), mlp.hidden_size)
+
+
+def _rows_table(base: int, count: int, row_bytes: int, n: int):
+    """The C table of ``count`` ``[n, row_bytes / 4]`` arrays, one after
+    another from ``base``."""
+    return (_P * count)(*(base + k * n * row_bytes for k in range(count)))
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_bwd_info(freqs: int, hidden: int, out_size: int, act: int, device: int) -> dict:
+    info = (_I * 12)()
+    with torch.cuda.device(device):
+        rc = _bwd_tile_lib().nrt_mlp_tile_bwd_info(freqs, hidden, out_size, act, info)
+    if rc != 0:
+        raise RuntimeError(f"nrt_mlp_tile_bwd_info: CUDA error {rc}")
+    keys = ("blocks_per_sm", "registers", "local_bytes", "smem_bytes")
+    return {kernel: dict(zip(keys, info[4 * i:4 * i + 4]))
+            for i, kernel in enumerate(("chain", "store_forward", "dw"))}
+
+
+def tile_bwd_info(mlp: SkipConnMLP, device=None) -> dict:
+    """K6's and K7's tile kernels for ``mlp`` on the CUDA ``device``, as the
+    library reports them: ``{"chain" | "store_forward" | "dw":
+    {blocks_per_sm, registers, local_bytes, smem_bytes}}``."""
+    if k1_route(mlp) != "tile":
+        raise ValueError("tile_bwd_info: this net is off the tile")
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return _tile_bwd_info(mlp.freqs, mlp.hidden_size, mlp.out_size,
+                          ACT_CODES[mlp.activation_name], index)
+
+
+# ---- K6 / K7: the wrappers ------------------------------------------------------
+
+def _count(wrapper, route: str, n: int):
+    if n > 0:
+        wrapper.launches += 1
+        wrapper.route_launches[route] += 1
+
+
 def fused_mlp_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
-                       basis: torch.Tensor, weights):
+                       basis: torch.Tensor, weights, *, route=None):
     """Launch K6 on CUDA tensors: the whole backward of ``out = mlp(x)`` for
-    the output gradient ``g [n, out]``.
+    the output gradient ``g [n, out]``, through ``k1_route(mlp)``'s kernels
+    (the tile: ``csrc/fused_mlp_bwd_tile.cu``; "general": those of
+    ``csrc/fused_mlp_bwd.cu``, which ``route="general"`` also runs on a tile
+    net, for measuring).
 
     Returns ``(dx [n, in], grads)`` with ``grads`` in ``flat_weights`` order.
     Launches on the current stream and does not synchronise.
     """
-    weights = [w.detach() for w in weights]
+    route = _pick_route("fused_mlp_backward", mlp, route)
+    n = x.shape[0]
+    out = (_k6_tile if route == "tile" else _k6_general)(mlp, x, g, basis, weights)
+    _count(fused_mlp_backward, route, n)
+    return out
+
+
+def _k6_tile(mlp, x, g, basis, weights):
+    n = x.shape[0]
+    check_cuda_f32("x", x, (n, mlp.in_size))
+    check_cuda_f32("gradient", g, (n, mlp.out_size), x.device)
+    L, H, E, dev = mlp.num_layers, mlp.hidden_size, mlp.enc_size, x.device
+    ptrs, tptrs = _tile_bwd_pointers(mlp, basis, weights, dev)
+    hs = torch.empty(L + 1, n, H, device=dev)
+    enc = torch.empty(n, E, device=dev)
+    hs0, enc_p = hs.data_ptr(), enc.data_ptr()
+    lib, net, stream = _bwd_tile_lib(), _net_args(mlp, n), _stream(dev)
+    with torch.cuda.device(dev):
+        hs_ptrs = _rows_table(hs0, L + 1, 4 * H, n)
+        _check("nrt_mlp_tile_store_forward", lib.nrt_mlp_tile_store_forward(
+            x.data_ptr(), None, 0, L, hs_ptrs, enc_p, *net, ptrs, stream))
+        # (the rest is prepared while the card runs the forward)
+        gh = torch.empty(L + 1, n, H, device=dev)
+        dx = torch.empty(n, mlp.in_size, device=dev)
+        gh0 = gh.data_ptr()
+        _check("nrt_mlp_tile_backward", lib.nrt_mlp_tile_backward(
+            x.data_ptr(), g.data_ptr(), 1, 0, L, hs_ptrs, _rows_table(gh0, L + 1, 4 * H, n),
+            enc_p, None, dx.data_ptr(), *net, ptrs, tptrs, stream))
+        row = 4 * n * H
+        spec = [(E, 0, 0, 0, H), *(_hidden_spec(mlp, k) for k in range(L)),
+                (H, 1, 0, 0, mlp.out_size)]
+        jobs = [(enc_p, None, gh0)]
+        jobs += [(hs0 + k * row, enc_p if mlp.is_skip_layer(k) else None, gh0 + (k + 1) * row)
+                 for k in range(L)]
+        grads = _tile_dw(mlp, n, spec, jobs + [(hs0 + L * row, None, g.data_ptr())], dev)
+    return dx, [t for pair in grads for t in pair]
+
+
+def _k6_general(mlp, x, g, basis, weights):
     n, ptrs = _check_rows(mlp, x, basis, weights, g, mlp.out_size)
     L, H, dev = mlp.num_layers, mlp.hidden_size, x.device
     hs = torch.empty(L + 1, n, H, device=dev)
@@ -673,49 +980,74 @@ def fused_mlp_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,
         for k in range(L):
             grads += _layer_grads(mlp, k, hs[k], enc, gh[k + 1])
         grads += _outer(hs[L], act, g)
-    if n > 0:
-        fused_mlp_backward.launches += 1
     return dx, grads
 
 
 def fused_mlp_ckpt_forward(mlp: SkipConnMLP, x: torch.Tensor,
-                           basis: torch.Tensor, weights, boundaries):
+                           basis: torch.Tensor, weights, boundaries, *, route=None):
     """Launch K7a on CUDA tensors: the forward that keeps only the
     pre-activations ``hs[b]`` for ``b`` in ``boundaries`` (hs[0] = init
-    output, hs[i + 1] = hidden layer i output).
+    output, hs[i + 1] = hidden layer i output), through ``k1_route(mlp)``'s
+    kernel (``route`` as ``fused_mlp_backward``'s).
 
     Returns ``({b: hs[b] [n, H]}, enc [n, E])``; ``enc`` is the raw Fourier
     encoding the segment backward and the epilogue need.
     """
-    weights = [w.detach() for w in weights]
-    n, ptrs = _check_rows(mlp, x, basis, weights)
+    route = _pick_route("fused_mlp_ckpt_forward", mlp, route)
+    n = x.shape[0]
+    if route == "tile":
+        check_cuda_f32("x", x, (n, mlp.in_size))
+        ptrs = _tile_bwd_pointers(mlp, basis, weights, x.device)[0]
+        lib, entry = _bwd_tile_lib(), "nrt_mlp_tile_store_forward"
+    else:
+        n, ptrs = _check_rows(mlp, x, basis, weights)
+        lib, entry = _bwd_lib(), "nrt_mlp_store_forward"
     L, dev = mlp.num_layers, x.device
     hs = {b: torch.empty(n, mlp.hidden_size, device=dev) for b in boundaries}
     enc = torch.empty(n, mlp.enc_size, device=dev)
     with torch.cuda.device(dev):
-        _check("nrt_mlp_store_forward", _bwd_lib().nrt_mlp_store_forward(
+        _check(entry, getattr(lib, entry)(
             x.data_ptr(), None, 0, L, _ptr_table([hs.get(k) for k in range(L + 1)]),
             enc.data_ptr(), *_net_args(mlp, n), ptrs, _stream(dev)))
-    if n > 0:
-        fused_mlp_ckpt_forward.launches += 1
+    _count(fused_mlp_ckpt_forward, route, n)
     return hs, enc
 
 
 def fused_mlp_segment_backward(mlp: SkipConnMLP, x: torch.Tensor,
                                basis: torch.Tensor, weights, enc: torch.Tensor,
                                h_in: torch.Tensor, g_out: torch.Tensor,
-                               l0: int, l1: int):
+                               l0: int, l1: int, *, route=None):
     """Launch K7b on CUDA tensors: backprop through hidden layers
-    ``[l0, l1)`` from the checkpoint ``h_in = hs[l0]`` and ``g_out = gH[l1]``.
+    ``[l0, l1)`` from the checkpoint ``h_in = hs[l0]`` and ``g_out = gH[l1]``,
+    through ``k1_route(mlp)``'s kernels (``route`` as
+    ``fused_mlp_backward``'s).
 
     Returns ``(g_in = gH[l0], genc_act [n, E], [(dW, db) of layers l0..l1-1])``;
     ``genc_act`` is the gradient at act(enc) from the segment's skip layers.
     """
-    weights = [w.detach() for w in weights]
-    n, ptrs = _check_rows(mlp, x, basis, weights, g_out, mlp.hidden_size)
-    L, H, dev = mlp.num_layers, mlp.hidden_size, x.device
+    route = _pick_route("fused_mlp_segment_backward", mlp, route)
+    n = x.shape[0]
+    segment = _k7b_tile if route == "tile" else _k7b_general
+    out = segment(mlp, x, basis, weights, enc, h_in, g_out, l0, l1)
+    _count(fused_mlp_segment_backward, route, n)
+    return out
+
+
+def _check_k7b(mlp, x, enc, h_in, g_out, l0, l1):
+    n, H, dev = x.shape[0], mlp.hidden_size, x.device
+    check_cuda_f32("x", x, (n, mlp.in_size))
+    check_cuda_f32("gradient", g_out, (n, H), dev)
     check_cuda_f32("h_in", h_in, (n, H), dev)
     check_cuda_f32("enc", enc, (n, mlp.enc_size), dev)
+    if not 0 <= l0 < l1 <= mlp.num_layers:
+        raise ValueError(f"segment [{l0}, {l1}) is not in [0, {mlp.num_layers})")
+
+
+def _k7b_rows(mlp, x, enc, h_in, g_out, l0, l1):
+    """Check K7b's row tensors -> the hs and gH tables' tensors of the
+    segment (hs[l0] = h_in; the inner hs and gH[l0 .. l1 - 1] new)."""
+    _check_k7b(mlp, x, enc, h_in, g_out, l0, l1)
+    n, L, H, dev = x.shape[0], mlp.num_layers, mlp.hidden_size, x.device
     hs: list = [None] * (L + 1)
     hs[l0] = h_in
     for k in range(l0 + 1, l1):
@@ -723,28 +1055,63 @@ def fused_mlp_segment_backward(mlp: SkipConnMLP, x: torch.Tensor,
     gh: list = [None] * (L + 1)
     for k in range(l0, l1):
         gh[k] = torch.empty(n, H, device=dev)
+    return hs, gh
+
+
+def _k7b_tile(mlp, x, basis, weights, enc, h_in, g_out, l0, l1):
+    _check_k7b(mlp, x, enc, h_in, g_out, l0, l1)
+    n, L, H, dev = x.shape[0], mlp.num_layers, mlp.hidden_size, x.device
+    ptrs, tptrs = _tile_bwd_pointers(mlp, basis, weights, dev)
+    inner = torch.empty(l1 - l0 - 1, n, H, device=dev)   # hs[l0 + 1 .. l1 - 1]
+    gh = torch.empty(l1 - l0, n, H, device=dev)          # gH[l0 .. l1 - 1]
     genc = torch.empty(n, mlp.enc_size, device=dev)
+    row = 4 * n * H
+    hs_at = {l0: h_in.data_ptr(), **{k: inner.data_ptr() + (k - l0 - 1) * row
+                                     for k in range(l0 + 1, l1)}}
+    gh_at = {**{k: gh.data_ptr() + (k - l0) * row for k in range(l0, l1)}, l1: g_out.data_ptr()}
+    table = lambda at: (_P * (L + 1))(*(at.get(k) for k in range(L + 1)))
+    hs_ptrs = table(hs_at)
+    lib, net, stream = _bwd_tile_lib(), _net_args(mlp, n), _stream(dev)
+    with torch.cuda.device(dev):
+        if l1 - l0 > 1:   # recompute hs[l0 + 1 .. l1 - 1]
+            _check("nrt_mlp_tile_store_forward", lib.nrt_mlp_tile_store_forward(
+                x.data_ptr(), h_in.data_ptr(), l0 + 1, l1 - 1, hs_ptrs, None, *net, ptrs,
+                stream))
+        _check("nrt_mlp_tile_backward", lib.nrt_mlp_tile_backward(
+            x.data_ptr(), g_out.data_ptr(), 0, l0, l1, hs_ptrs,
+            table({k: v for k, v in gh_at.items() if k < l1}), None, genc.data_ptr(), None,
+            *net, ptrs, tptrs, stream))
+        enc_p = enc.data_ptr()
+        grads = _tile_dw(mlp, n, [_hidden_spec(mlp, k) for k in range(l0, l1)], [
+            (hs_at[k], enc_p if mlp.is_skip_layer(k) else None, gh_at[k + 1])
+            for k in range(l0, l1)], dev)
+    return gh[0], genc, grads
+
+
+def _k7b_general(mlp, x, basis, weights, enc, h_in, g_out, l0, l1):
+    hs, gh = _k7b_rows(mlp, x, enc, h_in, g_out, l0, l1)
+    n, ptrs = _check_rows(mlp, x, basis, weights)
     hs_ptrs = _ptr_table(hs)
     lib, net = _bwd_lib(), _net_args(mlp, n)
     wts = _transposes(weights, range(1 + l0, 1 + l1))
-    with torch.cuda.device(dev):
+    genc = torch.empty(n, mlp.enc_size, device=x.device)
+    with torch.cuda.device(x.device):
         if l1 - l0 > 1:   # recompute hs[l0 + 1 .. l1 - 1]
             _check("nrt_mlp_store_forward", lib.nrt_mlp_store_forward(
                 x.data_ptr(), h_in.data_ptr(), l0, l1 - 1, hs_ptrs, None, *net,
-                ptrs, _stream(dev)))
+                ptrs, _stream(x.device)))
         _check("nrt_mlp_backward_layers", lib.nrt_mlp_backward_layers(
             x.data_ptr(), g_out.data_ptr(), 0, l0, l1, hs_ptrs, _ptr_table(gh),
-            _ptr_table(wts), genc.data_ptr(), None, *net, ptrs, _stream(dev)))
+            _ptr_table(wts), genc.data_ptr(), None, *net, ptrs, _stream(x.device)))
         grads = [_layer_grads(mlp, k, hs[k], enc, gh[k + 1] if k + 1 < l1 else g_out)
                  for k in range(l0, l1)]
-    if n > 0:
-        fused_mlp_segment_backward.launches += 1
     return gh[l0], genc, grads
 
 
-fused_mlp_backward.launches = 0
-fused_mlp_ckpt_forward.launches = 0
-fused_mlp_segment_backward.launches = 0
+for _wrapper in (fused_mlp_backward, fused_mlp_ckpt_forward, fused_mlp_segment_backward):
+    _wrapper.launches = 0
+    # launches by route ("tile", "general"); launches is their sum
+    _wrapper.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 # ---- the plain versions of K6 and K7 -----------------------------------------
@@ -835,6 +1202,89 @@ def segment_backward_plain(mlp: SkipConnMLP, x: torch.Tensor,
     weights = [w.detach() for w in weights]
     hs, a_list = _plain_layers(mlp, enc, h_in, l0, l1, weights)
     return _plain_backprop(mlp, hs, a_list, g_out, l0, l1, weights)
+
+
+@torch.no_grad()
+def tile_backward_plain(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor, packed,
+                        transposed, segments: int = 0):
+    """K6's (``segments`` 0 or 1) or K7's (2 or more) function in PyTorch ops
+    over K1's float32 pack (``packed``: B, the layers, out w) and the
+    transposed pack (``transposed``) alone, with the tile kernels' data
+    flow: the forward keeps every pre-activation (K6) or the segments'
+    boundaries, each segment recomputed from its boundary (K7); ``gH W^T``
+    through the transposed matrices, padded to ``NP``/``EPT`` columns; dW
+    of the layers of one launch by ``tile_dw_plain`` with the slices of
+    ``dw_plan`` (K7's out layer and init layer by plain products, as
+    ``segmented_backward`` runs them) -> ``(dx, grads in flat_weights
+    order)``.  For tests of the layouts and the plan: the kernels' sums run
+    in another order."""
+    NP, EP = tile_widths(mlp)
+    EPT = tile_bwd_widths(mlp)[1]
+    H, E, F, L = mlp.hidden_size, mlp.enc_size, mlp.freqs, mlp.num_layers
+    act, dact = mlp.activation, ACTIVATION_GRADS[mlp.activation_name]
+    n = x.shape[0]
+    order = f32_column_order(NP).to(x.device)
+    enc = fourier_encode(x, packed[0])
+
+    def pad(t, width):
+        return torch.cat([t, t.new_zeros(t.shape[0], width - t.shape[1])], dim=-1)
+
+    act_enc = pad(act(enc), EP)
+
+    def forward(h, l_first, l_last):
+        """Layers l_first..l_last from h = hs[l_first - 1] (None: from x)."""
+        out = {}
+        for l in range(l_first, l_last + 1):
+            if l == 0:
+                a = pad(enc, EP)
+            else:
+                a = act(h)
+                a = torch.cat([a, act_enc], dim=-1) if mlp.is_skip_layer(l - 1) else a
+            h = torch.empty(n, NP, dtype=x.dtype, device=x.device)
+            h[:, order] = a @ packed[1 + 2 * l]
+            h = out[l] = h + packed[2 + 2 * l]
+        return out
+
+    def dw(jobs):
+        plan = dw_plan(n, [(a.shape[1], gg.shape[1]) for a, gg in jobs])
+        return [tile_dw_plain(a, gg, plan["rows"]) for a, gg in jobs]
+
+    def hidden_job(k):
+        a = act(hs[k][:, :H])
+        a = torch.cat([a, act(enc)], dim=-1) if mlp.is_skip_layer(k) else a
+        return a, gh_at[k + 1][:, :H]
+
+    segs = [(0, L)] if segments < 2 else segment_bounds(L, segments)
+    ckpt = forward(None, 0, L)
+    hs = {b: ckpt[b] for b in sorted({s0 for s0, _ in segs} | {L})}
+    gh = (g @ packed[-2]) * dact(hs[L])
+    gh_at, genc_act, d = {L: gh}, torch.zeros(n, EPT, dtype=x.dtype, device=x.device), {}
+    for l0, l1 in reversed(segs):
+        hs.update(forward(hs[l0], l0 + 1, l1 - 1))
+        genc_part = torch.zeros_like(genc_act)
+        for k in reversed(range(l0, l1)):
+            if mlp.is_skip_layer(k):
+                genc_part = genc_part + gh @ transposed[2 + 2 * k]
+            gh = gh_at[k] = (gh @ transposed[1 + 2 * k]) * dact(hs[k])
+        genc_act = genc_act + genc_part
+        if segments >= 2:
+            d.update(zip(range(l0, l1), dw([hidden_job(k) for k in range(l0, l1)])))
+    out_a, gh0 = act(hs[L][:, :H]), gh_at[0][:, :H]
+    if segments < 2:
+        parts = dw([(enc, gh0)] + [hidden_job(k) for k in range(L)] + [(out_a, g)])
+        d_init, d_out = parts[0], parts[-1]
+        d.update(enumerate(parts[1:-1]))
+    else:
+        d_init = torch.cat([enc.t() @ gh0, gh0.sum(0, keepdim=True)])
+        d_out = torch.cat([out_a.t() @ g, g.sum(0, keepdim=True)])
+    genc = gh @ transposed[0] + genc_act * dact(pad(enc, EPT))
+    mapped = x @ packed[0]
+    dx = genc[:, :3] + (genc[:, 3:3 + F] * torch.cos(mapped)
+                        - genc[:, 3 + F:E] * torch.sin(mapped)) @ packed[0].t()
+    grads = []
+    for m in [d_init] + [d[k] for k in range(L)] + [d_out]:
+        grads += [m[:-1], m[-1]]
+    return dx, grads
 
 
 def segmented_backward(mlp: SkipConnMLP, x: torch.Tensor, g: torch.Tensor,

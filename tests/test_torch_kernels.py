@@ -12,7 +12,8 @@ net); K2 hit agreement >= 99% and |depth difference| <= 1e-3 where both hit
 (float32 sums in another order over up to 256 steps); K3 index agreement
 >= 99.9%, and where the indices differ the two SDF values within 1e-5 (near
 ties, float32 sums in another order); K6/K7 each gradient within 1e-4 of
-max|plain| (float32 sums in another order, atomics in a varying one); K4
+max|plain| (float32 sums in another order; on the general route atomics in
+a varying one, on the tile the same bits from launch to launch); K4
 not-blocked agreement >= 99.9% (a near-eps step may fall on either side in
 another sum order), the same flags bit for bit across launches and
 permutations, zero-direction rays exactly the plain loop's, and its launch
@@ -56,7 +57,8 @@ from neural_raytracing_tpu_torch.kernels import (
     shadow_march_plain, sphere_sdf_eval_plain, sphere_sdf_plain, supports,
 )
 from neural_raytracing_tpu_torch.kernels import (
-    _build, pack_tile_weights, route_counts, tile_info, tile_pack, tile_pack_plain,
+    _build, pack_tile_transposes, pack_tile_weights, route_counts, tile_bwd_info, tile_info,
+    tile_pack, tile_pack_plain, tile_transposes_plain,
 )
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
 from neural_raytracing_tpu_torch.shapes import (
@@ -71,7 +73,7 @@ KERNEL_NAMES = ("fused_mlp_forward", "fused_march", "fused_min_scan",
                 "fused_mlp_segment_backward", "fused_shadow_march",
                 "fused_sphere_sdf", "fused_composite", "fused_mlp_forward_bf16",
                 "fused_march_bf16", "fused_min_scan_bf16", "fused_shadow_march_bf16",
-                "pack_tile_weights")
+                "pack_tile_weights", "pack_tile_transposes")
 
 FLAGSHIP = {
     "sdf_shift": dict(in_size=3, out=1, num_layers=8, hidden_size=128,
@@ -147,8 +149,8 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     assert set(_build.library_paths()) == {"fused_mlp", "fused_mlp_tile", "fused_march",
                                            "fused_minscan", "fused_mlp_bwd",
-                                           "fused_shadow", "fused_sdf",
-                                           "composite"}
+                                           "fused_mlp_bwd_tile", "fused_shadow",
+                                           "fused_sdf", "composite"}
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
 
@@ -1259,3 +1261,170 @@ def test_march_kernels_share_k1s_cached_pack(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(
         tile_pack(mlp, mlp.B, mlp.flat_weights(), dtype),
         tile_pack_plain(mlp, mlp.B, mlp.flat_weights(), dtype)))
+
+
+# ---- K6 and K7 on the tile (csrc/fused_mlp_bwd_tile.cu) -----------------------------
+
+BWD_NETS = ("weight_net", "lobe", "light_field")   # the shading nets: the three widths
+
+
+def _assert_backward_close(dx, grads, want):
+    """chip_smoke phase 6's criterion against ``want`` = (dx, *grads) of a
+    plain version: a pre-activation within rounding of a leaky_relu kink
+    takes the other slope in one of the two sum orders, which moves that
+    row's dx by O(1); so dx is held row by row (within 1e-4 of max|plain|
+    on all but 0.1% of the rows) and each dW/db over the rows (relative L2
+    <= 1e-3)."""
+    row_err = (dx - want[0]).abs().max(dim=-1).values
+    off = int((row_err > 1e-4 * want[0].abs().max()).sum().item())
+    assert off <= 1e-3 * dx.shape[0], (off, row_err.max().item())
+    assert len(grads) + 1 == len(want)
+    for i, (a, b) in enumerate(zip(grads, want[1:])):
+        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-3, (i, rel)
+
+
+def _bwd_inputs(mlp, n, device, seed=21):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.rand(n, 3, generator=gen) - 0.5).to(device)
+    return x, torch.randn(n, mlp.out_size, generator=gen).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 4])
+@pytest.mark.parametrize("n", [1, 63, 65, 4_099])
+@pytest.mark.parametrize("name", BWD_NETS)
+def test_tile_backward_matches_plain(cuda, name, n, segments):
+    """K6 (segments 0) and K7 (segments 4) on the tile at edge row counts and
+    the three widths against their plain versions (``act'`` of the JAX
+    package's ACTIVATION_GRADS: leaky_relu's slope at 0 is 1, where torch's
+    autograd takes 0.01); every launch on the tile route."""
+    mlp = _net(FLAGSHIP[name], 22, cuda)
+    x, g = _bwd_inputs(mlp, n, cuda)
+    reset_launch_counts()
+    dx, grads = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    routes = route_counts()
+    n_seg = min(segments, mlp.num_layers)
+    want_launches = ({"fused_mlp_ckpt_forward": 1, "fused_mlp_segment_backward": n_seg}
+                     if segments else {"fused_mlp_backward": 1})
+    for kernel, count in want_launches.items():
+        assert routes[kernel] == {"tile": count, "general": 0}, routes
+    want = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments, kernel=False)
+    torch.cuda.synchronize()
+    _assert_backward_close(dx, grads, [want[0], *want[1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 4])
+def test_tile_backward_gives_the_same_bits_twice(cuda, segments):
+    """The dW rows split into the fixed slices of dw_plan, added in slice
+    order: two launches on the same inputs give the same bits (dx too)."""
+    mlp = _net(FLAGSHIP["weight_net"], 23, cuda)
+    x, g = _bwd_inputs(mlp, 4_099, cuda)
+    first = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    second = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    torch.cuda.synchronize()
+    for a, b in zip([first[0], *first[1]], [second[0], *second[1]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 2])
+def test_backward_off_the_tile_takes_the_general_kernels(cuda, segments):
+    mlp = _net(dict(in_size=5, out=2, num_layers=4, hidden_size=64, freqs=8), 24, cuda)
+    gen = torch.Generator().manual_seed(25)
+    x = (torch.rand(777, 5, generator=gen) - 0.5).to(cuda)
+    g = torch.randn(777, 2, generator=gen).to(cuda)
+    reset_launch_counts()
+    dx, grads = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    routes = route_counts()
+    kernel = "fused_mlp_segment_backward" if segments else "fused_mlp_backward"
+    assert routes[kernel]["tile"] == 0 and routes[kernel]["general"] > 0, routes
+    assert launch_counts()["pack_tile_transposes"] == 0
+    want = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments, kernel=False)
+    torch.cuda.synchronize()
+    _assert_backward_close(dx, grads, [want[0], *want[1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLAGSHIP))
+def test_transpose_pack_kernel_matches_the_plain_pack(cuda, name):
+    mlp = _net(FLAGSHIP[name], 26, cuda)
+    got = pack_tile_transposes(mlp, mlp.flat_weights())
+    want = tile_transposes_plain(mlp, mlp.flat_weights())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 2])
+def test_kernel_bwd_repacks_after_an_optimizer_step(cuda, segments):
+    """kernel_bwd through autograd: the transposed pack once per weight
+    version, again after AdamW's in-place update, and the gradients of the
+    new weights."""
+    from neural_raytracing_tpu_torch.training import make_optimizer
+    kmlp = FusedSkipConnMLP(kernel_bwd=True, kernel_bwd_segments=segments,
+                            **FLAGSHIP["light_field"])
+    kmlp.reset_parameters(torch.Generator().manual_seed(27))
+    kmlp.to(cuda)
+    opt = make_optimizer({}, default_lr=1e-2).init(torch.nn.ModuleDict({"net": kmlp}))
+    x = (torch.rand(2_049, 3, generator=torch.Generator().manual_seed(28)) - 0.5).to(cuda)
+    reset_launch_counts()
+    for step in range(2):
+        xx = x.clone().requires_grad_()
+        kmlp(xx).square().sum().backward()
+        assert launch_counts()["pack_tile_transposes"] == step + 1
+        got = [xx.grad] + [w.grad.clone() for w in kmlp.flat_weights()]
+        with torch.no_grad():
+            g = 2 * SkipConnMLP.forward(kmlp, x)
+        want = mlp_backward(kmlp, x, g, kmlp.B, kmlp.flat_weights(), segments, kernel=False)
+        _assert_backward_close(got[0], got[1:], [want[0], *want[1]])
+        opt.step()
+        opt.zero_grad()
+    routes = route_counts()
+    kernel = "fused_mlp_backward" if segments < 2 else "fused_mlp_segment_backward"
+    assert routes[kernel]["general"] == 0 and routes[kernel]["tile"] > 0
+
+
+@pytest.mark.cuda
+def test_tile_backward_checks_the_weights_against_the_inputs_device(cuda):
+    mlp = _net(FLAGSHIP["lobe"], 29, "cpu")
+    x, g = _bwd_inputs(mlp, 256, cuda)
+    reset_launch_counts()
+    for segments in (0, 4):
+        with pytest.raises(ValueError, match="CUDA"):
+            mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    assert all(v == 0 for v in launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BWD_NETS)
+def test_tile_backward_kernels_fit(cuda, name):
+    """The library's report: the chain kernel and the store forward take a
+    block a SM at least, the dW kernel two."""
+    info = tile_bwd_info(_net(FLAGSHIP[name], 30, cuda))
+    assert info["chain"]["blocks_per_sm"] >= 1 and info["store_forward"]["blocks_per_sm"] >= 1
+    assert info["dw"]["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 4])
+@pytest.mark.parametrize("route", ["tile", "general"])
+def test_backward_with_no_rows(cuda, route, segments):
+    """No rows, on either route: dx is empty, every dW/db zero in its
+    shape, and no launch of K6 or K7 is counted."""
+    cfg = (FLAGSHIP["weight_net"] if route == "tile"
+           else dict(in_size=5, out=2, num_layers=4, hidden_size=64, freqs=8))
+    mlp = _net(cfg, 31, cuda)
+    x = torch.zeros(0, mlp.in_size, device=cuda)
+    g = torch.zeros(0, mlp.out_size, device=cuda)
+    reset_launch_counts()
+    dx, grads = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments)
+    torch.cuda.synchronize()
+    assert dx.shape == (0, mlp.in_size)
+    assert [tuple(t.shape) for t in grads] == [tuple(w.shape) for w in mlp.flat_weights()]
+    assert all(not t.any() for t in grads)
+    counts = launch_counts()
+    assert all(counts[k] == 0 for k in ("fused_mlp_backward", "fused_mlp_ckpt_forward",
+                                         "fused_mlp_segment_backward"))
