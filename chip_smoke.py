@@ -82,16 +82,22 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      the live share of the rows, and the schedule model's ms (slot_model);
      the kernel as the library reports it, and one step's ms by the rows a
      block evaluates (128, 64, 32, 16, 8; bf16 128, 64, 32);
-  9. K5 fused_sphere_sdf against SphereSDF.forward on 65,536 seeded points
-     with the trained shape weights, and one backward and one double
-     backward through its autograd.Function against the plain version; its
-     ms also at a NeRV eval chunk's 10,000 points (the path's);
+  9. K5 fused_sphere_sdf on the tile (csrc/fused_sdf.cu, K1's f32 tile)
+     against SphereSDF.forward on 65,536 seeded points with the trained
+     shape weights, and one backward and one double backward through its
+     autograd.Function against the plain version; then on phase 3's
+     non-zero surface at a NeRV eval chunk's 10,000 points (the path's) and
+     65,536: the tile and the general route (the parent's kernel) against
+     the plain version, their digests (the same bits), both timed in turns
+     (ms a call, 20 calls back to back) beside the tile kernel's device
+     time, the plain ms, the bound and its share, the tile's occupancy;
  10. the NeRV eval: workloads.nerv.build_scene(max_steps=128,
      march_bound=1.2) loaded from the checkpoint renders 3 views at 200x200
      through evaluate with light_update (the checkpoint's 3 lights), with
      learned and with hard shadows, each with the kernels (launch counts
      reset just before, read just after) and with every kernel off; a
-     profile of one view; one view again with fused_sdf=True (K5);
+     profile of one view; one view again with fused_sdf=True (K5, on the
+     tile: k1_routes) and its profile;
  11. NeRV training: build_scene(max_steps=64, occlusion="learned") from the
      checkpoint, AdamW 4e-5 for every group, on ground truth made here (8
      views of an analytic sphere, each lit by its own point light):
@@ -99,13 +105,15 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      kernel off from the same state; 20 iterations of train with
      rand_uv_mask, tone mapping and light_update (counts reset just before,
      read just after); evaluate in both shadow modes on 2 views;
- 12. K8 fused_composite against composite_plain at the NeRFLE eval-tile shape
+ 12. K8 fused_composite against composite_plain at the ragged shapes
+     (COMPOSITE_RAGGED) and no rays, then at the NeRFLE eval-tile shape
      [64, 10,000] and the training shape [64, 1,024] (sigma relu(normal), rgb
-     sigmoid(normal), ts linspace(0, 2, 64), seeded), and one backward
-     through its autograd.Function against autograd through the plain
-     version; both timed by the profiler's device time on inputs that a
-     call finds out of the L2 cache (CUDA events beside it; the entry's
-     timed_by says which timed its ms and plain_ms);
+     sigmoid(normal), ts linspace(0, 2, 64), seeded), the same bits in a
+     second launch, and one backward through its autograd.Function against
+     autograd through the plain version; kernel and plain version timed in
+     turns by the profiler's device time on inputs that a call finds out of
+     the L2 cache (CUDA events beside it; the entry's timed_by says which
+     timed its ms and plain_ms);
  13. the NeRFLE eval: workloads.nerfle.build_scene() at full width, weights
      from seed 0, FoV cameras on the 8x8 colocated grid at distance 1, each
      view lit at 1.05 x its camera centre: 2 views at 200x200 through the
@@ -180,10 +188,12 @@ agreement >= 99.9% (a step that lands within rounding of eps goes either
 way), its flags the same bit for bit across launches and permutations, and
 zero-direction rays exactly the plain loop's (one evaluation decides them);
 K5 as K1, its derivatives within 1e-4 of max|plain| (the backward
-recomputes through the plain version); the NeRV renders and step as the
+recomputes through the plain version), and its two routes the same bits
+(float32 digests: the same spheres' order and the tile's sums); the NeRV renders and step as the
 flagship's, the occlusion net's gradient included; K8 2e-5 absolute + 2e-5
-relative (as tests/test_kernels.py holds the TPU kernel), its gradients 1e-4
-absolute + 1e-3 relative; the NeRFLE render with K8 against fused="off" mean
+relative (as tests/test_kernels.py holds the TPU kernel; its segments'
+products meet in another order than the cumprod), the same bits in a second
+launch, its gradients 1e-4 absolute + 1e-3 relative; the NeRFLE render with K8 against fused="off" mean
 |difference| <= 1e-5 and max <= 1e-4 (only the compositing differs); the
 NeRFLE step loss within 1e-5 relative and each component's gradient within
 1e-4 relative L2; K2 relaxed as K2 (hit agreement >= 99%, |depth
@@ -220,6 +230,15 @@ of K2's depths and hits, of K3's indices and of K4's flags, for the package
 in DIR (this checkout's by default):
 unpack another commit with git archive into the ignored scratch_trees/ and
 run the two trees in turns in one call.
+
+    python3 chip_smoke.py --turn-times [DIR]
+
+prints only K8's device ms (cold inputs) at COMPOSITE_SHAPES and K5's ms a
+call at phase 9's points through their default routes, with digests of
+their outputs, and the device busy ms (median of three profiles) of one
+NeRFLE eval view, one flagship training step and one NeRV eval view with
+fused_sdf=True, for the package in DIR: the same way, parent, change,
+change, parent.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -1893,11 +1912,33 @@ def phase_shadow(torch, dev):
                 local_bytes=info["local_bytes"], shapes=res, step_ms=steps)
 
 
+# the points K5 is timed at: a NeRV eval chunk (the path's) and N_POINTS
+K5_SHAPES = {"NeRV eval chunk": NERV_CHUNK * NERV_CHUNK, "65,536 points": N_POINTS}
+K5_PARENT = "general (the parent's kernel)"
+K5_ROUTES = {"tile": dict(route="tile"), K5_PARENT: dict(route="general")}
+
+
+def batch_ms(fn, calls: int = 20):
+    """-> a function whose run is ``calls`` back-to-back calls of ``fn``
+    (the card stays busy while the host launches the next), for in_turns;
+    divide its ms by ``calls``."""
+    return lambda: [fn() for _ in range(calls)]
+
+
+def k5_bound(module, n: int):
+    per_point = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
+    fixed_bytes = weight_bytes(module.shift) + 4 * 13 * module.n
+    return bound_ms(4 * n * 4 + fixed_bytes, n * per_point)
+
+
 def phase_fused_sdf(torch, dev):
     """K5 against SphereSDF.forward with the trained shape weights, and its
-    first and second derivatives against the plain version."""
+    first and second derivatives against the plain version; on phase 3's
+    non-zero surface, the tile's outputs against the general route's
+    (digests), and both routes timed in turns at K5_SHAPES."""
     from neural_raytracing_tpu_torch.kernels import (
-        FusedSphereSDF, fused_sphere_sdf, set_kernel_mode,
+        FusedSphereSDF, fused_sphere_sdf, k5_route, k5_tile_info, launch_counts,
+        reset_launch_counts, route_counts, set_kernel_mode,
     )
     from neural_raytracing_tpu_torch.shapes import SphereSDF
     from neural_raytracing_tpu_torch.training.checkpoint import load_pytree, load_tree_into
@@ -1905,12 +1946,16 @@ def phase_fused_sdf(torch, dev):
     fused = load_tree_into(FusedSphereSDF(n=128), tree).to(dev)
     plain = load_tree_into(SphereSDF(n=128), tree).to(dev)
     set_kernel_mode(plain, "off")
+    check(k5_route(fused) == "tile", "K5: the NeRV shift net is off the tile")
     gen = torch.Generator().manual_seed(11)
     x = (2.4 * torch.rand(N_POINTS, 3, generator=gen) - 1.2).to(dev)
+    reset_launch_counts()
     with torch.no_grad():
         got = fused_sphere_sdf(fused, x)
         want = plain(x)
         torch.cuda.synchronize()
+    check(route_counts()["fused_sphere_sdf"] == {"tile": 1, "general": 0},
+          f"K5: not one launch on the tile: {route_counts()['fused_sphere_sdf']}")
     err = (got - want).abs()
     tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ fused.shift.B).abs().max()
     check(bool(torch.isfinite(got).all()), "K5: non-finite output")
@@ -1928,23 +1973,56 @@ def phase_fused_sdf(torch, dev):
         e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
         worst = max(worst, e)
     check(worst <= 1e-4, f"K5 derivatives: max |err| / max |plain| {worst:.3e} > 1e-4")
-    n_path = NERV_CHUNK * NERV_CHUNK       # a NeRV eval chunk's points
-    with torch.no_grad():
-        ms = cuda_ms(lambda: fused_sphere_sdf(fused, x), 5)
-        plain_ms = cuda_ms(lambda: plain(x), 5)
-        path_ms = cuda_ms(lambda: fused_sphere_sdf(fused, x[:n_path]), 5)
-    per_point = 2.0 * mlp_macs(fused.shift) + 31.0 * fused.n
-    fixed_bytes = weight_bytes(fused.shift) + 4 * 13 * fused.n
-    b_ms, b_by = bound_ms(4 * N_POINTS * 4 + fixed_bytes, N_POINTS * per_point)
-    path_b, _ = bound_ms(4 * n_path * 4 + fixed_bytes, n_path * per_point)
-    flops = N_POINTS * per_point
-    print(f"K5 fused_sphere_sdf: {N_POINTS} points, max |err| {err.max().item():.3e}, "
-          f"first and second derivatives max rel err {worst:.3e}, kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s; at a NeRV eval chunk's {n_path} points "
-          f"{path_ms:.4f} ms, bound {path_b:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                err=err.max().item(), path_ms=path_ms, path_bound_ms=path_b)
+    print(f"K5 fused_sphere_sdf on the trained NeRV surface: {N_POINTS} points on the "
+          f"tile, max |err| {err.max().item():.3e}, first and second derivatives max rel "
+          f"err {worst:.3e}")
+
+    # phase 3's non-zero shift: the routes' bits, and their times in turns
+    surface = FusedSphereSDF(n=128, mlp=flagship_nets()["sdf_shift 8x128 F32"])
+    surface.load_state_dict(march_surface(torch, "cpu").state_dict())
+    surface.to(dev)
+    res = {"info": k5_tile_info(surface)}
+    for shape, n in K5_SHAPES.items():
+        xs = x[:n].contiguous()
+        with torch.no_grad():
+            outs = {r: fused_sphere_sdf(surface, xs, **kw) for r, kw in K5_ROUTES.items()}
+            want = SphereSDF.forward(surface, xs)
+            torch.cuda.synchronize()
+            tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (xs @ surface.shift.B).abs().max()
+            for r, o in outs.items():
+                check(bool((o - want).abs().le(tol).all()),
+                      f"K5 {r} at {n} points: max |err| {(o - want).abs().max().item():.3e}")
+            digests = {r: digest(o) for r, o in outs.items()}
+            calls = 20
+            t = in_turns({r: batch_ms(lambda kw=kw: fused_sphere_sdf(surface, xs, **kw), calls)
+                          for r, kw in K5_ROUTES.items()})
+            t = {r: ms / calls for r, ms in t.items()}
+            prof = kernel_profile(torch, lambda: fused_sphere_sdf(surface, xs))
+            plain_ms = cuda_ms(lambda: SphereSDF.forward(surface, xs), 5)
+        kernel_ms = sum(ms for key, (ms, _) in prof.items() if "nrt_fused_sdf" in key)
+        b_ms, b_by = k5_bound(surface, n)
+        same = len(set(digests.values())) == 1
+        check(same, f"K5 at {n} points: the routes' bits differ: {digests}")
+        res[shape] = dict(times=t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          kernel_ms=kernel_ms, digests=digests, same_bits=same,
+                          err=max((o - want).abs().max().item() for o in outs.values()))
+        print(f"K5 at the {shape} ({n} points, phase 3's surface), in turns: " + ", ".join(
+            f"{r} {ms:.4f} ms" for r, ms in t.items())
+            + f"; the tile kernel's device time {kernel_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / t['tile']:.3f} (the parent's "
+            f"kernel {b_ms / t[K5_PARENT]:.3f}); "
+            f"{n * (2.0 * mlp_macs(surface.shift) + 31.0 * surface.n) / t['tile'] / 1e9:.1f} "
+            f"TFLOP/s; digests {digests} (same bits {same}); max |err| {res[shape]['err']:.3e}")
+    print(f"K5 tile kernel: {res['info']}")
+    big, path = res["65,536 points"], res["NeRV eval chunk"]
+    parent = K5_PARENT
+    return dict(ms=big["times"]["tile"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+                bound_by=big["bound_by"], err=max(err.max().item(), big["err"], path["err"]),
+                parent_ms=big["times"][parent], path_ms=path["times"]["tile"],
+                path_parent_ms=path["times"][parent], path_bound_ms=path["bound_ms"],
+                path_kernel_ms=path["kernel_ms"], kernel_ms=big["kernel_ms"],
+                same_bits=big["same_bits"] and path["same_bits"],
+                blocks_per_sm=res["info"]["blocks_per_sm"], registers=res["info"]["registers"])
 
 
 def nerv_evaluate(torch, scene, camera_fn, n_views, locs, exp=None):
@@ -2039,6 +2117,8 @@ def phase_nerv_eval(torch, dev):
     print(f"NeRV eval, learned shadows, fused_sdf=True: {1e3 * s_view:.1f} ms/view; "
           f"against the SphereSDF render: mask agreement {agree:.6f}, mean |diff| "
           f"{mean_d:.3e}, max |diff| {max_d:.3e}; launches {counts['fused_sdf']}")
+    profile_step(torch, lambda: nerv_evaluate(torch, scene, camera_fn, 1, locs),
+                 "one NeRV eval view, learned shadows, fused_sdf=True (K5)")
     return counts
 
 
@@ -2195,20 +2275,75 @@ ORBIT_FRAMES = 4
 OMEGA = 1.4
 
 
+# ragged K8 shapes (samples, rays): T not a multiple of the segments, T = 1,
+# R not a multiple of 32, one ray
+COMPOSITE_RAGGED = ((65, 1_000), (1, 33), (7, 1), (100, 31), (17, 64), (64, 10_001))
+
+
+def composite_inputs(torch, dev, n_t, n_r):
+    gen = torch.Generator().manual_seed(12)
+    sigma = torch.relu(torch.randn(n_t, n_r, generator=gen)).to(dev)
+    rgb = torch.sigmoid(torch.randn(n_t, n_r, 3, generator=gen)).to(dev)
+    ts = torch.linspace(0.0, 2.0, n_t).to(dev)
+    return sigma, rgb, ts, torch.randn(n_r, 3, generator=gen).to(dev)
+
+
+def composite_bytes(n_t, n_r) -> int:
+    """Each input read once (sigma, rgb, ts), the output written once."""
+    return 4 * (n_t * n_r * 4 + n_t + 3 * n_r)
+
+
+def composite_cold(torch, sigma, rgb, ts, fns: dict, turns: bool = True) -> dict:
+    """{name: (device ms a call of fns[name](sigma, rgb, ts), what timed
+    it)}: in a render K8 reads what the colour net just wrote, mostly out of
+    the 50 MB L2, so each call takes the next of enough input copies (64 MB)
+    that it finds its own evicted; a call lasts microseconds, so the device
+    time is the profiler's (device_ms); with ``turns`` the functions run
+    in turns (a, b, b, a), the median kept."""
+    n_bytes = composite_bytes(*sigma.shape)
+    copies = [(sigma.clone(), rgb.clone(), ts.clone())
+              for _ in range(math.ceil(64 * 2 ** 20 / n_bytes))]
+    turn = [0]
+
+    def cold(fn):
+        turn[0] = (turn[0] + 1) % len(copies)
+        return fn(*copies[turn[0]])
+
+    names = list(fns)
+    times = {k: [] for k in names}
+    for order in ((names, names[::-1]) if turns else (names,)):
+        for k in order:
+            times[k].append(device_ms(torch, lambda: cold(fns[k]), 20))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
 def phase_composite(torch, dev):
-    """K8 against composite_plain at the eval-tile and training shapes, and
-    its autograd.Function's backward against autograd through the plain
-    version."""
+    """K8 against composite_plain at the eval-tile and training shapes and
+    the ragged ones (the same bits twice), its autograd.Function's backward
+    against autograd through the plain version, and the kernel and the plain
+    version timed in turns."""
     from neural_raytracing_tpu_torch.kernels import (
-        composite_apply, composite_plain, fused_composite,
+        composite_apply, composite_plain, fused_composite, launch_counts,
+        reset_launch_counts,
     )
+    for n_t, n_r in COMPOSITE_RAGGED:
+        sigma, rgb, ts, _ = composite_inputs(torch, dev, n_t, n_r)
+        got, again = fused_composite(sigma, rgb, ts), fused_composite(sigma, rgb, ts)
+        want = composite_plain(sigma, rgb, ts)
+        err = (got - want).abs()
+        check(bool((err <= 2e-5 + 2e-5 * want.abs()).all()),
+              f"K8 [{n_t}, {n_r}]: max |err| {err.max().item():.3e} over tolerance")
+        check(torch.equal(got, again), f"K8 [{n_t}, {n_r}]: two launches differ")
+    reset_launch_counts()
+    empty = fused_composite(torch.empty(64, 0, device=dev), torch.empty(64, 0, 3, device=dev),
+                            torch.linspace(0.0, 2.0, 64, device=dev))
+    check(empty.shape == (0, 3) and launch_counts()["fused_composite"] == 0,
+          "K8 with no rays: a launch or a result")
+    print(f"K8 at the ragged shapes {COMPOSITE_RAGGED} and no rays: within tolerance, two "
+          f"launches the same bits")
     results = {}
     for n_t, n_r in COMPOSITE_SHAPES:
-        gen = torch.Generator().manual_seed(12)
-        sigma = torch.relu(torch.randn(n_t, n_r, generator=gen)).to(dev)
-        rgb = torch.sigmoid(torch.randn(n_t, n_r, 3, generator=gen)).to(dev)
-        ts = torch.linspace(0.0, 2.0, n_t).to(dev)
-        w = torch.randn(n_r, 3, generator=gen).to(dev)
+        sigma, rgb, ts, w = composite_inputs(torch, dev, n_t, n_r)
         got = fused_composite(sigma, rgb, ts)
         want = composite_plain(sigma, rgb, ts)
         torch.cuda.synchronize()
@@ -2228,35 +2363,23 @@ def phase_composite(torch, dev):
             check(bool(((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all()),
                   f"{label}: gradient off by {(a - b).abs().max().item():.3e}")
             gerr = max(gerr, (a - b).abs().max().item())
-        # each input read once (sigma, rgb, ts), the output written once;
+        n_bytes = composite_bytes(n_t, n_r)
+        t = composite_cold(torch, sigma, rgb, ts, {"kernel": fused_composite,
+                                                   "plain": composite_plain})
+        ms, ms_by = t["kernel"]
+        ev_ms = cuda_ms(batch_ms(lambda: fused_composite(sigma, rgb, ts)), 5) / 20
         # ~14 operations a sample (exp counted as one)
-        n_bytes = 4 * (n_t * n_r * 4 + n_t + 3 * n_r)
-        # in a render K8 reads what the colour net just wrote, mostly out of
-        # the 50 MB L2: time each call on the next of enough input copies
-        # (64 MB) that it finds its own evicted
-        copies = [(sigma.clone(), rgb.clone(), ts.clone())
-                  for _ in range(math.ceil(64 * 2 ** 20 / n_bytes))]
-        turn = [0]
-
-        def cold(fn):
-            turn[0] = (turn[0] + 1) % len(copies)
-            return fn(*copies[turn[0]])
-
-        # a call lasts microseconds: device time from the profiler, beside
-        # CUDA events around one call (the host's launch included)
-        ms, ms_by = device_ms(torch, lambda: cold(fused_composite), 20)
-        plain_ms, plain_by = device_ms(torch, lambda: cold(composite_plain), 20)
-        ev_ms = cuda_ms(lambda: cold(fused_composite), 20)
-        ev_plain_ms = cuda_ms(lambda: cold(composite_plain), 20)
         b_ms, b_by = bound_ms(n_bytes, 14.0 * n_t * n_r)
         print(f"{label}: max |err| {err.max().item():.3e}, gradients max |err| {gerr:.3e}, "
-              f"kernel {ms:.4f} ms by the {ms_by} ({ev_ms:.4f} ms by events), plain "
-              f"{plain_ms:.4f} ms by the {plain_by} ({ev_plain_ms:.4f} ms by events), "
-              f"bound {b_ms:.4f} ms ({b_by}), {n_bytes / ms / 1e6:.1f} GB/s")
-        results[(n_t, n_r)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by, err=err.max().item(),
-                                   timed_by={"ms": ms_by, "plain_ms": plain_by})
-    return results[COMPOSITE_SHAPES[0]]
+              f"in turns: kernel {ms:.4f} ms, plain {t['plain'][0]:.4f} ms (device time, "
+              f"cold inputs, by the {ms_by}); "
+              f"warm and back to back by events {ev_ms:.4f} ms a call; bound {b_ms:.4f} ms "
+              f"({b_by}), share {b_ms / ms:.3f}, {n_bytes / ms / 1e6:.1f} GB/s")
+        results[(n_t, n_r)] = dict(ms=ms, plain_ms=t["plain"][0],
+                                   bound_ms=b_ms, bound_by=b_by, err=err.max().item(),
+                                   timed_by={"ms": ms_by, "plain_ms": t["plain"][1]})
+    tile, step = (results[shape] for shape in COMPOSITE_SHAPES)
+    return dict(tile, training_call_ms=step["ms"], training_call_bound_ms=step["bound_ms"])
 
 
 def colocate_gt(torch):
@@ -3097,6 +3220,96 @@ def phase_bf16_nerv(torch, dev):
 
 
 
+def median_busy(torch, fn, label, reps: int = 3) -> dict:
+    """{busy_ms, wall_ms, launches}: the medians of ``reps`` profiles of one
+    call of ``fn`` (profile_step), after one warm-up call."""
+    fn()
+    runs = [profile_step(torch, fn, label) for _ in range(reps)]
+    check(all(r is not None for r in runs), f"{label}: the profiler saw no device time")
+    return {k: sorted(r[k] for r in runs)[reps // 2] for k in runs[0]}
+
+
+def turn_times_main(root: str):
+    """``python3 chip_smoke.py --turn-times [DIR]``: for the package in DIR
+    (this checkout's by default), one JSON line: K8's device ms on cold
+    inputs at COMPOSITE_SHAPES and K5's ms a call at K5_SHAPES (phase 3's
+    surface), each through its default route, with a digest of their
+    outputs; and the device busy ms (median of three profiles) of one NeRFLE
+    eval view, one flagship training step and one NeRV eval view with
+    fused_sdf=True.  To compare two trees in one call: unpack the other with
+    git archive into the ignored scratch_trees/ and run parent, change,
+    change, parent."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(root).resolve()))
+    import neural_raytracing_tpu_torch
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import (
+        FusedSphereSDF, _build, fused_composite, fused_sphere_sdf,
+    )
+    from neural_raytracing_tpu_torch.training import TrainState, build_step_fn, make_optimizer
+    from neural_raytracing_tpu_torch.workloads.nerfle import colocate_cameras
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build()
+    out = {"package": neural_raytracing_tpu_torch.__file__, "k8_ms": {}, "k5_ms": {}}
+    h = hashlib.sha256()
+    for n_t, n_r in COMPOSITE_SHAPES:
+        sigma, rgb, ts, _ = composite_inputs(torch, dev, n_t, n_r)
+        h.update(fused_composite(sigma, rgb, ts).cpu().numpy().tobytes())
+        t = composite_cold(torch, sigma, rgb, ts, {"k8": fused_composite}, turns=False)
+        out["k8_ms"][f"{n_t}x{n_r}"] = t["k8"][0]
+    out["k8_digest"] = h.hexdigest()[:16]
+    h = hashlib.sha256()
+    surface = FusedSphereSDF(n=128, mlp=flagship_nets()["sdf_shift 8x128 F32"])
+    surface.load_state_dict(march_surface(torch, "cpu").state_dict())
+    surface.to(dev)
+    x = (2.4 * torch.rand(N_POINTS, 3, generator=torch.Generator().manual_seed(11))
+         - 1.2).to(dev)
+    with torch.no_grad():
+        for shape, n in K5_SHAPES.items():
+            xs = x[:n].contiguous()
+            h.update(fused_sphere_sdf(surface, xs).cpu().numpy().tobytes())
+            out["k5_ms"][shape] = cuda_ms(batch_ms(lambda: fused_sphere_sdf(surface, xs)), 5) / 20
+    out["k5_digest"] = h.hexdigest()[:16]
+
+    busy = {}
+    data = colocate_gt(torch)
+    cams = colocate_cameras(data)
+    scene = nerfle_scene(torch, dev)
+    busy["NeRFLE eval view"] = median_busy(
+        torch, lambda: nerfle_eval(torch, scene, cams, data.images[:1]), "one NeRFLE eval view")
+    del scene, data
+    c2ws = train_c2ws()
+    imgs, masks = sphere_gt(torch, c2ws)
+    spec = make_optimizer(LRS)
+    scene = flagship_scene(64, None)
+    scene.init(torch.Generator().manual_seed(0), device=dev)
+    state = TrainState(scene, spec.init(scene), 0)
+    step = build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
+    idxs = list(range(N_VIEWS))
+    u, v = silhouette_crop()
+    exp = torch.from_numpy(imgs[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    mask = torch.from_numpy(masks[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    camera = NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    busy["flagship training step"] = median_busy(
+        torch, lambda: step(state, camera, (u, v), exp, mask, gen), "one training step")
+    del scene, state, step
+    scene = nerv_scene(torch, dev, 128, 1.2, "learned", fused_sdf=True)
+    locs = scene.lights.location.detach().clone()
+    camera_fn = lambda i: nerv_camera(torch, NERV_EVAL_VIEWS[i:i + 1])
+    busy["NeRV eval view, fused_sdf"] = median_busy(
+        torch, lambda: nerv_evaluate(torch, scene, camera_fn, 1, locs),
+        "one NeRV eval view, fused_sdf=True")
+    out["busy"] = busy
+    print(json.dumps(out))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3104,6 +3317,9 @@ def main():
              "NVIDIA GPU")
     if sys.argv[1:2] == ["--march-times"]:
         march_times_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT))
+        return
+    if sys.argv[1:2] == ["--turn-times"]:
+        turn_times_main(sys.argv[2] if len(sys.argv) > 2 else str(ROOT))
         return
     sys.path.insert(0, str(ROOT))
     import neural_raytracing_tpu_torch
@@ -3177,7 +3393,8 @@ def main():
                     "registers", "local_bytes", "live_row_share", "evals_per_ms",
                     "eval_tile_ms", "eval_chunk_ms", "eval_chunk_bound_ms",
                     "training_call_ms", "training_call_bound_ms", "path_ms",
-                    "path_bound_ms", "parent_ms", "eval_tile_ms", "eval_tile_parent_ms"):
+                    "path_bound_ms", "parent_ms", "eval_tile_ms", "eval_tile_parent_ms",
+                    "path_parent_ms", "kernel_ms", "path_kernel_ms", "same_bits"):
             if key in m:
                 e[key] = m[key]
         return e

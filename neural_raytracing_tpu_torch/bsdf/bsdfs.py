@@ -18,6 +18,7 @@ from torch import nn
 
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import ACTIVATIONS, SkipConnMLP
+from ..ops.math import maximum
 from ..ops.rusin import param_rusin2
 
 
@@ -87,5 +88,5 @@ class ComposeSpatialVarying(nn.Module):
         aux = {"nonnormalized_weights": raw, "normalized_weights": k}
         # the spectrum keeps the sigmoid weighting (k does not sum to 1);
         # the pdf is the density of a categorical pick ~ k, hence / sum k
-        ksum = torch.clamp_min(torch.sum(k, dim=-1), 1e-10)
+        ksum = maximum(torch.sum(k, dim=-1), 1e-10)
         return summed[..., :3], summed[..., 3] / ksum, aux

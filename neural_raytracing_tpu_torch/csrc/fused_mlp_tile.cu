@@ -55,14 +55,6 @@
 // rows a block
 #define NRT_K1_ROWS 64
 
-// Rows [row0, row0 + ROWS) of x [n][3] into ps, zeros past n.
-template <int ROWS>
-__device__ __forceinline__ void nrt_tile_rows(const float* __restrict__ x, int n, int row0,
-                                              float* ps) {
-  for (int i = threadIdx.x; i < ROWS * 3; i += blockDim.x)
-    ps[i] = row0 + i / 3 < n ? x[(size_t)row0 * 3 + i] : 0.f;
-}
-
 // out[row0 + r][j] = f(r, j) for the rows below n and the O columns.
 template <int ROWS, typename Out>
 __device__ __forceinline__ void nrt_tile_write(float* __restrict__ out, int n, int O, int row0,

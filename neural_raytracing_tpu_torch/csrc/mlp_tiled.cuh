@@ -9,8 +9,9 @@
 // same net without the sphere set (nrt_f32_net / nrt_bf16_net) over the
 // layout kernels/fused_mlp.py tile_layout gives, with out_size output
 // columns; the backward K6/K7 (fused_mlp_bwd_tile.cu) runs its forward on
-// nrt_f32_chunk and its gradient chain on the same register tile.  K5, and
-// K1 and K6/K7 for a net off the tile, keep the device MLP of mlp.cuh.
+// nrt_f32_chunk and its gradient chain on the same register tile; the fused
+// SDF K5 (fused_sdf.cu) runs K1's f32 net beside the sphere set.  K1, K5
+// and K6/K7 for a net off the tile keep the device MLP of mlp.cuh.
 //
 // A block evaluates the net on up to M rows at once; a caller with fewer
 // live rows (K2's and K4's tail) evaluates only the first 32 or M / 2 of them
@@ -406,6 +407,14 @@ struct NrtStream {
 // output layer on the CUDA cores, fmaf in ascending k, then the bias).  So
 // sd = sm[row] + out(row), the same sums whichever rows or tile variant
 // evaluate a point.
+
+// Rows [row0, row0 + ROWS) of x [n][3] into ps, zeros past n.
+template <int ROWS>
+__device__ __forceinline__ void nrt_tile_rows(const float* __restrict__ x, int n, int row0,
+                                              float* ps) {
+  for (int i = threadIdx.x; i < ROWS * 3; i += blockDim.x)
+    ps[i] = row0 + i / 3 < n ? x[(size_t)row0 * 3 + i] : 0.f;
+}
 
 // The encoding [x, sin(x B), cos(x B)] of rows [0, ROWS) of the points ps
 // ([.][3]), value c of row at put(row, c, v) (x B by fmaf in ascending d,

@@ -5,7 +5,8 @@
 //   sd(p) = smooth_min_i(|T_i p - c_i| - r_i) + shift_mlp(p)
 // The smooth-min is the clamped -log(max(sum exp(-k d), 1e-4)) / k of the
 // reference, or the exact logsumexp form (stable = 1).  The shift MLP is the
-// tiled net of mlp_tiled.cuh in K2-K4, the device MLP of mlp.cuh in K5.
+// tiled net of mlp_tiled.cuh, or the device MLP of mlp.cuh in K5's route
+// for a net off the tile.
 #pragma once
 
 #include "mlp.cuh"
@@ -91,7 +92,7 @@ __device__ void nrt_sphere_min(const float* sph, int n_sph, float k,
 }
 
 // The same for the rows [0, rows) with TPR lanes a row whatever rows (K4's
-// order, and K5's: 32 rows of 256 threads): the block's threads take
+// order, and K5's on both routes: 32 rows of 256 threads): the block's threads take
 // blockDim.x / TPR rows at a time, so a thin step keeps every thread busy
 // (rows a multiple of the 32 / TPR rows of a warp).
 template <int TPR>

@@ -31,7 +31,8 @@ from .fused_mlp import (
     tile_transpose_layout, tile_transposes, tile_transposes_plain, tile_widths,
 )
 from .fused_sdf import (
-    FusedSphereSDF, fused_sphere_sdf, fused_sphere_sdf_apply, sphere_sdf_plain,
+    FusedSphereSDF, fused_sphere_sdf, fused_sphere_sdf_apply, k5_route, k5_tile_info,
+    k5_tile_spheres, sphere_sdf_plain,
 )
 
 KERNELS = {
@@ -56,7 +57,7 @@ KERNELS = {
 }
 # the kernels with two routes (the tile and the general one), counted by route
 ROUTED = ("fused_mlp_forward", "fused_mlp_forward_bf16", "fused_mlp_backward",
-          "fused_mlp_ckpt_forward", "fused_mlp_segment_backward")
+          "fused_mlp_ckpt_forward", "fused_mlp_segment_backward", "fused_sphere_sdf")
 
 
 def reset_launch_counts():
@@ -71,7 +72,7 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """The launches by route of K1, K1-bf16, K6, K7a and K7b:
+    """The launches by route of K1, K1-bf16, K6, K7a, K7b and K5:
     ``{"fused_mlp_forward": {"tile": n, "general": n}, ...}``."""
     return {name: dict(KERNELS[name].route_launches) for name in ROUTED}
 

@@ -8,13 +8,12 @@ exclusive transmittance ``prod_{j<i} max(1 - alpha_j, 1e-10)`` and
 ``sum_i alpha_i T_i rgb_i``.  The TPU kernel transposes the samples to the
 lane axis and builds the exclusive log-prefix-sum as a triangular matmul on
 the MXU, because Mosaic has no cumsum.  The kernel (``csrc/composite.cu``)
-keeps the caller's sample-major ``[T, R]`` / ``[T, R, 3]`` layout, gives
-each ray one thread (the reads of one sample are coalesced across a warp)
-and runs the transmittance as a running product in registers.  It reads
-16 bytes per sample and writes 12 per ray: it is bound by memory.
-``composite_plain`` is its plain version (the jnp form of
-``shapes/nerf.py``'s ``volumetric_integrate``), which materialises alpha,
-the cumprod and the weights in separate passes.
+keeps the caller's sample-major ``[T, R]`` / ``[T, R, 3]`` layout and splits
+each ray's samples into segments, one thread a segment, whose products and
+sums meet in a fixed order.  It reads 16 bytes per sample and writes 12 per
+ray: it is bound by memory.  ``composite_plain`` is its plain version (the
+jnp form of ``shapes/nerf.py``'s ``volumetric_integrate``), which
+materialises alpha, the cumprod and the weights in separate passes.
 
 Gradients: ``composite_apply`` wraps K8 in an ``autograd.Function`` whose
 backward recomputes through ``composite_plain``, as the JAX ``custom_vjp``
@@ -27,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..ops.math import maximum
 from ._build import library
 from .fused_mlp import check_cuda_f32, recompute_grads
 
@@ -46,7 +46,7 @@ def composite_plain(sigma: torch.Tensor, rgb: torch.Tensor,
     sample positions ``ts [T]`` -> ``[..., C]``; the plain version of K8."""
     t_exp = ts.reshape((ts.shape[0],) + (1,) * (sigma.dim() - 1))
     alpha = 1.0 - torch.exp(-sigma * t_exp)
-    trans = torch.cumprod(torch.clamp_min(1.0 - alpha, 1e-10), dim=0)
+    trans = torch.cumprod(maximum(1.0 - alpha, 1e-10), dim=0)
     trans = torch.cat([torch.ones_like(trans[:1]), trans[:-1]], dim=0)
     weights = alpha * trans
     return torch.sum(weights[..., None] * rgb, dim=0)

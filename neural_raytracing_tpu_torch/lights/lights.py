@@ -22,7 +22,7 @@ from ..bsdf.bsdfs import active_mask
 from ..interaction import DirectionSample
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import SkipConnMLP
-from ..ops.math import normalize
+from ..ops.math import clip, maximum, normalize
 
 
 def _bcast(v: torch.Tensor, batch_ndim: int) -> torch.Tensor:
@@ -86,9 +86,9 @@ class PointLights(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def _falloff(self, dist: torch.Tensor) -> torch.Tensor:
-        return (torch.clamp_min(self.const, 1e-6)
-                + torch.clamp_min(self.linear, 1e-6) * dist
-                + torch.clamp_min(self.square, 1e-6) * torch.square(dist))
+        return (maximum(self.const, 1e-6)
+                + maximum(self.linear, 1e-6) * dist
+                + maximum(self.square, 1e-6) * torch.square(dist))
 
     def sample_direction(self, it, generator=None, active=True):
         batch_ndim = it.p.dim() - 1
@@ -97,7 +97,7 @@ class PointLights(nn.Module):
         dist = torch.linalg.norm(d, dim=-1, keepdim=True)
         d = normalize(d, eps=1e-6)
         color = _bcast(normalize(self.intensity), batch_ndim)
-        spectrum = self.scale * color / torch.clamp_min(self._falloff(dist), 1e-6)
+        spectrum = self.scale * color / maximum(self._falloff(dist), 1e-6)
         ok = active_mask(active, it.p.shape[:-1], it.p.device)[..., None]
         spectrum = torch.where(ok, spectrum, 0.0)
         ds = DirectionSample(d=d, pdf=torch.ones(it.p.shape[:-1], dtype=it.p.dtype,
@@ -111,8 +111,7 @@ class PointLights(nn.Module):
         d = p[None, ...] - self.location.reshape(
             (-1,) + (1,) * (p.dim() - 1) + (3,))
         dist = torch.linalg.norm(d, dim=-1, keepdim=True)
-        return self.scale * normalize(self.intensity) / torch.clamp_min(
-            self._falloff(dist), 1e-6)
+        return self.scale * normalize(self.intensity) / maximum(self._falloff(dist), 1e-6)
 
     # a delta light: BSDF-sampled rays cannot hit it
     def intersect(self, rays: torch.Tensor):
@@ -148,7 +147,7 @@ class LightField(nn.Module):
         non_norm = self.mlp(it.p)
         # reference quirk: each component of the normalised direction is
         # clamped to [1e-6, 1]
-        d = torch.clamp(normalize(non_norm, eps=1e-6), 1e-6, 1.0)
+        d = clip(normalize(non_norm, eps=1e-6), 1e-6, 1.0)
         magn = torch.linalg.norm(non_norm, dim=-1, keepdim=True)
         spectrum = magn * torch.sigmoid(self.color)
         ok = active_mask(active, it.p.shape[:-1], it.p.device)[..., None]

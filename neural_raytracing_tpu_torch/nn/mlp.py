@@ -30,10 +30,28 @@ from torch import nn
 
 from ..ops.encoding import fourier_basis, fourier_encode, fourier_size
 
+class _LeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu(x, 0.01)`` (its values, bit for bit) with the gradient
+    of ``jax.nn.leaky_relu`` (``where(x >= 0, x, 0.01 x)``): slope 1 at
+    ``x == 0``, where torch's own backward takes 0.01.  The backward is
+    built from differentiable ops, so the eikonal term's double backward
+    goes through it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.leaky_relu(x, negative_slope=0.01)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, 0.01 * g)
+
+
 # torch's softplus switches to the identity above 20, jax.nn.softplus does
 # not; the difference there is below float32 resolution.
 ACTIVATIONS: dict = {
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
+    "leaky_relu": _LeakyReLU.apply,
     "relu": F.relu,
     "softplus": F.softplus,
     "sigmoid": torch.sigmoid,

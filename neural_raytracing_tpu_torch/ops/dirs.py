@@ -11,14 +11,14 @@ import math
 
 import torch
 
-from .math import normalize
+from .math import clip, maximum, normalize
 
 
 def uv_to_elev_azim(uv: torch.Tensor) -> torch.Tensor:
-    uv = torch.clamp(uv, -1.0 + 1e-7, 1.0 - 1e-7)
+    uv = clip(uv, -1.0 + 1e-7, 1.0 - 1e-7)
     u, v = uv[..., 0:1], uv[..., 1:2]
     elev = torch.arcsin(v)
-    azim = torch.atan2(u, torch.sqrt(torch.clamp_min(1.0 - u * u - v * v, 1e-8)))
+    azim = torch.atan2(u, torch.sqrt(maximum(1.0 - u * u - v * v, 1e-8)))
     return torch.cat([elev, azim], dim=-1)
 
 
@@ -29,7 +29,7 @@ def elev_azim_to_uv(elev_azim: torch.Tensor) -> torch.Tensor:
 
 def elev_azim_to_dir(elev_azim: torch.Tensor) -> torch.Tensor:
     limit = math.pi - 1e-7
-    ea = torch.clamp(elev_azim, -limit, limit)
+    ea = clip(elev_azim, -limit, limit)
     elev, azim = ea[..., 0:1], ea[..., 1:2]
     return torch.cat([torch.sin(azim) * torch.cos(elev),
                       torch.cos(azim) * torch.cos(elev),
@@ -37,10 +37,10 @@ def elev_azim_to_dir(elev_azim: torch.Tensor) -> torch.Tensor:
 
 
 def dir_to_elev_azim(direction: torch.Tensor) -> torch.Tensor:
-    d = torch.clamp(normalize(direction), -1.0 + 1e-7, 1.0 - 1e-7)
+    d = clip(normalize(direction), -1.0 + 1e-7, 1.0 - 1e-7)
     x, z = d[..., 0:1], d[..., 2:3]
     elev = torch.arcsin(z)
-    azim = torch.atan2(x, torch.sqrt(torch.clamp_min(1.0 - x * x - z * z, 1e-10)))
+    azim = torch.atan2(x, torch.sqrt(maximum(1.0 - x * x - z * z, 1e-10)))
     return torch.cat([elev, azim], dim=-1)
 
 

@@ -15,19 +15,20 @@ from __future__ import annotations
 
 import torch
 
+from .math import absolute, clip, maximum
 from .ssim import ssim as ssim_fn
 
 
 def binary_cross_entropy_with_logits(logits: torch.Tensor,
                                      targets: torch.Tensor) -> torch.Tensor:
     # numerically stable log(1 + exp(-|x|)) form
-    return (torch.clamp_min(logits, 0.0) - logits * targets
-            + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (maximum(logits, 0.0) - logits * targets
+            + torch.log1p(torch.exp(-absolute(logits))))
 
 
 def binary_cross_entropy(probs: torch.Tensor, targets: torch.Tensor,
                          eps: float = 1e-12) -> torch.Tensor:
-    probs = torch.clamp(probs, eps, 1.0 - eps)
+    probs = clip(probs, eps, 1.0 - eps)
     return -(targets * torch.log(probs) + (1.0 - targets) * torch.log(1.0 - probs))
 
 
@@ -49,14 +50,14 @@ def masked_loss(got: torch.Tensor, exp: torch.Tensor, throughput: torch.Tensor,
         exp_active = exp_active / (1.0 + exp_active)
 
     diff = got_active - exp_active
-    l1_loss = diff.abs().mean()
+    l1_loss = absolute(diff).mean()
     l2_loss = diff.square().mean()
-    rmse_loss = torch.sqrt(torch.clamp_min(l2_loss, 1e-10))
+    rmse_loss = torch.sqrt(maximum(l2_loss, 1e-10))
     color_loss = l1_loss + l2_loss + rmse_loss
     if with_ssim:
         ssim_val = ssim_fn(got_active.permute(0, 3, 1, 2),
                            exp_active.permute(0, 3, 1, 2), data_range=1.0)
-        color_loss = color_loss - torch.log(torch.clamp_min(ssim_val, 1e-10))
+        color_loss = color_loss - torch.log(maximum(ssim_val, 1e-10))
     # no active pixel: no color loss (the reference skips the branch)
     color_loss = torch.where(active.any(), color_loss, 0.0)
 

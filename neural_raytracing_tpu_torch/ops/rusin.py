@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .math import nonzero_eps, normalize, rotate_vector
+from .math import maximum, nonzero_eps, normalize, rotate_vector
 
 
 def param_rusin2(wo: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
@@ -25,15 +25,14 @@ def param_rusin2(wo: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
     cos_theta_h = h[..., 2]
 
     # rotate wi about z by -phi_h (cos/sin without trig round-trips)
-    r = torch.clamp_min(torch.hypot(nonzero_eps(h[..., 1]),
-                                    nonzero_eps(h[..., 0])), 1e-6)
+    r = maximum(torch.hypot(nonzero_eps(h[..., 1]), nonzero_eps(h[..., 0])), 1e-6)
     c = (h[..., 0] / r)[..., None]
     s = -(h[..., 1] / r)[..., None]
     tmp = normalize(rotate_vector(wi, e2, c, s))
 
     # rotate about y by -theta_h
     c = h[..., 2][..., None]
-    s = -torch.sqrt(torch.clamp_min(1.0 - h[..., 2], 1e-6))[..., None]
+    s = -torch.sqrt(maximum(1.0 - h[..., 2], 1e-6))[..., None]
     diff = normalize(rotate_vector(tmp, e1, c, s))
 
     cos_theta_d = diff[..., 2]

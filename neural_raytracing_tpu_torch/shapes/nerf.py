@@ -39,6 +39,7 @@ from torch import nn
 from ..kernels.composite import composite_apply, composite_plain
 from ..nn.mlp import SkipConnMLP
 from ..ops.dirs import dir_to_elev_azim, elev_azim_to_dir
+from ..ops.math import maximum
 
 _MODES = ("auto", "force", "off")
 
@@ -244,7 +245,7 @@ class MPI(nn.Module):
         rgba = self.mlp(torch.cat([pts[..., :2], idx[..., None]], dim=-1))
         rgb = torch.sigmoid(rgba[..., :3])
         alpha = torch.sigmoid(rgba[..., 3]) * valid
-        trans = torch.cumprod(torch.clamp_min(1.0 - alpha, 1e-10), dim=0)
+        trans = torch.cumprod(maximum(1.0 - alpha, 1e-10), dim=0)
         trans = torch.cat([torch.ones_like(trans[:1]), trans[:-1]], dim=0)
         weights = alpha * trans
         return torch.sum(weights[..., None] * rgb, dim=0)

@@ -62,7 +62,7 @@ def make_space_reg(eikonal: float, repulsion: float, alpha: float):
     """A full-space regularizer at 1024 fresh uniform points in
     [-1.25, 1.25]^3 per step: ``eikonal * (|grad f| - 1)^2`` and
     ``repulsion * exp(-alpha |f|)``, both means."""
-    from ..ops.math import eikonal_loss
+    from ..ops.math import absolute, eikonal_loss
 
     def space_reg(scene, generator):
         device = scene.lights.location.device
@@ -77,7 +77,7 @@ def make_space_reg(eikonal: float, repulsion: float, alpha: float):
         if eikonal > 0:
             reg = reg + eikonal * eikonal_loss(grads)
         if repulsion > 0:
-            reg = reg + repulsion * torch.mean(torch.exp(-alpha * torch.abs(vals)))
+            reg = reg + repulsion * torch.mean(torch.exp(-alpha * absolute(vals)))
         return reg
 
     return space_reg

@@ -117,3 +117,25 @@ def test_modes_on_cpu_tensors():
     four = torch.cat([rgb, rgb[..., :1]], dim=-1)
     assert volumetric_integrate(sigma, four, ts, fused="force").shape == BATCH + (4,)
     assert launch_counts()["fused_composite"] == 0
+
+
+# ragged shapes (samples, batch): T = 1, T not a multiple of K8's segments,
+# one ray, a ray count off a multiple of 32, no rays
+RAGGED = [(1, (33,)), (7, (1,)), (65, (3, 11)), (100, (31,)), (17, (2, 32)), (64, (0,))]
+
+
+@pytest.mark.parametrize("n_t,batch", RAGGED)
+def test_composite_ragged_shapes_match_jax(n_t, batch):
+    rng = np.random.default_rng(n_t)
+    sigma = np.maximum(rng.normal(size=(n_t,) + batch), 0.0).astype(np.float32)
+    if sigma.size:
+        sigma.reshape(n_t, -1)[n_t // 2, 0] = 1e4     # the clamp
+    rgb = (1.0 / (1.0 + np.exp(-rng.normal(size=sigma.shape + (3,))))).astype(np.float32)
+    ts = np.linspace(0.0, 2.0, n_t).astype(np.float32)
+    w = rng.normal(size=batch + (3,)).astype(np.float32)
+    want, want_g = _jax(sigma, rgb, ts, w)
+    got, got_g = _torch_grads(composite_plain, sigma, rgb, ts, w)
+    assert got.shape == batch + (3,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    if sigma.size:
+        _assert_grads(got_g, want_g)

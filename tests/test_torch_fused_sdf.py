@@ -159,3 +159,47 @@ def test_plain_version_is_sphere_sdf_forward_and_checkpoints_load_into_either():
         shadow = torch.cat([ia.p, up.expand(64, 3)], -1)
         assert torch.equal(a.intersect_test(shadow, 3.0), b.intersect_test(shadow, 3.0))
     assert all(v == 0 for v in launch_counts().values())
+
+
+# K5's route by the shift net's shape and the sphere count (k5_route), with
+# nothing launched: the flagship / NeRV shift and the tile's widest net take
+# the tile; a net past its widths or a sphere set past its h rows the
+# general kernel; a surface neither kernel takes raises
+_SHIFT = dict(in_size=3, out=1, num_layers=8, hidden_size=128, freqs=32,
+              activation="softplus")
+K5_ROUTE_CASES = {
+    "flagship shift": (_SHIFT, 128, "tile"),
+    "widest tile net": (dict(_SHIFT, hidden_size=256, freqs=128, num_layers=32), 128, "tile"),
+    "hidden 257": (dict(_SHIFT, hidden_size=257), 128, "general"),
+    "freqs 129": (dict(_SHIFT, freqs=129), 128, "general"),
+    "most spheres at NP 128": (_SHIFT, 654, "tile"),
+    "one sphere more": (_SHIFT, 655, "general"),
+    "most spheres at NP 256": (dict(_SHIFT, hidden_size=200), 1324, "tile"),
+    "one more at NP 256": (dict(_SHIFT, hidden_size=200), 1325, "general"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_ROUTE_CASES))
+def test_k5_route_by_shape(case):
+    shift, n, route = K5_ROUTE_CASES[case]
+    module = FusedSphereSDF(n=n, mlp=SkipConnMLP(**shift))
+    reset_launch_counts()
+    assert fsdf.k5_route(module) == route
+    assert fsdf.k5_route(SphereSDF(n=n, mlp=SkipConnMLP(**shift))) == route
+    assert all(v == 0 for v in launch_counts().values())
+
+
+def test_k5_route_default_surface_and_refusals():
+    assert fsdf.k5_route(FusedSphereSDF()) == "tile"     # NeRV's --fused-sdf surface
+    assert (fsdf.k5_tile_spheres(128), fsdf.k5_tile_spheres(256)) == (654, 1324)
+    for shift in (dict(_SHIFT, out=2), dict(_SHIFT, latent_size=4), dict(_SHIFT, in_size=2)):
+        with pytest.raises(ValueError, match="3 -> 1 shift net"):
+            fsdf.k5_route(FusedSphereSDF(n=8, mlp=SkipConnMLP(**shift)))
+    with pytest.raises(ValueError, match="at most 32"):
+        fsdf.k5_route(FusedSphereSDF(n=8, mlp=SkipConnMLP(**dict(_SHIFT, num_layers=33))))
+    # the route is refused before anything touches a device
+    module = FusedSphereSDF(n=655, mlp=SkipConnMLP(**_SHIFT))
+    with pytest.raises(ValueError, match="route"):
+        fsdf.fused_sphere_sdf(module, torch.rand(4, 3), route="tile")
+    with pytest.raises(ValueError, match="CUDA"):
+        fsdf.fused_sphere_sdf(FusedSphereSDF(n=8, mlp=SkipConnMLP(**_SHIFT)), torch.rand(4, 3))

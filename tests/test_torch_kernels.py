@@ -18,9 +18,10 @@ not-blocked agreement >= 99.9% (a near-eps step may fall on either side in
 another sum order), the same flags bit for bit across launches and
 permutations, zero-direction rays exactly the plain loop's, and its launch
 statistics within 1% of the plain loop's evaluations; K5 as K1, its first and second derivatives (recomputed
-through the plain version) rtol/atol 1e-4; K8 2e-5 absolute + 2e-5 relative
-(exp and products in another order), its gradients (recomputed through the
-plain version) 1e-4 absolute + 1e-3 relative; K2 relaxed as K2, and on the
+through the plain version) rtol/atol 1e-4, and its two routes the same
+bits; K8 2e-5 absolute + 2e-5 relative (exp and products in another order),
+two launches the same bits, its gradients (recomputed through the plain
+version) 1e-4 absolute + 1e-3 relative; K2 relaxed as K2, and on the
 exact one-sphere rule cases the plain version's hit flags, depths within
 1e-3.  The bf16-operand variants against their plain versions: a float32
 difference (x.B by fmaf against a matmul, sums in another order) can tip a
@@ -57,8 +58,8 @@ from neural_raytracing_tpu_torch.kernels import (
     shadow_march_plain, sphere_sdf_eval_plain, sphere_sdf_plain, supports,
 )
 from neural_raytracing_tpu_torch.kernels import (
-    _build, pack_tile_transposes, pack_tile_weights, route_counts, tile_bwd_info, tile_info,
-    tile_pack, tile_pack_plain, tile_transposes_plain,
+    _build, k5_route, k5_tile_info, k5_tile_spheres, pack_tile_transposes, pack_tile_weights,
+    route_counts, tile_bwd_info, tile_info, tile_pack, tile_pack_plain, tile_transposes_plain,
 )
 from neural_raytracing_tpu_torch.nn import SkipConnMLP
 from neural_raytracing_tpu_torch.shapes import (
@@ -543,6 +544,100 @@ def test_fused_sphere_sdf_surface_through_k2_k4_k5(cuda):
     assert counts["fused_sphere_sdf"] == 1 and counts["fused_mlp_forward"] == 0
 
 
+# K5's surfaces: the flagship / NeRV shift (NP 128), a 256-wide one, a
+# leaky_relu one, and a net off the tile (the general route)
+K5_SHIFTS = {
+    "flagship": FLAGSHIP["sdf_shift"],
+    "wide": dict(in_size=3, out=1, num_layers=4, hidden_size=160, freqs=24,
+                 activation="softplus", init="uniform"),
+    "leaky_relu": dict(FLAGSHIP["sdf_shift"], activation="leaky_relu"),
+    "off the tile": dict(in_size=3, out=1, num_layers=3, hidden_size=272, freqs=8,
+                         activation="softplus", init="uniform"),
+}
+
+
+def _k5_surface(device, shift, stable_min=False, seed=26):
+    module = FusedSphereSDF(n=128, mlp=SkipConnMLP(**shift), stable_min=stable_min)
+    module.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        module.shift.out.w.mul_(0.1)
+        module.radii.copy_(0.3 + 0.5 * module.radii)
+    return module.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4_099])
+@pytest.mark.parametrize("stable_min", [False, True])
+@pytest.mark.parametrize("name", sorted(K5_SHIFTS))
+def test_k5_routes_match_plain(cuda, name, stable_min, n):
+    """K5 on the route its shape picks (and on the general route for a tile
+    net) against the plain version, with the launch counted by route; the
+    two routes give the same bits."""
+    module = _k5_surface(cuda, K5_SHIFTS[name], stable_min)
+    route = k5_route(module)
+    assert route == ("general" if name == "off the tile" else "tile")
+    x = (2.4 * torch.rand(n, 3, generator=torch.Generator().manual_seed(27)) - 1.2).to(cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = fused_sphere_sdf(module, x)
+        assert route_counts()["fused_sphere_sdf"] == {"tile": int(route == "tile"),
+                                                      "general": int(route == "general")}
+        want = sphere_sdf_plain(module, x, module.centers, module.radii, module.tfs,
+                                module.shift.B, module.shift.flat_weights())
+        other = fused_sphere_sdf(module, x, route="general")
+        torch.cuda.synchronize()
+    tol = 1e-4 * want.abs() + 1e-5 + 4e-7 * (x @ module.shift.B).abs().max()
+    assert got.shape == (n,)
+    assert ((got - want).abs() <= tol).all(), (got - want).abs().max().item()
+    assert torch.equal(got, other)
+
+
+@pytest.mark.cuda
+def test_k5_tile_derivatives_match_plain(cuda):
+    """First and second derivatives through K5's autograd.Function on the
+    tile (the backward recomputes through the plain version)."""
+    module = _k5_surface(cuda, FLAGSHIP["sdf_shift"])
+    x = (2.0 * torch.rand(512, 3, generator=torch.Generator().manual_seed(28)) - 1.0).to(cuda)
+
+    def grads():
+        xx = x.clone().requires_grad_()
+        (gx,) = torch.autograd.grad(module(xx).sum(), xx, create_graph=True)
+        gw = torch.autograd.grad(gx.square().sum(), [module.centers, module.shift.layers[3].w])
+        return (gx, *gw)
+
+    reset_launch_counts()
+    got = grads()
+    assert route_counts()["fused_sphere_sdf"] == {"tile": 1, "general": 0}
+    module.mode = "off"
+    for a, b in zip(got, grads()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k5_edges(cuda):
+    """No points: nothing launched, an empty result.  A sphere set past the
+    tile's h rows takes the general route, and the tile refuses it."""
+    module = _k5_surface(cuda, FLAGSHIP["sdf_shift"])
+    reset_launch_counts()
+    out = fused_sphere_sdf(module, torch.empty(0, 3, device=cuda))
+    assert out.shape == (0,) and launch_counts()["fused_sphere_sdf"] == 0
+    x = torch.rand(8, 3, device=cuda)
+    big = _k5_surface(cuda, FLAGSHIP["sdf_shift"])
+    n_big = k5_tile_spheres(128) + 1
+    big.centers = torch.nn.Parameter(torch.rand(n_big, 3, device=cuda))
+    big.radii = torch.nn.Parameter(torch.rand(n_big, device=cuda))
+    big.tfs = torch.nn.Parameter(torch.zeros(n_big, 3, 3, device=cuda))
+    assert k5_route(big) == "general"
+    with pytest.raises(ValueError, match="route"):
+        fused_sphere_sdf(big, x, route="tile")
+    with torch.no_grad():
+        want = sphere_sdf_plain(big, x, big.centers, big.radii, big.tfs, big.shift.B,
+                                big.shift.flat_weights())
+        got = fused_sphere_sdf(big, x)
+    assert ((got - want).abs() <= 1e-4 * want.abs() + 1e-5).all()
+    assert k5_tile_info(module)["blocks_per_sm"] == 2
+
+
 def _one_sphere(device):
     """An exact SDF (one sphere of radius 0.5, the exact smooth-min, a zero
     shift): every step of the cases below is exact in float32."""
@@ -650,23 +745,31 @@ def test_fused_shadow_march_stats_add_up(cuda):
 def _composite_inputs(device, n_t=64, n_r=10_001, seed=14):
     g = torch.Generator().manual_seed(seed)
     sigma = torch.relu(torch.randn(n_t, n_r, generator=g))
-    sigma[5, :7] = 1e4                       # 1 - alpha at the 1e-10 clamp
+    sigma[min(5, n_t - 1), :7] = 1e4         # 1 - alpha at the 1e-10 clamp
     rgb = torch.sigmoid(torch.randn(n_t, n_r, 3, generator=g))
     ts = torch.linspace(0.0, 2.0, n_t)
     return sigma.to(device), rgb.to(device), ts.to(device)
 
 
+# K8's shapes: the eval tile and a training step, and ragged ones (T not a
+# multiple of the segments, T = 1, R not a multiple of 32, one ray)
+K8_SHAPES = [(64, 10_001), (13, 37), (64, 1_024), (65, 1_000), (1, 33), (7, 1),
+             (100, 31), (17, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_t,n_r", [(64, 10_001), (13, 37)])
+@pytest.mark.parametrize("n_t,n_r", K8_SHAPES)
 def test_fused_composite_matches_plain(cuda, n_t, n_r):
     sigma, rgb, ts = _composite_inputs(cuda, n_t, n_r)
     reset_launch_counts()
     got = fused_composite(sigma, rgb, ts)
     assert launch_counts()["fused_composite"] == 1
     want = composite_plain(sigma, rgb, ts)
+    again = fused_composite(sigma, rgb, ts)
     torch.cuda.synchronize()
     assert got.shape == (n_r, 3)
     assert ((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all()
+    assert torch.equal(got, again)
 
     def grads(fn):
         s, c = sigma.clone().requires_grad_(), rgb.clone().requires_grad_()
@@ -676,6 +779,18 @@ def test_fused_composite_matches_plain(cuda, n_t, n_r):
 
     for a, b in zip(grads(composite_apply), grads(composite_plain)):
         assert ((a - b).abs() <= 1e-4 + 1e-3 * b.abs()).all()
+
+
+@pytest.mark.cuda
+def test_fused_composite_with_no_rays_or_samples(cuda):
+    reset_launch_counts()
+    out = fused_composite(torch.empty(64, 0, device=cuda), torch.empty(64, 0, 3, device=cuda),
+                          torch.linspace(0.0, 2.0, 64, device=cuda))
+    assert out.shape == (0, 3) and launch_counts()["fused_composite"] == 0
+    out = fused_composite(torch.empty(0, 5, device=cuda), torch.empty(0, 5, 3, device=cuda),
+                          torch.empty(0, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros(5, 3, device=cuda))
 
 
 @pytest.mark.cuda
@@ -1263,6 +1378,39 @@ def test_march_kernels_share_k1s_cached_pack(cuda, dtype):
         tile_pack_plain(mlp, mlp.B, mlp.flat_weights(), dtype)))
 
 
+@pytest.mark.cuda
+def test_tie_forms_on_the_card(cuda):
+    """The port's tie forms (leaky_relu's slope 1 at 0, jnp.maximum's,
+    jnp.clip's and jnp.abs's gradients; tests/test_torch_ties.py holds them
+    against JAX on the CPU) on CUDA tensors: their values torch's own forms'
+    there, bit for bit, and their first and second derivatives the CPU's
+    (torch's clamp gives clamp(-0.0, 0.0) = +0.0 on the card and -0.0 on
+    the CPU, so the signs of zeros are not compared across devices)."""
+    import torch.nn.functional as F
+    from neural_raytracing_tpu_torch.nn import ACTIVATIONS
+    from neural_raytracing_tpu_torch.ops.math import absolute, clip, maximum
+    xs = torch.tensor([-2.5, -1.0, -1e-30, -0.0, 0.0, 1e-30, 1e-12, 0.5, 1.0, 2.0])
+    forms = [(ACTIVATIONS["leaky_relu"], lambda x: F.leaky_relu(x, 0.01)),
+             (absolute, torch.abs),
+             (lambda x: maximum(x, 0.0), lambda x: torch.clamp_min(x, 0.0)),
+             (lambda x: maximum(x, 1e-12), lambda x: torch.clamp_min(x, 1e-12)),
+             (lambda x: clip(x, 1e-12, 1.0), lambda x: torch.clamp(x, 1e-12, 1.0))]
+
+    def run(form, device):
+        x = xs.clone().to(device).requires_grad_()
+        y = form(x)
+        (g1,) = torch.autograd.grad((y * y).sum(), x, create_graph=True)
+        (g2,) = torch.autograd.grad(g1.sum(), x)
+        return [t.detach().cpu() for t in (y, g1, g2)]
+
+    for form, own in forms:
+        got = run(form, cuda)
+        want = own(xs.to(cuda)).cpu()
+        assert torch.equal(got[0].view(torch.int32), want.view(torch.int32)), (got[0], want)
+        for a, b in zip(got, run(form, "cpu")):
+            assert torch.equal(a, b), (a, b)
+
+
 # ---- K6 and K7 on the tile (csrc/fused_mlp_bwd_tile.cu) -----------------------------
 
 BWD_NETS = ("weight_net", "lobe", "light_field")   # the shading nets: the three widths
@@ -1297,8 +1445,9 @@ def _bwd_inputs(mlp, n, device, seed=21):
 def test_tile_backward_matches_plain(cuda, name, n, segments):
     """K6 (segments 0) and K7 (segments 4) on the tile at edge row counts and
     the three widths against their plain versions (``act'`` of the JAX
-    package's ACTIVATION_GRADS: leaky_relu's slope at 0 is 1, where torch's
-    autograd takes 0.01); every launch on the tile route."""
+    package's ACTIVATION_GRADS) and against torch's autograd through the
+    plain net (whose leaky_relu takes JAX's slope 1 at 0 too); every launch
+    on the tile route."""
     mlp = _net(FLAGSHIP[name], 22, cuda)
     x, g = _bwd_inputs(mlp, n, cuda)
     reset_launch_counts()
@@ -1310,8 +1459,10 @@ def test_tile_backward_matches_plain(cuda, name, n, segments):
     for kernel, count in want_launches.items():
         assert routes[kernel] == {"tile": count, "general": 0}, routes
     want = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments, kernel=False)
+    auto = _autograd_backward(mlp, x, g)
     torch.cuda.synchronize()
     _assert_backward_close(dx, grads, [want[0], *want[1]])
+    _assert_backward_close(dx, grads, auto)
 
 
 @pytest.mark.cuda
@@ -1342,8 +1493,10 @@ def test_backward_off_the_tile_takes_the_general_kernels(cuda, segments):
     assert routes[kernel]["tile"] == 0 and routes[kernel]["general"] > 0, routes
     assert launch_counts()["pack_tile_transposes"] == 0
     want = mlp_backward(mlp, x, g, mlp.B, mlp.flat_weights(), segments, kernel=False)
+    auto = _autograd_backward(mlp, x, g)
     torch.cuda.synchronize()
     _assert_backward_close(dx, grads, [want[0], *want[1]])
+    _assert_backward_close(dx, grads, auto)
 
 
 @pytest.mark.cuda
