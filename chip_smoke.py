@@ -156,7 +156,23 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      beside theirs);
  18. the NeRV eval of phase 10 with march_dtype bf16, learned and hard
      shadows: ms/view, PSNR against the f32 render, hit and not-blocked
-     agreement on one view.
+     agreement on one view;
+ 19. the colocate workload (workloads.colocate) on data made here by the
+     generator twin (workloads.make_dataset): (a) the bunny's 8x8 colocated
+     grid and one camera row of the relight grid at 200x200, in memory,
+     with no launch of K1-K5 (the procedural SDF takes the plain loops),
+     a pixel probe (mask coverage, the median of the lit pixels; fails on
+     black data) and the black render's PSNR; (b) one training step of
+     build_scene() at full width with seed-0 weights (4 views x 64^2 crops,
+     the colocated light, extra_loss) against the same step with every
+     kernel off, as phases 7 and 11 hold theirs; (c) 20 steps of train
+     (counts reset just before, read just after: K1 on the tile, K2, K3,
+     K4), ms/step, a profile of one step and K1-K4's device ms a launch;
+     (d) the hard-shadow test on 2 views through evaluate with the light
+     update, kernels against every kernel off (phase 4's tolerances),
+     ms/view, a profile of one view; (e) the relight grid's 4 brightest
+     views of that row, their PSNR beside the black render's (a pipeline
+     check after 20 steps, not a quality figure).
 Every counted run of a main path also holds K1's route counts (every fused
 net takes the tile: k1_routes) and the pack's launches (none in an eval
 view after the first, at most one a packed net and training step:
@@ -196,7 +212,9 @@ products meet in another order than the cumprod), the same bits in a second
 launch, its gradients 1e-4 absolute + 1e-3 relative; the NeRFLE render with K8 against fused="off" mean
 |difference| <= 1e-5 and max <= 1e-4 (only the compositing differs); the
 NeRFLE step loss within 1e-5 relative and each component's gradient within
-1e-4 relative L2; K2 relaxed as K2 (hit agreement >= 99%, |depth
+1e-4 relative L2; the colocate step and test as the NeRV ones, the Diffuse
+and Conductor leaves held apart (an occlusion net that no blocked shadow
+ray reaches takes a zero gradient on both paths); K2 relaxed as K2 (hit agreement >= 99%, |depth
 difference| <= 1e-3 where both hit); the bf16 variants: a float32
 difference (x.B by fmaf against a matmul, sums in another order) can tip a
 bf16 rounding, which moves that operand by one bf16 step and its row from
@@ -222,6 +240,20 @@ checks and times; no result line).
 runs phases 1 and 6 only (K6's and K7's checks and times; no result
 line).
 
+    python3 chip_smoke.py --colocate
+
+runs phases 1 and 19 only (no result line).
+
+    python3 chip_smoke.py --converge [ITERS]
+
+runs phase 1, then the quality drive of .claude/skills/verify/SKILL.md
+through the port: the generator twin (bunny, 64x64, the 4x4 grid and the
+whole relight grid, light scale 1.5), then the colocate twin (crops of 32,
+4 views, --clip-norm 10 --stable-init --light-scale 1.5) for ITERS steps
+(default 8,000), its hard-shadow test on the first 8 views and the relight
+grid, each PSNR beside the black render's, with pixel probes of the renders
+and the ground truth, and the wall time (no result line).
+
     python3 chip_smoke.py --march-times [DIR]
 
 prints only K2's and K2-bf16's ms at phase 3b's shapes, K4's and K4-bf16's
@@ -236,9 +268,10 @@ run the two trees in turns in one call.
 prints only K8's device ms (cold inputs) at COMPOSITE_SHAPES and K5's ms a
 call at phase 9's points through their default routes, with digests of
 their outputs, and the device busy ms (median of three profiles) of one
-NeRFLE eval view, one flagship training step and one NeRV eval view with
-fused_sdf=True, for the package in DIR: the same way, parent, change,
-change, parent.
+NeRFLE eval view, one flagship training step, one NeRV eval view with
+fused_sdf=True and one colocate training step, and the colocate generator's
+ms a view, for the package in DIR: the same way, parent, change, change,
+parent.
 
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -263,6 +296,14 @@ SIZE = 256
 ARTIFACTS = ROOT / "scripts" / "models_seed_dir" / "nerv_mesh_gear_mirror200b"
 CHUNK = 128
 FOCAL = 0.5 * SIZE / math.tan(0.5 * 0.6911)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def fail(msg: str):
@@ -3220,6 +3261,410 @@ def phase_bf16_nerv(torch, dev):
 
 
 
+# ---- slice 12: the colocate workload and its dataset generator ----------------------
+
+CO_SIZE = 200                                      # scripts/colocate.py's default
+CO_CHUNK = 100                                     # chunk_for(200)
+CO_CROP = 64
+CO_VIEWS = 4
+CO_RAYS = CO_VIEWS * CO_CROP * CO_CROP             # 16,384 rays a step
+CO_LRS = {"shape": 8e-5, "bsdf": 8e-5, "lights": 8e-5, "occ": 8e-5}
+CO_KIND = "bunny"
+# the generator renders a 200^2 view in one tile (its loops are plain and
+# host-bound: one tile a view launches a quarter of chunk_for(200)'s); the
+# tile size changes only the camera jitter's draws
+CO_GEN_CHUNK = 200
+CO_RELIGHT_ROWS = (0,)                             # one camera row: 4 x 9 views
+CO_RELIGHT_EVAL = 4                                # relight views rendered in (e)
+CO_RELIGHT_CMP = 2                                 # of them, held against plain in (e)
+# K1-K4's kernels by the names the profiler gives them (K3 with its merge)
+K_NAMES = {"K1": ("nrt_mlp_tile_f32_kernel",), "K2": ("nrt_fused_march_f32_kernel",),
+           "K3": ("nrt_fused_minscan_f32_kernel", "nrt_minscan_merge_kernel"),
+           "K4": ("nrt_fused_shadow_f32_kernel",)}
+# every kernel the generator must not launch: K1-K5, their bf16 variants, the packs
+GEN_FREE = ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march",
+            "fused_sphere_sdf", "fused_mlp_forward_bf16", "fused_march_bf16",
+            "fused_min_scan_bf16", "fused_shadow_march_bf16", "pack_tile_weights")
+
+
+def black_psnr(images) -> float:
+    """The mean PSNR of an all-black render against each of ``images``."""
+    import numpy as np
+    return float(np.mean([-10.0 * math.log10(max(float(np.mean(np.asarray(im)[..., :3] ** 2)),
+                                                   1e-10)) for im in images]))
+
+
+def pixel_probe(images, masks=None) -> str:
+    """Coverage, the median of the lit pixels and the share of clipped ones."""
+    import numpy as np
+    rgb = np.asarray(images)[..., :3]
+    lit = rgb.max(-1) > 1e-3 if masks is None else np.asarray(masks) > 0
+    vals = rgb[lit]
+    median = float(np.median(vals)) if vals.size else 0.0
+    return (f"coverage {lit.mean():.4f}, median lit pixel {median:.4f}, "
+            f"clipped {float((rgb >= 1.0).mean()):.5f}")
+
+
+def colocate_dataset(torch, dev, size, n_elev, n_azim, cam_rows, chunk=None, light_scale=1.5):
+    """The generator twin on the card: the colocated grid and ``cam_rows`` of
+    the relight grid, in memory.  -> (ColocateDataset, relight {(i, j, k, l):
+    8-bit image / 255}, seconds, the launch counts)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.workloads import make_dataset as md
+    scene = md.build_scene(CO_KIND, light_scale).init(
+        torch.Generator().manual_seed(md.SEED), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    grid = md.render_grid(scene, size=size, n_elev=n_elev, n_azim=n_azim, chunk_size=chunk,
+                          device=dev, log_fn=lambda s: None)
+    relight = md.render_relight_grid(scene, size=size, cam_rows=cam_rows, chunk_size=chunk,
+                                     device=dev, log_fn=lambda s: None)
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    relight = {k: md.quantise(v).astype(np.float32) / 255.0 for k, v in relight.items()}
+    return md.as_dataset(grid, n_elev, n_azim), relight, secs, counts
+
+
+def colocate_args(**kw):
+    """workloads.colocate's arguments (its parser's defaults, then ``kw``)."""
+    from neural_raytracing_tpu_torch.workloads import colocate
+    args = colocate.parser().parse_args(["--data", "(in memory)"])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def k_path_ms(prof: dict) -> dict:
+    """{K: (ms a launch, launches)} of K1-K4 in a kernel_profile."""
+    out = {}
+    for k, names in K_NAMES.items():
+        hits = [(ms, n) for key, (ms, n) in prof.items() if any(s in key for s in names)]
+        n = sum(n for _, n in hits)
+        out[k] = (sum(ms for ms, _ in hits) / max(n, 1), n)
+    return out
+
+
+def k_line(path: dict) -> str:
+    return ", ".join(f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in path.items())
+
+
+def sync_sites(torch, fn) -> dict:
+    """{file:line: count} of the calls in ``fn`` that make the host wait for
+    the card (``torch.cuda.set_sync_debug_mode``'s warnings), each at its
+    innermost frame in the port's package; a wait in the backward pass shows
+    where it was started."""
+    import traceback
+    import warnings
+    sites = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "neural_raytracing_tpu_torch" in Path(f.filename).parts]
+        at = frames[-1] if frames else None
+        key = (f"{Path(at.filename).relative_to(ROOT)}:{at.lineno}" if at
+               else f"{Path(filename).name}:{lineno}")
+        sites[key] = sites.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def blocked_shadow_rays(torch, scene, rays):
+    """-> (the camera rays that hit ``scene``'s shape and whose shadow ray to
+    its light is blocked, the hit mask), through ``scene``'s own marches:
+    the kernels, or the plain loops where its kernel mode is off."""
+    with torch.no_grad():
+        it, hit = scene.shape.intersect(rays, primary=False)
+        ds, _ = scene.lights.sample_direction(it)
+        nb = scene.shape.intersect_test(torch.cat([it.p, ds.d], dim=-1), max_t=ds.dist)
+    return (~nb & hit).sum().item(), hit
+
+
+def phase_colocate(torch, dev):
+    """The colocate workload on data the generator twin makes on the card:
+    (a) the dataset, (b) one step against plain, (c) 20 steps of train, (d)
+    the hard-shadow test against plain, (e) a few relight-grid views."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, build_step_fn, evaluate, make_optimizer, rand_uv_mask, train,
+    )
+    from neural_raytracing_tpu_torch.training.eval import restored_parameters
+    from neural_raytracing_tpu_torch.workloads import colocate
+    from neural_raytracing_tpu_torch.workloads import make_dataset as md
+    from neural_raytracing_tpu_torch.workloads.nerfle import colocate_cameras
+
+    # (a) the dataset, generated here: no kernel of K1-K5 on its path
+    data, relight, gen_s, counts = colocate_dataset(torch, dev, CO_SIZE, 8, 8,
+                                                    CO_RELIGHT_ROWS, CO_GEN_CHUNK)
+    launched = {k: counts[k] for k in GEN_FREE if counts[k]}
+    check(not launched, f"colocate generator: launched {launched}")
+    cover = float(data.masks.mean())
+    lit = data.images[data.masks > 0]
+    median = float(np.median(lit)) if lit.size else 0.0
+    check(0.05 < cover < 0.95, f"colocate generator: mask coverage {cover:.4f}")
+    check(median > 0.02, f"colocate generator: the data is black (median lit {median:.4f})")
+    test_black = black_psnr(data.images[:8])
+    relight_black = black_psnr(relight.values())
+    print(f"colocate generator ({CO_KIND}): the 8x8 grid and {len(CO_RELIGHT_ROWS)} camera "
+          f"row(s) of the relight grid ({len(relight)} views) at {CO_SIZE}x{CO_SIZE}, tiles "
+          f"of {CO_GEN_CHUNK} (chunk_for gives {CO_CHUNK}), {gen_s:.1f} s "
+          f"({1e3 * gen_s / (64 + len(relight)):.1f} ms/view); no K1-K5 launch; grid: "
+          f"{pixel_probe(data.images, data.masks)}; relight: "
+          f"{pixel_probe(list(relight.values()))}; black-render PSNR: test views "
+          f"{test_black:.3f} dB, relight views {relight_black:.3f} dB")
+
+    cams = colocate_cameras(data)
+    centers = cams.camera_center().numpy()
+    light_update = colocate.make_light_update(centers)
+
+    def make_camera(idxs):
+        from neural_raytracing_tpu_torch.cameras import FoVPerspectiveCamera
+        idxs = torch.as_tensor(np.asarray(idxs))
+        return FoVPerspectiveCamera(R=cams.R[idxs], T=cams.T[idxs])
+
+    spec = make_optimizer(CO_LRS)
+    scene = colocate.build_scene().init(torch.Generator().manual_seed(0), device=dev)
+
+    # (b) one step at full width against every kernel off, from the same state
+    idxs = [9, 20, 42, 55]
+    u = v = (CO_SIZE - CO_CROP) // 2
+    exp = torch.from_numpy(data.images[idxs, u:u + CO_CROP, v:v + CO_CROP]).to(dev)
+    mask = torch.from_numpy(data.masks[idxs, u:u + CO_CROP, v:v + CO_CROP]).to(dev)
+    rays = make_camera(idxs).to(dev).sample_positions(
+        _tile_positions(float(u), float(v), CO_CROP, dev), size=CO_SIZE)
+    res = {}
+    for label, mode in (("kernels", "auto"), ("plain", "off")):
+        sc = copy.deepcopy(scene)
+        set_kernel_mode(sc, mode)
+        light_update(sc, None, idxs)
+        step = build_step_fn(sc, Direct(training=True), spec, size=CO_SIZE, crop_size=CO_CROP,
+                             extra_loss=colocate.extra_loss)
+        _, aux = step(TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v), exp, mask)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights", "occ")}
+        for i, name in ((2, "Diffuse"), (3, "Conductor")):
+            grads[name] = torch.cat([p.grad.reshape(-1)
+                                     for p in sc.bsdf.bsdfs[i].parameters()])
+        blocked, hit = blocked_shadow_rays(torch, sc, rays)
+        res[label] = (aux["loss"].item(), grads, hit, blocked)
+        del sc
+    (lk, gk, hk, bk), (lp, gp, hp, bp) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_hit_diff = int((hk != hp).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"colocate step parity (kernels vs every kernel off, {CO_VIEWS} x {CO_CROP}^2, "
+          f"seed 0, no jitter): loss {lk:.6f} vs {lp:.6f} (rel {rel_loss:.3e}), rays whose "
+          f"hit differs {n_hit_diff} of {hk.numel()} (hit fraction "
+          f"{hp.float().mean().item():.4f}), blocked shadow rays {bk} / {bp}, gradient "
+          f"rel L2 {', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-4, f"colocate step parity: loss rel {rel_loss:.3e}")
+    check(n_hit_diff <= 0.001 * hk.numel(), f"colocate step parity: {n_hit_diff} hit flags differ")
+    check(hp.any().item(), "colocate step parity: no ray hit the surface")
+    for c, e in rel_g.items():
+        if c == "occ" and bp == 0:
+            # no shadow ray blocked: the occlusion net takes no gradient
+            check(gk[c].norm().item() == 0.0, "colocate step parity: occ gradient "
+                  "without a blocked shadow ray")
+            continue
+        check(gp[c].norm().item() > 0, f"colocate step parity: no {c} gradient")
+        check(e <= 1e-2, f"colocate step parity: {c} gradient rel L2 {e:.3e} > 1e-2")
+    del res, gk, gp
+
+    # (c) 20 steps of train through the kernels, counts reset just before
+    kw = dict(size=CO_SIZE, crop_size=CO_CROP, n_views=CO_VIEWS, uv_select=rand_uv_mask,
+              light_update=light_update, extra_loss=colocate.extra_loss, log_every=0,
+              nan_policy="raise")
+    state = TrainState(scene, spec.init(scene), 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state, _ = train(scene, Direct(training=True), spec, state, make_camera, data.images,
+                     data.masks, gen, iters=2, seed=100, **kw)                  # warm-up
+    occ0 = {k: p.detach().clone() for k, p in scene.occ.named_parameters()}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    iters = 20
+    state, losses = train(scene, Direct(training=True), spec, state, make_camera, data.images,
+                          data.masks, gen, iters=iters, seed=0, **kw)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - start) / iters
+    counts = launch_counts()
+    routes = k1_routes("colocate training")
+    check(len(losses) == iters and np.isfinite(losses).all(), f"colocate training: {losses}")
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
+        check(counts[name] > 0, f"colocate training: kernel {name} was not launched on the path")
+    check(counts["pack_tile_weights"] <= packed_nets(scene) * iters,
+          f"colocate training: {counts['pack_tile_weights']} packs")
+    check(scene.lights.location.shape == (CO_VIEWS, 3), "colocate training: light location")
+    changed = sum(not torch.equal(occ0[k], p) for k, p in scene.occ.named_parameters())
+    print(f"colocate training (kernels): {iters} steps, {1e3 * secs:.1f} ms/step, "
+          f"{CO_RAYS / secs:,.0f} rays/s, losses {[round(x, 3) for x in losses]}; occ "
+          f"parameters changed {changed}; launches {counts}; K1 routes {routes}")
+    step = build_step_fn(scene, Direct(training=True), spec, size=CO_SIZE,
+                         crop_size=CO_CROP, extra_loss=colocate.extra_loss)
+    light_update(scene, None, idxs)
+    one_step = lambda: step(state, make_camera(idxs), (u, v), exp, mask, gen)
+    prof = profile_step(torch, one_step, "one colocate training step (kernels)")
+    check(prof is not None, "colocate training: the profiler saw no device time")
+    path = k_path_ms(kernel_profile(torch, one_step, reps=2))
+    print(f"colocate training step, K1-K4 device ms a launch at its shapes: {k_line(path)}")
+    syncs = sync_sites(torch, one_step)
+    print(f"colocate training step: {sum(syncs.values())} calls that wait for the card, by "
+          f"the innermost line of the port: {syncs}")
+
+    # (d) the hard-shadow test: 2 views through evaluate, kernels against plain
+    test = colocate.eval_scene(scene)
+
+    def test_views(n):
+        images = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = evaluate(test, lambda i: make_camera([i]), data.images[:n], Direct(training=False),
+                       size=CO_SIZE, chunk_size=CO_CHUNK, log_fn=lambda s: None,
+                       light_update=lambda sc, cam, i: light_update(sc, cam, [i]),
+                       save_fn=lambda i, im: images.append(np.asarray(im)))
+        torch.cuda.synchronize()
+        return out, np.stack(images), (time.perf_counter() - start) / n
+
+    test_views(1)                                                             # warm-up
+    reset_launch_counts()
+    out, got, s_view = test_views(2)
+    test_counts = launch_counts()
+    k1_routes("colocate test")
+    for name in ("fused_mlp_forward", "fused_march", "fused_shadow_march"):
+        check(test_counts[name] > 0, f"colocate test: kernel {name} was not launched")
+    check(scene.lights.location.shape == (CO_VIEWS, 3), "evaluate changed the light location")
+
+    def one_view():
+        with torch.no_grad():
+            from neural_raytracing_tpu_torch.render import pathtrace
+            light_update(test, None, [0])
+            pathtrace(test, make_camera([0]), Direct(training=False), size=CO_SIZE,
+                      chunk_size=CO_CHUNK, bundle_size=1, background=0.0, key=0, device=dev)
+    loc = scene.lights.location.detach().clone()
+    vprof = profile_step(torch, one_view, "one colocate test view (hard shadows)")
+    check(vprof is not None, "colocate test: the profiler saw no device time")
+    vpath = k_path_ms(kernel_profile(torch, one_view, reps=1))
+    scene.lights.set_location(loc)
+    set_kernel_mode(test, "off")             # test.shape is not one of scene's modules
+    _, want, p_view = test_views(2)
+    set_kernel_mode(test, "auto")
+    frac, agree, mean_d, max_d = compare_images("colocate test", got, want)
+    print(f"colocate test, hard shadows: 2 views {CO_SIZE}x{CO_SIZE} (trained "
+          f"{state.step} steps), kernels {1e3 * s_view:.1f} ms/view "
+          f"({CO_SIZE ** 2 / s_view:,.0f} rays/s), every kernel off {1e3 * p_view:.1f} "
+          f"ms/view; lit fraction {frac:.4f}, mask agreement {agree:.6f}, mean |diff| "
+          f"{mean_d:.3e}, max |diff| {max_d:.3e}; PSNR {out['psnr']:.3f} dB (black "
+          f"{black_psnr(data.images[:2]):.3f}); K1-K4 device ms a launch in a view: "
+          f"{k_line(vpath)}; launches {test_counts}")
+
+    # (e) a few views of the relight grid, their PSNR beside the black render's:
+    # the brightest views of the row (most of the grid's lights leave the
+    # side the camera sees dark, and a near-black view scores any dark render
+    # high)
+    views = dict(sorted(relight.items(), key=lambda kv: -float(np.mean(kv[1][..., :3])))
+                 [:CO_RELIGHT_EVAL])
+    got_r, want_r = {}, {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    psnrs = colocate.relight_psnrs(test, views, size=CO_SIZE, device=dev,
+                                   save_fn=got_r.__setitem__)
+    r_view = (time.perf_counter() - start) / len(views)
+    check(np.isfinite(psnrs).all(), f"colocate relight: PSNR {psnrs}")
+    check(scene.lights.location.shape == (CO_VIEWS, 3), "relight changed the light location")
+    # no relight light is colocated with its camera, so these views have real
+    # shadows: the first CO_RELIGHT_CMP, kernels against every kernel off, and
+    # the first one's blocked shadow rays on both sides
+    cmp_keys = sorted(views)[:CO_RELIGHT_CMP]
+    i, j, k, l = cmp_keys[0]
+    rays = md.camera_at(1.0, md.CAM_ELEVS[i], md.CAM_AZIMS[j]).to(dev).sample_positions(
+        _tile_positions(0.0, 0.0, CO_SIZE, dev), size=CO_SIZE)
+    blocked = {}
+    with restored_parameters(scene.lights):
+        test.lights.set_location(md.relight_light(k, l))
+        blocked["kernels"], _ = blocked_shadow_rays(torch, test, rays)
+        set_kernel_mode(test, "off")
+        blocked["plain"], _ = blocked_shadow_rays(torch, test, rays)
+    colocate.relight_psnrs(test, {key: views[key] for key in cmp_keys}, size=CO_SIZE,
+                           device=dev, save_fn=want_r.__setitem__)
+    set_kernel_mode(test, "auto")
+    check(blocked["plain"] > 0, f"colocate relight: no shadow ray blocked in view {cmp_keys[0]}")
+    r_frac, r_agree, r_mean, r_max = compare_images(
+        "colocate relight", np.stack([got_r[key] for key in cmp_keys]),
+        np.stack([want_r[key] for key in cmp_keys]))
+    print(f"colocate relight, kernels against every kernel off on {cmp_keys}: blocked "
+          f"shadow rays in {cmp_keys[0]} {blocked['kernels']} / {blocked['plain']}, lit "
+          f"fraction {r_frac:.4f}, mask agreement {r_agree:.6f}, mean |diff| {r_mean:.3e}, "
+          f"max |diff| {r_max:.3e}")
+    print(f"colocate relight grid (its {len(views)} brightest views {sorted(views)} after "
+          f"{state.step} steps, a pipeline check): PSNR {[round(p, 3) for p in psnrs]}, mean "
+          f"{np.mean(psnrs):.3f} dB, black {black_psnr(views.values()):.3f} dB; "
+          f"{1e3 * r_view:.1f} ms/view")
+    print(f"colocate on {card()}: training {1e3 * secs:.1f} ms/step (one step busy "
+          f"{prof['busy_ms']:.1f} ms, idle share {1 - prof['busy_ms'] / prof['wall_ms']:.3f}), "
+          f"hard-shadow test {1e3 * s_view:.1f} ms/view (one view busy "
+          f"{vprof['busy_ms']:.1f} ms, idle share {1 - vprof['busy_ms'] / vprof['wall_ms']:.3f})")
+    return dict(step_ms=1e3 * secs, ms_view=1e3 * s_view, step_prof=prof, view_prof=vprof,
+                counts=counts, test_counts=test_counts, path=path)
+
+
+def converge_main(iters: int):
+    """The quality drive of .claude/skills/verify/SKILL.md through the port,
+    on the card: the generator twin (bunny, 64^2, a 4 x 4 grid and the whole
+    relight grid, light scale 1.5), then the colocate twin (crops of 32, 4
+    views, --clip-norm 10 --stable-init --light-scale 1.5) for ``iters``
+    steps, its hard-shadow test on the first 8 views and the relight grid:
+    PSNRs beside the black render's and pixel probes."""
+    import numpy as np
+    import torch
+    from neural_raytracing_tpu_torch.workloads import colocate
+    dev = torch.device("cuda", 0)
+    data, relight, gen_s, _ = colocate_dataset(torch, dev, 64, 4, 4, range(4))
+    print(f"converge: generator {gen_s:.1f} s, {len(data.images)} views + {len(relight)} "
+          f"relight views {data.images.shape[1]}x{data.images.shape[2]}; "
+          f"grid {pixel_probe(data.images, data.masks)}; relight "
+          f"{pixel_probe(list(relight.values()))}", flush=True)
+    args = colocate_args(size=64, crop_size=32, n_views=4, n_elev=4, n_azim=4, iters=iters,
+                         clip_norm=10.0, stable_init=True, light_scale=1.5, log_every=500,
+                         kind=CO_KIND)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, res = colocate.run(args, data, relight, save=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    test = res["test"]
+    n_test = len(res["test_images"])
+    print(f"converge: {state.step} steps + test + relight in {wall:.1f} s; final losses "
+          f"{[round(x, 4) for x in res['losses'][-5:]]}")
+    print(f"converge: test (hard shadows, first {n_test} views): PSNR {test['psnr']:.3f} dB, "
+          f"SSIM {test['ssim']:.4f}, black render {black_psnr(data.images[:n_test]):.3f} dB; "
+          f"renders {pixel_probe(res['test_images'])}, GT "
+          f"{pixel_probe(data.images[:n_test], data.masks[:n_test])}")
+    psnrs = np.asarray(res["relight_psnrs"])
+    gts = [gt for _, gt in sorted(relight.items())]
+    lit = np.asarray([float(np.mean(gt[..., :3])) > 0.01 for gt in gts])
+    print(f"converge: relight grid ({len(psnrs)} views): PSNR {psnrs.mean():.3f} dB, black "
+          f"render {black_psnr(gts):.3f} dB; on its {int(lit.sum())} views whose mean GT "
+          f"pixel exceeds 0.01: PSNR {psnrs[lit].mean():.3f} dB, black render "
+          f"{black_psnr([g for g, keep in zip(gts, lit) if keep]):.3f} dB")
+
+
 def median_busy(torch, fn, label, reps: int = 3) -> dict:
     """{busy_ms, wall_ms, launches}: the medians of ``reps`` profiles of one
     call of ``fn`` (profile_step), after one warm-up call."""
@@ -3229,16 +3674,45 @@ def median_busy(torch, fn, label, reps: int = 3) -> dict:
     return {k: sorted(r[k] for r in runs)[reps // 2] for k in runs[0]}
 
 
+def colocate_turn(torch, dev):
+    """-> (median_busy of one colocate training step at phase 19's shapes,
+    the generator twin's ms a 200^2 view over a 2 x 2 grid)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import FoVPerspectiveCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import TrainState, build_step_fn, make_optimizer
+    from neural_raytracing_tpu_torch.workloads import colocate
+    from neural_raytracing_tpu_torch.workloads.nerfle import colocate_cameras
+    data, _, gen_s, _ = colocate_dataset(torch, dev, CO_SIZE, 2, 2, (), CO_GEN_CHUNK)
+    cams = colocate_cameras(data)
+    idxs = [0, 1, 2, 3]
+    camera = FoVPerspectiveCamera(R=cams.R[idxs], T=cams.T[idxs])
+    spec = make_optimizer(CO_LRS)
+    scene = colocate.build_scene().init(torch.Generator().manual_seed(0), device=dev)
+    colocate.make_light_update(cams.camera_center().numpy())(scene, None, idxs)
+    step = build_step_fn(scene, Direct(training=True), spec, size=CO_SIZE, crop_size=CO_CROP,
+                         extra_loss=colocate.extra_loss)
+    u = v = (CO_SIZE - CO_CROP) // 2
+    exp = torch.from_numpy(data.images[idxs, u:u + CO_CROP, v:v + CO_CROP]).to(dev)
+    mask = torch.from_numpy(data.masks[idxs, u:u + CO_CROP, v:v + CO_CROP]).to(dev)
+    state = TrainState(scene, spec.init(scene), 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    busy = median_busy(torch, lambda: step(state, camera, (u, v), exp, mask, gen),
+                       "one colocate training step")
+    return busy, 1e3 * gen_s / len(np.asarray(data.images))
+
+
 def turn_times_main(root: str):
     """``python3 chip_smoke.py --turn-times [DIR]``: for the package in DIR
     (this checkout's by default), one JSON line: K8's device ms on cold
     inputs at COMPOSITE_SHAPES and K5's ms a call at K5_SHAPES (phase 3's
     surface), each through its default route, with a digest of their
     outputs; and the device busy ms (median of three profiles) of one NeRFLE
-    eval view, one flagship training step and one NeRV eval view with
-    fused_sdf=True.  To compare two trees in one call: unpack the other with
-    git archive into the ignored scratch_trees/ and run parent, change,
-    change, parent."""
+    eval view, one flagship training step, one NeRV eval view with
+    fused_sdf=True and one colocate training step; and the colocate
+    generator's ms a view.  To compare two trees in one call: unpack the
+    other with git archive into the ignored scratch_trees/ and run parent,
+    change, change, parent."""
     import hashlib
 
     import numpy as np
@@ -3306,6 +3780,8 @@ def turn_times_main(root: str):
     busy["NeRV eval view, fused_sdf"] = median_busy(
         torch, lambda: nerv_evaluate(torch, scene, camera_fn, 1, locs),
         "one NeRV eval view, fused_sdf=True")
+    del scene
+    busy["colocate training step"], out["generator_ms_view"] = colocate_turn(torch, dev)
     out["busy"] = busy
     print(json.dumps(out))
 
@@ -3330,10 +3806,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in IEEE f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     print("kernels: fused_mlp_forward, fused_march, fused_min_scan, "
@@ -3351,6 +3824,12 @@ def main():
 
     if sys.argv[1:2] == ["--bwd"]:
         phase_backward(torch, dev)
+        return
+    if sys.argv[1:2] == ["--colocate"]:
+        phase_colocate(torch, dev)
+        return
+    if sys.argv[1:2] == ["--converge"]:
+        converge_main(int(sys.argv[2]) if len(sys.argv) > 2 else 8000)
         return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
@@ -3378,6 +3857,7 @@ def main():
     kb16 = phase_bf16_kernels(torch, dev, k4["step_ms"])
     bf16_eval_counts, bf16_train_counts = phase_bf16_flagship(torch, dev)
     bf16_nerv_counts = phase_bf16_nerv(torch, dev)
+    co = phase_colocate(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -3453,7 +3933,9 @@ def main():
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "
           f"{nerv_train_counts['fused_shadow_march']}; NeRFLE training step "
           f"{1e3 * le_step_s:.1f} ms/step, {LE_RAYS / le_step_s:,.0f} rays/s, K8 launches "
-          f"{le_train_counts['fused_composite']}")
+          f"{le_train_counts['fused_composite']}; colocate training step "
+          f"{co['step_ms']:.1f} ms/step, {CO_RAYS / co['step_ms'] * 1e3:,.0f} rays/s, test "
+          f"view {co['ms_view']:.1f} ms/view")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,12 @@ min-scan kernels; and the NeRV workload (``workloads.nerv``: per-view
 ``PointLights``, hard and learned occlusion through the fused shadow march,
 ``FusedSphereSDF`` through the fused SphereSDF kernel); the NeRF-family
 volume path (``shapes.nerf``, ``NeRFReproduce``, ``pathtrace_sample``, the
-twin ``workloads.nerfle``) with the alpha-compositing kernel; and the
-over-relaxed sphere trace behind the orbit renderer ``workloads.render``.
+twin ``workloads.nerfle``) with the alpha-compositing kernel; the
+over-relaxed sphere trace behind the orbit renderer ``workloads.render``;
+and the colocate workload (``bsdf.Diffuse``, ``bsdf.Conductor``, the
+twin ``workloads.colocate``) with its dataset generator
+(``shapes.FunctionalSDF``, ``integrators.Mask``, the twin
+``workloads.make_dataset``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

@@ -1,1 +1,1 @@
-from .bsdfs import ComposeSpatialVarying, NeuralBSDF
+from .bsdfs import ComposeSpatialVarying, Conductor, Diffuse, NeuralBSDF

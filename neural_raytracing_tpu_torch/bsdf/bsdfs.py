@@ -1,16 +1,21 @@
-"""Learned BSDFs of the flagship model.
+"""BSDFs of the flagship, NeRV and colocate scenes.
 
 Counterpart of ``neural_raytracing_tpu/bsdf/bsdfs.py`` for the render path:
   * ``NeuralBSDF``: one lobe, ``act(MLP(param_rusin2(wi, wo)))``;
   * ``ComposeSpatialVarying``: the spatially-varying mixture, weights
-    ``sigmoid(MLP_16x256(x))`` per basis lobe.
+    ``sigmoid(MLP_16x256(x))`` per basis lobe;
+  * ``Diffuse``: a Lambertian lobe with a learnable reflectance;
+  * ``Conductor``: a near-mirror lobe, thresholded around the reflection
+    vector, with the conductor Fresnel term.
 
 ``eval_and_pdf(it, wo, active) -> (spectrum [..., 3], pdf [...], aux)``.
-Sampling (``sample``) belongs to the BSDF-sampling arm and is not ported yet.
+Sampling (``sample``) belongs to the BSDF-sampling arm of ``Direct`` and is
+not ported yet, for any of the four.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -18,8 +23,14 @@ from torch import nn
 
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import ACTIVATIONS, SkipConnMLP
-from ..ops.math import maximum
+from ..ops.fresnel import fresnel_conductor
+from ..ops.math import local_reflect, maximum
 from ..ops.rusin import param_rusin2
+from ..ops.warps import square_to_cos_hemisphere_pdf
+
+
+# Conductor's lobe: local_reflect(wi) . wo above this is the mirror cone
+THRESHOLD = 0.94
 
 
 def active_mask(active, batch_shape, device) -> torch.Tensor:
@@ -90,3 +101,60 @@ class ComposeSpatialVarying(nn.Module):
         # the pdf is the density of a categorical pick ~ k, hence / sum k
         ksum = maximum(torch.sum(k, dim=-1), 1e-10)
         return summed[..., :3], summed[..., 3] / ksum, aux
+
+
+class Diffuse(nn.Module):
+    """Lambertian lobe with a learnable reflectance colour ``[3]``.  As in
+    the JAX package, its spectrum is not masked by ``active``."""
+
+    def __init__(self, reflectance=(0.25, 0.2, 0.7)):
+        super().__init__()
+        self._init = torch.tensor(reflectance, dtype=torch.float32)
+        self.reflectance = nn.Parameter(self._init.clone())
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None):
+        self.reflectance.copy_(self._init)
+
+    def eval_and_pdf(self, it, wo: torch.Tensor, active=True):
+        cos_theta_o = wo[..., 2]
+        # divided by pi, not multiplied by 1/pi, as the JAX package does
+        spectrum = cos_theta_o[..., None] * self.reflectance / math.pi
+        return spectrum, square_to_cos_hemisphere_pdf(wo), {}
+
+
+class Conductor(nn.Module):
+    """Near-mirror conductor lobe: ``fresnel_conductor(cos_i,
+    softplus(eta), 0) * sigmoid(specular)`` where ``local_reflect(wi) . wo``
+    exceeds ``THRESHOLD``, else 0 (pdf 1 or 0).
+
+    ``specular`` is ``[3]``, ``eta`` and ``k`` are 0-d.  ``k`` is read only
+    by the conductor's ``sample``; it is a leaf of the JAX params all the
+    same, so a strict load finds it and AdamW carries it, as optax does.
+    torch's softplus is linear above 20 and jax's is not (below float32
+    resolution there).
+    """
+
+    def __init__(self, specular=(1.0, 1.0, 1.0), eta: float = 1.3,
+                 k: float = 1.0):
+        super().__init__()
+        self._init = dict(specular=torch.tensor(specular, dtype=torch.float32),
+                          eta=torch.tensor(float(eta)), k=torch.tensor(float(k)))
+        for name, value in self._init.items():
+            self.register_parameter(name, nn.Parameter(value.clone()))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None):
+        for name, value in self._init.items():
+            getattr(self, name).copy_(value)
+
+    def eval_and_pdf(self, it, wo: torch.Tensor, active=True):
+        refl = local_reflect(it.wi)
+        thresh = torch.sum(refl * wo, dim=-1) > THRESHOLD
+        fr = fresnel_conductor(it.wi[..., 2], ACTIVATIONS["softplus"](self.eta), 0.0)
+        spectrum = torch.where(thresh[..., None],
+                               fr[..., None] * torch.sigmoid(self.specular), 0.0)
+        pdf = torch.where(thresh, 1.0, 0.0)
+        ok = active_mask(active, it.p.shape[:-1], it.p.device)
+        spectrum = torch.where(ok[..., None], spectrum, 0.0)
+        return spectrum, pdf, {}

@@ -1,1 +1,1 @@
-from .integrators import Direct, Integrator, NeRFIntegrator, NeRFReproduce
+from .integrators import Direct, Integrator, Mask, NeRFIntegrator, NeRFReproduce

@@ -2,7 +2,8 @@
 
 Counterpart of ``neural_raytracing_tpu/integrators/integrators.py``:
 ``Direct`` with its emitter-sampling arm, the training wrapper
-``NeRFIntegrator``, and ``NeRFReproduce``, which hands the rays to a
+``NeRFIntegrator``, ``Mask``, which appends the hit mask (the dataset
+generator's alpha), and ``NeRFReproduce``, which hands the rays to a
 volumetric (NeRF-family) shape.  Interface:
 ``sample(scene, rays, generator, training) -> (values [..., dims],
 active [...], Interaction)``.
@@ -102,6 +103,25 @@ class NeRFIntegrator(Integrator):
             alpha = torch.sigmoid(alpha)
         return (torch.cat([result, alpha], dim=-1), torch.ones_like(active),
                 it)
+
+
+class Mask(Integrator):
+    """Appends the sub-integrator's hit mask as a last channel (1 where the
+    ray hit) and marks every pixel active."""
+
+    def __init__(self, sub_integrator: Integrator):
+        self.sub_integrator = sub_integrator
+
+    def dims(self):
+        return self.sub_integrator.dims() + 1
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = False):
+        result, active, it = self.sub_integrator.sample(scene, rays, generator,
+                                                        training)
+        mask = torch.where(active, 1.0, 0.0)
+        return (torch.cat([result, mask[..., None]], dim=-1),
+                torch.ones_like(active), it)
 
 
 class NeRFReproduce(Integrator):

@@ -8,8 +8,8 @@ from .losses import (
     binary_cross_entropy, binary_cross_entropy_with_logits, masked_loss,
 )
 from .math import (
-    eikonal_loss, mse2psnr, nonzero_eps, normalize, rotate_vector, smooth_min,
-    stable_smooth_min,
+    eikonal_loss, local_reflect, mse2psnr, nonzero_eps, normalize, rotate_vector,
+    smooth_min, stable_smooth_min,
 )
 from .rusin import param_rusin2
 from .ssim import ms_ssim, ssim

@@ -6,7 +6,16 @@ epsilons of the reference are kept verbatim: they are part of the behaviour.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The constant ``torch.tensor(values)``, made once per dtype and device:
+    made at every call it is a host-to-device copy that waits for the card."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 # jnp's tie-breaking forms.  At a tie the JAX package's gradient is not
@@ -16,9 +25,9 @@ import torch
 
 class _Clip(torch.autograd.Function):
     """``torch.clamp(x, lo, hi)`` with ``jnp.clip``'s gradient (``hi``
-    None: ``jnp.maximum``'s), the step function ``H(x - lo) H(hi - x)``
-    with ``H(0) = 1/2``: three launches a backward where ``torch.maximum``
-    takes five."""
+    None: ``jnp.maximum``'s; ``lo`` None: ``jnp.minimum``'s), the step
+    function ``H(x - lo) H(hi - x)`` with ``H(0) = 1/2``: three launches a
+    backward where ``torch.maximum`` takes five."""
 
     @staticmethod
     def forward(ctx, x, lo, hi):
@@ -32,15 +41,21 @@ class _Clip(torch.autograd.Function):
         lo, hi = ctx.bounds
         half = torch.tensor(0.5, dtype=x.dtype)
         with torch.no_grad():         # a step function: no gradient of its own
-            step = torch.heaviside(x - lo, half)
+            step = None if lo is None else torch.heaviside(x - lo, half)
             if hi is not None:
-                step = step * torch.heaviside(hi - x, half)
+                upper = torch.heaviside(hi - x, half)
+                step = upper if step is None else step * upper
         return g * step, None, None
 
 
 def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
     """``jnp.maximum(x, c)`` for a number ``c``."""
     return _Clip.apply(x, c, None)
+
+
+def minimum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.minimum(x, c)`` for a number ``c``."""
+    return _Clip.apply(x, None, c)
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -95,6 +110,13 @@ def stable_smooth_min(v: torch.Tensor, k: float = 32.0,
                       dim: int = 0) -> torch.Tensor:
     """Exact exponential smooth minimum via logsumexp: ``-lse(-k v)/k``."""
     return -torch.logsumexp(-k * v, dim=dim) / k
+
+
+def local_reflect(v: torch.Tensor) -> torch.Tensor:
+    """Mirror about the local +z axis: ``(x, y, z) -> (-x, -y, z)``."""
+    # negation builds no constant tensor (a host-to-device copy on the card)
+    # and gives the bits, and the gradient, of a product with (-1, -1, 1)
+    return torch.cat([-v[..., :2], v[..., 2:]], dim=-1)
 
 
 def eikonal_loss(grad: torch.Tensor) -> torch.Tensor:

@@ -11,15 +11,15 @@ from __future__ import annotations
 
 import torch
 
-from .math import maximum, nonzero_eps, normalize, rotate_vector
+from .math import device_constant, maximum, nonzero_eps, normalize, rotate_vector
 
 
 def param_rusin2(wo: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
     """Local-frame Rusinkiewicz parameterization ``[..., 3]``."""
     wo = normalize(wo)
     wi = normalize(wi)
-    e1 = wo.new_tensor([0.0, 1.0, 0.0]).expand(wo.shape)
-    e2 = wo.new_tensor([0.0, 0.0, 1.0]).expand(wo.shape)
+    e1 = device_constant((0.0, 1.0, 0.0), wo.dtype, wo.device).expand(wo.shape)
+    e2 = device_constant((0.0, 0.0, 1.0), wo.dtype, wo.device).expand(wo.shape)
 
     h = normalize(wo + wi)
     cos_theta_h = h[..., 2]

@@ -30,10 +30,16 @@ def _gaussian_kernel(win_size: int, sigma: float) -> np.ndarray:
     return g / np.sum(g)
 
 
+@functools.lru_cache(maxsize=8)
+def _gaussian_taps(win_size: int, sigma: float, dtype, device) -> torch.Tensor:
+    # on the input's device once: a copy at every blur waits for the card
+    return torch.from_numpy(_gaussian_kernel(win_size, sigma)).to(device, dtype)
+
+
 def _gaussian_blur(x: torch.Tensor, win_size: int, sigma: float) -> torch.Tensor:
     """Separable 'valid' gaussian filter of an NCHW tensor, depthwise."""
     c = x.shape[1]
-    g = torch.from_numpy(_gaussian_kernel(win_size, sigma)).to(x.device, x.dtype)
+    g = _gaussian_taps(win_size, sigma, x.dtype, x.device)
     kh = g.reshape(1, 1, win_size, 1).expand(c, 1, win_size, 1)
     kw = g.reshape(1, 1, 1, win_size).expand(c, 1, 1, win_size)
     tf32 = torch.backends.cudnn.allow_tf32

@@ -1,2 +1,5 @@
 from .nerf import MPI, NeRFLE, PartialNeRF, PlainNeRF, volumetric_integrate
-from .sdf import SDF, SphereSDF, march_interval
+from .sdf import (
+    SDF, UNIT_SPHERE, FunctionalSDF, SphereSDF, box_sdf, capsule_sdf, march_interval,
+    sphere_sdf,
+)

@@ -15,7 +15,10 @@ Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
   * ``SDF.intersect_test``: the shadow march (the fused kernel K4 on CUDA
     tensors, ``shadow_march_plain`` otherwise).
 The surface may also be a ``kernels.FusedSphereSDF`` (the same parameters,
-evaluated by K5).  ``SDF(march_dtype=torch.bfloat16)`` runs the three loops
+evaluated by K5), or a ``FunctionalSDF`` around a plain ``p -> sdf``
+function built from ``sphere_sdf``, ``box_sdf`` and ``capsule_sdf`` (the
+dataset generator's procedural shapes); the kernels take only a SphereSDF,
+so a ``FunctionalSDF`` runs the plain loops, as in the JAX package.  ``SDF(march_dtype=torch.bfloat16)`` runs the three loops
 with bf16 operands in the shift net (K2-bf16, K3-bf16, K4-bf16); the
 differentiable evaluations (hit point, normals, throughput value) stay
 float32.  ``batch_throughput`` is not ported yet.
@@ -23,7 +26,7 @@ float32.  ``batch_throughput`` is not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -35,7 +38,9 @@ from ..kernels.fused_march import (
 )
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import SkipConnMLP, check_compute_dtype
-from ..ops.math import normalize, smooth_min, stable_smooth_min
+from ..ops.math import (
+    absolute, clip, maximum, minimum, normalize, smooth_min, stable_smooth_min,
+)
 
 
 def march_interval(r_o: torch.Tensor, r_d: torch.Tensor, bound: float,
@@ -53,6 +58,43 @@ def march_interval(r_o: torch.Tensor, r_d: torch.Tensor, bound: float,
     t1 = torch.clamp_max(torch.clamp_min(torch.where(disc > 0.0, -b + s, 0.0), 0.0),
                          max_t)
     return torch.minimum(t0, t1), t1
+
+
+def sphere_sdf(p: torch.Tensor, radius: float = 1.0) -> torch.Tensor:
+    return torch.linalg.norm(p, dim=-1) - radius
+
+
+def box_sdf(p: torch.Tensor, sizes) -> torch.Tensor:
+    q = absolute(p) - sizes
+    # amax splits the gradient between tied maxima, as jnp.max does
+    return (torch.linalg.norm(maximum(q, 0.0), dim=-1)
+            + minimum(torch.amax(q, dim=-1), 0.0))
+
+
+def capsule_sdf(p: torch.Tensor, a, b, r) -> torch.Tensor:
+    pa = p - a
+    ba = b - a
+    h = clip(torch.sum(pa * ba, dim=-1, keepdim=True)
+             / torch.sum(ba * ba, dim=-1, keepdim=True), 0.0, 1.0)
+    return torch.linalg.norm(pa - ba * h, dim=-1) - r
+
+
+class FunctionalSDF(nn.Module):
+    """A plain ``p -> sdf`` function as a surface module with no parameters
+    or buffers (so ``SDF`` adopts it)."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def reset_parameters(self, generator: torch.Generator = None):
+        pass
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        return self.fn(p)
+
+
+UNIT_SPHERE = FunctionalSDF(sphere_sdf)
 
 
 class SphereSDF(nn.Module):

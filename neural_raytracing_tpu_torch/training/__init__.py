@@ -9,8 +9,8 @@ from .checkpoint import (
     load_scene, load_train_state, save_scene, save_train_state,
 )
 from .datasets import (
-    ColocateDataset, NeRFDataset, NeRVDataset, load_colocate, load_nerf_synthetic,
-    load_nerv,
+    ColocateDataset, NeRFDataset, NeRVDataset, load_colocate,
+    load_colocate_relight_grid, load_nerf_synthetic, load_nerv,
 )
 from .eval import evaluate
 from .loop import (

@@ -8,7 +8,9 @@ translations are normalised to unit distance; NeRV's are not, and each NeRV
 frame carries its point light's ``light_loc`` (and ``light_weights`` where
 present).  The colocated set (mitsuba ``cbox_relight``) is an elevation x
 azimuth grid of ``{kind}_{i}_{j}.png`` renders, camera and light together.
-The DTU loader is not ported yet.
+Its relight ground truth (``load_colocate_relight_grid``) is the 4 x 4
+camera x 3 x 3 light grid ``gt_{kind}_{i}_{j}_{k}_{l}.png``.  The DTU
+loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -120,3 +122,19 @@ def load_colocate(directory: str, kind: str, size: int,
     return ColocateDataset(np.stack(images), np.stack(masks),
                            np.asarray(elevs, np.float32),
                            np.asarray(azims, np.float32), dist)
+
+
+def load_colocate_relight_grid(directory: str, kind: str, size: int,
+                               n_cam: int = 4, n_light: int = 3) -> dict:
+    """Relight ground truth ``gt_{kind}_{i}_{j}_{k}_{l}.png`` (camera ``i, j``,
+    light ``k, l``) -> ``{(i, j, k, l): image [size, size, C]}``; missing
+    files are left out."""
+    out = {}
+    for i in range(n_cam):
+        for j in range(n_cam):
+            for k in range(n_light):
+                for l in range(n_light):
+                    path = os.path.join(directory, f"gt_{kind}_{i}_{j}_{k}_{l}.png")
+                    if os.path.exists(path):
+                        out[(i, j, k, l)] = load_image(path, resize=(size, size))
+    return out

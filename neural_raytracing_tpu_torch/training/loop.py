@@ -84,8 +84,12 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
         scene_, opt = state.scene, state.optimizer
         params = [p for group in opt.param_groups for p in group["params"]]
         # zeros, not None: AdamW then updates every parameter each step, as
-        # optax does
+        # optax does, also one that no gradient reaches (Conductor's k) or
+        # whose gradient a shape change dropped
         opt.zero_grad(set_to_none=False)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         values, _, it = pathtrace_sample(
             scene_, train_integrator, camera, uv, generator, crop_size=crop_size,
             bundle_size=bundle_size, size=size, with_noise=with_noise)

@@ -10,8 +10,10 @@ primary march can be over-relaxed with ``--omega`` (1: off).
     python -m neural_raytracing_tpu_torch.workloads.render --workload nerv \
         --models scripts/models_seed_dir/nerv_mesh_gear_mirror200b --omega 1.4
 
-Ported: ``--workload nerv`` with ``--integrator direct``.  The other
-workloads and integrators raise ``NotImplementedError``.  ``--device``
+Ported: ``--workload nerv`` and ``--workload colocate`` (each its twin's
+``build_scene``, learned occlusion included, as ``scripts/render.py``
+rebuilds it) with ``--integrator direct``.  The other workloads and
+integrators raise ``NotImplementedError``.  ``--device``
 picks the card (default) or the CPU.
 """
 
@@ -28,7 +30,6 @@ from ._common import chunk_for, save_image
 # what the port lacks, and the ROADMAP.md queue it comes with
 _NOT_PORTED = {
     "nerf": "the twin of scripts/nerf_synthetic.py (Queue 1, the deferred training items)",
-    "colocate": "the twin of scripts/colocate.py (Queue 1, the rest of the occlusion workloads)",
     "dtu": "the DTU loader and cameras (Queue 1, the deferred training items)",
     "debug": "the debug integrators (Queue 1, the rest of the scene set)",
     "depth": "the debug integrators (Queue 1, the rest of the scene set)",
@@ -44,6 +45,9 @@ def _not_ported(option: str, value: str):
 
 def build_scene(workload: str, max_steps: int):
     """The named workload's scene (random weights until loaded)."""
+    if workload == "colocate":
+        from .colocate import build_scene as colocate_scene
+        return colocate_scene(max_steps=max_steps)
     if workload != "nerv":
         _not_ported("--workload", workload)
     from .nerv import build_scene as nerv_scene

@@ -1581,3 +1581,111 @@ def test_backward_with_no_rows(cuda, route, segments):
     counts = launch_counts()
     assert all(counts[k] == 0 for k in ("fused_mlp_backward", "fused_mlp_ckpt_forward",
                                          "fused_mlp_segment_backward"))
+
+
+# ---- the colocate workload: Diffuse, Conductor and its step through K1-K4 ---------
+
+def _bsdf_inputs(n=4_096, seed=41):
+    """Local directions: wi partly below the horizon, wo at a cosine in
+    [0.90, 0.98] of local_reflect(wi) (both sides of Conductor's 0.94)."""
+    g = torch.Generator().manual_seed(seed)
+    wi = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=-1)
+    wi[:, 2] = wi[:, 2].abs() * torch.where(torch.rand(n, generator=g) < 0.8, 1.0, -0.3)
+    wi = torch.nn.functional.normalize(wi, dim=-1)
+    refl = wi * torch.tensor([-1.0, -1.0, 1.0])
+    perp = torch.nn.functional.normalize(torch.linalg.cross(refl, torch.randn(n, 3, generator=g)),
+                                         dim=-1)
+    c = 0.90 + 0.08 * torch.rand(n, 1, generator=g)
+    wo = c * refl + torch.sqrt(1.0 - c * c) * perp
+    return torch.randn(n, 3, generator=g), wi, wo, torch.rand(n, generator=g) > 0.2
+
+
+@pytest.mark.cuda
+def test_colocate_bsdfs_on_the_card(cuda):
+    """Diffuse and Conductor (plain PyTorch) on CUDA tensors against the CPU:
+    values and parameter gradients rtol 1e-5 and 1e-5 of the largest;
+    Conductor's threshold flags may differ only on rays whose product lies
+    within 1e-6 of 0.94 (a sum in another order), on at most 1%."""
+    from neural_raytracing_tpu_torch.bsdf import Conductor, Diffuse
+    from neural_raytracing_tpu_torch.interaction import Interaction
+    p, wi, wo, active = _bsdf_inputs()
+    dot = (wi.double() * torch.tensor([-1.0, -1.0, 1.0], dtype=torch.float64)
+           * wo.double()).sum(-1)
+    w = torch.randn(len(p), 3, generator=torch.Generator().manual_seed(42))
+    for make in (lambda: Diffuse((0.6, 0.3, 0.2)), lambda: Conductor(eta=1.1, k=0.8)):
+        out = []
+        for device in ("cpu", cuda):
+            bsdf = make().to(device)
+            it = Interaction(p=p.to(device), t=torch.zeros(len(p), device=device),
+                             wi=wi.to(device))
+            spec, pdf, _ = bsdf.eval_and_pdf(it, wo.to(device), active.to(device))
+            out.append((bsdf, spec, pdf))
+        (cb, cs, cp), (gb, gs, gp) = out
+        # Conductor's pdf is its threshold flag; Diffuse's a cosine
+        keep = ((cp > 0) == (gp.cpu() > 0) if isinstance(cb, Conductor)
+                else torch.ones(len(p), dtype=torch.bool))
+        assert (~keep).float().mean() <= 0.01
+        assert ((dot[~keep] - 0.94).abs() < 1e-6).all()
+        torch.testing.assert_close(gp.cpu()[keep], cp[keep], rtol=1e-5, atol=1e-6)
+        for bsdf, spec in ((cb, cs), (gb, gs)):
+            torch.sum(spec * (w * keep[:, None]).to(spec.device)).backward()
+        torch.testing.assert_close(gs.cpu()[keep], cs[keep], rtol=1e-5,
+                                   atol=1e-5 * cs.abs().max().item())
+        for (name, a), b in zip(cb.named_parameters(), gb.parameters()):
+            if a.grad is None:
+                assert b.grad is None, name
+                continue
+            assert torch.isfinite(b.grad).all(), name
+            torch.testing.assert_close(b.grad.cpu(), a.grad, rtol=1e-5,
+                                       atol=1e-5 * a.grad.abs().max().item() + 1e-12)
+
+
+@pytest.mark.cuda
+def test_colocate_step_goes_through_k1_to_k4(cuda):
+    """One training step of workloads.colocate's scene at full width (2 views
+    x 32^2 crops, the colocated light_update and extra_loss) through the
+    kernels against the same step with every kernel off: the loss within
+    1e-4 relative, each component's gradient (the Diffuse and Conductor
+    leaves among the BSDF's) within 1e-2 relative L2 (chip_smoke phase 7's
+    tolerances); K1 (on the tile), K2, K3 and K4 launched."""
+    import copy
+
+    from neural_raytracing_tpu_torch.cameras import (
+        FoVPerspectiveCamera, look_at_view_transform,
+    )
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, build_step_fn, make_optimizer,
+    )
+    from neural_raytracing_tpu_torch.workloads import colocate
+    scene = colocate.build_scene().init(torch.Generator().manual_seed(0), device=cuda)
+    r, t = look_at_view_transform(dist=1.0, elev=[20.0, 35.0], azim=[-45.0, 60.0])
+    cam = FoVPerspectiveCamera(R=r, T=t)
+    spec = make_optimizer({"shape": 8e-5, "bsdf": 8e-5, "lights": 8e-5, "occ": 8e-5})
+    crop, size, uv = 32, 64, (16, 16)
+    exp = torch.full((2, crop, crop, 3), 0.2, device=cuda)
+    mask = torch.ones(2, crop, crop, device=cuda)
+    res = {}
+    for mode in ("auto", "off"):
+        sc = copy.deepcopy(scene)
+        set_kernel_mode(sc, mode)
+        colocate.make_light_update(cam.camera_center().numpy())(sc, cam, [0, 1])
+        step = build_step_fn(sc, Direct(training=True), spec, size=size, crop_size=crop,
+                             extra_loss=colocate.extra_loss)
+        reset_launch_counts()
+        _, aux = step(TrainState(sc, spec.init(sc), 0), cam, uv, exp, mask)
+        counts = launch_counts()
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights")}
+        lobes = torch.cat([p.grad.reshape(-1) for b in sc.bsdf.bsdfs[2:]
+                           for p in b.parameters()])
+        res[mode] = (aux["loss"].item(), grads, lobes, counts, route_counts())
+    (lk, gk, bk, ck, rk), (lp, gp, bp, cp, _) = res["auto"], res["off"]
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
+        assert ck[name] > 0 and cp[name] == 0, name
+    assert rk["fused_mlp_forward"]["general"] == 0
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for c in gk:
+        assert gp[c].norm() > 0, c
+        assert ((gk[c] - gp[c]).norm() / gp[c].norm()).item() <= 1e-2, c
+    assert bp.norm() > 0 and ((bk - bp).norm() / bp.norm()).item() <= 1e-2
