@@ -172,7 +172,39 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      update, kernels against every kernel off (phase 4's tolerances),
      ms/view, a profile of one view; (e) the relight grid's 4 brightest
      views of that row, their PSNR beside the black render's (a pipeline
-     check after 20 steps, not a quality figure).
+     check after 20 steps, not a quality figure);
+ 20. the DTU workload (workloads.dtu) on data made here by the generator
+     twin (workloads.make_dtu_dataset): (a) 16 views at 200x200, in
+     memory, with no launch of K1-K5, the seconds a view and a pixel probe,
+     through the projection decomposition (dtu_dataset with the source size
+     matched to the generator's); (b) one reduced step (3 views x 48^2 at
+     the centre, mask weight 10) on the device data path, its draws pinned,
+     against the same step inside plain_kernels(); (c) training at full
+     width, 3 x 96^2 mask-centred crops (27,648 rays a step): 10 counted
+     steps on each data path (K1 on the tile, K2, K3), then the host and
+     the device data path in turns (data_path_turns); (d) a masked test
+     view at 200x200, 128 steps bounded by 1.2, kernels against every
+     kernel off; (e) workloads.render.main --workload dtu, one 128x128
+     frame of the trained scene (counts reset just before, read just
+     after);
+ 21. the NeRV generator twin (workloads.make_nerv_dataset: 12 train and 4
+     test views at 64x64, no K1-K5 launch), then workloads.nerv.run on its
+     data for 10 steps on the host data path and 10 on the device data
+     path (per-view lights from the data; counts reset just before each,
+     read just after: K1-K4), the second followed by one test view in both
+     shadow modes; then the two paths in turns on the trained scene.
+Phase 7 also runs the flagship step on the device data path (10 counted
+steps) and the two paths in turns, then the workload's own entry,
+workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
+half-res min-scan for 3, then full resolution; the device data path,
+weight_reg and sat_guard, a validation render every 3 steps, one test
+view; counts reset just before, read just after: K1-K3) and one 128x128
+frame of workloads.render.main --workload nerf over the scene it
+trained.  data_path_turns times host, device,
+device, host (10 steps each, ms/step on the host's clock), then profiles 3
+steps of each (device busy ms, idle share, launches a step; K1-K4's ms a
+launch) and counts the calls that wait for the card (sync_sites), which
+must be no more on the device path than on the host path.
 Every counted run of a main path also holds K1's route counts (every fused
 net takes the tile: k1_routes) and the pack's launches (none in an eval
 view after the first, at most one a packed net and training step:
@@ -243,6 +275,29 @@ line).
     python3 chip_smoke.py --colocate
 
 runs phases 1 and 19 only (no result line).
+
+    python3 chip_smoke.py --dtu
+
+runs phases 1 and 20 only (no result line).
+
+    python3 chip_smoke.py --data-paths [ROUNDS]
+
+runs phases 1, 20 and 21 only, with ROUNDS rounds (default 5: 10 pairs,
+each path first in half of them) of the two data paths' turns, the device
+path's wins and the host path's quartile spread (no result line).
+
+    python3 chip_smoke.py --converge-nerv [ITERS]
+    python3 chip_smoke.py --converge-dtu [ITERS]
+
+run phase 1, then a quality drive on generated data: the NeRV generator
+(64x64, 12 + 4 views) and workloads.nerv.run on the device data path for
+ITERS steps (default 4,000; 3 x 64^2, no SSIM: the ground truth is dark),
+its test in both shadow modes; or the DTU generator (16 views at 64x64) and
+workloads.dtu.run on the device data path (3 x 32^2 crops, mask weight 10),
+its masked test on the held-out views 0 and 10 and the four brightest
+training views.  Each prints the PSNR and SSIM beside the black render's
+PSNR, the PSNR over the pixels the ground truth lights, pixel probes of
+the renders and the ground truth, and the wall time (no result line).
 
     python3 chip_smoke.py --converge [ITERS]
 
@@ -731,9 +786,9 @@ def march_shapes(torch, dev):
     from neural_raytracing_tpu_torch.kernels import set_kernel_mode
     from neural_raytracing_tpu_torch.render import _tile_positions
     from neural_raytracing_tpu_torch.shapes import march_interval
-    from neural_raytracing_tpu_torch.workloads import render
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic, render
 
-    flagship = flagship_scene(256, 1.2)
+    flagship = nerf_synthetic.build_scene(max_steps=256, march_bound=1.2)
     flagship.init(torch.Generator().manual_seed(0), device=dev)
     seed0 = flagship.shape.module
     tile = view_rays(torch, dev).reshape(SIZE, SIZE, 6)[:CHUNK, :CHUNK].reshape(-1, 6)
@@ -940,20 +995,6 @@ def march_times_main(root: str):
                       "k3_digest": k3_digest, "k4_digest": digest.hexdigest()[:16]}))
 
 
-def flagship_scene(max_steps, march_bound):
-    """scripts/nerf_synthetic.py build_scene, in the port."""
-    import neural_raytracing_tpu_torch as T
-    from neural_raytracing_tpu_torch.bsdf import ComposeSpatialVarying, NeuralBSDF
-    from neural_raytracing_tpu_torch.lights import LightField
-    from neural_raytracing_tpu_torch.shapes import SDF, SphereSDF
-    return T.Scene(
-        shape=SDF(SphereSDF(n=128), max_steps=max_steps, throughput_steps=128,
-                  dist=2.2, march_bound=march_bound),
-        bsdf=ComposeSpatialVarying([NeuralBSDF(activation="softplus")
-                                    for _ in range(8)]),
-        lights=LightField())
-
-
 def render_views(torch, scene, views, dev):
     """-> (images [V, 256, 256, 3], seconds per view) with the settings of
     training/eval.py's evaluate: chunk 128, bundle 1, background 0, jitter
@@ -1045,7 +1086,8 @@ def phase_slice(torch, dev, label, max_steps, march_bound, views, profile=False)
     from neural_raytracing_tpu_torch.kernels import (
         launch_counts, reset_launch_counts, set_kernel_mode,
     )
-    scene = flagship_scene(max_steps, march_bound)
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
+    scene = nerf_synthetic.build_scene(max_steps=max_steps, march_bound=march_bound)
     scene.init(torch.Generator().manual_seed(0), device=dev)
     render_views(torch, scene, views[:1], dev)      # warm-up, not counted
     reset_launch_counts()
@@ -1543,10 +1585,116 @@ def step_routes(torch, scene, one_step, reps: int = 3):
     return out
 
 
+def train_paths(scene, spec, state, gen, host: tuple, device: dict, **kw):
+    """One training setup on both data paths over one shared state ->
+    ({"host": steps, "device": steps}, box): ``steps(n)`` runs n steps of
+    train, ``box["state"]`` holds the last state.  ``host`` is train's
+    (make_camera, exp_imgs, exp_masks, its own keywords), ``device`` the
+    device path's keywords (device_data, camera_builder); ``kw`` both's."""
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import train
+    box = {"state": state}
+
+    def on(args, extra):
+        def steps(n):
+            box["state"], _ = train(scene, Direct(training=True), spec, box["state"], *args,
+                                    gen, iters=n, **extra, **kw)
+        return steps
+
+    return {"host": on(host[:3], host[3]), "device": on((None, None, None), device)}, box
+
+
+def counted_path(torch, label, steps, kernels, n: int = 10) -> dict:
+    """Run ``steps(n)`` with the launch counts reset just before and read
+    just after: each of ``kernels`` must have launched, every fused net on
+    the tile.  -> the counts."""
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    steps(n)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    routes = k1_routes(label)
+    for name in kernels:
+        check(counts[name] > 0, f"{label}: kernel {name} was not launched on the path")
+    print(f"{label}: {n} steps, launches {counts}; K1 routes {routes}")
+    return counts
+
+
+def steps_profile(torch, fn, steps: int):
+    """One profile of ``fn``, which runs ``steps`` training steps -> ({busy_ms,
+    wall_ms, launches} a step, {kernel name: (device ms a step, launches a
+    step)}, as kernel_profile gives them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.") and e.count > 0]
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in events)
+    kernels = {e.key: (1e-3 * e.self_device_time_total / e.count * round(e.count / steps),
+                       round(e.count / steps)) for e in events}
+    return (dict(busy_ms=busy_ms / steps, wall_ms=wall_ms / steps,
+                 launches=sum(e.count for e in events) / steps), kernels)
+
+
+def data_path_turns(torch, label, paths: dict, rays: int, steps: int = 10,
+                    rounds: int = 1) -> dict:
+    """The host and the on-device data path of one training setup in turns
+    (``rounds`` rounds of host, device, device, host; ``steps`` steps of
+    train each), ms/step on the host's clock, each round two pairs, one
+    with either path first; then for each path one profile of 3 steps
+    (device busy ms, idle share, launches and K1-K4's device ms a launch),
+    and the calls that wait for the card in 3 steps (sync_sites), which must
+    be no more on the device path.  ``paths[name](n)`` runs n steps on that
+    path."""
+    import numpy as np
+    walls = {k: [] for k in paths}
+    for k in ("host", "device", "device", "host") * rounds:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        paths[k](steps)
+        torch.cuda.synchronize()
+        walls[k].append(1e3 * (time.perf_counter() - start) / steps)
+    out = {}
+    for k, fn in paths.items():
+        prof, kernels = steps_profile(torch, lambda: fn(3), 3)
+        check(prof["busy_ms"] > 0, f"{label}, {k} path: the profiler saw no device time")
+        syncs = sync_sites(torch, lambda: fn(3))
+        ms = float(np.median(walls[k]))
+        out[k] = dict(ms=ms, busy_ms=prof["busy_ms"], launches=prof["launches"],
+                      idle=1 - prof["busy_ms"] / prof["wall_ms"], syncs=syncs,
+                      path=k_path_ms(kernels))
+        print(f"{label}, {k} data path: {[round(x, 1) for x in walls[k]]} ms/step in turns "
+              f"({rays / ms * 1e3:,.0f} rays/s); a profile of 3 steps: busy "
+              f"{out[k]['busy_ms']:.1f} ms a step, idle share {out[k]['idle']:.3f}, "
+              f"{out[k]['launches']:.0f} launches a step; K1-K4 device ms a launch: "
+              f"{k_line(out[k]['path'])}; {sum(syncs.values())} waits for the card in 3 "
+              f"steps: {syncs}")
+    host, dev = out["host"], out["device"]
+    n_host, n_dev = sum(host["syncs"].values()), sum(dev["syncs"].values())
+    check(n_dev <= n_host, f"{label}: the device data path waits for the card {n_dev} times "
+          f"in 3 steps, the host path {n_host}")
+    wins = sum(d < h for d, h in zip(walls["device"], walls["host"]))
+    q1, q3 = np.percentile(walls["host"], [25, 75])
+    print(f"{label} on {card()}: device data path / host path: median ms/step "
+          f"{dev['ms']:.1f} / {host['ms']:.1f} ({dev['ms'] / host['ms']:.3f}), the device path "
+          f"faster in {wins} of {len(walls['host'])} pairs, the host path's quartile spread "
+          f"{q3 - q1:.1f} ms; busy {dev['busy_ms']:.1f} / {host['busy_ms']:.1f} ms a step, idle "
+          f"share {dev['idle']:.3f} / {host['idle']:.3f}, waits in 3 steps {n_dev} / {n_host}")
+    return out
+
+
 def phase_train(torch, dev):
     """The flagship training step: step parity kernels vs plain, 20
-    iterations of train through the kernels, the K6/K7 routes, the plain
-    route, a profile, and evaluate."""
+    iterations of train through the kernels, the on-device data path in
+    turns with the host path, the K6/K7 routes, the plain route, a profile,
+    evaluate; then the workload's own entry (phase_flagship_twin) and one
+    orbit frame of workloads.render --workload nerf."""
     import copy
 
     import numpy as np
@@ -1556,8 +1704,9 @@ def phase_train(torch, dev):
         launch_counts, reset_launch_counts, set_kernel_mode,
     )
     from neural_raytracing_tpu_torch.training import (
-        TrainState, build_step_fn, evaluate, make_optimizer, train,
+        TrainState, build_step_fn, device_dataset, evaluate, make_optimizer, train,
     )
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
 
     c2ws = train_c2ws()
     imgs, masks = sphere_gt(torch, c2ws)
@@ -1567,7 +1716,7 @@ def phase_train(torch, dev):
           f"{[round(float(c), 3) for c in cover]}")
     make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
     spec = make_optimizer(LRS)
-    scene = flagship_scene(64, None)   # build_scene(max_steps=64)
+    scene = nerf_synthetic.build_scene(max_steps=64, march_bound=None)
     scene.init(torch.Generator().manual_seed(0), device=dev)
 
     # step parity: one step from the same state and batch, no jitter
@@ -1642,6 +1791,16 @@ def phase_train(torch, dev):
     for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "pack_tile_weights"):
         check(counts[name] > 0, f"training: kernel {name} was not launched on the path")
     launches = dict(counts)
+
+    # the on-device data path beside the host path (uniform crops, as above)
+    data = device_dataset(imgs, masks, c2ws, CROP_SIZE, device=dev)
+    paths, box = train_paths(scene, spec, state, gen, (make_camera, imgs, masks, {}),
+                             dict(device_data=data,
+                                  camera_builder=lambda c: NeRFCamera(c, FOCAL)), **kw)
+    counted_path(torch, "training, device data path", paths["device"],
+                 ("fused_mlp_forward", "fused_march", "fused_min_scan"))
+    data_path_turns(torch, "flagship training", paths, N_RAYS)
+    state = box["state"]
     routes = {}
     for label, seg, names in (("K6 (kernel_bwd, segments 0)", 0,
                                ["fused_mlp_backward", "pack_tile_transposes"]),
@@ -1669,7 +1828,84 @@ def phase_train(torch, dev):
     print(f"evaluate on 2 GT views (trained {state.step} steps): PSNR {out['psnr']:.3f}, "
           f"SSIM {out['ssim']:.4f}, L1 {out['l1']:.5f}, "
           f"{1e3 * (time.perf_counter() - start) / 2:.1f} ms/view")
+    twin_scene = phase_flagship_twin(torch, dev, c2ws, imgs, masks)
+    orbit_frame(torch, dev, "nerf", twin_scene)
     return launches, step_s, routes
+
+
+def phase_flagship_twin(torch, dev, c2ws, imgs, masks):
+    """The flagship workload's own entry (workloads.nerf_synthetic.run) at
+    full width on phase 7's GT, with the options its schedule can take: the
+    half-res min-scan for 3 steps and then full resolution, the on-device
+    data path, the weight_reg and sat_guard terms, a validation render every
+    3 steps, then one test view (256 steps, bounded 1.2).  -> the trained
+    scene."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import NeRFDataset
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
+
+    data = NeRFDataset(c2ws, FOCAL, imgs, masks)
+    test = NeRFDataset(c2ws[:1], FOCAL, imgs[:1], masks[:1])
+    args = twin_args(nerf_synthetic, size=SIZE, crop_size=CROP_SIZE, n_views=N_VIEWS, iters=6,
+                     half_res_warmup=3, device_data=True, weight_reg=0.01, sat_guard=0.01,
+                     valid_freq=3, log_every=0, device=str(dev))
+    check(nerf_synthetic.phases(args) == [("half_res", 3), ("full", 3)],
+          f"flagship twin: phases {nerf_synthetic.phases(args)}")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, res = nerf_synthetic.run(args, data, test, save=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    routes = k1_routes("flagship twin")
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan"):
+        check(counts[name] > 0, f"flagship twin: kernel {name} was not launched on the path")
+    check(len(res["losses"]) == 6 and np.isfinite(res["losses"]).all(),
+          f"flagship twin: losses {res['losses']}")
+    check(all(np.isfinite(v) for v in res["test"].values()), f"flagship twin: {res['test']}")
+    check(res["test_images"].shape == (1, SIZE, SIZE, 3), "flagship twin: test render shape")
+    print(f"flagship twin (workloads.nerf_synthetic.run, {N_VIEWS} x {CROP_SIZE}^2, half-res "
+          f"warm-up 3 steps then 3 full, device data path, weight_reg and sat_guard 0.01, "
+          f"validation every 3 steps, one test view): {secs:.2f} s, losses "
+          f"{[round(x, 3) for x in res['losses']]}; test PSNR {res['test']['psnr']:.3f} dB "
+          f"(black {black_psnr(test.images):.3f}); launches {counts}; K1 routes {routes}")
+    return state.scene
+
+
+def orbit_frame(torch, dev, workload, scene):
+    """workloads.render.main --workload ``workload``: one 128^2 frame over
+    ``scene``'s weights, after a warm-up frame, its launches counted; K1 and
+    K2 must have run.  -> (the frame, the launch counts)."""
+    import tempfile
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import save_scene
+    from neural_raytracing_tpu_torch.workloads import render
+    label = f"{workload} orbit"
+    with tempfile.TemporaryDirectory() as tmp:
+        save_scene(tmp, scene)
+        args = ["--workload", workload, "--models", tmp, "--size", str(ORBIT_SIZE),
+                "--frames", "1", "--device", str(dev), "--outputs", tmp]
+        render.main(args)                                              # warm-up
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        frame = render.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        counts = launch_counts()
+    k1_routes(label)
+    check(counts["fused_march"] > 0 and counts["fused_mlp_forward"] > 0,
+          f"{label}: launches {counts}")
+    check(frame.shape == (1, ORBIT_SIZE, ORBIT_SIZE, 3) and np.isfinite(frame).all(),
+          f"{label}: frame {frame.shape}, finite {np.isfinite(frame).all()}")
+    print(f"{label} (workloads.render.main --workload {workload}, one {ORBIT_SIZE}^2 frame): "
+          f"{1e3 * secs:.1f} ms (scene build and load included), lit fraction "
+          f"{(frame.sum(-1) > 0).mean():.4f}; launches {counts}")
+    return frame, counts
 
 
 # ---- slice 3: the NeRV workload ---------------------------------------------------
@@ -2981,9 +3217,9 @@ def k4_bf16_probe(torch, module):
 
 
 def bf16_flagship_scene(max_steps, march_bound):
-    """flagship_scene in the mixed-precision configuration: the three kinds of
-    shading net with bf16 operands, the march with bf16 operands, the shift
-    net in float32."""
+    """The flagship scene (nerf_synthetic.build_scene) in the mixed-precision
+    configuration: the three kinds of shading net with bf16 operands, the
+    march with bf16 operands, the shift net in float32."""
     import neural_raytracing_tpu_torch as T
     from neural_raytracing_tpu_torch.bsdf import ComposeSpatialVarying, NeuralBSDF
     from neural_raytracing_tpu_torch.kernels import FusedSkipConnMLP
@@ -3066,12 +3302,13 @@ def phase_bf16_flagship(torch, dev):
     from neural_raytracing_tpu_torch.training import (
         TrainState, build_step_fn, make_optimizer, train,
     )
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
 
     f32_kernels = ("fused_march", "fused_min_scan", "fused_shadow_march")
     views = [(30.0, 45.0), (30.0, 165.0), (30.0, 285.0)]
     scene = bf16_flagship_scene(256, 1.2)
     scene.init(torch.Generator().manual_seed(0), device=dev)
-    f32_scene = flagship_scene(256, 1.2)
+    f32_scene = nerf_synthetic.build_scene(max_steps=256, march_bound=1.2)
     f32_scene.init(torch.Generator().manual_seed(0), device=dev)
     for sc in (scene, f32_scene):
         render_views(torch, sc, views[:1], dev)     # warm-up, not counted
@@ -3162,7 +3399,7 @@ def phase_bf16_flagship(torch, dev):
 
     kw = dict(size=SIZE, crop_size=CROP_SIZE, n_views=N_VIEWS, mask_weight=15.0,
               with_ssim=True, log_every=0, nan_policy="raise")
-    f32_scene = flagship_scene(64, None)
+    f32_scene = nerf_synthetic.build_scene(max_steps=64, march_bound=None)
     f32_scene.init(torch.Generator().manual_seed(0), device=dev)
     runs = {}
     for sc in (scene, f32_scene):
@@ -3327,10 +3564,10 @@ def colocate_dataset(torch, dev, size, n_elev, n_azim, cam_rows, chunk=None, lig
     return md.as_dataset(grid, n_elev, n_azim), relight, secs, counts
 
 
-def colocate_args(**kw):
-    """workloads.colocate's arguments (its parser's defaults, then ``kw``)."""
-    from neural_raytracing_tpu_torch.workloads import colocate
-    args = colocate.parser().parse_args(["--data", "(in memory)"])
+def twin_args(twin, **kw):
+    """A workload twin's arguments (its parser's defaults, then ``kw``) for
+    its ``run`` on data in memory."""
+    args = twin.parser().parse_args(["--data", "(in memory)"])
     for k, v in kw.items():
         setattr(args, k, v)
     return args
@@ -3624,6 +3861,353 @@ def phase_colocate(torch, dev):
                 counts=counts, test_counts=test_counts, path=path)
 
 
+# ---- slice 13: the DTU workload, the NeRV generator and the on-device data path -------
+
+DTU_SIZE = 200                                     # scripts/dtu.py's default
+DTU_CHUNK = 100                                    # chunk_for(200)
+DTU_CROP = 96
+DTU_VIEWS = 3
+DTU_RAYS = DTU_VIEWS * DTU_CROP * DTU_CROP         # 27,648 rays a step
+DTU_SCAN = 16                                      # views the generator makes
+DTU_LRS = {"shape": 8e-5, "bsdf": 8e-5, "lights": 8e-5}
+DTU_PARITY_CROP = 48                               # the reduced step against plain
+NV_SIZE = 64                                       # scripts/make_nerv_dataset.py's default
+
+
+def dtu_scan(torch, dev, size, views):
+    """The DTU generator twin on the card -> (the ``DTUDataset`` through the
+    projection decomposition, its intrinsics' source size matched (the
+    generator's pixels; ``load_dtu``'s default 1600 x 1200 is the real
+    scans'), seconds, the launch counts)."""
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import dtu_dataset
+    from neural_raytracing_tpu_torch.workloads import make_dtu_dataset as md
+    scene = md.build_scene().init(torch.Generator().manual_seed(md.SEED), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    images, masks, cams = md.render_scan(scene, views, size, device=dev, log_fn=lambda s: None)
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    imgs, msks = md.as_arrays(images, masks)
+    return dtu_dataset(cams, imgs, msks, size, src_size=(size, size)), secs, counts
+
+
+def nerv_generated(torch, dev, size, train_views=12, test_views=4):
+    """The NeRV generator twin on the card -> (train ``NeRVDataset``, test
+    ``NeRVDataset``, seconds, the launch counts)."""
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.workloads import make_nerv_dataset as mn
+    scene = mn.build_scene().init(torch.Generator().manual_seed(mn.SEED), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = mn.render_dataset(scene, size=size, train_views=train_views, test_views=test_views,
+                            device=dev, log_fn=lambda s: None)
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    return (mn.as_dataset(*out["train"], size), mn.as_dataset(*out["test"], size), secs,
+            counts)
+
+
+def lit_psnr(got, gt) -> tuple:
+    """-> (PSNR of ``got``, PSNR of a black render) over the pixels where the
+    ground truth ``gt`` exceeds 0.01 in some channel: on dark ground truth
+    the whole-image PSNR is mostly the black background's."""
+    import numpy as np
+    gt = np.asarray(gt)[..., :3]
+    lit = gt.max(-1) > 0.01
+    if not lit.any():
+        return float("nan"), float("nan")
+    mse = float(np.mean((np.asarray(got)[..., :3][lit] - gt[lit]) ** 2))
+    black = float(np.mean(gt[lit] ** 2))
+    return -10.0 * math.log10(max(mse, 1e-10)), -10.0 * math.log10(max(black, 1e-10))
+
+
+def generator_report(label, counts, images, masks, secs) -> str:
+    """Check that a generator launched none of K1-K5 and made data that is
+    not empty or black; -> its line."""
+    import numpy as np
+    launched = {k: counts[k] for k in GEN_FREE if counts[k]}
+    check(not launched, f"{label}: launched {launched}")
+    cover = float(np.mean(masks))
+    check(0.05 < cover < 0.95, f"{label}: mask coverage {cover:.4f}")
+    check(float(np.max(images)) > 0.05, f"{label}: the data is black")
+    return (f"{label}: {len(images)} views {images.shape[1]}x{images.shape[2]} in "
+            f"{secs:.2f} s ({secs / len(images):.3f} s a view); no K1-K5 launch; "
+            f"{pixel_probe(images, masks)}; black-render PSNR {black_psnr(images):.3f} dB")
+
+
+def phase_dtu(torch, dev, rounds: int = 1):
+    """The DTU workload (workloads.dtu) on data the generator twin makes on
+    the card: (a) the scan, (b) one reduced step against plain_kernels(),
+    (c) the host and device data paths in turns, (d) a masked test view
+    against plain, (e) workloads.render.main --workload dtu."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts, set_kernel_mode,
+    )
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, device_dataset, evaluate, make_device_data_step, make_optimizer,
+        rand_uv_mask,
+    )
+    from neural_raytracing_tpu_torch.workloads import dtu
+
+    # (a) the scan, generated here, through the projection decomposition
+    data, gen_s, counts = dtu_scan(torch, dev, DTU_SIZE, DTU_SCAN)
+    print(generator_report("DTU generator (bunny, scripts/make_dtu_dataset.py's scene)",
+                           counts, data.images, data.masks, gen_s))
+    train_idx, test_idx = dtu.split(len(data.images), 10)
+    make_camera = dtu.camera_maker(data)
+    builder = dtu.packed_camera_builder(data.src_size)
+    ddata = device_dataset(data.images[train_idx], data.masks[train_idx],
+                           dtu.packed_cameras(data, train_idx), DTU_CROP, device=dev)
+    spec = make_optimizer(DTU_LRS)
+    scene = dtu.build_scene().init(torch.Generator().manual_seed(0), device=dev)
+
+    # (b) one reduced step (3 views x 48^2 at the centre, where the seed-0
+    # surface is, mask weight 10) on the device data path, its draws pinned,
+    # against the same step with every kernel replaced by its plain version
+    views = [1, 5, 9]
+    u = w = (DTU_SIZE - DTU_PARITY_CROP) // 2
+    pinned = lambda d, g: (torch.tensor(views, device=dev), torch.tensor(u, device=dev),
+                           torch.tensor(w, device=dev))
+    pdata = device_dataset(data.images[train_idx], data.masks[train_idx],
+                           dtu.packed_cameras(data, train_idx), DTU_PARITY_CROP, device=dev)
+    res = {}
+    for label in ("kernels", "plain"):
+        sc = copy.deepcopy(scene)
+        dstep = make_device_data_step(sc, Direct(training=True), spec, builder,
+                                      n_views=DTU_VIEWS, size=DTU_SIZE,
+                                      crop_size=DTU_PARITY_CROP, mask_weight=10.0, draw=pinned)
+        if label == "plain":
+            with plain_kernels():
+                _, aux = dstep(TrainState(sc, spec.init(sc), 0), pdata, None)
+        else:
+            _, aux = dstep(TrainState(sc, spec.init(sc), 0), pdata, None)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights")}
+        res[label] = (aux["loss"].item(), grads, aux["got"][..., 3] > 0.5)
+        del sc
+    (lk, gk, ak), (lp, gp, ap) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_diff = int((ak != ap).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"DTU step parity (device data path, draws pinned: views {views}, corner ({u}, {w}), "
+          f"{DTU_VIEWS} x {DTU_PARITY_CROP}^2, mask weight 10; kernels vs plain_kernels()): "
+          f"loss {lk:.7f} vs {lp:.7f} (rel {rel_loss:.3e}, same bits {lk == lp}), silhouette "
+          f"flags that differ {n_diff} of {ak.numel()} (covered {ap.float().mean().item():.4f}), "
+          f"gradient rel L2 {', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-5, f"DTU step parity: loss rel {rel_loss:.3e}")
+    check(n_diff <= 0.001 * ak.numel(), f"DTU step parity: {n_diff} silhouette flags differ")
+    check(ap.any().item(), "DTU step parity: the crop misses the surface")
+    for c, e in rel_g.items():
+        check(gp[c].norm().item() > 0, f"DTU step parity: no {c} gradient")
+        check(e <= 1e-2, f"DTU step parity: {c} gradient rel L2 {e:.3e} > 1e-2")
+    del res, gk, gp
+
+    # (c) training at full width (3 x 96^2, mask-centred crops), the host and
+    # the device data path in turns
+    kw = dict(size=DTU_SIZE, crop_size=DTU_CROP, n_views=DTU_VIEWS, mask_weight=10.0,
+              uv_select=rand_uv_mask, log_every=0, nan_policy="raise")
+    paths, box = train_paths(
+        scene, spec, TrainState(scene, spec.init(scene), 0),
+        torch.Generator(device=dev).manual_seed(1),
+        (lambda idxs: make_camera(train_idx[np.asarray(idxs)]), data.images[train_idx],
+         data.masks[train_idx], {}), dict(device_data=ddata, camera_builder=builder), **kw)
+    paths["host"](2)                                                   # warm-up
+    paths["device"](2)
+    kernels = ("fused_mlp_forward", "fused_march", "fused_min_scan")
+    counts = counted_path(torch, "DTU training, device data path", paths["device"], kernels)
+    counted_path(torch, "DTU training, host data path", paths["host"], kernels)
+    turns = data_path_turns(torch, f"DTU training ({DTU_VIEWS} x {DTU_CROP}^2)", paths,
+                            DTU_RAYS, rounds=rounds)
+    state = box["state"]
+
+    # (d) a masked test view at 200^2, 128 steps bounded by 1.2, against plain
+    test = dtu.eval_scene(scene, 1.2)
+
+    def test_view():
+        images = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = evaluate(test, lambda i: make_camera([test_idx[i]]), data.images[test_idx[:1]],
+                       Direct(training=False), size=DTU_SIZE, chunk_size=DTU_CHUNK,
+                       masks=data.masks[test_idx[:1]], log_fn=lambda s: None,
+                       save_fn=lambda i, im: images.append(np.asarray(im)))
+        torch.cuda.synchronize()
+        return out, np.stack(images), time.perf_counter() - start
+
+    test_view()                                                        # warm-up
+    reset_launch_counts()
+    out, got, s_view = test_view()
+    test_counts = launch_counts()
+    k1_routes("DTU test")
+    for name in ("fused_mlp_forward", "fused_march"):
+        check(test_counts[name] > 0, f"DTU test: kernel {name} was not launched")
+    set_kernel_mode(test, "off")
+    _, want, p_view = test_view()
+    set_kernel_mode(test, "auto")
+    frac, agree, mean_d, max_d = compare_images("DTU test", got, want)
+    gt = data.images[test_idx[:1]] * data.masks[test_idx[:1], ..., None]
+    print(f"DTU test view {test_idx[0]} (masked, {DTU_SIZE}^2, 128 steps, bounded 1.2, trained "
+          f"{state.step} steps): kernels {1e3 * s_view:.1f} ms, every kernel off "
+          f"{1e3 * p_view:.1f} ms; lit fraction {frac:.4f}, mask agreement {agree:.6f}, mean "
+          f"|diff| {mean_d:.3e}, max |diff| {max_d:.3e}; PSNR {out['psnr']:.3f} dB (black "
+          f"{black_psnr(gt):.3f}); launches {test_counts}")
+
+    # (e) the orbit renderer over the trained scene
+    orbit_frame(torch, dev, "dtu", scene)
+    return dict(counts=counts, turns=turns, test_counts=test_counts)
+
+
+def phase_nerv_generated(torch, dev, rounds: int = 1):
+    """The NeRV generator twin on the card, then the NeRV twin's run on its
+    data: 10 steps on the host data path, 10 on the device path (then one
+    test view), and the two paths in turns."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import (
+        NeRVDataset, device_dataset, make_optimizer, rand_uv_mask,
+    )
+    from neural_raytracing_tpu_torch.workloads import nerv
+
+    data, test, gen_s, counts = nerv_generated(torch, dev, NV_SIZE)
+    print(generator_report("NeRV generator (armadillo, scripts/make_nerv_dataset.py's scene)",
+                           counts, np.concatenate([data.images, test.images]),
+                           np.concatenate([data.masks, test.masks]), gen_s))
+    one_test = NeRVDataset(test.cam_to_worlds[:1], test.focal, test.images[:1], test.masks[:1],
+                           test.light_locs[:1], None)
+    kernels = ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march")
+    runs = {}
+    for path in ("host", "device"):
+        args = twin_args(nerv, size=NV_SIZE, crop_size=NV_SIZE, iters=10, log_every=0,
+                         device=str(dev), device_data=path == "device")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, res = nerv.run(args, data, one_test if path == "device" else None, save=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        c = launch_counts()
+        k1_routes(f"NeRV twin, {path} data path")
+        for name in kernels:
+            check(c[name] > 0, f"NeRV twin, {path} path: kernel {name} was not launched")
+        check(np.isfinite(res["losses"]).all(), f"NeRV twin, {path} path: {res['losses']}")
+        runs[path] = (state, res, c)
+        print(f"NeRV twin run ({path} data path, {NV_SIZE}^2, 3 x {NV_SIZE}^2 crops, 10 steps"
+              f"{', then one test view in both shadow modes' if path == 'device' else ''}): "
+              f"{secs:.2f} s, losses {[round(x, 4) for x in res['losses']]}; K4 launches "
+              f"{c['fused_shadow_march']}; launches {c}")
+    state, res, _ = runs["device"]
+    for tag in ("soft", "hard"):
+        check(all(np.isfinite(v) for v in res[tag].values()), f"NeRV twin test: {res[tag]}")
+    print(f"NeRV twin test view (after 10 steps): soft PSNR {res['soft']['psnr']:.3f}, hard "
+          f"{res['hard']['psnr']:.3f} dB (black {black_psnr(np.clip(one_test.images, 0, 1)):.3f})")
+
+    scene, spec = state.scene, make_optimizer(NERV_LRS)       # the twin's learning rates
+    kw = dict(size=NV_SIZE, crop_size=NV_SIZE, n_views=3, tone_mapping=True,
+              uv_select=rand_uv_mask, log_every=0, nan_policy="raise")
+    ddata = device_dataset(data.images, data.masks, data.cam_to_worlds, NV_SIZE,
+                           light_locs=data.light_locs, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(data.cam_to_worlds[np.asarray(idxs)]),
+                                          data.focal)
+    light_update = lambda sc, cam, idxs: sc.lights.set_location(data.light_locs[np.asarray(idxs)])
+
+    paths, _ = train_paths(scene, spec, state, gen,
+                           (make_camera, data.images, data.masks,
+                            dict(light_update=light_update)),
+                           dict(device_data=ddata,
+                                camera_builder=lambda c: NeRFCamera(c, data.focal)), **kw)
+    turns = data_path_turns(torch, f"NeRV training on generated data (3 x {NV_SIZE}^2)",
+                            paths, 3 * NV_SIZE * NV_SIZE, rounds=rounds)
+    return dict(counts=runs["device"][2], turns=turns)
+
+
+def converge_nerv_main(torch, dev, iters: int):
+    """The NeRV quality drive on the card: the generator twin (the armadillo,
+    12 train and 4 test views at 64^2), then the NeRV twin on the device data
+    path for ``iters`` steps (3 x 64^2, no SSIM: the ground truth is dark),
+    its test in both shadow modes: PSNRs beside the black render's, pixel
+    probes, and the wall time."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.workloads import nerv
+    data, test, gen_s, _ = nerv_generated(torch, dev, NV_SIZE)
+    print(f"converge-nerv: generator {gen_s:.1f} s; train {pixel_probe(data.images, data.masks)}; "
+          f"test {pixel_probe(test.images, test.masks)}", flush=True)
+    args = twin_args(nerv, size=NV_SIZE, crop_size=NV_SIZE, iters=iters, log_every=500,
+                     device=str(dev), device_data=True, no_ssim=True)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, res = nerv.run(args, data, test, save=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    gt = np.clip(test.images, 0.0, 1.0)
+    print(f"converge-nerv: {state.step} steps + the test in {wall:.1f} s; final losses "
+          f"{[round(x, 4) for x in res['losses'][-5:]]}")
+    for tag in ("soft", "hard"):
+        got = res[tag + "_images"]
+        lit, lit_black = lit_psnr(got, gt)
+        print(f"converge-nerv: test ({len(gt)} views, {tag} shadows): PSNR "
+              f"{res[tag]['psnr']:.3f} dB, SSIM {res[tag]['ssim']:.4f}, black render "
+              f"{black_psnr(gt):.3f} dB; on the pixels the GT lights (> 0.01): PSNR "
+              f"{lit:.3f} dB, black {lit_black:.3f} dB; renders {pixel_probe(got)}, GT "
+              f"{pixel_probe(gt, test.masks)}")
+
+
+def converge_dtu_main(torch, dev, iters: int):
+    """The DTU quality drive on the card: the generator twin (16 views at
+    64^2, source size matched), then workloads.dtu on the device data path
+    for ``iters`` steps (3 x 32^2 mask-centred crops, mask weight 10), its
+    masked test on views 0 and 10: PSNR beside the black render's, pixel
+    probes, and the wall time."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import evaluate
+    from neural_raytracing_tpu_torch.workloads import dtu
+    data, gen_s, _ = dtu_scan(torch, dev, 64, DTU_SCAN)
+    print(f"converge-dtu: generator {gen_s:.1f} s; {pixel_probe(data.images, data.masks)}",
+          flush=True)
+    args = twin_args(dtu, size=64, crop_size=32, iters=iters, log_every=500,
+                     device_data=True, device=str(dev))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, res = dtu.run(args, data, save=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    train_idx, test_idx = dtu.split(len(data.images), args.test_every)
+    gt = data.images[test_idx] * data.masks[test_idx][..., None]
+    lit, lit_black = lit_psnr(res["test_images"], gt)
+    print(f"converge-dtu: {state.step} steps + the test in {wall:.1f} s; final losses "
+          f"{[round(x, 4) for x in res['losses'][-5:]]}")
+    print(f"converge-dtu: masked test (views {test_idx.tolist()}): PSNR "
+          f"{res['test']['psnr']:.3f} dB, SSIM {res['test']['ssim']:.4f}, black render "
+          f"{black_psnr(gt):.3f} dB; on the pixels the GT lights (> 0.01): PSNR {lit:.3f} dB, "
+          f"black {lit_black:.3f} dB; renders "
+          f"{pixel_probe(res['test_images'], data.masks[test_idx])}, GT "
+          f"{pixel_probe(gt, data.masks[test_idx])}")
+    # the held-out views of this scan are dark: the trained scene on its four
+    # brightest training views too (held in, so a fit, not a generalisation)
+    bright = train_idx[np.argsort([-float(np.mean(data.images[i])) for i in train_idx])[:4]]
+    images = []
+    out = evaluate(dtu.eval_scene(state.scene, args.eval_march_bound),
+                   lambda i: dtu.camera_maker(data)([bright[i]]), data.images[bright],
+                   Direct(training=False), size=args.size, chunk_size=args.size,
+                   masks=data.masks[bright], log_fn=lambda s: None,
+                   save_fn=lambda i, im: images.append(im))
+    gt = data.images[bright] * data.masks[bright][..., None]
+    lit, lit_black = lit_psnr(np.stack(images), gt)
+    print(f"converge-dtu: the 4 brightest training views {bright.tolist()} (masked): PSNR "
+          f"{out['psnr']:.3f} dB, black {black_psnr(gt):.3f} dB; on the lit pixels PSNR "
+          f"{lit:.3f} dB, black {lit_black:.3f} dB; renders {pixel_probe(np.stack(images))}, "
+          f"GT {pixel_probe(gt, data.masks[bright])}")
+
+
 def converge_main(iters: int):
     """The quality drive of .claude/skills/verify/SKILL.md through the port,
     on the card: the generator twin (bunny, 64^2, a 4 x 4 grid and the whole
@@ -3640,7 +4224,7 @@ def converge_main(iters: int):
           f"relight views {data.images.shape[1]}x{data.images.shape[2]}; "
           f"grid {pixel_probe(data.images, data.masks)}; relight "
           f"{pixel_probe(list(relight.values()))}", flush=True)
-    args = colocate_args(size=64, crop_size=32, n_views=4, n_elev=4, n_azim=4, iters=iters,
+    args = twin_args(colocate, size=64, crop_size=32, n_views=4, n_elev=4, n_azim=4, iters=iters,
                          clip_norm=10.0, stable_init=True, light_scale=1.5, log_every=500,
                          kind=CO_KIND)
     torch.cuda.synchronize()
@@ -3725,6 +4309,7 @@ def turn_times_main(root: str):
         FusedSphereSDF, _build, fused_composite, fused_sphere_sdf,
     )
     from neural_raytracing_tpu_torch.training import TrainState, build_step_fn, make_optimizer
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
     from neural_raytracing_tpu_torch.workloads.nerfle import colocate_cameras
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3761,7 +4346,7 @@ def turn_times_main(root: str):
     c2ws = train_c2ws()
     imgs, masks = sphere_gt(torch, c2ws)
     spec = make_optimizer(LRS)
-    scene = flagship_scene(64, None)
+    scene = nerf_synthetic.build_scene(max_steps=64, march_bound=None)
     scene.init(torch.Generator().manual_seed(0), device=dev)
     state = TrainState(scene, spec.init(scene), 0)
     step = build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
@@ -3831,6 +4416,20 @@ def main():
     if sys.argv[1:2] == ["--converge"]:
         converge_main(int(sys.argv[2]) if len(sys.argv) > 2 else 8000)
         return
+    if sys.argv[1:2] == ["--dtu"]:
+        phase_dtu(torch, dev)
+        return
+    if sys.argv[1:2] == ["--data-paths"]:
+        rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 5
+        phase_dtu(torch, dev, rounds)
+        phase_nerv_generated(torch, dev, rounds)
+        return
+    if sys.argv[1:2] == ["--converge-nerv"]:
+        converge_nerv_main(torch, dev, int(sys.argv[2]) if len(sys.argv) > 2 else 4000)
+        return
+    if sys.argv[1:2] == ["--converge-dtu"]:
+        converge_dtu_main(torch, dev, int(sys.argv[2]) if len(sys.argv) > 2 else 4000)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -3858,6 +4457,8 @@ def main():
     bf16_eval_counts, bf16_train_counts = phase_bf16_flagship(torch, dev)
     bf16_nerv_counts = phase_bf16_nerv(torch, dev)
     co = phase_colocate(torch, dev)
+    dt = phase_dtu(torch, dev)
+    nv = phase_nerv_generated(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -3935,7 +4536,10 @@ def main():
           f"{1e3 * le_step_s:.1f} ms/step, {LE_RAYS / le_step_s:,.0f} rays/s, K8 launches "
           f"{le_train_counts['fused_composite']}; colocate training step "
           f"{co['step_ms']:.1f} ms/step, {CO_RAYS / co['step_ms'] * 1e3:,.0f} rays/s, test "
-          f"view {co['ms_view']:.1f} ms/view")
+          f"view {co['ms_view']:.1f} ms/view; DTU training step, host / device data path "
+          f"{dt['turns']['host']['ms']:.1f} / {dt['turns']['device']['ms']:.1f} ms/step; NeRV "
+          f"on generated data {nv['turns']['host']['ms']:.1f} / "
+          f"{nv['turns']['device']['ms']:.1f} ms/step")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ path:
     transforms ``X_view = X R + T``, the camera looks down +z) and
     ``look_at_view_transform``.  It keeps the reference's quirk of
     normalising the world POINT on the far plane as the ray direction, not
-    the point minus the camera centre.
+    the point minus the camera centre;
+  * ``DTUCamera`` (IDR-style: a camera-to-world pose and an intrinsic
+    matrix, pixel positions scaled by ``src_size / size``) and ``lift``.
 
 ``positions[..., 0]`` is the second image axis and ``positions[..., 1]`` the
 first.  Rays are ``[N, *grid, bundle, 6]`` (origin ++ direction).
@@ -179,3 +181,65 @@ class NeRFCamera(NamedTuple):
         r_o = self.cam_to_world[..., :3, -1][
             (slice(None),) + (None,) * (r_d.ndim - 2)].expand(r_d.shape)
         return torch.cat([r_o, r_d], dim=-1)
+
+
+def lift(x, y, z, intrinsics: torch.Tensor) -> torch.Tensor:
+    """Unproject pixel coordinates through a ``[N, 3|4, 3|4]`` intrinsic
+    matrix (skew included) -> homogeneous camera-space points ``[..., 4]``."""
+    fx = intrinsics[..., 0, 0, None]
+    fy = intrinsics[..., 1, 1, None]
+    cx = intrinsics[..., 0, 2, None]
+    cy = intrinsics[..., 1, 2, None]
+    sk = intrinsics[..., 0, 1, None]
+    x_lift = (x - cx + cy * sk / fy - sk * y / fy) / fx * z
+    y_lift = (y - cy) / fy * z
+    return torch.stack([x_lift, y_lift, z, torch.ones_like(z)], dim=-1)
+
+
+class DTUCamera(NamedTuple):
+    """IDR-style DTU camera: camera-to-world ``pose`` ``[N, 4, 4]`` (or
+    ``[N, 3, 4]``, padded to 4x4) and ``intrinsic`` ``[N, 4, 4]`` or
+    ``[N, 3, 3]``.
+
+    Pixel positions are scaled by ``src_size / size``: ``src_size`` is the
+    source images' ``(width, height)`` (numbers, kept on the host) the
+    intrinsics are in, 1600 x 1200 (the DTU scans') when None.  As in the
+    JAX package, no jitter is added: ``generator`` and ``with_noise`` are
+    ignored.
+    """
+
+    pose: torch.Tensor
+    intrinsic: torch.Tensor
+    src_size: Optional[tuple] = None
+
+    def __len__(self):
+        return self.pose.shape[0]
+
+    def to(self, device) -> "DTUCamera":
+        return DTUCamera(self.pose.to(device), self.intrinsic.to(device), self.src_size)
+
+    def sample_positions(self, positions: torch.Tensor, generator=None,
+                         bundle_size: int = 1, size: int = 512,
+                         with_noise=False) -> torch.Tensor:
+        n = len(self)
+        grid = positions.shape[:-1]
+        src = (1600.0, 1200.0) if self.src_size is None else self.src_size
+        # two float32 quotients, as the JAX camera's src / size
+        scale = np.asarray(src, np.float32) / np.float32(size)
+        uv = torch.stack([positions[..., 0] * float(scale[0]),
+                          positions[..., 1] * float(scale[1])], dim=-1).reshape(-1, 2)
+        u = uv[:, 0].expand(n, uv.shape[0])
+        v = uv[:, 1].expand(n, uv.shape[0])
+        points = lift(u, v, torch.ones_like(u), self.intrinsic)   # [N, P, 4]
+        pose = self.pose
+        if pose.shape[-2] == 3:
+            pad = torch.zeros(pose.shape[:-2] + (1, 4), dtype=pose.dtype,
+                              device=pose.device)
+            pad[..., 0, 3] = 1.0
+            pose = torch.cat([pose, pad], dim=-2)
+        world = torch.einsum("nij,npj->npi", pose, points)[..., :3]
+        r_o = pose[:, :3, 3][:, None, :]
+        r_d = normalize(world - r_o)
+        rays = torch.cat([r_o.expand(r_d.shape), r_d], dim=-1)
+        rays = rays.reshape((n,) + grid + (1, 6))
+        return rays.expand((n,) + grid + (bundle_size, 6))

@@ -25,11 +25,14 @@ def render_rays(scene: Scene, rays: torch.Tensor, integrator, generator=None,
     return integrator.sample(scene, rays, generator=generator, training=training)
 
 
-def _tile_positions(x_start: float, y_start: float, chunk: int,
-                    device) -> torch.Tensor:
-    """Pixel-position grid for one tile: [chunk, chunk, 2] = (y, x) coords."""
-    xs = x_start + torch.arange(chunk, dtype=torch.float32, device=device)
-    ys = y_start + torch.arange(chunk, dtype=torch.float32, device=device)
+def _tile_positions(x_start, y_start, chunk: int, device) -> torch.Tensor:
+    """Pixel-position grid for one tile: [chunk, chunk, 2] = (y, x) coords.
+    The starts are numbers or 0-d tensors on ``device`` (the device data
+    path's crop corner: no wait for the card)."""
+    offs = torch.arange(chunk, dtype=torch.float32, device=device)
+    start = lambda s: s if isinstance(s, torch.Tensor) else float(s)
+    xs = start(x_start) + offs
+    ys = start(y_start) + offs
     gx, gy = torch.meshgrid(xs, ys, indexing="ij")
     # positions[..., 0] = second image axis (y), [..., 1] = first (x)
     return torch.stack([gy, gx], dim=-1)
@@ -90,11 +93,12 @@ def pathtrace_sample(scene: Scene, integrator, camera, uv, generator=None,
                      crop_size: int = 32, bundle_size: int = 1, size: int = 256,
                      with_noise=False, training: bool = True):
     """Render the ``crop_size``^2 window at pixel offset ``uv = (u, v)`` on
-    the scene's device, differentiably (the training crop).  ``generator``
-    draws the camera jitter and the integrator's randomness.  Returns
-    ``(values [N, S, S, bundle, dims], active, it)``."""
+    the scene's device, differentiably (the training crop).  ``u`` and ``v``
+    are ints or 0-d tensors on that device.  ``generator`` draws the camera
+    jitter and the integrator's randomness.  Returns ``(values [N, S, S,
+    bundle, dims], active, it)``."""
     device = next(scene.parameters()).device
-    positions = _tile_positions(float(uv[0]), float(uv[1]), crop_size, device)
+    positions = _tile_positions(uv[0], uv[1], crop_size, device)
     rays = camera.to(device).sample_positions(
         positions, generator=generator, bundle_size=bundle_size, size=size,
         with_noise=with_noise)

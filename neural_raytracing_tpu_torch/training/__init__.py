@@ -1,7 +1,8 @@
 """Training: the step, the host loop, evaluation, optimizer and checkpoints.
 
-Counterpart of ``neural_raytracing_tpu/training`` on its host path (no
-device mesh, no on-device data path yet).
+Counterpart of ``neural_raytracing_tpu/training`` on one device: the host
+data path and the on-device one (``device_dataset``,
+``make_device_data_step``, ``train(device_data=)``); no device mesh.
 """
 
 from .calibrate import calibrate_exposure
@@ -9,13 +10,14 @@ from .checkpoint import (
     load_scene, load_train_state, save_scene, save_train_state,
 )
 from .datasets import (
-    ColocateDataset, NeRFDataset, NeRVDataset, load_colocate,
-    load_colocate_relight_grid, load_nerf_synthetic, load_nerv,
+    ColocateDataset, DTUDataset, NeRFDataset, NeRVDataset, decompose_projection,
+    dtu_dataset, load_colocate, load_colocate_relight_grid, load_dtu,
+    load_nerf_synthetic, load_nerv,
 )
 from .eval import evaluate
 from .loop import (
-    TrainState, build_step_fn, default_extra_loss, init_train_state, rand_uv,
-    rand_uv_mask, train,
+    TrainState, build_step_fn, default_extra_loss, device_dataset,
+    init_train_state, make_device_data_step, rand_uv, rand_uv_mask, train,
 )
 from .loss_sampler import LossSampler
 from .optim import (

@@ -9,8 +9,13 @@ frame carries its point light's ``light_loc`` (and ``light_weights`` where
 present).  The colocated set (mitsuba ``cbox_relight``) is an elevation x
 azimuth grid of ``{kind}_{i}_{j}.png`` renders, camera and light together.
 Its relight ground truth (``load_colocate_relight_grid``) is the 4 x 4
-camera x 3 x 3 light grid ``gt_{kind}_{i}_{j}_{k}_{l}.png``.  The DTU
-loader is not ported yet.
+camera x 3 x 3 light grid ``gt_{kind}_{i}_{j}_{k}_{l}.png``.  A DTU / IDR
+scan (``load_dtu``) is ``cameras.npz`` (``world_mat_i = K [R | t]`` and
+``scale_mat_i``) beside ``image/`` and ``mask/``: each projection is
+decomposed into an intrinsic and a camera-to-world pose
+(``decompose_projection``, an RQ decomposition in numpy) and the camera
+centres are scaled into the unit sphere (``dtu_dataset``, which takes the
+arrays in memory).
 """
 
 from __future__ import annotations
@@ -54,6 +59,92 @@ def load_nerf_synthetic(directory: str, size: int,
         c2ws.append(mat)
     return NeRFDataset(np.stack(c2ws), float(focal), np.stack(images),
                        np.stack(masks))
+
+
+def decompose_projection(P: np.ndarray):
+    """P [3, 4] = K [R | t] -> (K [3, 3], R [3, 3], camera centre c [3]).
+
+    An RQ decomposition of ``P[:, :3]`` with K's diagonal made positive (for
+    this use the same as ``cv2.decomposeProjectionMatrix``).
+    """
+    M = P[:3, :3]
+    # RQ through a flipped QR
+    flip = np.flipud(np.eye(3))
+    q, r = np.linalg.qr((flip @ M).T)
+    K = flip @ r.T @ flip
+    R = flip @ q.T
+    signs = np.sign(np.diag(K))
+    signs[signs == 0] = 1.0
+    S = np.diag(signs)
+    K = K @ S
+    R = S @ R
+    if np.linalg.det(R) < 0:
+        R = -R
+    c = -np.linalg.inv(M) @ P[:3, 3]
+    K = K / K[2, 2]
+    return K, R, c
+
+
+class DTUDataset(NamedTuple):
+    poses: np.ndarray           # [V, 4, 4] camera-to-world
+    intrinsics: np.ndarray      # [V, 4, 4]
+    images: np.ndarray          # [V, H, W, 3]
+    masks: np.ndarray           # [V, H, W]
+    src_size: tuple             # the intrinsics' image size (w, h)
+
+
+def dtu_dataset(cams, images: np.ndarray, masks: np.ndarray, size: int,
+                src_size: tuple = (1600, 1200),
+                normalize_dist: bool = True) -> DTUDataset:
+    """A DTU scan from arrays: ``cams`` maps ``world_mat_i`` (and optionally
+    ``scale_mat_i``) to ``[4, 4]`` matrices, ``images`` ``[V, H, W, >=3]``,
+    ``masks`` ``[V, H, W]`` in {0, 1}.  ``size`` is the images' size, kept
+    for ``load_dtu``'s signature.  ``normalize_dist`` divides every camera
+    centre by the largest centre distance, so the farthest camera sits on
+    the unit sphere."""
+    del size
+    poses, intrinsics = [], []
+    for i in range(len(images)):
+        world_mat = cams[f"world_mat_{i}"]
+        scale_mat = cams.get(f"scale_mat_{i}", np.eye(4))
+        P = (world_mat @ scale_mat)[:3, :4]
+        K, R, c = decompose_projection(P)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = R.T
+        pose[:3, 3] = c
+        intr = np.eye(4, dtype=np.float32)
+        intr[:3, :3] = K
+        poses.append(pose)
+        intrinsics.append(intr)
+    poses = np.stack(poses)
+    if normalize_dist:
+        max_dist = max(float(np.linalg.norm(poses[:, :3, 3], axis=-1).max()), 1e-6)
+        poses[:, :3, 3] /= max_dist
+    return DTUDataset(poses, np.stack(intrinsics), np.asarray(images)[..., :3],
+                      np.asarray(masks), src_size)
+
+
+def load_dtu(directory: str, size: int, image_dir: str = "image",
+             mask_dir: str = "mask", src_size: tuple = (1600, 1200),
+             normalize_dist: bool = True) -> DTUDataset:
+    """A DTU / IDR scan: ``cameras.npz``, the sorted PNGs of ``image_dir``
+    and ``mask_dir`` resized to ``size``; a mask is its first channel
+    ``> 0.5``.  See ``dtu_dataset``."""
+    cams = dict(np.load(os.path.join(directory, "cameras.npz")))
+    img_files = sorted(os.listdir(os.path.join(directory, image_dir)))
+    mask_files = sorted(os.listdir(os.path.join(directory, mask_dir)))
+    images, masks = [], []
+    for i in range(len(img_files)):
+        img = load_image(os.path.join(directory, image_dir, img_files[i]),
+                         resize=(size, size))
+        images.append(img[..., :3])
+        m = load_image(os.path.join(directory, mask_dir, mask_files[i]),
+                       resize=(size, size))
+        if m.ndim == 3:
+            m = m[..., 0]
+        masks.append((m > 0.5).astype(np.float32))
+    return dtu_dataset(cams, np.stack(images), np.stack(masks), size,
+                       src_size=src_size, normalize_dist=normalize_dist)
 
 
 class NeRVDataset(NamedTuple):

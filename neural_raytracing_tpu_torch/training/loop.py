@@ -10,6 +10,11 @@ updates the scene's parameters and the optimizer in place.  ``TrainState``
 carries the scene, the ``torch.optim.AdamW`` and the applied-step count.
 The loop resolves each step's loss one step behind, so the host queues the
 next step before it waits for the card.
+
+The on-device data path (``device_dataset``, ``make_device_data_step``,
+``train(device_data=)``) keeps the training split on the scene's device and
+draws the views, the crop and the camera batch there, so a step makes no
+host-to-device copy and no wait for the card of its own.
 """
 
 from __future__ import annotations
@@ -50,11 +55,6 @@ def default_extra_loss(it, got, exp, mask):
     if it.raw_normals is None:
         return 0.0
     return eikonal_loss(it.raw_normals)
-
-
-def _not_ported(name: str, queue: str):
-    raise NotImplementedError(f"{name} is not ported yet: it comes with {queue} "
-                              "(ROADMAP.md, Queue 1)")
 
 
 def build_step_fn(scene, integrator, optimizer_config, *, size: int,
@@ -117,6 +117,130 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     return step
 
 
+def device_dataset(images, masks, cam_to_worlds, crop_size: int,
+                   light_locs=None, max_mask_px: Optional[int] = None,
+                   device="cuda") -> dict:
+    """A training split packed for the on-device data path (see
+    ``make_device_data_step``): a dict of tensors on ``device``.
+
+    ``mask_px`` ``[V, cap, 2]`` holds each view's mask pixels ``(y, x)``
+    (``np.nonzero(mask > 0.5)``, at most ``max_mask_px`` of them, evenly
+    spaced over the list), zero-padded to the longest; ``mask_counts`` ``[V]``
+    how many are real (1 for an empty mask, whose crop is then the corner).
+    ``c2ws`` is whatever the camera builder reads per view (``[V, 3, 4]``
+    poses, or DTU's packed ``[V, 2, 4, 4]`` pose and intrinsic);
+    ``light_locs`` (optional) ``[V, 3]`` per-view point lights.  The crop
+    size is the caller's, kept for the JAX signature.
+    """
+    del crop_size
+    host_masks = np.asarray(masks)
+    coords = [np.nonzero(m > 0.5) for m in host_masks]
+    cap = max(len(ys) for ys, _ in coords)
+    cap = max(1, cap if max_mask_px is None else min(cap, max_mask_px))
+    px = np.zeros((len(coords), cap, 2), np.int64)
+    counts = np.ones(len(coords), np.int64)
+    for i, (ys, xs) in enumerate(coords):
+        n = min(len(ys), cap)
+        if n:
+            sel = np.linspace(0, len(ys) - 1, n).astype(np.int64)
+            px[i, :n, 0] = ys[sel]
+            px[i, :n, 1] = xs[sel]
+            counts[i] = n
+    as_f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    data = {
+        "images": as_f32(np.asarray(images)[..., :3]),
+        "masks": as_f32(host_masks),
+        "c2ws": as_f32(cam_to_worlds),
+        "mask_px": torch.as_tensor(px, device=device),
+        "mask_counts": torch.as_tensor(counts, device=device),
+    }
+    if light_locs is not None:
+        data["light_locs"] = as_f32(light_locs)
+    return data
+
+
+def draw_crop(data: dict, generator: Optional[torch.Generator], *, n_views: int,
+              size: int, crop_size: int, mask_crops: bool = True):
+    """The device step's draws -> ``(idxs [n_views], u, w)``, all on the
+    data's device: ``n_views`` uniform view indices, then the crop corner,
+    centred on a uniform mask pixel of the first view and clipped to ``[0,
+    size - crop_size]`` (``rand_uv_mask``), or uniform.  The draws wait for
+    nothing: the mask pixel's index is ``floor(U * count)`` with ``U`` a
+    float64 uniform, since ``torch.randint`` takes its bound as a Python
+    int."""
+    device = data["images"].device
+    gen_device = generator.device if generator is not None else device
+
+    def rand_int(high: int, shape):
+        return torch.randint(0, high, shape, generator=generator,
+                             device=gen_device).to(device)
+
+    idxs = rand_int(data["images"].shape[0], (n_views,))
+    top = size - crop_size
+    if not mask_crops:
+        uw = rand_int(top + 1, (2,))
+        return idxs, uw[0], uw[1]
+    # a 0-d tensor as an index would be read on the host: index by [1]-shaped
+    # tensors, then take the 0-d corner by a Python int
+    first = idxs[:1]
+    count = data["mask_counts"][first]
+    unit = torch.rand((1,), generator=generator, dtype=torch.float64,
+                      device=gen_device).to(device)
+    j = torch.minimum(torch.floor(unit * count).long(), count - 1)
+    yx = data["mask_px"][first, j]                                # [1, 2]
+    half = crop_size // 2
+    return idxs, (yx[0, 0] - half).clamp(0, top), (yx[0, 1] - half).clamp(0, top)
+
+
+def gather_crop(data: dict, idxs: torch.Tensor, u: torch.Tensor, w: torch.Tensor,
+                crop_size: int):
+    """The ``[N, S, S, 3]`` image and ``[N, S, S]`` mask crops of views
+    ``idxs`` at corner ``(u, w)``, by index arithmetic on the device."""
+    offs = torch.arange(crop_size, device=idxs.device)
+    rows = (u + offs)[None, :, None]
+    cols = (w + offs)[None, None, :]
+    views = idxs[:, None, None]
+    return data["images"][views, rows, cols], data["masks"][views, rows, cols]
+
+
+def make_device_data_step(scene, integrator, optimizer_config,
+                          camera_builder: Callable, *, n_views: int, size: int,
+                          crop_size: int, mask_crops: bool = True,
+                          with_light_locs: bool = False,
+                          draw: Optional[Callable] = None, **kwargs):
+    """The step ``dstep(state, data, generator) -> (state, aux)`` whose view
+    selection, crop draw, ground-truth gather and camera construction run
+    on the data's device.
+
+    ``data`` comes from ``device_dataset``; ``camera_builder(c2w_batch) ->
+    camera`` builds the views' camera from ``data["c2ws"][idxs]`` (e.g.
+    ``lambda c: NeRFCamera(c, focal)``).  With ``with_light_locs`` the
+    scene's point lights move to ``data["light_locs"][idxs]`` first
+    (AdamW's moments follow through the step's ``broadcast_state``).  Views
+    are uniform (the host path's loss-proportional sampler needs the loss
+    on the host); crops are mask-centred on the first view or uniform
+    (``draw_crop``).  ``draw(data, generator) -> (idxs, u, w)`` replaces
+    those draws (tests pin them with it).  ``generator`` draws them and the
+    step's jitter.  The rest of ``kwargs`` go to ``build_step_fn``.
+    """
+    step = build_step_fn(scene, integrator, optimizer_config, size=size,
+                         crop_size=crop_size, **kwargs)
+    if draw is None:
+        def draw(data, generator):
+            return draw_crop(data, generator, n_views=n_views, size=size,
+                             crop_size=crop_size, mask_crops=mask_crops)
+
+    def dstep(state: TrainState, data: dict, generator=None):
+        idxs, u, w = draw(data, generator)
+        exp, mask = gather_crop(data, idxs, u, w, crop_size)
+        camera = camera_builder(data["c2ws"][idxs])
+        if with_light_locs:
+            state.scene.lights.set_location(data["light_locs"][idxs])
+        return step(state, camera, (u, w), exp, mask, generator)
+
+    return dstep
+
+
 def rand_uv(rng: np.random.Generator, w: int, h: int, size: int):
     return (int(rng.integers(0, w - size + 1)),
             int(rng.integers(0, h - size + 1)))
@@ -149,8 +273,9 @@ def train(scene, integrator, optimizer_config, state: TrainState,
           log_every: int = 100, log_fn: Callable = print,
           metrics: Optional[list] = None, mesh=None, seed: int = 0,
           uv_select: Optional[Callable] = None, nan_policy: str = "raise",
-          device_data=None):
-    """The host training loop.
+          device_data: Optional[dict] = None,
+          camera_builder: Optional[Callable] = None):
+    """The training loop.
 
     ``make_camera(idxs) -> camera`` builds the view batch; ``exp_imgs
     [V, H, W, 3]`` and ``exp_masks [V, H, W]`` (numpy) go to the scene's
@@ -164,29 +289,49 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     every ``ckpt_freq``; per-step scalars are appended to ``metrics``.
     ``nan_policy``: "raise" aborts on a non-finite loss; "skip" drops the
     update and goes on, aborting after 200 consecutive bad steps.
+
+    ``device_data`` (from ``device_dataset``) takes the on-device data path
+    (``make_device_data_step``): ``camera_builder(c2w_batch) -> camera``
+    replaces ``make_camera``, views are uniform, crops mask-centred with
+    ``uv_select=rand_uv_mask`` or uniform with None (any other raises
+    ``ValueError``), and the lights follow ``device_data["light_locs"]``
+    where it is present instead of ``light_update``; ``exp_imgs`` and
+    ``exp_masks`` are not read.
     Returns (state, losses).
     """
     if nan_policy not in ("raise", "skip"):
         raise ValueError(f"nan_policy must be 'raise' or 'skip', got {nan_policy!r}")
     if mesh is not None:
-        _not_ported("mesh= (multi-device training)", "the deferred training items")
-    if device_data is not None:
-        _not_ported("device_data= (the on-device data path)",
-                    "the deferred training items")
+        raise NotImplementedError("mesh= (multi-device training) is not ported yet: "
+                                  "it comes with Queue 1 item 8 (ROADMAP.md)")
     skip_nan = nan_policy == "skip"
-    step_fn = build_step_fn(
-        scene, integrator, optimizer_config, size=size, crop_size=crop_size,
-        bundle_size=bundle_size, mask_weight=mask_weight,
-        tone_mapping=tone_mapping, with_ssim=with_ssim,
-        extra_loss=extra_loss, space_reg=space_reg, skip_nan_updates=skip_nan)
-    device = next(state.scene.parameters()).device
-    images = torch.as_tensor(np.asarray(exp_imgs)[..., :3], dtype=torch.float32,
-                             device=device)
-    masks = torch.as_tensor(np.asarray(exp_masks), dtype=torch.float32,
-                            device=device)
+    step_kw = dict(bundle_size=bundle_size, mask_weight=mask_weight,
+                   tone_mapping=tone_mapping, with_ssim=with_ssim,
+                   extra_loss=extra_loss, space_reg=space_reg,
+                   skip_nan_updates=skip_nan)
+    if device_data is not None:
+        if camera_builder is None:
+            raise ValueError("device_data needs a camera_builder")
+        if uv_select is not None and uv_select is not rand_uv_mask:
+            # the device path draws only rand_uv_mask's crops (or uniform
+            # ones); another sampler would silently differ from the host path
+            raise ValueError("device_data supports uv_select in (None, rand_uv_mask) "
+                             "only; use the host path for custom crop samplers")
+        dstep = make_device_data_step(
+            scene, integrator, optimizer_config, camera_builder, n_views=n_views,
+            size=size, crop_size=crop_size, mask_crops=uv_select is not None,
+            with_light_locs="light_locs" in device_data, **step_kw)
+    else:
+        step_fn = build_step_fn(scene, integrator, optimizer_config, size=size,
+                                crop_size=crop_size, **step_kw)
+        device = next(state.scene.parameters()).device
+        images = torch.as_tensor(np.asarray(exp_imgs)[..., :3], dtype=torch.float32,
+                                 device=device)
+        masks = torch.as_tensor(np.asarray(exp_masks), dtype=torch.float32,
+                                device=device)
+        selector = LossSampler(len(exp_imgs))
     # metrics and logs carry the global attempted step
     base = int(state.step)
-    selector = LossSampler(len(exp_imgs))
     rng = np.random.default_rng(seed)
     losses: list = []
     t0 = time.time()
@@ -210,7 +355,8 @@ def train(scene, integrator, optimizer_config, state: TrainState,
             return
         consecutive_bad = 0
         losses.append(loss)
-        selector.update_idxs(p_idxs, loss)
+        if p_idxs is not None:
+            selector.update_idxs(p_idxs, loss)
         rps = rays_done / max(time.time() - t0, 1e-9)
         if log_every and ((i - 1) % log_every) == 0:
             log_fn(f"step {base + i - 1:6d} loss {loss:.5f} rays/s {rps:,.0f}")
@@ -218,18 +364,22 @@ def train(scene, integrator, optimizer_config, state: TrainState,
             metrics.append({"step": base + i - 1, "loss": loss, "rays_per_sec": rps})
 
     for i in range(iters):
-        idxs = selector.sample(n=n_views)
-        camera = make_camera(idxs)
-        if uv_select is not None:
-            u, v = uv_select(rng, exp_masks[idxs[0]], crop_size)
+        if device_data is not None:
+            idxs = None
+            state, aux = dstep(state, device_data, generator)
         else:
-            u, v = rand_uv(rng, size, size, crop_size)
-        sel = torch.as_tensor(idxs, device=device)
-        exp = images[sel, u:u + crop_size, v:v + crop_size]
-        mask = masks[sel, u:u + crop_size, v:v + crop_size]
-        if light_update is not None:
-            light_update(state.scene, camera, idxs)
-        state, aux = step_fn(state, camera, (u, v), exp, mask, generator)
+            idxs = selector.sample(n=n_views)
+            camera = make_camera(idxs)
+            if uv_select is not None:
+                u, v = uv_select(rng, exp_masks[idxs[0]], crop_size)
+            else:
+                u, v = rand_uv(rng, size, size, crop_size)
+            sel = torch.as_tensor(idxs, device=device)
+            exp = images[sel, u:u + crop_size, v:v + crop_size]
+            mask = masks[sel, u:u + crop_size, v:v + crop_size]
+            if light_update is not None:
+                light_update(state.scene, camera, idxs)
+            state, aux = step_fn(state, camera, (u, v), exp, mask, generator)
         rays_done += n_views * crop_size * crop_size * bundle_size
         if pending is not None:
             resolve(pending, i)

@@ -11,9 +11,13 @@ occlusion MLP and with hard shadows.
 
     python -m neural_raytracing_tpu_torch.workloads.nerv --data nerv/armadillo
 
-Not carried over from the JAX script: ``--train-integrator path`` (the
-``Path`` integrator is not ported), ``--device-data`` and
-``--data-parallel``.  ``--device`` picks the card (default) or the CPU.
+``--device-data`` trains on the on-device data path: the views, crops,
+cameras and each frame's light drawn on the device.  ``run`` takes the
+train and test splits in memory (``NeRVDataset``s), so a caller with no
+PNGs, or no PIL, can drive the same path.  Not carried over from the JAX
+script: ``--train-integrator path`` (the ``Path`` integrator is not ported,
+Queue 1 item 4) and ``--data-parallel`` (item 8).  ``--device`` picks the
+card (default) or the CPU.
 """
 
 from __future__ import annotations
@@ -120,21 +124,26 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--calibrate-exposure", action="store_true",
                     help="calibrate the light scale even with --load")
     ap.add_argument("--no-calibrate-exposure", action="store_true")
+    ap.add_argument("--device-data", action="store_true",
+                    help="the on-device data path: views, crops, cameras and each "
+                         "frame's light drawn on the device")
     ap.add_argument("--device", type=str, default="cuda")
     return ap
 
 
-def main(argv=None):
-    args = parser().parse_args(argv)
+def run(args, data, test=None, name: str = "nerv", save: bool = True):
+    """Train on ``data`` (a ``NeRVDataset``), then, given ``test``, test in
+    both shadow modes.  ``save`` writes the scene artifacts, the metrics and
+    the renders.  Returns ``(state, results)``: ``results["losses"]``, a
+    metrics dict per shadow mode (``"soft"``, ``"hard"``) and its renders
+    (``"soft_images"``, ``"hard_images"``)."""
     from ..cameras import NeRFCamera
     from ..integrators import Direct
     from ..training import (
-        calibrate_exposure, evaluate, init_train_state, load_nerv, load_scene,
+        calibrate_exposure, device_dataset, evaluate, init_train_state, load_scene,
         make_optimizer, rand_uv_mask, save_scene, train,
     )
 
-    name = args.data.rstrip("/").split("/")[-1]
-    data = load_nerv(args.data, args.size, "train")
     scene = build_scene(dist=args.dist, stable_min=args.stable_min,
                         fused_sdf=args.fused_sdf)
     opt = make_optimizer({"shape": args.surface_lr, "bsdf": args.bsdf_lr,
@@ -160,45 +169,60 @@ def main(argv=None):
             scene, state, make_camera, data.images, data.masks, size=args.size,
             chunk_size=chunk_for(args.size), light_update=light_update)
 
-    os.makedirs(args.outputs, exist_ok=True)
-    metrics_path = os.path.join(args.outputs, f"metrics_nerv_{name}.jsonl")
     metrics: list = []
 
     def flush_metrics():
-        with open(metrics_path, "w") as f:
-            f.writelines(json.dumps(m) + "\n" for m in metrics)
+        if save:
+            os.makedirs(args.outputs, exist_ok=True)
+            with open(os.path.join(args.outputs, f"metrics_nerv_{name}.jsonl"), "w") as f:
+                f.writelines(json.dumps(m) + "\n" for m in metrics)
 
+    device_data = camera_builder = None
+    if args.device_data:
+        device_data = device_dataset(data.images, data.masks, data.cam_to_worlds,
+                                     args.crop_size, light_locs=data.light_locs,
+                                     device=args.device)
+        camera_builder = lambda c: NeRFCamera(c, data.focal)
+
+    results: dict = {}
     if args.iters > 0:
         space_reg = None
         if args.space_eikonal > 0 or args.space_repulsion > 0:
             space_reg = make_space_reg(args.space_eikonal, args.space_repulsion,
                                        args.repulsion_alpha)
         generator = torch.Generator(device=args.device).manual_seed(args.seed + 1)
-        state, _ = train(
+        state, results["losses"] = train(
             scene, Direct(training=True), opt, state, make_camera, data.images,
             data.masks, generator, size=args.size, crop_size=args.crop_size,
             iters=args.iters, n_views=args.n_views,
             nan_policy="skip" if args.nan_skip else "raise",
             with_ssim=not args.no_ssim, uv_select=rand_uv_mask,
             space_reg=space_reg, tone_mapping=True, light_update=light_update,
-            log_every=args.log_every, metrics=metrics,
-            save_fn=lambda st, i: (save_scene(model_dir, st.scene, step=st.step),
-                                   flush_metrics()),
+            log_every=args.log_every, metrics=metrics, device_data=device_data,
+            camera_builder=camera_builder,
+            save_fn=(lambda st, i: (save_scene(model_dir, st.scene, step=st.step),
+                                    flush_metrics())) if save else None,
             ckpt_freq=max(args.iters // 5 - 1, 1))
-        save_scene(model_dir, scene, step=state.step)
+        if save:
+            save_scene(model_dir, scene, step=state.step)
         flush_metrics()
 
-    if args.skip_test:
-        return state, {}
-    test = load_nerv(args.data, args.size, "test")
+    if test is None:
+        return state, results
 
     def eval_light_update(scene_, camera, i):
         scene_.lights.set_location(test.light_locs[i:i + 1])
 
     bound = args.eval_march_bound if args.eval_march_bound > 0 else None
-    results = {}
     for shadows, tag in (("learned", "soft"), ("hard", "hard")):
         print(f"NeRV test with {tag} shadows")
+        images = results[tag + "_images"] = []
+
+        def save_test(i, im, tag=tag, images=images):
+            images.append(im)
+            if save:
+                save_image(f"{args.outputs}/nerv_{name}_{tag}_{i:03}.png", im)
+
         results[tag] = evaluate(
             eval_scene(scene, shadows, bound),
             lambda i: NeRFCamera(torch.from_numpy(test.cam_to_worlds[i:i + 1]),
@@ -206,11 +230,22 @@ def main(argv=None):
             test.images, Direct(training=False), size=args.size,
             chunk_size=chunk_for(args.size), tone_map=True,
             with_ms_ssim=args.size > 160, light_update=eval_light_update,
-            save_fn=lambda i, im, tag=tag: save_image(
-                f"{args.outputs}/nerv_{name}_{tag}_{i:03}.png", im))
+            save_fn=save_test)
+        results[tag + "_images"] = np.stack(images)
         metrics.append({"step": int(state.step), "test_" + tag: results[tag]})
     flush_metrics()
     return state, results
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    from ..training import load_nerv
+    name = args.data.rstrip("/").split("/")[-1]
+    data = load_nerv(args.data, args.size, "train")
+    test = None if args.skip_test else load_nerv(args.data, args.size, "test")
+    state, results = run(args, data, test, name)
+    # main returns the test's metrics only
+    return state, {tag: results[tag] for tag in ("soft", "hard") if tag in results}
 
 
 if __name__ == "__main__":

@@ -10,11 +10,10 @@ primary march can be over-relaxed with ``--omega`` (1: off).
     python -m neural_raytracing_tpu_torch.workloads.render --workload nerv \
         --models scripts/models_seed_dir/nerv_mesh_gear_mirror200b --omega 1.4
 
-Ported: ``--workload nerv`` and ``--workload colocate`` (each its twin's
-``build_scene``, learned occlusion included, as ``scripts/render.py``
-rebuilds it) with ``--integrator direct``.  The other workloads and
-integrators raise ``NotImplementedError``.  ``--device``
-picks the card (default) or the CPU.
+Every workload (``nerf``, ``colocate``, ``dtu``, ``nerv``: each its
+twin's ``build_scene``, learned occlusion included, as ``scripts/render.py``
+rebuilds it) with ``--integrator direct``.  The other integrators raise
+``NotImplementedError``.  ``--device`` picks the card (default) or the CPU.
 """
 
 from __future__ import annotations
@@ -27,31 +26,23 @@ import torch
 
 from ._common import chunk_for, save_image
 
-# what the port lacks, and the ROADMAP.md queue it comes with
+# the integrators the port lacks, and the ROADMAP.md queue they come with
 _NOT_PORTED = {
-    "nerf": "the twin of scripts/nerf_synthetic.py (Queue 1, the deferred training items)",
-    "dtu": "the DTU loader and cameras (Queue 1, the deferred training items)",
     "debug": "the debug integrators (Queue 1, the rest of the scene set)",
     "depth": "the debug integrators (Queue 1, the rest of the scene set)",
     "silhouette": "the debug integrators (Queue 1, the rest of the scene set)",
     "path": "the Path integrator (Queue 1, the rest of the scene set)",
 }
-
-
-def _not_ported(option: str, value: str):
-    raise NotImplementedError(f"{option} {value} is not ported yet: it comes with "
-                              f"{_NOT_PORTED[value]} (ROADMAP.md)")
+# the workloads whose point light sits at 1.05 x each frame's camera centre
+_POINT_LIT = ("colocate", "nerv")
 
 
 def build_scene(workload: str, max_steps: int):
     """The named workload's scene (random weights until loaded)."""
-    if workload == "colocate":
-        from .colocate import build_scene as colocate_scene
-        return colocate_scene(max_steps=max_steps)
-    if workload != "nerv":
-        _not_ported("--workload", workload)
-    from .nerv import build_scene as nerv_scene
-    return nerv_scene(max_steps=max_steps)
+    import importlib
+    module = {"nerf": "nerf_synthetic"}.get(workload, workload)
+    twin = importlib.import_module(f"{__package__}.{module}")
+    return twin.build_scene(max_steps=max_steps)
 
 
 def frame_camera(f: int, frames: int, dist: float, elev: float):
@@ -92,7 +83,8 @@ def main(argv=None) -> np.ndarray:
 
     scene = build_scene(args.workload, args.max_steps)
     if args.integrator != "direct":
-        _not_ported("--integrator", args.integrator)
+        raise NotImplementedError(f"--integrator {args.integrator} is not ported yet: it "
+                                  f"comes with {_NOT_PORTED[args.integrator]} (ROADMAP.md)")
     if args.omega != 1.0:
         scene.shape.omega = args.omega
     scene.init(torch.Generator().manual_seed(0), device=args.device)
@@ -101,7 +93,8 @@ def main(argv=None) -> np.ndarray:
     images = []
     for f in range(args.frames):
         cam = frame_camera(f, args.frames, args.dist, args.elev)
-        scene.lights.set_location(cam.camera_center() * 1.05)
+        if args.workload in _POINT_LIT:
+            scene.lights.set_location(cam.camera_center() * 1.05)
         img, _ = pathtrace(scene, cam, integrator, size=args.size,
                            chunk_size=chunk_for(args.size), background=0.0,
                            key=f, device=args.device)

@@ -234,6 +234,6 @@ def test_render_workload_main_runs_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(relaxed).all() and plain.max() > 0
     assert (tmp_path / "orbit_nerv_001.png").exists()
     assert "frame 2/2" in capsys.readouterr().out
-    for extra in (["--workload", "nerf"], ["--integrator", "debug"]):
+    for extra in (["--integrator", "path"], ["--integrator", "debug"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render.main(args + extra)

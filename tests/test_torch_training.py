@@ -262,9 +262,13 @@ def test_nan_policy(policy):
 
 @pytest.mark.parametrize("option", ["mesh", "device_data"])
 def test_unported_train_options_raise(option):
+    """mesh= is not ported; device_data= is (tests/test_torch_device_data.py),
+    and without its camera_builder it raises."""
     scene, imgs, masks, make_camera = _train_setup()
     spec = T.make_optimizer(LRS)
     state = T.init_train_state(scene, spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    error, match = ((NotImplementedError, "not ported") if option == "mesh"
+                    else (ValueError, "camera_builder"))
+    with pytest.raises(error, match=match):
         T.train(scene, Direct(training=True), spec, state, make_camera, imgs, masks,
                 size=SIZE, crop_size=CROP, iters=1, **{option: object()})
