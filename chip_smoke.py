@@ -192,7 +192,40 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      data for 10 steps on the host data path and 10 on the device data
      path (per-view lights from the data; counts reset just before each,
      read just after: K1-K4), the second followed by one test view in both
-     shadow modes; then the two paths in turns on the trained scene.
+     shadow modes; then the two paths in turns on the trained scene;
+ 22. Monte Carlo transport on the trained NeRV checkpoint (128 steps,
+     bounded 1.2, hard shadows, light 0): (a) one 200x200 view (chunk 100,
+     bundle 1) through pathtrace with Path(max_depth=2) against the same
+     view inside plain_kernels() with the same generator seeds (so the same
+     draws), counts reset just before and read just after: K1 on the tile,
+     K2 and K4 twice a tile (the primary and the bounce march; the two
+     bounces' shadow rays); (b) Path(max_depth=1) against Direct(training=
+     False) on that view (a delta light: only the camera jitter draws), and
+     Path depth 2's mean at or above Direct's; (c) Direct and Path depth 2
+     timed in turns (A, B, B, A), a profile of one Path view (busy ms, idle
+     share, launches, K1-K4's ms a launch), then K2 at one tile's primary and
+     bounce launch against march_plain (the SDF evaluations per ray, the hit
+     flags ray by ray, ms, bound, live share); (f) Direct(emitter_samples=1,
+     bsdf_samples=1) with the lights replaced by Constant(5, 0.5) on that
+     view against plain_kernels() (K2 once and K4 twice a tile: both arms'
+     shadow rays), then K4 against shadow_march_plain (shadow_check) at the
+     emitter arm's shadow rays (max_t 10) and the BSDF arm's (max_t the
+     ray's distance to the light sphere); (g) one 128x128 frame of
+     workloads.render.main --workload nerv with --integrator debug, depth,
+     silhouette and path (K2 counted); (e) on the NeRV generator's data
+     (phase 21's; made here with --path): one Path(max_depth=2) training
+     step of the NeRV twin's scene (seed-0 weights, 3 x 64^2, the device
+     data path, the draws pinned) against the same step inside
+     plain_kernels(), 10 counted steps of workloads.nerv.run
+     --train-integrator path on the device data path (K1-K4), then the Path
+     and the Direct step in turns, each profiled (busy ms, launches, K1-K4's
+     ms a launch), its waits for the card (sync_sites, the Path step's no
+     more than the Direct step's) and its peak memory
+     (torch.cuda.max_memory_allocated over one step); (d)
+     workloads.path_nerv.run on the scene phase 21 trained (with --path:
+     (e)'s) and the 4 test views at 64^2, 4 passes, its PSNR beside
+     Direct's and the black render's, a pixel probe (a pipeline check, not
+     a quality figure).
 Phase 7 also runs the flagship step on the device data path (10 counted
 steps) and the two paths in turns, then the workload's own entry,
 workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
@@ -260,7 +293,17 @@ and ties within 1e-3 (twice the bf16 noise of the shift, one bf16 step of
 its output scale); K4-bf16 as K4; each
 bf16 kernel must differ from its f32 kernel on a non-zero net (K1 by at
 least half that mean gap); the bf16 flagship against plain-in-bf16 as
-phases 4 and 7.
+phases 4 and 7; phase 22's Path and BSDF-arm views against
+plain_kernels() as phase 4 (mask agreement >= 99%, mean |difference| <=
+1e-3: a bounce or shadow ray that flips its hit moves its pixel's whole
+term, so no maximum is held), Path depth 1 against Direct within 1e-6 (the
+same arithmetic), K2's bounce launch as K2, K4 at Direct's arms as K4, the
+Path training step as phase 11 (loss within 1e-4 relative, each component's
+gradient within 1e-2 relative L2).
+
+    python3 chip_smoke.py --path
+
+runs phases 1 and 22 only (no result line).
 
     python3 chip_smoke.py --k1
 
@@ -4126,7 +4169,7 @@ def phase_nerv_generated(torch, dev, rounds: int = 1):
                                 camera_builder=lambda c: NeRFCamera(c, data.focal)), **kw)
     turns = data_path_turns(torch, f"NeRV training on generated data (3 x {NV_SIZE}^2)",
                             paths, 3 * NV_SIZE * NV_SIZE, rounds=rounds)
-    return dict(counts=runs["device"][2], turns=turns)
+    return dict(counts=runs["device"][2], turns=turns, data=data, test=test, state=state)
 
 
 def converge_nerv_main(torch, dev, iters: int):
@@ -4247,6 +4290,425 @@ def converge_main(iters: int):
           f"render {black_psnr(gts):.3f} dB; on its {int(lit.sum())} views whose mean GT "
           f"pixel exceeds 0.01: PSNR {psnrs[lit].mean():.3f} dB, black render "
           f"{black_psnr([g for g, keep in zip(gts, lit) if keep]):.3f} dB")
+
+
+# ---- slice 14: Monte Carlo transport (Path, Direct's BSDF arm, the debug integrators) ---
+
+PATH_TILES = (NERV_SIZE // NERV_CHUNK) ** 2                # 4 tiles of 10,000 rays a view
+
+
+def path_view(torch, dev, scene, integrator, key: int = 0):
+    """One 200^2 view of NeRV eval view 0 through ``pathtrace`` (chunk 100,
+    bundle 1, background 0, the tiles' generators seeded from ``key``)."""
+    from neural_raytracing_tpu_torch.render import pathtrace
+    img, _ = pathtrace(scene, nerv_camera(torch, NERV_EVAL_VIEWS[:1]), integrator,
+                       size=NERV_SIZE, chunk_size=NERV_CHUNK, bundle_size=1, background=0.0,
+                       key=key, device=dev)
+    return img
+
+
+def counted_view(torch, label, fn, per_tile: dict):
+    """``fn()`` once as a warm-up, then once with the launch counts reset
+    just before and read just after: each kernel of ``per_tile`` launched
+    that many times a tile, every fused net on the tile.  -> (its image,
+    the counts)."""
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    fn()
+    reset_launch_counts()
+    img = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    k1_routes(label)
+    check(counts["fused_mlp_forward"] > 0, f"{label}: K1 was not launched")
+    for name, n in per_tile.items():
+        check(counts[name] == n * PATH_TILES,
+              f"{label}: {name} launched {counts[name]} times, not {n} a tile")
+    return img, counts
+
+
+def bounce_rays(torch, scene, gen):
+    """The bounce rays of one 100^2 tile of NeRV eval view 0 (light 0):
+    the primary hit, one BSDF sample from ``gen``, and the ray from the
+    offset hit point in the sampled direction, as ``Path`` spawns them ->
+    (the interaction, the hit mask, r_o, r_d), flat."""
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    dev = scene.shape.centers.device
+    cam = nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev)
+    rays = cam.sample_positions(_tile_positions(0.0, 0.0, NERV_CHUNK, dev),
+                                size=NERV_SIZE).reshape(-1, 6)
+    with torch.no_grad():
+        it, hit = scene.shape.intersect(rays, primary=False)
+        bs, _ = scene.bsdf.sample(it, gen, hit)
+        new = it.spawn_rays(it.from_local(bs.wo))
+    return it, hit, new[:, :3].contiguous(), new[:, 3:].contiguous()
+
+
+def march_bound_fn(module):
+    """K2's and K4's bound: the SDF evaluations the rays need x (2 x the
+    shift net's multiply-adds + 31 x the spheres), the rays' bytes."""
+    per_eval = 2.0 * mlp_macs(module.shift) + 31.0 * module.n
+    return lambda n, evals: bound_ms(4 * n * 7 + n + weight_bytes(module.shift)
+                                     + 4 * 13 * module.n, per_eval * evals)
+
+
+def bounce_launch(torch, dev, scene):
+    """K2 at the bounce launch of one tile against march_plain (hit flags
+    ray by ray, depths where both hit), its SDF evaluations per ray and live
+    share beside the primary launch's, ms and bound.  -> {label: {...}}."""
+    from neural_raytracing_tpu_torch.kernels import fused_march, march_plain
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.shapes import march_interval
+    module = scene.shape.module
+    bound = march_bound_fn(module)
+    _, _, b_o, b_d = bounce_rays(torch, scene, torch.Generator(device=dev).manual_seed(7))
+    cam = nerv_camera(torch, NERV_EVAL_VIEWS[:1]).to(dev)
+    prim = cam.sample_positions(_tile_positions(0.0, 0.0, NERV_CHUNK, dev),
+                                size=NERV_SIZE).reshape(-1, 6)
+    out = {}
+    for label, r_o, r_d in (("primary", prim[:, :3].contiguous(), prim[:, 3:].contiguous()),
+                            ("bounce", b_o, b_d)):
+        t0, t1 = march_interval(r_o, r_d, 1.2, 10.0)
+        kw = dict(max_steps=128, epsilon=scene.shape.epsilon, t_start=t0)
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        depth, khit = fused_march(module, r_o, r_d, t1, stats=stats, **kw)
+        pdepth, phit, evals = march_plain(module, r_o, r_d, t1, t0, max_steps=128,
+                                          epsilon=scene.shape.epsilon)
+        agree = (khit == phit).float().mean().item()
+        both = khit & phit
+        derr = (depth - pdepth)[both].abs().max().item() if both.any() else 0.0
+        check(agree >= 0.99, f"K2 {label} launch: hit agreement {agree:.4f} < 0.99")
+        check(derr <= 1e-3, f"K2 {label} launch: max |depth err| {derr:.3e} > 1e-3")
+        dist = eval_distribution(evals)
+        ms = cuda_ms(lambda: fused_march(module, r_o, r_d, t1, **kw), 5)
+        b_ms, b_by = bound(r_o.shape[0], dist["total"])
+        steps, rows, live = (int(x) for x in stats.tolist())
+        out[label] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, dist=dist,
+                          live_row_share=live / max(rows, 1), agree=agree,
+                          hits=phit.float().mean().item())
+        print(f"K2 at the {label} launch of one Path tile ({r_o.shape[0]} rays, 128 steps, "
+              f"bounded 1.2; bounce rays from p + 5 eps n of the primary march's end points, "
+              f"the missed rays' too): SDF evaluations per ray mean {dist['mean']:.2f}, median "
+              f"{dist['p50']:.0f}, 99th percentile {dist['p99']:.0f}, most {dist['max']}; hit "
+              f"fraction {out[label]['hits']:.4f}, hit agreement with march_plain "
+              f"{agree:.6f} ({int((khit != phit).sum())} rays differ), max |depth err| "
+              f"{derr:.3e}; {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), live share of the rows "
+              f"{out[label]['live_row_share']:.3f}, {steps} tile steps")
+    return out
+
+
+def constant_shadow_shapes(torch, dev, scene):
+    """K4 against shadow_march_plain (shadow_check) at the shadow launches of
+    Direct's two arms under Constant on one tile: the emitter arm's (the
+    light's uniform direction, max_t 10) and the BSDF arm's (the sampled
+    direction, max_t the ray's distance to the light sphere, up to ~6).
+    -> {label: (ms, bound_ms, bound_by)}."""
+    from neural_raytracing_tpu_torch.kernels import fused_shadow_march
+    module = scene.shape.module
+    bound = march_bound_fn(module)
+    it, hit, b_o, b_d = bounce_rays(torch, scene, torch.Generator(device=dev).manual_seed(8))
+    light_t, _ = scene.lights.intersect(torch.cat([b_o, b_d], -1))
+    with torch.no_grad():
+        ds, _ = scene.lights.sample_direction(it, torch.Generator(device=dev).manual_seed(9),
+                                              hit)
+    kw = dict(max_steps=128, epsilon=scene.shape.epsilon, past_light_exit=True)
+    kernel = lambda r_o, r_d, mt, **k: fused_shadow_march(module, r_o, r_d, mt, **k)
+    out = {}
+    for label, r_o, r_d, mt in (
+            ("emitter arm (max_t 10)", it.p.contiguous(), ds.d.contiguous(),
+             ds.dist.contiguous()),
+            ("BSDF arm (max_t Constant.intersect)", b_o, b_d, light_t.contiguous())):
+        pnb, evals, st, agree, n_zero, _ = shadow_check(torch, f"K4 {label}", kernel, module,
+                                                        (r_o, r_d, mt, hit), kw)
+        blocked = (~pnb[hit]).float().mean().item()
+        check(0.0 < blocked < 1.0, f"K4 {label}: blocked fraction {blocked:.4f} not in (0, 1)")
+        dist = eval_distribution(evals)
+        ms = cuda_ms(lambda: kernel(r_o, r_d, mt, **kw), 5)
+        b_ms, b_by = bound(r_o.shape[0], dist["total"])
+        out[label] = (ms, b_ms, b_by)
+        print(f"K4 at Direct's {label} under Constant, one tile ({r_o.shape[0]} rays, 128 "
+              f"steps): max_t {mt[hit].min().item():.3f}-{mt[hit].max().item():.3f}; SDF "
+              f"evaluations per ray mean {dist['mean']:.2f}, most {dist['max']}; blocked "
+              f"fraction of the hits {blocked:.4f}, not-blocked agreement {agree:.6f}, the same "
+              f"bits across launches and permutations, {n_zero} zero-direction rays equal to "
+              f"the plain loop's; {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), live share "
+              f"{st[2] / max(st[1], 1):.3f}")
+    return out
+
+
+def path_training(torch, dev, data):
+    """(e) Path training on generated NeRV data: one step against the same
+    step inside plain_kernels() (the views and corner pinned, the same
+    generator seed: the same draws); 10 counted steps of workloads.nerv.run
+    --train-integrator path on the device data path; the Path and the
+    Direct step in turns on the device data path (ms/step, busy, waits,
+    peak memory).  -> {"path": {...}, "direct": {...}, "counts": ...}."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct, Path
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, device_dataset, make_device_data_step, make_optimizer, rand_uv_mask, train,
+    )
+    from neural_raytracing_tpu_torch.workloads import nerv
+
+    spec = make_optimizer(NERV_LRS)
+    builder = lambda c: NeRFCamera(c, data.focal)
+    ddata = device_dataset(data.images, data.masks, data.cam_to_worlds, NV_SIZE,
+                           light_locs=data.light_locs, device=dev)
+    scene = nerv.build_scene().init(torch.Generator().manual_seed(0), device=dev)
+    views = [0, 4, 8]
+    pinned = lambda d, g: (torch.tensor(views, device=dev), torch.tensor(0, device=dev),
+                           torch.tensor(0, device=dev))
+    res = {}
+    for label in ("kernels", "plain"):
+        sc = copy.deepcopy(scene)
+        dstep = make_device_data_step(sc, Path(max_depth=2, training=True), spec, builder,
+                                      n_views=3, size=NV_SIZE, crop_size=NV_SIZE,
+                                      with_light_locs=True, tone_mapping=True, draw=pinned)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        if label == "plain":
+            with plain_kernels():
+                _, aux = dstep(TrainState(sc, spec.init(sc), 0), ddata, gen)
+        else:
+            _, aux = dstep(TrainState(sc, spec.init(sc), 0), ddata, gen)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()])
+                 for c in ("shape", "bsdf", "lights")}
+        res[label] = (aux["loss"].item(), grads, aux["got"][..., 3] > 0.5)
+        del sc
+    (lk, gk, ak), (lp, gp, ap) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_diff = int((ak != ap).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"Path training step parity (NeRV twin's scene, seed-0 weights, generated data, "
+          f"device data path, views {views} at 3 x {NV_SIZE}^2, the same generator seed; "
+          f"kernels vs plain_kernels()): loss {lk:.7f} vs {lp:.7f} (rel {rel_loss:.3e}), "
+          f"silhouette flags that differ {n_diff} of {ak.numel()} (covered "
+          f"{ap.float().mean().item():.4f}), gradient rel L2 "
+          f"{', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}")
+    check(np.isfinite(lk) and rel_loss <= 1e-4, f"Path step parity: loss rel {rel_loss:.3e}")
+    check(n_diff <= 0.001 * ak.numel(), f"Path step parity: {n_diff} silhouette flags differ")
+    for c, e in rel_g.items():
+        check(gp[c].norm().item() > 0, f"Path step parity: no {c} gradient")
+        check(e <= 1e-2, f"Path step parity: {c} gradient rel L2 {e:.3e} > 1e-2")
+    del res, gk, gp
+
+    # 10 counted steps of the workload's own entry on the device data path
+    args = twin_args(nerv, size=NV_SIZE, crop_size=NV_SIZE, iters=10, log_every=0,
+                     device=str(dev), device_data=True, train_integrator="path")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, run = nerv.run(args, data, None, save=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    k1_routes("NeRV twin, --train-integrator path")
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
+        check(counts[name] > 0, f"NeRV twin, --train-integrator path: {name} was not launched")
+    check(np.isfinite(run["losses"]).all(), f"Path training losses {run['losses']}")
+    print(f"NeRV twin run --train-integrator path (device data path, 3 x {NV_SIZE}^2, 10 "
+          f"steps): {secs:.2f} s with the calibration, losses "
+          f"{[round(x, 4) for x in run['losses']]}; launches {counts}")
+
+    # the Path and the Direct step in turns on one state, the device data path
+    kw = dict(size=NV_SIZE, crop_size=NV_SIZE, n_views=3, tone_mapping=True,
+              uv_select=rand_uv_mask, log_every=0, nan_policy="raise", device_data=ddata,
+              camera_builder=builder)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    box = {"state": state}
+
+    def steps_of(integrator):
+        def steps(n):
+            box["state"], _ = train(state.scene, integrator, spec, box["state"], None, None,
+                                    None, gen, iters=n, **kw)
+        return steps
+
+    paths = {"path": steps_of(Path(max_depth=2, training=True)),
+             "direct": steps_of(Direct(training=True))}
+    for fn in paths.values():
+        fn(2)                                                           # warm-up
+    walls = {k: [] for k in paths}
+    for k in ("path", "direct", "direct", "path"):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        paths[k](10)
+        torch.cuda.synchronize()
+        walls[k].append(1e3 * (time.perf_counter() - start) / 10)
+    out = {"counts": counts, "twin_s": secs}
+    for k, fn in (("direct", paths["direct"]), ("path", paths["path"])):
+        prof, kernels = steps_profile(torch, lambda: fn(3), 3)
+        check(prof["busy_ms"] > 0, f"{k} step: the profiler saw no device time")
+        # counted twice: a first count after a profiler session once caught
+        # a wait with no frame of the package on its stack
+        first = sync_sites(torch, lambda: fn(3))
+        syncs = sync_sites(torch, lambda: fn(3))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn(1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        ms = float(np.median(walls[k]))
+        out[k] = dict(ms=ms, busy_ms=prof["busy_ms"], launches=prof["launches"],
+                      idle=1 - prof["busy_ms"] / prof["wall_ms"], syncs=syncs, peak_gib=peak,
+                      path=k_path_ms(kernels))
+        print(f"NeRV {k} training step on generated data (3 x {NV_SIZE}^2 = "
+              f"{3 * NV_SIZE * NV_SIZE} rays, device data path, {card()}): "
+              f"{[round(x, 1) for x in walls[k]]} ms/step in turns; a profile of 3 steps: busy "
+              f"{out[k]['busy_ms']:.1f} ms a step, idle share {out[k]['idle']:.3f}, "
+              f"{out[k]['launches']:.0f} launches a step; K1-K4 device ms a launch: "
+              f"{k_line(out[k]['path'])}; {sum(syncs.values())} waits for the card in 3 steps: "
+              f"{syncs} (the first count: {first}); peak memory {peak:.3f} GiB")
+    n_path, n_direct = (sum(out[k]["syncs"].values()) for k in ("path", "direct"))
+    check(n_path <= n_direct, f"the Path step waits for the card {n_path} times in 3 steps, "
+          f"the Direct step {n_direct}")
+    print(f"NeRV training, Path / Direct step: {out['path']['ms']:.1f} / "
+          f"{out['direct']['ms']:.1f} ms/step ({out['path']['ms'] / out['direct']['ms']:.3f}), "
+          f"busy {out['path']['busy_ms']:.1f} / {out['direct']['busy_ms']:.1f} ms, peak memory "
+          f"{out['path']['peak_gib']:.3f} / {out['direct']['peak_gib']:.3f} GiB")
+    out["state"] = box["state"]
+    return out
+
+
+def relit_views(torch, dev, scene, test):
+    """(d) workloads.path_nerv.run on ``scene`` and the 4 test views at 64^2,
+    4 passes each: PSNR beside Direct's (evaluate, hard shadows) and the
+    black render's, a pixel probe."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import evaluate
+    from neural_raytracing_tpu_torch.workloads import nerv, path_nerv
+    args = twin_args(path_nerv, size=NV_SIZE, samples=4, device=str(dev))
+    ev = nerv.eval_scene(scene, "hard", 1.2)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = path_nerv.run(args, test, ev, save=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    check(np.isfinite(out["images"]).all() and out["images"].shape == (4, NV_SIZE, NV_SIZE, 3),
+          f"path_nerv: images {out['images'].shape}")
+    direct = evaluate(ev, lambda i: NeRFCamera(torch.from_numpy(test.cam_to_worlds[i:i + 1]),
+                                               test.focal),
+                      test.images, Direct(training=False), size=NV_SIZE,
+                      chunk_size=NV_SIZE, log_fn=lambda s: None,
+                      light_update=lambda sc, cam, i: sc.lights.set_location(
+                          test.light_locs[i:i + 1]))
+    print(f"path_nerv twin (4 test views at {NV_SIZE}^2, 4 passes, Path depth 2, hard shadows, "
+          f"bounded 1.2): {secs:.2f} s; PSNR {out['avg_psnr']:.3f} dB, Direct's "
+          f"{direct['psnr']:.3f}, the black render's {black_psnr(test.images):.3f}; "
+          f"{pixel_probe(out['images'])} (a pipeline check, not a quality figure)")
+    return out
+
+
+def phase_path(torch, dev, trained=None):
+    """Phase 22: Path and Direct's BSDF arm on the trained NeRV checkpoint at
+    full width, the bounce launches, Path training, path_nerv, the other
+    integrators of workloads.render.  ``trained``: phase 21's (data, test,
+    state), else the NeRV generator's data is made here and (d) renders the
+    scene (e) trained.  -> the numbers for the kernels line."""
+    import tempfile
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.integrators import Direct, Path
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.lights import Constant
+    from neural_raytracing_tpu_torch.workloads import render
+
+    print(f"phase 22 on {card()}")
+    scene = nerv_scene(torch, dev, 128, 1.2, "hard")
+    locs = scene.lights.location.detach().clone()
+    scene.lights.set_location(locs[:1])
+
+    # (a) Path at full width against plain_kernels(), the same draws
+    path2 = Path(max_depth=2)
+    got, counts = counted_view(torch, "Path view", lambda: path_view(torch, dev, scene, path2),
+                               {"fused_march": 2, "fused_shadow_march": 2})
+    with plain_kernels():
+        want = path_view(torch, dev, scene, path2)
+    frac, agree, mean_d, max_d = compare_images("Path view", got.cpu().numpy(),
+                                                want.cpu().numpy())
+    print(f"(a) Path(max_depth=2), hard shadows, NeRV eval view 0 at {NERV_SIZE}^2 (light 0, "
+          f"1 pass): kernels against plain_kernels(): lit fraction {frac:.4f}, mask agreement "
+          f"{agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}; launches {counts}")
+
+    # (b) depth 1 is Direct (a delta light: only the camera jitter draws)
+    direct = path_view(torch, dev, scene, Direct(training=False))
+    depth1 = path_view(torch, dev, scene, Path(max_depth=1))
+    d1 = (depth1 - direct).abs().max().item()
+    check(d1 <= 1e-6, f"Path(max_depth=1) against Direct: max |diff| {d1:.3e} > 1e-6")
+    check(got.mean().item() >= direct.mean().item(),
+          f"Path depth 2 mean {got.mean().item():.6f} below Direct's {direct.mean().item():.6f}")
+    print(f"(b) Path(max_depth=1) against Direct(training=False): max |diff| {d1:.3e}; mean "
+          f"radiance Direct {direct.mean().item():.6f}, Path depth 2 {got.mean().item():.6f} "
+          f"(+{got.mean().item() / max(direct.mean().item(), 1e-30) - 1:.4f})")
+
+    # (c) ms/view in turns, a profile of one Path view, the bounce launch
+    times = in_turns({"direct": lambda: path_view(torch, dev, scene, Direct(training=False)),
+                      "path": lambda: path_view(torch, dev, scene, path2)}, reps=3)
+    prof = profile_step(torch, lambda: path_view(torch, dev, scene, path2),
+                        "one Path view (depth 2, hard shadows)")
+    kp = k_path_ms(kernel_profile(torch, lambda: path_view(torch, dev, scene, path2), reps=2))
+    print(f"(c) on {card()}: Direct {times['direct']:.1f} ms/view, Path depth 2 "
+          f"{times['path']:.1f} ms/view ({times['path'] / times['direct']:.3f}); the Path view's "
+          f"K1-K4 device ms a launch: {k_line(kp)}")
+    bounce = bounce_launch(torch, dev, scene)
+
+    # (f) Direct's BSDF arm under Constant, kernels against plain, K4 for both arms
+    lit = scene.replace(lights=Constant(radius=5.0, intensity=0.5).to(dev))
+    mis = Direct(emitter_samples=1, bsdf_samples=1, training=False)
+    got_f, counts_f = counted_view(torch, "Direct BSDF arm", lambda: path_view(torch, dev, lit, mis),
+                                   {"fused_march": 1, "fused_shadow_march": 2})
+    with plain_kernels():
+        want_f = path_view(torch, dev, lit, mis)
+    frac, agree, mean_d, max_d = compare_images("Direct BSDF arm", got_f.cpu().numpy(),
+                                                want_f.cpu().numpy())
+    ms_f = cuda_ms(lambda: path_view(torch, dev, lit, mis), 3)
+    print(f"(f) Direct(emitter_samples=1, bsdf_samples=1) under Constant(5, 0.5), hard shadows, "
+          f"view 0 at {NERV_SIZE}^2: kernels against plain_kernels(): lit fraction {frac:.4f}, "
+          f"mask agreement {agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}; "
+          f"{ms_f:.1f} ms/view; launches {counts_f}")
+    k4_constant = constant_shadow_shapes(torch, dev, lit)
+    scene.lights.set_location(locs)
+    del lit
+
+    # (g) workloads.render.main --workload nerv with the other integrators
+    frames = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("debug", "depth", "silhouette", "path"):
+            args = ["--workload", "nerv", "--models", str(ARTIFACTS), "--size",
+                    str(ORBIT_SIZE), "--frames", "1", "--device", str(dev), "--outputs", tmp,
+                    "--integrator", name]
+            render.main(args)                                           # warm-up
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            frame = render.main(args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            c = launch_counts()
+            k1_routes(f"render --integrator {name}")
+            dims = 1 if name in ("depth", "silhouette") else 3
+            check(c["fused_march"] > 0, f"render --integrator {name}: K2 was not launched")
+            check(frame.shape == (1, ORBIT_SIZE, ORBIT_SIZE, dims) and np.isfinite(frame).all(),
+                  f"render --integrator {name}: frame {frame.shape}")
+            frames[name] = frame
+            print(f"(g) workloads.render.main --workload nerv --integrator {name}, one "
+                  f"{ORBIT_SIZE}^2 frame: {1e3 * secs:.1f} ms, mean {frame.mean():.4f}; "
+                  f"launches {c}")
+    check(set(np.unique(frames["silhouette"])) <= {0.0, 1.0}, "silhouette frame not 0/1")
+
+    # (e) Path training on the NeRV generator's data, (d) path_nerv on a trained scene
+    if trained is None:
+        data, test, _, _ = nerv_generated(torch, dev, NV_SIZE)
+    else:
+        data, test, _ = trained
+    training = path_training(torch, dev, data)
+    relit_views(torch, dev, (trained[2] if trained is not None else training["state"]).scene,
+                test)
+    return dict(counts=counts, times=times, prof=prof, kp=kp, bounce=bounce,
+                k4_constant=k4_constant, training=training)
 
 
 def median_busy(torch, fn, label, reps: int = 3) -> dict:
@@ -4430,6 +4892,9 @@ def main():
     if sys.argv[1:2] == ["--converge-dtu"]:
         converge_dtu_main(torch, dev, int(sys.argv[2]) if len(sys.argv) > 2 else 4000)
         return
+    if sys.argv[1:2] == ["--path"]:
+        phase_path(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -4459,6 +4924,7 @@ def main():
     co = phase_colocate(torch, dev)
     dt = phase_dtu(torch, dev)
     nv = phase_nerv_generated(torch, dev)
+    pt = phase_path(torch, dev, (nv["data"], nv["test"], nv["state"]))
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -4475,7 +4941,9 @@ def main():
                     "eval_tile_ms", "eval_chunk_ms", "eval_chunk_bound_ms",
                     "training_call_ms", "training_call_bound_ms", "path_ms",
                     "path_bound_ms", "parent_ms", "eval_tile_ms", "eval_tile_parent_ms",
-                    "path_parent_ms", "kernel_ms", "path_kernel_ms", "same_bits"):
+                    "path_parent_ms", "kernel_ms", "path_kernel_ms", "same_bits",
+                    "bounce_launch_ms", "bounce_launch_bound_ms", "bsdf_arm_launch_ms",
+                    "bsdf_arm_launch_bound_ms"):
             if key in m:
                 e[key] = m[key]
         return e
@@ -4488,6 +4956,11 @@ def main():
 
     # K2 and K2-bf16 (redesigned): also their time on one eval tile
     k2["bounded"]["eval_tile_ms"] = k2_shapes["eval tile"]["ms"]
+    # K2 and K4 (phase 22): a Path tile's bounce launch, Direct's BSDF-arm shadow launch
+    k2["bounded"]["bounce_launch_ms"] = pt["bounce"]["bounce"]["ms"]
+    k2["bounded"]["bounce_launch_bound_ms"] = pt["bounce"]["bounce"]["bound_ms"]
+    bsdf_arm = pt["k4_constant"]["BSDF arm (max_t Constant.intersect)"]
+    k4["bsdf_arm_launch_ms"], k4["bsdf_arm_launch_bound_ms"] = bsdf_arm[:2]
     kb16["k2 bounded"]["eval_tile_ms"] = k2_shapes["eval tile"]["bf16_ms"]
     kernels = [
         entry("fused_mlp_forward", "fused_mlp_tile.cu", "fused_mlp.py:129",
@@ -4539,7 +5012,12 @@ def main():
           f"view {co['ms_view']:.1f} ms/view; DTU training step, host / device data path "
           f"{dt['turns']['host']['ms']:.1f} / {dt['turns']['device']['ms']:.1f} ms/step; NeRV "
           f"on generated data {nv['turns']['host']['ms']:.1f} / "
-          f"{nv['turns']['device']['ms']:.1f} ms/step")
+          f"{nv['turns']['device']['ms']:.1f} ms/step; NeRV Path view (depth 2) "
+          f"{pt['times']['path']:.1f} ms/view (Direct {pt['times']['direct']:.1f}), Path "
+          f"training step {pt['training']['path']['ms']:.1f} ms/step (Direct "
+          f"{pt['training']['direct']['ms']:.1f}), peak memory "
+          f"{pt['training']['path']['peak_gib']:.3f} GiB (Direct "
+          f"{pt['training']['direct']['peak_gib']:.3f})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

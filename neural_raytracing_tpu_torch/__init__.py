@@ -19,7 +19,11 @@ over-relaxed sphere trace behind the orbit renderer ``workloads.render``;
 and the colocate workload (``bsdf.Diffuse``, ``bsdf.Conductor``, the
 twin ``workloads.colocate``) with its dataset generator
 (``shapes.FunctionalSDF``, ``integrators.Mask``, the twin
-``workloads.make_dataset``).
+``workloads.make_dataset``); and Monte Carlo transport (every BSDF's
+``sample``, the ``Constant`` light, Direct's BSDF arm, ``Path``, the debug
+integrators, ``shapes.Sphere``/``SphereCloud``, the twin
+``workloads.path_nerv``), drawing its uniforms through
+``ops.sampling.uniform``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

@@ -1,1 +1,4 @@
-from .bsdfs import ComposeSpatialVarying, Conductor, Diffuse, NeuralBSDF
+from .bsdfs import (
+    Bidirectional, Compose, ComposeSpatialVarying, Conductor, Diffuse, NeuralBSDF, Phong,
+    Plastic, SelectBSDF, invert_z,
+)

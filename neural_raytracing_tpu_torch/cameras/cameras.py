@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from ..ops import sampling
 from ..ops.math import normalize
 
 
@@ -104,7 +105,7 @@ def _expand_bundle(positions: torch.Tensor, generator: Optional[torch.Generator]
         positions.shape[:-1] + (bundle_size, 2))
     if with_noise and generator is not None:
         d = float(with_noise)
-        u = torch.rand(pos.shape, generator=generator, device=pos.device)
+        u = sampling.uniform(generator, pos.shape, pos.device)
         pos = pos + d * u - d / 2.0
     return pos
 

@@ -1,1 +1,4 @@
-from .integrators import Direct, Integrator, Mask, NeRFIntegrator, NeRFReproduce
+from .integrators import (
+    BasisBRDF, Debug, Depth, Direct, Illumination, Integrator, LevelSurfaces, Luminance,
+    Mask, NeRFIntegrator, NeRFReproduce, Path, Silhouette, mis_weight,
+)

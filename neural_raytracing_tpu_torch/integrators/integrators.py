@@ -1,12 +1,20 @@
 """Light-transport integrators.
 
 Counterpart of ``neural_raytracing_tpu/integrators/integrators.py``:
-``Direct`` with its emitter-sampling arm, the training wrapper
-``NeRFIntegrator``, ``Mask``, which appends the hit mask (the dataset
-generator's alpha), and ``NeRFReproduce``, which hands the rays to a
-volumetric (NeRF-family) shape.  Interface:
-``sample(scene, rays, generator, training) -> (values [..., dims],
-active [...], Interaction)``.
+  * ``Direct``: direct lighting with emitter sampling and, for a non-delta
+    light, a BSDF-sampling arm weighted by multiple importance sampling;
+  * ``Path``: multi-bounce path tracing with BSDF importance sampling, the
+    path throughput detached each bounce;
+  * the debug integrators ``Debug``, ``Silhouette``, ``Depth``,
+    ``LevelSurfaces``, ``BasisBRDF``, ``Illumination``, ``Luminance``;
+  * ``NeRFIntegrator``: the training wrapper (appends the silhouette alpha);
+    ``Mask``: appends the hit mask (the dataset generator's alpha);
+    ``NeRFReproduce``: hands the rays to a volumetric (NeRF-family) shape.
+Interface: ``sample(scene, rays, generator, training) -> (values [...,
+dims], active [...], Interaction)``.  The Monte Carlo ones (``Path``,
+``Direct``'s BSDF arm) raise ``ValueError`` without a ``generator``.  The
+reference's early exits are masked dataflow, as in the JAX package: every
+ray is marched, active or not.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..interaction import Interaction
+from ..ops.math import maximum, normalize
 from ..scene import Scene, sample_emitter
 
 
@@ -35,16 +44,134 @@ def _attach_aux(it: Interaction, aux: dict) -> Interaction:
     return it
 
 
+def mis_weight(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The power heuristic ``a^2 / (a^2 + max(b^2, 1e-7))``, 0 where ``a`` is."""
+    a = a * a
+    b = maximum(torch.square(b), 1e-7)
+    return torch.where(a > 0, a / (a + b), 0.0)
+
+
+def _secondary(scene, rays, generator):
+    """An intersection with no silhouette throughput (``primary=False``)."""
+    return scene.shape.intersect(rays, primary=False, generator=generator)
+
+
+class Debug(Integrator):
+    """Shading normals mapped to [0, 1] colours."""
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene, rays, generator=None, training=None):
+        it, active = _secondary(scene, rays, generator)
+        return torch.where(active[..., None], (it.n + 1.0) / 2.0, 0.0), active, it
+
+
+class Silhouette(Integrator):
+    """0 where the ray hit, 1 where it missed."""
+
+    def dims(self):
+        return 1
+
+    def sample(self, scene, rays, generator=None, training=None):
+        it, active = _secondary(scene, rays, generator)
+        return 1.0 - active[..., None].to(torch.float32), active, it
+
+
+class Depth(Integrator):
+    """The hit's ray parameter (``empty_val`` on a miss); with ``scale`` the
+    non-zero depths are divided by their maximum over the batch."""
+
+    def __init__(self, empty_val: float = -1.0, scale: bool = False):
+        self.empty_val = empty_val
+        self.scale = scale
+
+    def dims(self):
+        return 1
+
+    def sample(self, scene, rays, generator=None, training=None):
+        it, active = _secondary(scene, rays, generator)
+        results = torch.where(active, it.t, self.empty_val)
+        if self.scale:
+            max_t = torch.amax(torch.where(active, results, 0.0))
+            results = torch.where(results != 0, results / maximum(max_t, 1e-9), results)
+        return results[..., None], active, it
+
+
+class LevelSurfaces(Integrator):
+    """``exp(-min sdf along the ray)``: the SDF over the whole image."""
+
+    def dims(self):
+        return 1
+
+    def sample(self, scene, rays, generator=None, training=None):
+        min_sdfs = scene.shape.level_surfaces(rays)
+        monochrome = torch.exp(-maximum(min_sdfs, 1e-10))
+        active = torch.ones(rays.shape[:-1], dtype=torch.bool, device=rays.device)
+        return monochrome[..., None], active, None
+
+
+class BasisBRDF(Integrator):
+    """The per-basis weights of a spatially varying BSDF (the scene's by
+    default) at the hit points."""
+
+    def __init__(self, bsdf=None):
+        self.bsdf = bsdf
+
+    def dims(self):
+        return len(self.bsdf.bsdfs) if self.bsdf is not None else -1
+
+    def sample(self, scene, rays, generator=None, training=None):
+        bsdf = self.bsdf if self.bsdf is not None else scene.bsdf
+        it, active = _secondary(scene, rays, generator)
+        weights, _ = bsdf.normalized_weights(it.p)
+        return torch.where(active[..., None], weights, 0.0), active, it
+
+
+class Illumination(Integrator):
+    """The local light direction at the hit, as colours (no shadows)."""
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene, rays, generator=None, training=None):
+        it, active = _secondary(scene, rays, generator)
+        ds, _ = sample_emitter(scene.replace(occlusion="none"), it, generator, active)
+        results = torch.where(active[..., None],
+                              (normalize(it.to_local(ds.d)) + 1.0) / 2.0, 0.0)
+        return (1.0 + results) / 2.0, active, it
+
+
+class Luminance(Integrator):
+    """The light's luminance arriving at the hit (no shadows)."""
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene, rays, generator=None, training=None):
+        it, active = _secondary(scene, rays, generator)
+        ds, emitter_val = sample_emitter(scene.replace(occlusion="none"), it, generator,
+                                         active)
+        r, b = emitter_val[..., 0:1], emitter_val[..., 2:3]
+        # the reference's formula, green term and all (integrators.py:127-129)
+        lum = 0.2126 * r + 0.7152 * 0.0722 * b
+        return torch.where(active[..., None], lum.expand(ds.d.shape), 0.0), active, it
+
+
 class Direct(Integrator):
-    """Direct lighting with emitter sampling.
+    """Direct lighting: emitter sampling and, for a non-delta light with
+    ``bsdf_samples > 0``, BSDF sampling, the two arms weighted by
+    ``mis_weight`` (the emitter arm's by ``mis_weight(light_pdf, max(bsdf_pdf,
+    0))``, the BSDF arm's by ``mis_weight(bsdf_pdf, light_pdf)``).
 
     ``training=True`` runs primary intersections, which carry the
-    silhouette throughput; ``generator`` jitters its min-scan.  The
-    BSDF-sampling arm (``bsdf_samples > 0`` with a non-delta light) is not
-    ported yet and raises.  ``horizon_mask`` zeroes the emitter arm below the
-    local horizon.  The emitter samples go through ``sample_emitter``, which
-    casts the shadow ray of the scene's occlusion mode up to the light's
-    distance (10 for a light without one).
+    silhouette throughput; ``generator`` jitters its min-scan and draws the
+    Monte Carlo samples (the BSDF arm raises ``ValueError`` without one).
+    ``horizon_mask`` zeroes the emitter arm below the local horizon.  The
+    emitter samples go through ``sample_emitter``, which casts the shadow
+    ray of the scene's occlusion mode up to the light's distance (10 for a
+    light without one); the BSDF arm casts its shadow ray up to the light's
+    ``intersect`` distance, ray by ray.
     """
 
     def __init__(self, emitter_samples: int = 1, bsdf_samples: int = 0,
@@ -60,27 +187,99 @@ class Direct(Integrator):
     def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
                training: Optional[bool] = None):
         training = self.training if training is None else training
-        # delta lights are unhittable by BSDF-sampled rays: no BSDF arm
-        bsdf_samples = (0 if getattr(scene.lights, "delta", False)
-                        else self.bsdf_samples)
-        if bsdf_samples > 0:
-            raise NotImplementedError("the BSDF-sampling arm of Direct is not "
-                                      "ported yet")
         it, active = scene.shape.intersect(rays, primary=training,
                                            generator=generator)
         result = torch.zeros(rays.shape[:-1] + (3,), dtype=torch.float32,
                              device=rays.device)
+        # delta lights are unhittable by BSDF-sampled rays: no BSDF arm
+        bsdf_samples = (0 if getattr(scene.lights, "delta", False)
+                        else self.bsdf_samples)
+        if bsdf_samples > 0 and generator is None:
+            # a fixed stream would make repeated passes average the same samples
+            raise ValueError("Direct(bsdf_samples>0) requires a generator; pass "
+                             "generator= to sample() or key= to pathtrace()")
         for _ in range(self.emitter_samples):
             ds, emitter_val = sample_emitter(scene, it, generator, active)
             active_emitted = active & (ds.pdf > 0)
             wo = it.to_local(ds.d)
             if self.horizon_mask:
                 active_emitted = active_emitted & (wo[..., 2] > 0.0)
-            bsdf_val, _, aux = scene.bsdf.eval_and_pdf(it, wo, active_emitted)
+            bsdf_val, bsdf_pdf, aux = scene.bsdf.eval_and_pdf(it, wo, active_emitted)
             it = _attach_aux(it, aux)
             val = bsdf_val * emitter_val / self.emitter_samples
+            if bsdf_samples > 0 and not ds.delta:
+                # directions the BSDF sampler cannot produce keep weight 1
+                val = val * mis_weight(ds.pdf, maximum(bsdf_pdf, 0.0))[..., None]
             result = result + torch.where(active_emitted[..., None], val, 0.0)
+
+        for _ in range(bsdf_samples):
+            # sample() gives the direction; value and pdf come from
+            # eval_and_pdf, so both arms share one convention
+            bs, _ = scene.bsdf.sample(it, generator, active)
+            new_rays = it.spawn_rays(it.from_local(bs.wo))
+            light_t, light_hit = scene.lights.intersect(new_rays)
+            emit_val, light_pdf = scene.lights.eval_pdf(new_rays)
+            bsdf_val, bsdf_pdf, _ = scene.bsdf.eval_and_pdf(it, bs.wo, active)
+            ok = active & light_hit & (bsdf_pdf > 0)
+            if scene.occlusion != "none":
+                ok = ok & scene.shape.intersect_test(new_rays, max_t=light_t, active=ok)
+            w = (mis_weight(bsdf_pdf, light_pdf) / maximum(bsdf_pdf, 1e-10)
+                 / bsdf_samples)
+            result = result + torch.where(ok[..., None], w[..., None] * bsdf_val * emit_val,
+                                          0.0)
         return result, active, it
+
+
+class Path(Integrator):
+    """Multi-bounce path tracing with BSDF importance sampling.
+
+    Each bounce samples the emitter (shadow rays by the scene's occlusion
+    mode) and then the BSDF; the path throughput ``max(bsdf_val, 1e-10) *
+    throughput`` is detached each bounce; the bounce rays intersect with
+    ``primary=False``.  Returns the first interaction, so that
+    ``NeRFIntegrator(Path(training=True))`` finds its ``throughput`` and
+    ``raw_normals``.  Raises ``ValueError`` without a ``generator``.
+    ``horizon_mask`` zeroes each bounce's emitter arm below the local
+    horizon.
+    """
+
+    def __init__(self, max_depth: int = 2, training: bool = False,
+                 horizon_mask: bool = False):
+        self.max_depth = max_depth
+        self.training = training
+        self.horizon_mask = horizon_mask
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = None):
+        training = self.training if training is None else training
+        if generator is None:
+            raise ValueError("Path is a Monte Carlo integrator and requires a generator; "
+                             "pass generator= to sample() or key= to pathtrace()")
+        it, active = scene.shape.intersect(rays, primary=training, generator=generator)
+        first_it, original_active = it, active
+        throughput = torch.ones(rays.shape[:-1] + (3,), dtype=torch.float32,
+                                device=rays.device)
+        result = torch.zeros_like(throughput)
+        for depth in range(self.max_depth):
+            ds, emitter_val = sample_emitter(scene, it, generator, active)
+            active_emitted = active & (ds.pdf > 0)
+            wo = it.to_local(ds.d)
+            if self.horizon_mask:
+                active_emitted = active_emitted & (wo[..., 2] > 0.0)
+            bsdf_val, _, _ = scene.bsdf.eval_and_pdf(it, wo, active_emitted)
+            result = result + torch.where(active_emitted[..., None],
+                                          throughput * bsdf_val * emitter_val, 0.0)
+            if depth == self.max_depth - 1:
+                break
+            bs, bsdf_val = scene.bsdf.sample(it, generator, active)
+            throughput = (maximum(bsdf_val, 1e-10) * throughput).detach()
+            active = active & torch.any(throughput > 0, dim=-1)
+            it, hits = _secondary(scene, it.spawn_rays(it.from_local(bs.wo)), generator)
+            active = active & hits
+        return result, original_active, first_it
 
 
 class NeRFIntegrator(Integrator):

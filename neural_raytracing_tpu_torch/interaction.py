@@ -68,3 +68,15 @@ class DirectionSample(NamedTuple):
     p: Optional[torch.Tensor] = None
     n: Optional[torch.Tensor] = None
     delta: bool = True
+
+
+class BSDFSample(NamedTuple):
+    """A sampled outgoing direction from a BSDF (local frame).
+
+    wo:  [..., 3]  the direction
+    pdf: [...]     its density (joint with the pick of a mixture's basis)
+    """
+
+    wo: torch.Tensor
+    pdf: torch.Tensor
+    eta: float = 1.0

@@ -1,1 +1,1 @@
-from .lights import LightField, PointLights
+from .lights import Constant, LightField, PointLights

@@ -1,18 +1,24 @@
-"""Light emitters: learnable point lights and the learned light field.
+"""Light emitters: learnable point lights, the constant environment and the
+learned light field.
 
-Counterpart of ``PointLights`` and ``LightField`` in
-``neural_raytracing_tpu/lights/lights.py``:
+Counterpart of ``neural_raytracing_tpu/lights/lights.py``:
   * ``PointLights``: learnable intensity, location and constant / linear /
     quadratic falloff; spectrum ``scale * normalize(intensity) / max(c + l d
     + q d^2, 1e-6)`` with each coefficient clamped at 1e-6; a delta sample.
     A ``[N, 3]`` location is one light per view and broadcasts over the
     camera axis of the interaction (NeRV's per-frame lights);
+  * ``Constant``: an enclosing sphere emitting uniformly inwards, sampled
+    uniformly over the sphere of directions; a non-delta light that
+    BSDF-sampled rays hit (``intersect``, ``eval_pdf``);
   * ``LightField``: MLP(x) gives an unnormalised direction whose length
     scales a learned RGB; a delta light (pdf 1).
+Delta lights cannot be hit by a BSDF-sampled ray: their ``intersect`` and
+``eval_pdf`` return misses and zeros.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -22,13 +28,29 @@ from ..bsdf.bsdfs import active_mask
 from ..interaction import DirectionSample
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import SkipConnMLP
+from ..ops import sampling
 from ..ops.math import clip, maximum, normalize
+from ..ops.warps import square_to_uniform_sphere, square_to_uniform_sphere_pdf
 
 
 def _bcast(v: torch.Tensor, batch_ndim: int) -> torch.Tensor:
     """Reshape an ``[N, C]`` per-view parameter to ``[N, 1, ..., 1, C]``."""
     v = torch.atleast_2d(v)
     return v.reshape(v.shape[:1] + (1,) * (batch_ndim - 1) + v.shape[-1:])
+
+
+def never_hit(rays: torch.Tensor):
+    """``intersect`` of a delta light: every ray misses it."""
+    batch = rays.shape[:-1]
+    return (torch.zeros(batch, dtype=rays.dtype, device=rays.device),
+            torch.zeros(batch, dtype=torch.bool, device=rays.device))
+
+
+def no_emission(rays: torch.Tensor):
+    """``eval_pdf`` of a delta light: no radiance, density 0."""
+    batch = rays.shape[:-1]
+    return (torch.zeros(batch + (3,), dtype=rays.dtype, device=rays.device),
+            torch.zeros(batch, dtype=rays.dtype, device=rays.device))
 
 
 class PointLights(nn.Module):
@@ -113,16 +135,61 @@ class PointLights(nn.Module):
         dist = torch.linalg.norm(d, dim=-1, keepdim=True)
         return self.scale * normalize(self.intensity) / maximum(self._falloff(dist), 1e-6)
 
-    # a delta light: BSDF-sampled rays cannot hit it
     def intersect(self, rays: torch.Tensor):
-        batch = rays.shape[:-1]
-        return (torch.zeros(batch, dtype=rays.dtype, device=rays.device),
-                torch.zeros(batch, dtype=torch.bool, device=rays.device))
+        return never_hit(rays)
 
     def eval_pdf(self, rays: torch.Tensor):
+        return no_emission(rays)
+
+
+class Constant(nn.Module):
+    """An enclosing sphere of radius ``radius`` emitting ``intensity`` (a
+    learnable 0-d leaf) uniformly inwards."""
+
+    delta = False
+
+    def __init__(self, radius: float = 5.0, intensity: float = 0.5):
+        super().__init__()
+        self.radius = float(radius)
+        self._init = torch.tensor(float(intensity))
+        self.intensity = nn.Parameter(self._init.clone())
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None):
+        self.intensity.copy_(self._init)
+
+    def sample_direction(self, it, generator=None, active=True):
+        if generator is None:
+            raise ValueError("Constant light sampling requires a generator")
+        batch = it.p.shape[:-1]
+        u = sampling.uniform(generator, batch + (2,), it.p.device)
+        d = normalize(square_to_uniform_sphere(u))
+        dist = 2.0 * self.radius
+        pdf_val = square_to_uniform_sphere_pdf(d)
+        full = lambda v: torch.full(batch, v, dtype=it.p.dtype, device=it.p.device)
+        ds = DirectionSample(d=d, pdf=full(pdf_val), dist=full(dist), p=it.p + d * dist,
+                             n=-d, delta=False)
+        spectrum = (self.intensity / pdf_val).expand(it.p.shape)
+        ok = active_mask(active, batch, it.p.device)[..., None]
+        return ds, torch.where(ok, spectrum, 0.0)
+
+    def intersect(self, rays: torch.Tensor):
+        """-> (distance to the enclosing sphere [...], hit [...])."""
+        p, d = rays[..., :3], rays[..., 3:]
+        b = torch.sum(p * d, dim=-1)
+        c = torch.sum(p * p, dim=-1) - self.radius * self.radius
+        disc = b * b - c
+        t = -b + torch.sqrt(maximum(disc, 0.0))
+        return t, (disc >= 0.0) & (t > 0.0)
+
+    def eval_pdf(self, rays: torch.Tensor):
+        """The radiance along ``rays`` and the density with which
+        ``sample_direction`` draws their directions (uniform over the
+        sphere)."""
         batch = rays.shape[:-1]
-        return (torch.zeros(batch + (3,), dtype=rays.dtype, device=rays.device),
-                torch.zeros(batch, dtype=rays.dtype, device=rays.device))
+        return (self.intensity.expand(batch + (3,)),
+                torch.full(batch, 1.0 / (4.0 * math.pi), dtype=rays.dtype,
+                           device=rays.device))
 
 
 class LightField(nn.Module):
@@ -157,3 +224,9 @@ class LightField(nn.Module):
                                                  device=it.p.device),
                              dist=None, delta=True)
         return ds, spectrum
+
+    def intersect(self, rays: torch.Tensor):
+        return never_hit(rays)
+
+    def eval_pdf(self, rays: torch.Tensor):
+        return no_emission(rays)

@@ -112,6 +112,11 @@ def stable_smooth_min(v: torch.Tensor, k: float = 32.0,
     return -torch.logsumexp(-k * v, dim=dim) / k
 
 
+def reflect(n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Mirror ``v`` about the normal ``n`` (both pointing away from the surface)."""
+    return 2.0 * torch.sum(n * v, dim=-1, keepdim=True) * n - v
+
+
 def local_reflect(v: torch.Tensor) -> torch.Tensor:
     """Mirror about the local +z axis: ``(x, y, z) -> (-x, -y, z)``."""
     # negation builds no constant tensor (a host-to-device copy on the card)

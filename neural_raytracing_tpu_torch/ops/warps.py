@@ -3,8 +3,9 @@ densities.
 
 Counterpart of the deterministic warps of
 ``neural_raytracing_tpu/ops/warps.py``.  Every function takes uniform
-samples in ``[0, 1]^2`` in the last axis.  ``random_on_sphere`` draws its own
-samples and comes with the BSDF-sampling arm of ``Direct``.
+samples in ``[0, 1]^2`` in the last axis.  ``random_on_sphere``, which draws
+its own samples, has its one caller in the JAX package's ``warps.py`` and
+comes with it (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@ dataset generator's procedural shapes); the kernels take only a SphereSDF,
 so a ``FunctionalSDF`` runs the plain loops, as in the JAX package.  ``SDF(march_dtype=torch.bfloat16)`` runs the three loops
 with bf16 operands in the shift net (K2-bf16, K3-bf16, K4-bf16); the
 differentiable evaluations (hit point, normals, throughput value) stay
-float32.  ``batch_throughput`` is not ported yet.
+float32.  ``SDF.level_surfaces`` (the minimum SDF along a ray) and
+``SDF.batch_throughput`` (a chunked silhouette scan) are plain PyTorch, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..kernels.fused_march import (
 )
 from ..kernels.fused_mlp import FusedSkipConnMLP
 from ..nn.mlp import SkipConnMLP, check_compute_dtype
+from ..ops import sampling
 from ..ops.math import (
     absolute, clip, maximum, minimum, normalize, smooth_min, stable_smooth_min,
 )
@@ -268,8 +271,8 @@ class SDF(nn.Module):
             step = torch.tensor(self.dist / steps, dtype=torch.float32,
                                 device=r_o.device)
         else:
-            u = torch.rand((), generator=generator, device=generator.device)
-            step = (self.dist + u.to(r_o.device) * (2.0 / steps)) / steps
+            u = sampling.uniform(generator, (), r_o.device)
+            step = (self.dist + u * (2.0 / steps)) / steps
         if self._use_kernel(r_o):
             idxs = fused_min_scan(self.module, r_o, r_d, step, steps=steps,
                                   compute_dtype=self.march_dtype)
@@ -287,6 +290,35 @@ class SDF(nn.Module):
         sd, _ = self.throughput(r_o[:, ::2, ::2], r_d[:, ::2, ::2], generator)
         sd = sd.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return sd[:, :r_o.shape[1], :r_o.shape[2]]
+
+    def batch_throughput(self, r_o: torch.Tensor, r_d: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         batch_size: int = 56, per: int = 32, max_t: float = 2.0):
+        """A chunked min-scan: the SDF at ``batch_size`` samples of ``t`` in
+        ``[0, max_t]`` (their grid shifted by ``U(0, 1) * max_t /
+        batch_size`` with a ``generator``), ``per`` at a time, keeping the
+        argmin; then one differentiable evaluation at the best ``t``."""
+        jitter = 0.0
+        if generator is not None:
+            jitter = sampling.uniform(generator, (), r_o.device) * (max_t / batch_size)
+        ts = torch.linspace(0.0, max_t, batch_size, device=r_o.device) + jitter
+        pad = (-batch_size) % per
+        if pad:
+            ts = torch.cat([ts, torch.full((pad,), torch.inf, device=r_o.device)])
+        batch = r_o.shape[:-1]
+        bests = torch.full(batch, torch.inf, device=r_o.device)
+        best_t = torch.zeros(batch, device=r_o.device)
+        expand = (...,) + (None,) * r_o.dim()
+        with torch.no_grad():
+            for tb in ts.reshape(-1, per):
+                p = r_o[None] + tb[expand] * r_d[None]
+                sd = torch.where(torch.isfinite(tb)[(...,) + (None,) * (r_o.dim() - 1)],
+                                 self.sdf(p), torch.inf)
+                mins, idxs = torch.min(sd, dim=0)
+                better = mins < bests
+                bests = torch.where(better, mins, bests)
+                best_t = torch.where(better, tb[idxs], best_t)
+        return self.sdf(r_o + best_t[..., None] * r_d)
 
     def intersect(self, rays: torch.Tensor, max_t: float = 10.0,
                   primary: bool = True,
@@ -339,3 +371,12 @@ class SDF(nn.Module):
             self._loop_sdf(), r_o, r_d, max_t, max_steps=self.max_steps,
             epsilon=self.epsilon, past_light_exit=self.shadow_past_light_exit)
         return not_blocked
+
+    def level_surfaces(self, rays: torch.Tensor, steps: int = 128) -> torch.Tensor:
+        """The minimum SDF along each ray over ``steps`` points of ``t`` in
+        ``[0, dist]`` (the ``LevelSurfaces`` debug integrator)."""
+        r_o, r_d = rays[..., :3], rays[..., 3:]
+        out = torch.full(r_o.shape[:-1], torch.inf, device=r_o.device)
+        for t in torch.linspace(0.0, self.dist, steps, device=r_o.device):
+            out = torch.minimum(out, self.sdf(r_o + t * r_d))
+        return out

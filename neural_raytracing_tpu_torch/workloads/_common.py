@@ -18,5 +18,8 @@ def chunk_for(size: int, cap: int = 128) -> int:
 def save_image(path: str, img) -> None:
     from PIL import Image
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    arr = (np.clip(np.asarray(img)[..., :3], 0.0, 1.0) * 255).astype(np.uint8)
+    arr = np.asarray(img)
+    if arr.ndim == 3 and arr.shape[-1] == 1:        # depth, silhouette: grey
+        arr = np.repeat(arr, 3, axis=-1)
+    arr = (np.clip(arr[..., :3], 0.0, 1.0) * 255).astype(np.uint8)
     Image.fromarray(arr).save(path)

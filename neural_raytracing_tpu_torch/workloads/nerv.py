@@ -12,12 +12,14 @@ occlusion MLP and with hard shadows.
     python -m neural_raytracing_tpu_torch.workloads.nerv --data nerv/armadillo
 
 ``--device-data`` trains on the on-device data path: the views, crops,
-cameras and each frame's light drawn on the device.  ``run`` takes the
+cameras and each frame's light drawn on the device.  ``--train-integrator
+path`` trains with ``Path(max_depth=2)`` in place of ``Direct`` on either
+data path: a Direct-trained model absorbs the interreflection into its
+materials, then counts it twice under a Path eval.  ``run`` takes the
 train and test splits in memory (``NeRVDataset``s), so a caller with no
 PNGs, or no PIL, can drive the same path.  Not carried over from the JAX
-script: ``--train-integrator path`` (the ``Path`` integrator is not ported,
-Queue 1 item 4) and ``--data-parallel`` (item 8).  ``--device`` picks the
-card (default) or the CPU.
+script: ``--data-parallel`` (Queue 1 item 8).  ``--device`` picks the card
+(default) or the CPU.
 """
 
 from __future__ import annotations
@@ -112,6 +114,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--bsdf-lr", type=float, default=4e-5)
     ap.add_argument("--light-lr", type=float, default=4e-5)
     ap.add_argument("--dist", type=float, default=2.2)
+    ap.add_argument("--train-integrator", type=str, default="direct",
+                    choices=["direct", "path"],
+                    help="train with the single-bounce Direct or with Path of depth 2")
     ap.add_argument("--stable-min", action="store_true",
                     help="exact logsumexp smooth-min")
     ap.add_argument("--fused-sdf", action="store_true",
@@ -138,7 +143,7 @@ def run(args, data, test=None, name: str = "nerv", save: bool = True):
     metrics dict per shadow mode (``"soft"``, ``"hard"``) and its renders
     (``"soft_images"``, ``"hard_images"``)."""
     from ..cameras import NeRFCamera
-    from ..integrators import Direct
+    from ..integrators import Direct, Path
     from ..training import (
         calibrate_exposure, device_dataset, evaluate, init_train_state, load_scene,
         make_optimizer, rand_uv_mask, save_scene, train,
@@ -191,8 +196,10 @@ def run(args, data, test=None, name: str = "nerv", save: bool = True):
             space_reg = make_space_reg(args.space_eikonal, args.space_repulsion,
                                        args.repulsion_alpha)
         generator = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+        integrator = (Path(max_depth=2, training=True) if args.train_integrator == "path"
+                      else Direct(training=True))
         state, results["losses"] = train(
-            scene, Direct(training=True), opt, state, make_camera, data.images,
+            scene, integrator, opt, state, make_camera, data.images,
             data.masks, generator, size=args.size, crop_size=args.crop_size,
             iters=args.iters, n_views=args.n_views,
             nan_policy="skip" if args.nan_skip else "raise",

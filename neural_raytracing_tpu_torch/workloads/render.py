@@ -12,8 +12,10 @@ primary march can be over-relaxed with ``--omega`` (1: off).
 
 Every workload (``nerf``, ``colocate``, ``dtu``, ``nerv``: each its
 twin's ``build_scene``, learned occlusion included, as ``scripts/render.py``
-rebuilds it) with ``--integrator direct``.  The other integrators raise
-``NotImplementedError``.  ``--device`` picks the card (default) or the CPU.
+rebuilds it) with every ``--integrator``: ``direct``, ``debug`` (normals),
+``depth`` (scaled by the tile's largest), ``silhouette`` and ``path``
+(``Path(max_depth=2)``; each frame's generators seeded by the frame
+index).  ``--device`` picks the card (default) or the CPU.
 """
 
 from __future__ import annotations
@@ -26,13 +28,6 @@ import torch
 
 from ._common import chunk_for, save_image
 
-# the integrators the port lacks, and the ROADMAP.md queue they come with
-_NOT_PORTED = {
-    "debug": "the debug integrators (Queue 1, the rest of the scene set)",
-    "depth": "the debug integrators (Queue 1, the rest of the scene set)",
-    "silhouette": "the debug integrators (Queue 1, the rest of the scene set)",
-    "path": "the Path integrator (Queue 1, the rest of the scene set)",
-}
 # the workloads whose point light sits at 1.05 x each frame's camera centre
 _POINT_LIT = ("colocate", "nerv")
 
@@ -51,6 +46,15 @@ def frame_camera(f: int, frames: int, dist: float, elev: float):
     r, t = look_at_view_transform(dist=dist, elev=elev,
                                   azim=-180.0 + 360.0 * f / frames)
     return FoVPerspectiveCamera(R=r, T=t)
+
+
+def make_integrator(name: str):
+    """The integrator ``--integrator`` names, as ``scripts/render.py:68-70``
+    maps them."""
+    from ..integrators import Debug, Depth, Direct, Path, Silhouette
+    return {"direct": lambda: Direct(training=False), "debug": Debug,
+            "depth": lambda: Depth(scale=True), "silhouette": Silhouette,
+            "path": lambda: Path(training=False)}[name]()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -75,21 +79,18 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> np.ndarray:
-    """Render and save the orbit; returns the frames ``[F, S, S, 3]``."""
+    """Render and save the orbit; returns the frames ``[F, S, S, dims]``
+    (3 channels, 1 for ``depth`` and ``silhouette``)."""
     args = parser().parse_args(argv)
-    from ..integrators import Direct
     from ..render import pathtrace
     from ..training import load_scene
 
     scene = build_scene(args.workload, args.max_steps)
-    if args.integrator != "direct":
-        raise NotImplementedError(f"--integrator {args.integrator} is not ported yet: it "
-                                  f"comes with {_NOT_PORTED[args.integrator]} (ROADMAP.md)")
     if args.omega != 1.0:
         scene.shape.omega = args.omega
     scene.init(torch.Generator().manual_seed(0), device=args.device)
     load_scene(args.models, scene)
-    integrator = Direct(training=False)
+    integrator = make_integrator(args.integrator)
     images = []
     for f in range(args.frames):
         cam = frame_camera(f, args.frames, args.dist, args.elev)

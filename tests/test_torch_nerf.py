@@ -234,6 +234,7 @@ def test_render_workload_main_runs_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(relaxed).all() and plain.max() > 0
     assert (tmp_path / "orbit_nerv_001.png").exists()
     assert "frame 2/2" in capsys.readouterr().out
-    for extra in (["--integrator", "path"], ["--integrator", "debug"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render.main(args + extra)
+    # the other integrators are ported (tests/test_torch_path_workload.py)
+    for name, dims in (("path", 3), ("debug", 3), ("depth", 1)):
+        frames = render.main(args + ["--integrator", name])
+        assert frames.shape == (2, 8, 8, dims) and np.isfinite(frames).all(), name
