@@ -226,6 +226,27 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      (e)'s) and the 4 test views at 64^2, 4 passes, its PSNR beside
      Direct's and the black render's, a pixel probe (a pipeline check, not
      a quality figure).
+ 23. scene editing and the test-split entry points: (a)
+     workloads.edit_nerf on the flagship scene with phase 3's seeded shift
+     (saved with save_scene) and one 256^2 NeRF-layout test view of the NeRV
+     generator twin, 256 steps, under each --edit (none, bend, trans, hole,
+     scale_z, disp): counted (K1 on the tile; K2 once a tile for none and
+     never under an edit; no K3 or K4), against plain_kernels(); bend
+     --bend-k 0 (the plain warped loop) against none (K2); none's and
+     bend's ms/view in turns and one profile each; (b) workloads.edit_dtu at
+     128^2, 128 steps, on a generated scan view, the DTU scene with the same
+     shift: bend, disp and --recolor 0, Direct and Debug, counted and against
+     plain_kernels(); (c) workloads.eval_nerv on the checkpoint at 200^2,
+     hard shadows, two frames of two of its lights with weights (0.7, 0.3):
+     counted (K2 and K4 once a tile and light), against plain_kernels(), and
+     each frame against the weighted sum of its single-light renders (the
+     same keys); (d) shapes.prime on SDF(phase 3's SphereSDF(128)) onto
+     sphere_sdf, 200 steps of 4,096 points (the loss falls; the first step's
+     loss on the kernel route against plain_kernels()), nn.prime_identity
+     on a 10x256 net (the loss falls); (e) RoundBoxSDF, CapsuleSDF and
+     ParametricSDFSet, a 128^2 Depth render each on the card against the
+     CPU, and NeRFMMCamera's and NeRVCamera's rays on the card against the
+     CPU.
 Phase 7 also runs the flagship step on the device data path (10 counted
 steps) and the two paths in turns, then the workload's own entry,
 workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
@@ -299,7 +320,17 @@ plain_kernels() as phase 4 (mask agreement >= 99%, mean |difference| <=
 term, so no maximum is held), Path depth 1 against Direct within 1e-6 (the
 same arithmetic), K2's bounce launch as K2, K4 at Direct's arms as K4, the
 Path training step as phase 11 (loss within 1e-4 relative, each component's
-gradient within 1e-2 relative L2).
+gradient within 1e-2 relative L2); phase 23's edited renders against
+plain_kernels() as phase 4, bend --bend-k 0 against none likewise (the
+plain loop and K2 sum in another order), the multi-light image against the
+weighted sum of its single-light renders within 1e-6 (the same kernels and
+sums), prime's first loss on the kernel route within 1e-4 relative of
+plain, and the new surfaces' depths and the cameras' rays on the card
+within 1e-3 and 1e-5 of the CPU's.
+
+    python3 chip_smoke.py --edit
+
+runs phases 1 and 23 only (no result line).
 
     python3 chip_smoke.py --path
 
@@ -4711,6 +4742,320 @@ def phase_path(torch, dev, trained=None):
                 k4_constant=k4_constant, training=training)
 
 
+# ---- phase 23: scene editing and the test-split entry points ------------------------
+
+EDIT_SIZE = 256                                    # scripts/test_nerf.py's default
+EDIT_STEPS = 256                                   # its --test-max-steps
+EDIT_DTU_SIZE = 128                                # scripts/edit_dtu.py's default
+EDIT_NERV_SIZE = 200                               # scripts/test_nerv.py's default
+EDIT_NERV_WEIGHTS = (0.7, 0.3)
+PRIME_ITERS = 200
+PRIME_POINTS = 4_096
+SURFACE_SIZE = 128
+
+
+def counted(torch, label, fn):
+    """``fn()`` with the launch counts reset just before and read just after;
+    every fused net on the tile.  -> (its result, the counts, seconds)."""
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    k1_routes(label)
+    check(counts["fused_mlp_forward"] > 0, f"{label}: K1 was not launched")
+    return out, counts, secs
+
+
+def edit_flagship(torch, dev, root):
+    """(a) workloads.edit_nerf on the flagship scene with phase 3's seeded
+    shift, saved with save_scene, on one 256^2 test view of the NeRV
+    generator twin (NeRF layout) -> the numbers for the summary."""
+    from neural_raytracing_tpu_torch.training import NeRFDataset, save_scene
+    from neural_raytracing_tpu_torch.workloads import edit_nerf, nerf_synthetic
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    scene = nerf_synthetic.build_scene().init(torch.Generator().manual_seed(0), device=dev)
+    scene.shape.module.load_state_dict(march_surface(torch, dev).state_dict())
+    save_scene(str(root / "flagship"), scene)
+    _, test, _, _ = nerv_generated(torch, dev, EDIT_SIZE, train_views=1, test_views=1)
+    test = NeRFDataset(test.cam_to_worlds, test.focal, test.images, test.masks)
+    tiles = (EDIT_SIZE // chunk_for(EDIT_SIZE)) ** 2               # 4 tiles of 16,384 rays
+    out = {}
+
+    def run(edit, bend_k=2.5):
+        args = twin_args(edit_nerf, size=EDIT_SIZE, models=str(root), edit=edit,
+                         bend_k=bend_k, test_max_steps=EDIT_STEPS, device=str(dev))
+        return edit_nerf.run(args, test, "flagship", save=False)
+
+    run("none")                                     # warm-ups: K2's path and the plain loop
+    run("bend")
+    for edit in edit_nerf.EDITS:
+        got, counts, secs = counted(torch, f"edit_nerf --edit {edit}", lambda: run(edit))
+        with plain_kernels():
+            want = run(edit)
+        frac, agree, mean_d, max_d = compare_images(f"edit_nerf --edit {edit}",
+                                                    got["images"], want["images"])
+        k2 = counts["fused_march"]
+        if edit == "none":
+            check(k2 == tiles, f"edit_nerf --edit none: K2 launched {k2} times, not {tiles}")
+        else:
+            check(k2 == 0, f"edit_nerf --edit {edit}: K2 launched {k2} times under the edit")
+        check(counts["fused_min_scan"] == counts["fused_shadow_march"] == 0,
+              f"edit_nerf --edit {edit}: K3 or K4 launched: {counts}")
+        out[edit] = dict(ms=1e3 * secs, k1=counts["fused_mlp_forward"], k2=k2,
+                         psnr=got["psnr"], agree=agree, mean_diff=mean_d)
+        print(f"(a) edit_nerf --edit {edit}, one {EDIT_SIZE}^2 view, {EDIT_STEPS} steps: "
+              f"{1e3 * secs:.1f} ms/view, K1 {counts['fused_mlp_forward']} launches, K2 {k2}; "
+              f"kernels against plain_kernels(): lit fraction {frac:.4f}, mask agreement "
+              f"{agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}; PSNR "
+              f"{got['psnr']:.3f} dB (random weights)")
+    # the plain warped loop against K2 on the same field
+    flat, _, _ = counted(torch, "edit_nerf --edit bend --bend-k 0", lambda: run("bend", 0.0))
+    none = run("none")
+    frac, agree, mean_d, max_d = compare_images("bend --bend-k 0 against none",
+                                                flat["images"], none["images"])
+    print(f"(a) edit_nerf --edit bend --bend-k 0 (the plain warped loop) against --edit none "
+          f"(K2): mask agreement {agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| "
+          f"{max_d:.3e}")
+    # bend's and none's ms/view in turns, and one profile each
+    scenes = {e: edit_nerf.edited_scene(twin_args(
+        edit_nerf, size=EDIT_SIZE, models=str(root), edit=e, test_max_steps=EDIT_STEPS,
+        device=str(dev)), "flagship") for e in ("none", "bend")}
+    view = lambda s: edit_view(torch, dev, s, test)
+    times = in_turns({e: (lambda s=s: view(s)) for e, s in scenes.items()}, reps=1)
+    busy = {e: profile_step(torch, lambda s=s: view(s), f"one flagship test view, --edit {e}")
+            for e, s in scenes.items()}
+    check(all(b is not None for b in busy.values()), "edit_nerf: the profiler saw no device time")
+    print(f"(a) on {card()}: one {EDIT_SIZE}^2 test view in turns: --edit none "
+          f"{times['none']:.1f} ms/view, --edit bend {times['bend']:.1f} ms/view "
+          f"({times['bend'] / times['none']:.2f}x); busy none {busy['none']['busy_ms']:.1f} ms, "
+          f"bend {busy['bend']['busy_ms']:.1f} ms")
+    return dict(edits=out, times=times, busy=busy, bend_k0=(agree, mean_d))
+
+
+def edit_view(torch, dev, scene, test):
+    """View 0 of ``test`` as evaluate renders it (chunk_for's tile, bundle
+    1, background 0, the view's seed)."""
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.render import pathtrace
+    from neural_raytracing_tpu_torch.training.eval import view_key
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    cam = NeRFCamera(torch.from_numpy(test.cam_to_worlds[:1]), test.focal)
+    return pathtrace(scene, cam, Direct(training=False), size=EDIT_SIZE,
+                     chunk_size=chunk_for(EDIT_SIZE),
+                     bundle_size=1, background=0.0, key=view_key(0, 0), device=dev)[0]
+
+
+def edit_dtu_views(torch, dev, root):
+    """(b) workloads.edit_dtu at 128^2, 128 steps, on phase 20's generated
+    scan (one view), the DTU scene with phase 3's seeded shift: bend, disp
+    and --recolor 0, Direct and Debug, kernels against plain_kernels()."""
+    from neural_raytracing_tpu_torch.training import save_scene
+    from neural_raytracing_tpu_torch.workloads import dtu, edit_dtu
+    scene = dtu.build_scene().init(torch.Generator().manual_seed(0), device=dev)
+    scene.shape.module.load_state_dict(march_surface(torch, dev).state_dict())
+    save_scene(str(root / "dtu_scan"), scene)
+    data, _, _ = dtu_scan(torch, dev, EDIT_DTU_SIZE, 1)
+    out = {}
+    for edit, recolor in (("bend", -1), ("disp", -1), ("none", 0)):
+        label = f"edit_dtu --edit {edit} --recolor {recolor}"
+        args = twin_args(edit_dtu, size=EDIT_DTU_SIZE, models=str(root), edit=edit,
+                         recolor=recolor, views=1, device=str(dev))
+        edit_dtu.run(args, data, "scan", save=False)                 # warm-up
+        got, counts, secs = counted(torch, label, lambda: edit_dtu.run(args, data, "scan",
+                                                                       save=False))
+        with plain_kernels():
+            want = edit_dtu.run(args, data, "scan", save=False)
+        k2 = counts["fused_march"]
+        check(k2 == (2 if edit == "none" else 0), f"{label}: K2 launched {k2} times")
+        for tag in ("render", "normals"):
+            frac, agree, mean_d, max_d = compare_images(f"{label} {tag}", got[tag], want[tag])
+            print(f"(b) {label}, {tag} ({'Direct' if tag == 'render' else 'Debug'}), one "
+                  f"{EDIT_DTU_SIZE}^2 view: lit fraction {frac:.4f}, mask agreement "
+                  f"{agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}")
+        out[f"{edit}/{recolor}"] = dict(ms=1e3 * secs / 2, k1=counts["fused_mlp_forward"], k2=k2)
+        print(f"(b) {label}: {1e3 * secs / 2:.1f} ms a render, launches {counts}")
+    return out
+
+
+def edit_nerv_frames(torch, dev):
+    """(c) workloads.eval_nerv on the checkpoint at 200^2, hard shadows: two
+    test frames (eval views 0 and 1) of two of the checkpoint's lights each,
+    weights (0.7, 0.3)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.training import NeRVDataset
+    from neural_raytracing_tpu_torch.workloads import eval_nerv
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    args = twin_args(eval_nerv, size=EDIT_NERV_SIZE, device=str(dev))
+    scene = eval_nerv.build_test_scene(args, str(ARTIFACTS))
+    locs = scene.lights.location.detach().cpu().numpy()
+    cam = nerv_camera(torch, NERV_EVAL_VIEWS[:2])
+    test = NeRVDataset(cam.cam_to_world.numpy(), NERV_FOCAL * EDIT_NERV_SIZE / NERV_SIZE,
+                       np.zeros((2, EDIT_NERV_SIZE, EDIT_NERV_SIZE, 3), np.float32),
+                       np.ones((2, EDIT_NERV_SIZE, EDIT_NERV_SIZE), np.float32),
+                       np.stack([locs[0:2], locs[1:3]]),
+                       np.asarray([EDIT_NERV_WEIGHTS] * 2, np.float32))
+    eval_nerv.run(args, test, scene, save=False)                     # warm-up
+    got, counts, secs = counted(torch, "eval_nerv", lambda: eval_nerv.run(args, test, scene,
+                                                                          save=False))
+    passes = 2 * 2 * (EDIT_NERV_SIZE // chunk_for(EDIT_NERV_SIZE)) ** 2  # frames x lights x tiles
+    check(counts["fused_march"] == passes and counts["fused_shadow_march"] == passes,
+          f"eval_nerv: K2 / K4 launched {counts['fused_march']} / "
+          f"{counts['fused_shadow_march']} times, not {passes}")
+    check(torch.equal(scene.lights.location.detach().cpu(), torch.from_numpy(locs)),
+          "eval_nerv: the scene's lights were not restored")
+    with plain_kernels():
+        want = eval_nerv.run(args, test, scene, save=False)
+    frac, agree, mean_d, max_d = compare_images("eval_nerv", got["images"], want["images"])
+    # the weighted image against the weighted sum of the single-light passes (same keys)
+    worst = 0.0
+    for i in range(2):
+        frame = eval_nerv.render_frame(scene, test, i, EDIT_NERV_SIZE, dev)
+        singles = [eval_nerv.render_frame(
+            scene, test._replace(light_locs=test.light_locs[:, j], light_weights=None), i,
+            EDIT_NERV_SIZE, dev) for j in range(2)]
+        summed = EDIT_NERV_WEIGHTS[0] * singles[0] + EDIT_NERV_WEIGHTS[1] * singles[1]
+        worst = max(worst, (frame - summed).abs().max().item())
+        check((singles[0] - singles[1]).abs().max().item() > 1e-3,
+              f"eval_nerv frame {i}: its two lights render the same image")
+    scene.lights.set_location(locs)
+    check(worst <= 1e-6, f"eval_nerv: the weighted image is {worst:.3e} from the weighted "
+                         f"sum of its single-light renders")
+    print(f"(c) eval_nerv on the checkpoint, 2 frames x 2 lights (weights "
+          f"{EDIT_NERV_WEIGHTS}), {EDIT_NERV_SIZE}^2, hard shadows: {1e3 * secs / 2:.1f} ms/view, "
+          f"launches {counts}; kernels against plain_kernels(): lit fraction {frac:.4f}, mask "
+          f"agreement {agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}; the "
+          f"weighted image against the weighted single-light renders: max |diff| {worst:.3e}; "
+          f"PSNR {got['avg_psnr']:.3f} against a black ground truth")
+    return dict(ms=1e3 * secs / 2, counts=counts, weighted_max_diff=worst)
+
+
+def edit_prime(torch, dev):
+    """(d) shapes.prime on SDF(phase 3's SphereSDF(128), 8x128 shift), 200
+    steps at 4,096 points onto sphere_sdf; its first step on the kernel
+    route against plain; nn.prime_identity on a LightField-width net."""
+    from neural_raytracing_tpu_torch.kernels import FusedSkipConnMLP
+    from neural_raytracing_tpu_torch.nn import prime_identity
+    from neural_raytracing_tpu_torch.shapes import SDF, prime, sphere_sdf
+
+    def first(plain):
+        sdf = SDF(march_surface(torch, dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if not plain:
+            return prime(sdf, sphere_sdf, gen, iters=1, batch_size=PRIME_POINTS)
+        with plain_kernels():
+            return prime(sdf, sphere_sdf, gen, iters=1, batch_size=PRIME_POINTS)
+
+    k, p = first(False).item(), first(True).item()
+    check(abs(k - p) <= 1e-4 * abs(p), f"prime: the first step's loss {k} against plain {p}")
+    sdf = SDF(march_surface(torch, dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    loss0 = prime(sdf, sphere_sdf, gen, iters=1, batch_size=PRIME_POINTS).item()
+    last, counts, secs = counted(torch, "prime", lambda: prime(
+        sdf, sphere_sdf, gen, iters=PRIME_ITERS - 1, batch_size=PRIME_POINTS))
+    last = last.item()
+    check(math.isfinite(last) and last < loss0, f"prime: the loss went {loss0} -> {last}")
+    mlp = FusedSkipConnMLP(in_size=3, out=3, num_layers=10, hidden_size=256)
+    mlp.reset_parameters(torch.Generator().manual_seed(0))
+    mlp.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    id0 = prime_identity(mlp, gen, iters=1).item()
+    idn, id_counts, id_secs = counted(torch, "prime_identity",
+                                      lambda: prime_identity(mlp, gen, iters=PRIME_ITERS - 1))
+    idn = idn.item()
+    check(math.isfinite(idn) and idn < id0, f"prime_identity: the loss went {id0} -> {idn}")
+    print(f"(d) prime, SDF(SphereSDF(128), 8x128 shift) onto sphere_sdf, {PRIME_ITERS} steps at "
+          f"{PRIME_POINTS:,} points in [-5, 5]^3: loss {loss0:.5f} -> {last:.5f}, "
+          f"{1e3 * secs / (PRIME_ITERS - 1):.2f} ms/step, K1 {counts['fused_mlp_forward']} "
+          f"launches; its first step on the kernel route {k:.6f} against plain {p:.6f}; "
+          f"prime_identity (10x256, LightField's width): loss {id0:.5f} -> {idn:.5f}, "
+          f"{1e3 * id_secs / (PRIME_ITERS - 1):.2f} ms/step, K1 "
+          f"{id_counts['fused_mlp_forward']} launches")
+    return dict(loss=(loss0, last), identity=(id0, idn))
+
+
+def edit_surfaces(torch, dev):
+    """(e) RoundBoxSDF, CapsuleSDF and ParametricSDFSet (seed 0): one 128^2
+    Depth render on the card against the same on the CPU; NeRFMMCamera and
+    NeRVCamera rays on the card against the same on the CPU."""
+    import numpy as np
+    from neural_raytracing_tpu_torch import Scene
+    from neural_raytracing_tpu_torch.cameras import (
+        NeRFCamera, NeRFMMCamera, NeRVCamera, nerf_c2w,
+    )
+    from neural_raytracing_tpu_torch.integrators import Depth
+    from neural_raytracing_tpu_torch.render import _tile_positions, pathtrace
+    from neural_raytracing_tpu_torch.shapes import (
+        SDF, CapsuleSDF, ParametricSDFSet, RoundBoxSDF,
+    )
+    focal = 0.5 * SURFACE_SIZE / math.tan(0.5 * 0.6911)
+    cam = NeRFCamera(torch.from_numpy(nerf_c2w(30, 45, 1.0)[None, :3]), focal)
+    for surface in (RoundBoxSDF(), CapsuleSDF(), ParametricSDFSet()):
+        surface.reset_parameters(torch.Generator().manual_seed(0))
+        images = {}
+        for d in (dev, "cpu"):
+            scene = Scene(shape=SDF(surface)).to(d)
+            images[str(d)] = pathtrace(scene, cam, Depth(), size=SURFACE_SIZE,
+                                       chunk_size=SURFACE_SIZE, bundle_size=1,
+                                       background=0.0, device=d)[0].cpu().numpy()
+        got, want = images[str(dev)], images["cpu"]
+        hit, phit = got[..., 0] > 0, want[..., 0] > 0
+        agree = (hit == phit).mean()
+        both = hit & phit
+        diff = np.abs(got - want)[both]
+        name = type(surface).__name__
+        check(0.02 < phit.mean() < 0.98, f"{name}: hit fraction {phit.mean():.4f}")
+        check(agree >= 0.99 and diff.max() <= 1e-3,
+              f"{name}: card against CPU, hit agreement {agree:.4f}, max |depth diff| "
+              f"{diff.max():.3e}")
+        print(f"(e) {name} (plain loops), one {SURFACE_SIZE}^2 Depth render, card against "
+              f"CPU: hit fraction {phit.mean():.4f}, agreement {agree:.6f}, max |depth diff| "
+              f"{diff.max():.3e}")
+    rng = np.random.default_rng(3)
+    axis = rng.normal(size=(2, 3)).astype(np.float32)
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    w2c = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    w2c[:, :3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    cams = {"NeRFMMCamera": NeRFMMCamera(
+        torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(-3, 3, size=(2, 1)).astype(np.float32)),
+        torch.from_numpy(axis), torch.from_numpy(rng.uniform(100, 200, (2, 2)).astype(np.float32))),
+        "NeRVCamera": NeRVCamera(torch.from_numpy(w2c),
+                                 torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32)),
+                                 float(focal))}
+    for name, c in cams.items():
+        rays = {str(d): c.to(d).sample_positions(_tile_positions(0.0, 0.0, SURFACE_SIZE, d),
+                                                 bundle_size=2, size=SURFACE_SIZE).cpu()
+                for d in (dev, "cpu")}
+        err = (rays[str(dev)] - rays["cpu"]).abs().max().item()
+        check(rays["cpu"].shape == (2, SURFACE_SIZE, SURFACE_SIZE, 2, 6) and err <= 1e-5,
+              f"{name}: card against CPU, max |diff| {err:.3e}")
+        print(f"(e) {name}: {tuple(rays['cpu'].shape)} rays, card against CPU max |diff| "
+              f"{err:.3e}")
+
+
+def phase_edit(torch, dev):
+    """Phase 23: scene editing and the test-split entry points at full width
+    -> the numbers for the summary line."""
+    import tempfile
+    print(f"phase 23 on {card()}")
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        flagship = edit_flagship(torch, dev, root)
+        dtu_edits = edit_dtu_views(torch, dev, root)
+    nerv_frames = edit_nerv_frames(torch, dev)
+    primed = edit_prime(torch, dev)
+    edit_surfaces(torch, dev)
+    secs = time.perf_counter() - start
+    print(f"phase 23: {secs:.1f} s")
+    return dict(flagship=flagship, dtu=dtu_edits, nerv=nerv_frames, prime=primed, secs=secs)
+
+
 def median_busy(torch, fn, label, reps: int = 3) -> dict:
     """{busy_ms, wall_ms, launches}: the medians of ``reps`` profiles of one
     call of ``fn`` (profile_step), after one warm-up call."""
@@ -4895,6 +5240,9 @@ def main():
     if sys.argv[1:2] == ["--path"]:
         phase_path(torch, dev)
         return
+    if sys.argv[1:2] == ["--edit"]:
+        phase_edit(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -4925,6 +5273,7 @@ def main():
     dt = phase_dtu(torch, dev)
     nv = phase_nerv_generated(torch, dev)
     pt = phase_path(torch, dev, (nv["data"], nv["test"], nv["state"]))
+    ed = phase_edit(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -5002,6 +5351,14 @@ def main():
               "fused_march.py:445 (bf16 operands: fused_march.py:65-75,78-130)",
               bf16_nerv_counts["learned"]["fused_shadow_march_bf16"], kb16["k4"]),
     ]
+    fl = ed["flagship"]
+    print(f"editing (phase 23): flagship test view --edit none {fl['times']['none']:.1f} "
+          f"ms/view (busy {fl['busy']['none']['busy_ms']:.1f}), --edit bend "
+          f"{fl['times']['bend']:.1f} ms/view (busy {fl['busy']['bend']['busy_ms']:.1f}), K1 "
+          f"{fl['edits']['bend']['k1']} and K2 {fl['edits']['bend']['k2']} launches a bent "
+          f"view; multi-light NeRV test view {ed['nerv']['ms']:.1f} ms/view; prime loss "
+          f"{ed['prime']['loss'][0]:.5f} -> {ed['prime']['loss'][1]:.5f}; phase 23 took "
+          f"{ed['secs']:.1f} s")
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "

@@ -23,12 +23,15 @@ twin ``workloads.colocate``) with its dataset generator
 ``sample``, the ``Constant`` light, Direct's BSDF arm, ``Path``, the debug
 integrators, ``shapes.Sphere``/``SphereCloud``, the twin
 ``workloads.path_nerv``), drawing its uniforms through
-``ops.sampling.uniform``.
+``ops.sampling.uniform``; and scene editing (``edits``, ``SDF.with_warp``,
+the twins ``workloads.edit_nerf``, ``edit_dtu`` and the multi-light
+``eval_nerv``) with the other SDF surfaces, ``shapes.prime``,
+``nn.prime_identity`` and the NeRF-- and NeRV cameras.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import (
-    bsdf, cameras, integrators, kernels, lights, nn, ops, shapes, training,
+    bsdf, cameras, edits, integrators, kernels, lights, nn, ops, shapes, training,
     workloads,
 )
 from .params import load_jax_params, state_dict_from_jax
@@ -36,7 +39,7 @@ from .render import pathtrace, pathtrace_sample, render_rays
 from .scene import Scene, sample_emitter
 
 __all__ = [
-    "bsdf", "cameras", "integrators", "kernels", "lights", "nn", "ops",
+    "bsdf", "cameras", "edits", "integrators", "kernels", "lights", "nn", "ops",
     "shapes", "training", "workloads", "load_jax_params", "state_dict_from_jax",
     "pathtrace", "pathtrace_sample", "render_rays", "Scene", "sample_emitter",
 ]

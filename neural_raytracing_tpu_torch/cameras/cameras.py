@@ -10,7 +10,9 @@ path:
     normalising the world POINT on the far plane as the ray direction, not
     the point minus the camera centre;
   * ``DTUCamera`` (IDR-style: a camera-to-world pose and an intrinsic
-    matrix, pixel positions scaled by ``src_size / size``) and ``lift``.
+    matrix, pixel positions scaled by ``src_size / size``) and ``lift``;
+  * ``NeRFMMCamera`` (NeRF--: axis-angle poses and per-view focals) and
+    ``NeRVCamera`` (a world-to-camera rotation and the camera location).
 
 ``positions[..., 0]`` is the second image axis and ``positions[..., 1]`` the
 first.  Rays are ``[N, *grid, bundle, 6]`` (origin ++ direction).
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import sampling
-from ..ops.math import normalize
+from ..ops.math import normalize, rotate_vector
 
 
 def _as_f32(x, device=None) -> torch.Tensor:
@@ -181,6 +183,76 @@ class NeRFCamera(NamedTuple):
         r_d = normalize(r_d)
         r_o = self.cam_to_world[..., :3, -1][
             (slice(None),) + (None,) * (r_d.ndim - 2)].expand(r_d.shape)
+        return torch.cat([r_o, r_d], dim=-1)
+
+
+def _per_view(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-view ``x [N, ...]`` -> ``[N, 1, ..., 1, ...]`` with ``ndim``
+    ones after the view axis."""
+    return x[(slice(None),) + (None,) * ndim]
+
+
+class NeRFMMCamera(NamedTuple):
+    """NeRF-- camera: a position ``t [N, 3]``, an axis-angle rotation
+    (``angle [N, 1]`` about the unit ``axis [N, 3]``) and per-view focal
+    lengths ``focals [N, 2]`` (x, y)."""
+
+    t: torch.Tensor
+    angle: torch.Tensor
+    axis: torch.Tensor
+    focals: torch.Tensor
+
+    def __len__(self):
+        return self.t.shape[0]
+
+    def to(self, device) -> "NeRFMMCamera":
+        return NeRFMMCamera(*(x.to(device) for x in self))
+
+    def sample_positions(self, positions: torch.Tensor, generator=None,
+                         bundle_size: int = 1, size: int = 512,
+                         with_noise=False) -> torch.Tensor:
+        pos = _expand_bundle(positions, generator, bundle_size, with_noise)
+        u, v = pos[..., 0], pos[..., 1]                       # [..., B]
+        ones = pos.ndim - 1
+        dx = (u - size * 0.5) / _per_view(self.focals[:, 0], ones)   # [N, ..., B]
+        dy = -(v - size * 0.5) / _per_view(self.focals[:, 1], ones)
+        d = torch.stack([dx, dy, -torch.ones_like(dx)], dim=-1)
+        angle = _per_view(self.angle, ones)
+        r_d = normalize(rotate_vector(d, _per_view(self.axis, ones), torch.cos(angle),
+                                      torch.sin(angle)))
+        r_o = _per_view(self.t, ones).expand(r_d.shape)
+        return torch.cat([r_o, r_d], dim=-1)
+
+
+class NeRVCamera(NamedTuple):
+    """NeRV camera: a world-to-camera rotation ``world_to_cam [N, 3|4, 3|4]``
+    (directions are multiplied by its transpose), the camera location
+    ``loc [N, 3]`` as the ray origin, and a focal length."""
+
+    world_to_cam: torch.Tensor
+    loc: torch.Tensor
+    focal: Union[float, torch.Tensor]
+
+    def __len__(self):
+        return self.world_to_cam.shape[0]
+
+    def to(self, device) -> "NeRVCamera":
+        focal = self.focal.to(device) if isinstance(self.focal, torch.Tensor) else self.focal
+        return NeRVCamera(self.world_to_cam.to(device), self.loc.to(device), focal)
+
+    def sample_positions(self, positions: torch.Tensor, generator=None,
+                         bundle_size: int = 1, size: int = 512,
+                         with_noise=False) -> torch.Tensor:
+        pos = _expand_bundle(positions, generator, bundle_size, with_noise)
+        u, v = pos[..., 0:1], pos[..., 1:2]
+        d = torch.cat([
+            (u - size * 0.5) / self.focal,
+            (v - size * 0.5) / self.focal,
+            torch.ones_like(u),
+        ], dim=-1)
+        # "...j,nji->n...i": the transposed rotation, as the JAX camera
+        r_d = normalize(torch.einsum("...j,nji->n...i", d, self.world_to_cam[..., :3, :3]))
+        r_o = self.loc[(slice(None),) + (None,) * (r_d.ndim - 2)].expand(r_d.shape)
         return torch.cat([r_o, r_d], dim=-1)
 
 

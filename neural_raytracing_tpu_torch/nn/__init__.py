@@ -1,1 +1,3 @@
-from .mlp import ACTIVATION_GRADS, ACTIVATIONS, Linear, SkipConnMLP, mlp_forward
+from .mlp import (
+    ACTIVATION_GRADS, ACTIVATIONS, Linear, SkipConnMLP, mlp_forward, prime_identity,
+)

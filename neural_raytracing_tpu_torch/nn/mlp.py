@@ -219,3 +219,24 @@ def mlp_forward(mlp: SkipConnMLP, p: torch.Tensor, basis: torch.Tensor,
         h = act(h) @ weights[2 + 2 * i] + weights[3 + 2 * i]
     out = act(h) @ weights[-2] + weights[-1]
     return out.reshape(batches + (mlp.out_size,))
+
+
+def prime_identity(mlp: nn.Module, generator: torch.Generator, lr: float = 1e-4,
+                   iters: int = 2000, batches: int = 4096) -> torch.Tensor:
+    """Pre-train ``mlp`` (in place) to approximate the identity on
+    ``[0, 1]^in_size`` (its first ``out_size`` inputs): ``iters`` AdamW
+    steps (optax's ``adamw(lr, weight_decay=0.0)``, no clipping) at
+    ``batches`` points drawn through ``ops.sampling.uniform``.  Returns the
+    last step's loss (a 0-d tensor on the net's device)."""
+    from ..ops import sampling
+    from ..training.optim import make_optimizer
+    device = next(mlp.parameters()).device
+    opt = make_optimizer({}, default_lr=lr).init(mlp)
+    loss = None
+    for _ in range(iters):
+        x = sampling.uniform(generator, (batches, mlp.in_size), device)
+        loss = torch.mean(torch.square(mlp(x) - x[:, :mlp.out_size]))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    return None if loss is None else loss.detach()

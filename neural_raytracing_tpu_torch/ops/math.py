@@ -48,8 +48,12 @@ class _Clip(torch.autograd.Function):
         return g * step, None, None
 
 
-def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
-    """``jnp.maximum(x, c)`` for a number ``c``."""
+def maximum(x: torch.Tensor, c) -> torch.Tensor:
+    """``jnp.maximum(x, c)`` for a number ``c``, or a tensor ``c``: between
+    two tensors ``torch.maximum`` already splits the gradient of a tie in
+    half, as ``jnp.maximum`` does."""
+    if isinstance(c, torch.Tensor):
+        return torch.maximum(x, c)
     return _Clip.apply(x, c, None)
 
 

@@ -17,13 +17,19 @@ Counterpart of ``neural_raytracing_tpu/shapes/sdf.py``:
 The surface may also be a ``kernels.FusedSphereSDF`` (the same parameters,
 evaluated by K5), or a ``FunctionalSDF`` around a plain ``p -> sdf``
 function built from ``sphere_sdf``, ``box_sdf`` and ``capsule_sdf`` (the
-dataset generator's procedural shapes); the kernels take only a SphereSDF,
-so a ``FunctionalSDF`` runs the plain loops, as in the JAX package.  ``SDF(march_dtype=torch.bfloat16)`` runs the three loops
+dataset generator's procedural shapes), or ``RoundBoxSDF``, ``CapsuleSDF``
+or ``ParametricSDFSet``; the kernels take only a SphereSDF, so the other
+surfaces run the plain loops, as in the JAX package.  ``SDF(warp=)`` (the
+scene-editing view of ``with_warp``, ``edits.py``) maps each point before
+the surface; under a warp the plain float32 loops run over the warped
+field, whatever the surface, as the JAX package turns its fused loops off.
+``SDF(march_dtype=torch.bfloat16)`` runs the three loops
 with bf16 operands in the shift net (K2-bf16, K3-bf16, K4-bf16); the
 differentiable evaluations (hit point, normals, throughput value) stay
 float32.  ``SDF.level_surfaces`` (the minimum SDF along a ray) and
 ``SDF.batch_throughput`` (a chunked silhouette scan) are plain PyTorch, as
-in the JAX package.
+in the JAX package.  ``prime`` regresses a surface onto a known SDF before
+training.
 """
 
 from __future__ import annotations
@@ -82,6 +88,24 @@ def capsule_sdf(p: torch.Tensor, a, b, r) -> torch.Tensor:
     return torch.linalg.norm(pa - ba * h, dim=-1) - r
 
 
+def adopt_surface(owner: nn.Module, surface: nn.Module) -> None:
+    """Register ``surface``'s children and parameters on ``owner`` under
+    their own names and keep ``surface`` as ``owner.module``, unregistered:
+    the parameters keep the names they have in ``surface``'s own tree."""
+    if any(True for _ in surface.buffers(recurse=False)):
+        raise ValueError(f"{type(owner).__name__} cannot adopt a surface module with "
+                         "buffers of its own")
+    for name, child in surface.named_children():
+        owner.add_module(name, child)
+    for name, param in surface.named_parameters(recurse=False):
+        owner.register_parameter(name, param)
+    owner.__dict__["module"] = surface
+
+
+def _uniform(generator: torch.Generator, *shape) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
 class FunctionalSDF(nn.Module):
     """A plain ``p -> sdf`` function as a surface module with no parameters
     or buffers (so ``SDF`` adopts it)."""
@@ -125,10 +149,8 @@ class SphereSDF(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        def u(*shape):
-            return torch.rand(shape, generator=generator, device=generator.device)
-        self.centers.copy_(0.3 * u(self.n, 3) - 0.15)
-        self.radii.copy_(0.2 * u(self.n) - 0.1)
+        self.centers.copy_(0.3 * _uniform(generator, self.n, 3) - 0.15)
+        self.radii.copy_(0.2 * _uniform(generator, self.n) - 0.1)
         self.tfs.zero_()
         self.shift.reset_parameters(generator)
 
@@ -143,12 +165,112 @@ class SphereSDF(nn.Module):
         return out + self.shift(p)[..., 0]
 
 
+class RoundBoxSDF(nn.Module):
+    """Smooth-min of learnable boxes, axis-aligned in their local frames
+    (``radii`` is a parameter the JAX surface declares and does not read)."""
+
+    def __init__(self, n: int = 32, k: float = 16.0):
+        super().__init__()
+        self.n = n
+        self.k = k
+        self.centers = nn.Parameter(torch.zeros(n, 3))
+        self.b = nn.Parameter(torch.zeros(n, 3))
+        self.radii = nn.Parameter(torch.zeros(n))
+        self.tfs = nn.Parameter(torch.zeros(n, 3, 3))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.centers.copy_(0.3 * _uniform(generator, self.n, 3) - 0.15)
+        self.b.copy_(0.2 * _uniform(generator, self.n, 3))
+        self.radii.copy_(0.2 * _uniform(generator, self.n) - 0.1)
+        self.tfs.zero_()
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        batches = p.shape[:-1]
+        flat = p.reshape(-1, 3)
+        tfs = self.tfs + torch.eye(3, dtype=flat.dtype, device=flat.device)
+        q = absolute(torch.einsum("ijk,bk->ibj", tfs, flat)
+                     - self.centers[:, None, :]) - self.b[:, None, :]
+        up = torch.linalg.norm(maximum(q, 1e-7), dim=-1)
+        down = minimum(torch.amax(q, dim=-1), -1e-7)
+        return smooth_min(up + down, k=self.k, dim=0).reshape(batches)
+
+
+class CapsuleSDF(nn.Module):
+    """Smooth-min of learnable capsules from ``a`` to ``b``."""
+
+    def __init__(self, n: int = 64, k: float = 16.0):
+        super().__init__()
+        self.n = n
+        self.k = k
+        self.a = nn.Parameter(torch.zeros(n, 3))
+        self.b = nn.Parameter(torch.zeros(n, 3))
+        self.radii = nn.Parameter(torch.zeros(n))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.a.copy_(0.1 * _uniform(generator, self.n, 3) - 0.05)
+        self.b.copy_(0.1 * _uniform(generator, self.n, 3) - 0.05)
+        self.radii.copy_(0.1 * _uniform(generator, self.n) - 0.05)
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        batches = p.shape[:-1]
+        flat = p.reshape(-1, 3)
+        sd = capsule_sdf(flat[None, :, :], self.a[:, None, :], self.b[:, None, :],
+                         self.radii[:, None])
+        return smooth_min(sd, k=self.k, dim=0).reshape(batches)
+
+
+class ParametricSDFSet(nn.Module):
+    """Smooth-min over shapes, each a softmax-weighted blend of a sphere, a
+    box and a capsule around its offset."""
+
+    def __init__(self, num_shapes: int = 5, k: float = 32.0):
+        super().__init__()
+        self.num_shapes = num_shapes
+        self.k = k
+        n = num_shapes
+        self.offsets = nn.Parameter(torch.zeros(n, 3))
+        self.sph_rads = nn.Parameter(torch.zeros(n))
+        self.box_sizes = nn.Parameter(torch.zeros(n, 3))
+        self.capsules = nn.Parameter(torch.zeros(n, 7))
+        self.descriptors = nn.Parameter(torch.zeros(n, 3))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        n = self.num_shapes
+        self.offsets.copy_(_uniform(generator, n, 3) - 0.5)
+        self.sph_rads.copy_(_uniform(generator, n) * 0.3 + 0.1)
+        self.box_sizes.copy_(_uniform(generator, n, 3) * 0.3 + 0.1)
+        self.capsules.copy_(_uniform(generator, n, 7))
+        self.descriptors.copy_(_uniform(generator, n, 3))
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        batches = p.shape[:-1]
+        flat = p.reshape(-1, 3)
+        local = flat[None, :, :] - self.offsets[:, None, :]          # [S, B, 3]
+        w = torch.softmax(self.descriptors, dim=-1)                   # [S, 3]
+        caps = self.capsules
+        sdfs = torch.stack([
+            torch.linalg.norm(local, dim=-1) - self.sph_rads[:, None],
+            box_sdf(local, self.box_sizes[:, None, :]),
+            capsule_sdf(local, caps[:, None, 0:3], caps[:, None, 3:6], caps[:, None, 6]),
+        ], dim=-1)                                                    # [S, B, 3]
+        per_shape = torch.sum(w[:, None, :] * sdfs, dim=-1)
+        return smooth_min(per_shape, k=self.k, dim=0).reshape(batches)
+
+
 class SDF(nn.Module):
     """Sphere-trace intersection driver around a surface module.
 
     The surface module's parameters are this module's own (``centers``,
     ``shift.layers.0.w``, ...), as the JAX ``SDF.init`` returns the
     module's params unchanged.
+
+    ``warp`` (None, or a ``p -> p`` function of ``edits.py``) maps every
+    point before the surface; ``with_warp`` gives such a view.  Under a warp
+    the kernels are never taken: the three loops run in float32 over the
+    warped field on any device (the JAX package's ``_fused_loop_state``).
 
     ``fused_loops``: "auto" (K2 for CUDA tensors, the plain loop for CPU
     tensors), "force" (K2; raises on CPU tensors) or "off".  ``omega`` in
@@ -167,7 +289,8 @@ class SDF(nn.Module):
                  fused_loops: str = "auto", omega: float = 1.0,
                  shadow_past_light_exit: bool = True,
                  throughput_mode: str = "full",
-                 march_bound: Optional[float] = None, march_dtype=None):
+                 march_bound: Optional[float] = None, march_dtype=None,
+                 warp: Optional[Callable] = None):
         super().__init__()
         if fused_loops not in ("auto", "force", "off"):
             raise ValueError("fused_loops must be 'auto', 'force' or 'off', "
@@ -176,16 +299,7 @@ class SDF(nn.Module):
             raise ValueError("throughput_mode must be 'full' or 'half_res', "
                              f"got {throughput_mode!r}")
         check_omega(omega)
-        if any(True for _ in sdf_module.buffers(recurse=False)):
-            raise ValueError("SDF cannot adopt a surface module with buffers "
-                             "of its own")
-        # share the surface's parameters and children under this module's
-        # name; the surface itself stays an unregistered attribute
-        for name, child in sdf_module.named_children():
-            self.add_module(name, child)
-        for name, param in sdf_module.named_parameters(recurse=False):
-            self.register_parameter(name, param)
-        self.__dict__["module"] = sdf_module
+        adopt_surface(self, sdf_module)
         self.epsilon = epsilon
         self.max_steps = max_steps
         # silhouette min-scan settings of the training slice
@@ -205,6 +319,7 @@ class SDF(nn.Module):
         self.march_bound = march_bound
         self.march_dtype = check_compute_dtype(
             torch.float32 if march_dtype is None else march_dtype)
+        self.warp = warp
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -216,23 +331,31 @@ class SDF(nn.Module):
         cfg = {k: getattr(self, k) for k in (
             "epsilon", "max_steps", "dist", "throughput_steps", "alpha",
             "fused_loops", "omega", "shadow_past_light_exit",
-            "throughput_mode", "march_bound", "march_dtype")}
+            "throughput_mode", "march_bound", "march_dtype", "warp")}
         cfg.update(overrides)
         return SDF(self.module, **cfg)
 
+    def with_warp(self, warp: Callable) -> "SDF":
+        """A view of this SDF, over the same surface and parameters, whose
+        points go through ``warp`` first; it replaces any earlier warp."""
+        return self.replace(warp=warp)
+
     def sdf(self, p: torch.Tensor) -> torch.Tensor:
+        if self.warp is not None:
+            p = self.warp(p)
         return self.module(p)
 
     def _use_kernel(self, r_o: torch.Tensor) -> bool:
-        if self.fused_loops == "off" or not supports(self.module):
+        if (self.fused_loops == "off" or self.warp is not None
+                or not supports(self.module)):
             return False
         return self.fused_loops == "force" or r_o.is_cuda
 
     def _loop_sdf(self):
         """The SDF the plain loops evaluate: the bf16 kernels' plain version
-        where a bf16 kernel would run, else ``sdf``."""
+        where a bf16 kernel would run, else ``sdf`` (under a warp always)."""
         if (self.march_dtype == torch.float32 or self.fused_loops == "off"
-                or not supports(self.module)):
+                or self.warp is not None or not supports(self.module)):
             return self.sdf
         return lambda p: sphere_sdf_eval_plain(self.module, p, self.march_dtype)
 
@@ -380,3 +503,25 @@ class SDF(nn.Module):
         for t in torch.linspace(0.0, self.dist, steps, device=r_o.device):
             out = torch.minimum(out, self.sdf(r_o + t * r_d))
         return out
+
+
+def prime(sdf: SDF, known_sdf: Callable, generator: torch.Generator, lr: float = 1e-4,
+          iters: int = 2000, batch_size: int = 4096, lo: float = -5.0,
+          hi: float = 5.0) -> torch.Tensor:
+    """Regress ``sdf`` (in place) onto ``known_sdf`` before training: ``iters``
+    AdamW steps (optax's ``adamw(lr, weight_decay=0.0)``, no clipping) of
+    the mean squared difference at ``batch_size`` points drawn uniformly in
+    ``[lo, hi]^3`` through ``ops.sampling.uniform``.  Returns the last
+    step's loss (a 0-d tensor on the surface's device)."""
+    from ..training.optim import make_optimizer
+    device = next(sdf.parameters()).device
+    opt = make_optimizer({}, default_lr=lr).init(sdf)
+    loss = None
+    for _ in range(iters):
+        u = sampling.uniform(generator, (batch_size, 3), device)
+        p = torch.clamp_min(u * (hi - lo) + lo, lo)
+        loss = torch.mean(torch.square(sdf.sdf(p) - known_sdf(p)))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    return None if loss is None else loss.detach()
