@@ -247,6 +247,30 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      ParametricSDFSet, a 128^2 Depth render each on the card against the
      CPU, and NeRFMMCamera's and NeRVCamera's rays on the card against the
      CPU.
+ 24. the hash-encoded surface and the rest of the NeRF family: (a) the
+     flagship of workloads.nerf_synthetic.build_scene(surface="hash")
+     (HashSDF() at its defaults: 8 levels of 2^14 x 2, resolutions 16-512,
+     bound 2; seed-0 weights) on phase 7's GT: one 256^2 test view (256
+     steps, bounded 1.2) and three 6 x 80^2 training steps, each counted
+     (K1 for the shading nets; none of K2-K5: the plain loops march the
+     hash surface) and against plain_kernels(); workloads.nerf_synthetic.run
+     --surface hash for 6 steps (the loss of a fixed batch falls; the
+     artifacts reload equal); (b) HashEncoding() on the card against the CPU
+     at 65,536 points (forward, the gradients to the tables and the points;
+     the tables' gradient twice: the same bits?), its forward and
+     backward timed; (c) the hash flagship against the sphere flagship in
+     turns (a, b, b, a): a test view and a training step, wall, busy, idle
+     share and launches (the view profiled through pathtrace at one tile's
+     size), the launches of one plain march step at an eval tile (the
+     wrappers' counts, and three profiles' device kernels beside the host's
+     launch calls), the peak memory of a step; (d) the NeRV checkpoint at
+     200^2 under NeuralApprox (K2 once a tile, no K4) and under Direct with
+     a seeded GlobalNeuralBSDF and its BSDF arm under Constant(5, 0.5), hard
+     shadows (K2 once, K4 twice a tile), counted and against
+     plain_kernels(); TwoStageMLP, AutoDecoder, PartitionedAutoDecoder,
+     MipMap, SphericalHarmonics.fit, permute_kensler and OrthogonalSampler
+     (dims 0-1) on the card against the CPU; NeuralWarp.prime, 300 steps
+     (the loss falls).
 Phase 7 also runs the flagship step on the device data path (10 counted
 steps) and the two paths in turns, then the workload's own entry,
 workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
@@ -326,7 +350,18 @@ plain loop and K2 sum in another order), the multi-light image against the
 weighted sum of its single-light renders within 1e-6 (the same kernels and
 sums), prime's first loss on the kernel route within 1e-4 relative of
 plain, and the new surfaces' depths and the cameras' rays on the card
-within 1e-3 and 1e-5 of the CPU's.
+within 1e-3 and 1e-5 of the CPU's; phase 24's hash view and steps as
+phases 4 and 7 (the plain loops are the same code on both sides, only K1
+differs), HashEncoding on the card within 1e-5 of the CPU relative to the
+largest value (the tables' gradient is a scatter-add: its sums may meet in
+another order), its NeRF-family views as
+phase 22's, its modules on the card within 1e-4 of the CPU relative to the
+largest output (1e-3 for the least-squares fit, another LAPACK routine; 1e-6 for
+MipMap's pdf) and the samplers' integers equal.
+
+    python3 chip_smoke.py --hash
+
+runs phases 1 and 24 only (no result line).
 
     python3 chip_smoke.py --edit
 
@@ -1110,11 +1145,18 @@ def profile_step(torch, fn, label):
     if busy_ms == 0.0:
         print(f"  profile of {label}: the profiler saw no device time")
         return
+    # the host's launch calls, recorded on the CPU side of the same trace: a
+    # device kernel the trace lost shows as fewer kernels than these
+    host_launches = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CPU
+                        and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    device_kernels = sum(e.count for e in kernels if not e.key.startswith(("Memset", "Memcpy")))
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     rest = ranked[14:]
     print(f"  profile of {label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
           f"under the profiler (idle share {1 - busy_ms / wall_ms:.3f}), "
-          f"{sum(e.count for e in kernels)} kernel launches; top kernels:")
+          f"{sum(e.count for e in kernels)} kernel launches (device kernels {device_kernels}, "
+          f"host launch calls {host_launches}); top kernels:")
     for e in ranked[:14]:
         print(f"    {1e-3 * e.self_device_time_total:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
     print(f"    {1e-3 * sum(e.self_device_time_total for e in rest):9.3f} ms  "
@@ -1130,7 +1172,8 @@ def profile_step(torch, fn, label):
         print("    K6/K7 tile: " + ", ".join(
             f"{part} {1e-3 * sum(e.self_device_time_total for e in es):.3f} ms x"
             f"{sum(e.count for e in es)}" for part, es in bwd.items()))
-    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=sum(e.count for e in kernels))
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=sum(e.count for e in kernels),
+                device_kernels=device_kernels, host_launches=host_launches)
 
 
 def k1_routes(label) -> dict:
@@ -5056,6 +5099,467 @@ def phase_edit(torch, dev):
     return dict(flagship=flagship, dtu=dtu_edits, nerv=nerv_frames, prime=primed, secs=secs)
 
 
+# ---- phase 24: the hash-encoded surface and the rest of the NeRF family ---------------
+
+HASH_POINTS = 65_536                               # (b) the encoding, card against CPU
+HASH_STEPS = 3                                     # (a) steps held against plain_kernels()
+HASH_TWIN_STEPS = 6                                # (a) workloads.nerf_synthetic.run
+FAMILY_POINTS = 16_384                             # (d) each module, card against CPU
+SAMPLER_POINTS = 1_000                             # (d) OrthogonalSampler: 37^2 strata
+WARP_ITERS = 300                                   # (d) NeuralWarp.prime
+WARP_POINTS = 4_096
+
+
+def flagship_scene(torch, dev, surface):
+    """workloads.nerf_synthetic.build_scene(surface=...) at phase 7's
+    training settings (64 steps, unbounded), seed-0 weights."""
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
+    scene = nerf_synthetic.build_scene(surface=surface, max_steps=64, march_bound=None)
+    return scene.init(torch.Generator().manual_seed(0), device=dev)
+
+
+def flagship_test_view(torch, dev, scene, c2ws, size=SIZE):
+    """-> a function rendering test view 0 of phase 7's GT as the twin's test
+    split does (256 steps bounded 1.2, chunk_for's tile, the view's seed),
+    at ``size``^2."""
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.render import pathtrace
+    from neural_raytracing_tpu_torch.training.eval import view_key
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    test = scene.replace(shape=scene.shape.replace(max_steps=256, march_bound=1.2,
+                                                   throughput_mode="full"))
+    cam = NeRFCamera(torch.from_numpy(c2ws[:1]), FOCAL)
+    return lambda: pathtrace(test, cam, Direct(training=False), size=size,
+                             chunk_size=chunk_for(size), bundle_size=1, background=0.0,
+                             key=view_key(0, 0), device=dev)[0]
+
+
+def flagship_step(torch, dev, scene, c2ws, imgs, masks, first_view=0):
+    """-> a function taking one training step of ``scene`` (6 views from
+    ``first_view`` on, phase 7's silhouette crop, a fresh AdamW; no jitter
+    without a generator) -> (TrainState, aux)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import TrainState, build_step_fn, make_optimizer
+    idxs = np.asarray([(first_view + j) % len(c2ws) for j in range(N_VIEWS)])
+    u, v = silhouette_crop()
+    exp = torch.from_numpy(imgs[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    mask = torch.from_numpy(masks[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    camera = NeRFCamera(torch.from_numpy(c2ws[idxs]), FOCAL)
+    spec = make_optimizer(LRS)
+    step = build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
+    state = TrainState(scene, spec.init(scene), 0)
+    return lambda gen=None: step(state, camera, (u, v), exp, mask, gen)
+
+
+def no_march_kernels(label, counts):
+    """A hash surface's route: K1 for the shading nets, none of K2-K5."""
+    names = ("fused_march", "fused_min_scan", "fused_shadow_march", "fused_sphere_sdf",
+             "fused_march_bf16", "fused_min_scan_bf16", "fused_shadow_march_bf16")
+    check(all(counts[n] == 0 for n in names),
+          f"{label}: a march kernel was launched on a hash surface: {counts}")
+
+
+def wall_turns(torch, fns: dict) -> dict:
+    """Host-clock ms of one call of each of ``fns`` in turns (a, b, b, a),
+    each call synchronised: -> the mean of each's two."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for k in names + names[::-1]:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fns[k]()
+        torch.cuda.synchronize()
+        times[k].append(1e3 * (time.perf_counter() - start))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def hash_flagship(torch, dev, c2ws, imgs, masks):
+    """(a) the hash flagship (HashSDF() at its defaults): one 256^2 test view
+    and three 6 x 80^2 training steps, each counted and against
+    plain_kernels(); workloads.nerf_synthetic.run(--surface hash), its loss
+    on a fixed batch before and after, its artifacts reloaded."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.nn import HashSDF
+    from neural_raytracing_tpu_torch.training import NeRFDataset, load_scene
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    scene = flagship_scene(torch, dev, "hash")
+    check(isinstance(scene.shape.module, HashSDF), "the hash flagship's surface")
+    enc = scene.shape.module.enc
+    out = {}
+    view = flagship_test_view(torch, dev, scene, c2ws)
+    got, counts, secs = counted(torch, "hash test view", view)
+    no_march_kernels("hash test view", counts)
+    with plain_kernels():
+        want = view()
+    frac, agree, mean_d, max_d = compare_images("hash test view", got.cpu().numpy(),
+                                                want.cpu().numpy())
+    tiles = (SIZE // chunk_for(SIZE)) ** 2
+    out["view"] = dict(ms=1e3 * secs, k1=counts["fused_mlp_forward"], agree=agree,
+                       mean_diff=mean_d)
+    print(f"(a) hash flagship (HashSDF: {enc.levels} levels of 2^"
+          f"{int(math.log2(enc.table_size))} x {enc.features}, resolutions "
+          f"{enc.resolutions[0]}-{enc.resolutions[-1]}, bound {enc.bound}; 2 x 64 relu net), "
+          f"one {SIZE}^2 test view ({tiles} tiles, 256 steps, bounded 1.2): {1e3 * secs:.1f} "
+          f"ms (the first), K1 {counts['fused_mlp_forward']} launches, K2-K5 none; against "
+          f"plain_kernels(): lit fraction {frac:.4f}, mask agreement {agree:.6f}, mean |diff| "
+          f"{mean_d:.3e}, max |diff| {max_d:.3e}")
+
+    steps = []
+    for i in range(HASH_STEPS):
+        plain = copy.deepcopy(scene)
+        (_, aux), counts, secs = counted(torch, f"hash training step {i}", flagship_step(
+            torch, dev, scene, c2ws, imgs, masks, i))
+        no_march_kernels(f"hash training step {i}", counts)
+        with plain_kernels():
+            _, paux = flagship_step(torch, dev, plain, c2ws, imgs, masks, i)()
+        lk, lp = aux["loss"].item(), paux["loss"].item()
+        rel = abs(lk - lp) / abs(lp)
+        rel_g = {c: rel_l2(torch.cat([p.grad.reshape(-1) for p in getattr(scene, c).parameters()]),
+                           torch.cat([p.grad.reshape(-1) for p in getattr(plain, c).parameters()]))
+                 for c in ("shape", "bsdf", "lights")}
+        check(math.isfinite(lk) and rel <= 1e-4, f"hash step {i}: loss {lk} against plain {lp}")
+        for c, e in rel_g.items():
+            check(e <= 1e-2, f"hash step {i}: {c} gradient rel L2 {e:.3e} > 1e-2")
+        # the net's output layer starts at zero: from the second step on the
+        # features reach the loss
+        check(i == 0 or scene.shape.module.enc.tables.grad.abs().max().item() > 0,
+              f"hash step {i}: no gradient reached the tables")
+        steps.append(dict(ms=1e3 * secs, k1=counts["fused_mlp_forward"], loss=lk))
+        print(f"(a) hash training step {i} ({N_VIEWS} x {CROP_SIZE}^2 from view {i}): "
+              f"{1e3 * secs:.1f} ms, K1 {counts['fused_mlp_forward']} launches, K2-K5 none; "
+              f"loss {lk:.6f} against plain_kernels() {lp:.6f} (rel {rel:.2e}), gradient rel "
+              f"L2 {', '.join(f'{c} {e:.2e}' for c, e in rel_g.items())}")
+        del plain
+    out["steps"] = steps
+
+    def fixed_loss(sc):
+        return flagship_step(torch, dev, copy.deepcopy(sc), c2ws, imgs, masks)()[1]["loss"].item()
+
+    data = NeRFDataset(c2ws, FOCAL, imgs, masks)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = twin_args(nerf_synthetic, surface="hash", size=SIZE, crop_size=CROP_SIZE,
+                         n_views=N_VIEWS, iters=HASH_TWIN_STEPS, valid_freq=0, log_every=0,
+                         models=tmp, outputs=tmp, device=str(dev))
+        before = fixed_loss(flagship_scene(torch, dev, "hash"))
+        (state, res), counts, secs = counted(torch, "hash twin", lambda: nerf_synthetic.run(
+            args, data, None, "hash"))
+        no_march_kernels("hash twin", counts)
+        after = fixed_loss(state.scene)
+        check(len(res["losses"]) == HASH_TWIN_STEPS and np.isfinite(res["losses"]).all(),
+              f"hash twin: losses {res['losses']}")
+        check(after < before, f"hash twin: the fixed batch's loss went {before} -> {after}")
+        fresh = nerf_synthetic.build_scene(surface="hash").init(
+            torch.Generator().manual_seed(5), device=dev)
+        load_scene(f"{tmp}/hash", fresh)
+        same = all(torch.equal(fresh.state_dict()[k], v)
+                   for k, v in state.scene.state_dict().items())
+        check(same, "hash twin: the saved artifacts did not reload")
+    out["twin"] = dict(ms_step=1e3 * secs / HASH_TWIN_STEPS, before=before, after=after)
+    print(f"(a) workloads.nerf_synthetic.run --surface hash on phase 7's GT, "
+          f"{HASH_TWIN_STEPS} steps of {N_VIEWS} x {CROP_SIZE}^2: {1e3 * secs / HASH_TWIN_STEPS:.1f} "
+          f"ms/step, losses {[round(x, 3) for x in res['losses']]}; the loss of a fixed batch "
+          f"(views 0-5, the silhouette crop) {before:.4f} -> {after:.4f}; K1 "
+          f"{counts['fused_mlp_forward']} launches, K2-K5 none; the artifacts reload equal")
+    return scene, out
+
+
+def hash_encoding_card(torch, dev):
+    """(b) HashEncoding() at its defaults on the card against the CPU: the
+    same tables (seeded, scale 0.1) and 65,536 seeded points, forward and
+    the gradients to the tables and to the points; the tables' gradient
+    twice on the card (same bits?); the forward, and the forward with the
+    backward, timed."""
+    import copy
+    from neural_raytracing_tpu_torch.nn import HashEncoding
+    gen = torch.Generator().manual_seed(21)
+    enc = HashEncoding()
+    with torch.no_grad():
+        enc.tables.copy_(0.1 * torch.randn(enc.tables.shape, generator=gen))
+    p = 4.4 * torch.rand(HASH_POINTS, 3, generator=gen) - 2.2
+    w = torch.randn(HASH_POINTS, enc.out_size, generator=gen)
+
+    def run(module, device):
+        module = copy.deepcopy(module).to(device)
+        q = p.clone().to(device).requires_grad_()
+        f = module(q)
+        torch.sum(f * w.to(device)).backward()
+        return f.detach().cpu(), module.tables.grad.cpu(), q.grad.cpu()
+
+    cpu = run(enc, "cpu")
+    on_card = run(enc, dev)
+    again = run(enc, dev)
+    errs = {name: (a - b).abs().max().item() / b.abs().max().item()
+            for name, a, b in zip(("features", "d tables", "d points"), on_card, cpu)}
+    errs["d tables rel L2"] = rel_l2(on_card[1], cpu[1])
+    same_bits = torch.equal(on_card[1], again[1])
+    for name, e in errs.items():
+        check(e <= 1e-5, f"HashEncoding card against CPU: {name} {e:.3e} > 1e-5")
+    enc_d = enc.to(dev)
+    q = p.to(dev)
+    qg = q.clone().requires_grad_()
+
+    def fwd_bwd():
+        torch.sum(enc_d(qg)).backward()
+
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: enc_d(q), 5)
+    both = cuda_ms(fwd_bwd, 5)
+    print(f"(b) HashEncoding() on {card()}, {HASH_POINTS:,} points, card against CPU (max "
+          f"|diff| over max): features {errs['features']:.2e}, d tables {errs['d tables']:.2e} "
+          f"(rel L2 {errs['d tables rel L2']:.2e}), d points {errs['d points']:.2e}; the tables' "
+          f"gradient twice on the card the same bits: {same_bits}; forward {fwd:.3f} ms, forward "
+          f"and backward {both:.3f} ms")
+    return dict(errs=errs, same_bits=same_bits, fwd=fwd, fwd_bwd=both)
+
+
+def hash_turns(torch, dev, scene, c2ws, imgs, masks):
+    """(c) the hash flagship against the sphere flagship in turns: one test
+    view and one training step, wall (host clock, a, b, b, a), busy, idle
+    share and launches (a profile of a step, and of pathtrace at one tile's
+    size, 128^2 with the view's camera: the 256^2 view renders 4 such tiles
+    of the same 256 steps, and a whole hash view's ~2.3e5 launches take
+    minutes to profile); the launches of one plain march step at an eval
+    tile; the peak memory of a step."""
+    from neural_raytracing_tpu_torch.kernels import march_plain
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    scenes = {"spheres": flagship_scene(torch, dev, "spheres"), "hash": scene}
+    views = {k: flagship_test_view(torch, dev, s, c2ws) for k, s in scenes.items()}
+    steps = {k: flagship_step(torch, dev, s, c2ws, imgs, masks) for k, s in scenes.items()}
+    views["spheres"]()                                   # warm-ups (the hash view ran in (a))
+    for k in steps:
+        steps[k]()
+    view_ms = wall_turns(torch, views)
+    step_ms = wall_turns(torch, steps)
+    busy = {}
+    for k, s in scenes.items():
+        busy[f"{k} 128^2 view"] = profile_step(
+            torch, flagship_test_view(torch, dev, s, c2ws, chunk_for(SIZE)),
+            f"one {k} test view at one tile's size, {chunk_for(SIZE)}^2 (one tile)")
+        busy[f"{k} step"] = profile_step(torch, steps[k], f"one {k} training step")
+    check(all(b is not None for b in busy.values()), "phase 24: the profiler saw no device time")
+    peak = {}
+    for k in scenes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps[k]()
+        torch.cuda.synchronize()
+        peak[k] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one plain march step at an eval tile (16,384 rays of the test view)
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    chunk = chunk_for(SIZE)
+    rays = NeRFCamera(torch.from_numpy(c2ws[:1]), FOCAL).to(dev).sample_positions(
+        _tile_positions(0.0, 0.0, chunk, dev), size=SIZE).reshape(-1, 6)
+    r_o, r_d = rays[:, :3].contiguous(), rays[:, 3:].contiguous()
+    # the step's route from the wrappers' own counts (K1 for the spheres' net,
+    # none for the hash's plain net), then three profiles of it: the host's
+    # launch calls beside the kernels the device trace recorded, so a trace
+    # that lost events shows as fewer device kernels than launch calls
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    march_step, march_route, march_profiles = {}, {}, {}
+    for k, s in scenes.items():
+        one = lambda s=s: march_plain(s.shape.sdf, r_o, r_d, 10.0, max_steps=1, epsilon=1e-3)
+        with torch.no_grad():
+            one()
+            reset_launch_counts()
+            one()
+            torch.cuda.synchronize()
+            march_route[k] = {n: c for n, c in launch_counts().items() if c}
+            profs = [profile_step(torch, one, f"one plain march step, {k}, {r_o.shape[0]} "
+                                  f"rays, profile {i + 1} of 3") for i in range(3)]
+        check(all(p is not None for p in profs), "phase 24: the profiler saw no device time")
+        march_profiles[k] = [(p["device_kernels"], p["host_launches"]) for p in profs]
+        march_step[k] = max(p["host_launches"] for p in profs)
+    check(march_route["spheres"].get("fused_mlp_forward", 0) >= 1 and not march_route["hash"],
+          f"phase 24: a plain march step's kernel launches {march_route}: K1 for the spheres, "
+          f"none for the hash")
+    print(f"(c) one plain march step ({r_o.shape[0]} rays): the wrappers' counts {march_route}; "
+          + "; ".join(f"{k}: (device kernels, host launch calls) of three profiles {v}"
+                      for k, v in march_profiles.items()))
+    print(f"(c) on {card()}, in turns (a, b, b, a): one {SIZE}^2 test view spheres "
+          f"{view_ms['spheres']:.1f} ms, hash {view_ms['hash']:.1f} ms "
+          f"({view_ms['hash'] / view_ms['spheres']:.1f}x); one training step spheres "
+          f"{step_ms['spheres']:.1f} ms, hash {step_ms['hash']:.1f} ms "
+          f"({step_ms['hash'] / step_ms['spheres']:.1f}x); " + "; ".join(
+              f"{k}: busy {b['busy_ms']:.1f} ms of {b['wall_ms']:.1f} (idle "
+              f"{1 - b['busy_ms'] / b['wall_ms']:.3f}), {b['launches']} launches"
+              for k, b in busy.items()) + " (a 256^2 view: 4 tiles of 128^2)" +
+          f"; one plain march step ({r_o.shape[0]} rays): hash {march_step['hash']} launch calls, "
+          f"spheres {march_step['spheres']}; peak memory of a step spheres "
+          f"{peak['spheres']:.3f} GiB, hash {peak['hash']:.3f} GiB")
+    return dict(view_ms=view_ms, step_ms=step_ms, busy=busy, march_step=march_step,
+                march_profiles=march_profiles, peak=peak)
+
+
+def family_views(torch, dev):
+    """(d) the NeRV checkpoint under NeuralApprox (K2 a tile, no shadow
+    rays) and under Direct with a seeded GlobalNeuralBSDF and its BSDF arm
+    under Constant(5, 0.5), hard shadows (K2 once, K4 twice a tile), each
+    counted and against plain_kernels()."""
+    from neural_raytracing_tpu_torch.bsdf import GlobalNeuralBSDF
+    from neural_raytracing_tpu_torch.integrators import Direct, NeuralApprox
+    from neural_raytracing_tpu_torch.lights import Constant
+    scene = nerv_scene(torch, dev, 128, 1.2, "hard")
+    scene.lights.set_location(scene.lights.location.detach()[:1])
+    approx = NeuralApprox()
+    approx.reset_parameters(torch.Generator().manual_seed(0))
+    approx.to(dev)
+    gb = GlobalNeuralBSDF()
+    gen = torch.Generator().manual_seed(1)
+    gb.reset_parameters(gen)
+    with torch.no_grad():                      # a mixture of distinct components
+        gb.dist.centers.copy_(0.4 * torch.randn(gb.dist.centers.shape, generator=gen))
+        gb.dist.vars.copy_(0.3 * torch.randn(gb.dist.vars.shape, generator=gen))
+        gb.dist.weights.copy_(torch.randn(gb.dist.weights.shape, generator=gen))
+    lit = scene.replace(bsdf=gb.to(dev), lights=Constant(radius=5.0, intensity=0.5).to(dev))
+    mis = Direct(emitter_samples=1, bsdf_samples=1, training=False)
+    out = {}
+    for label, sc, integrator, per_tile in (
+            ("NeuralApprox", scene, approx, {"fused_march": 1, "fused_shadow_march": 0}),
+            ("Direct + GlobalNeuralBSDF (BSDF arm, Constant)", lit, mis,
+             {"fused_march": 1, "fused_shadow_march": 2})):
+        fn = lambda sc=sc, integrator=integrator: path_view(torch, dev, sc, integrator)
+        got, counts = counted_view(torch, label, fn, per_tile)
+        with plain_kernels():
+            want = fn()
+        frac, agree, mean_d, max_d = compare_images(label, got.cpu().numpy(), want.cpu().numpy())
+        ms = cuda_ms(fn, 3)
+        out[label] = dict(ms=ms, counts=counts, agree=agree, mean_diff=mean_d)
+        print(f"(d) {label}, the NeRV checkpoint, view 0 at {NERV_SIZE}^2: {ms:.1f} ms/view; "
+              f"K1 {counts['fused_mlp_forward']}, K2 {counts['fused_march']}, K4 "
+              f"{counts['fused_shadow_march']} launches; against plain_kernels(): lit fraction "
+              f"{frac:.4f}, mask agreement {agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| "
+              f"{max_d:.3e}")
+    return out
+
+
+def family_modules(torch, dev):
+    """(d) each other new module once on the card against the CPU, the same
+    params and inputs; NeuralWarp.prime on the card (the loss falls)."""
+    import copy
+
+    from neural_raytracing_tpu_torch import samplers, warps
+    from neural_raytracing_tpu_torch.nn.mlp import (
+        AutoDecoder, PartitionedAutoDecoder, TwoStageMLP,
+    )
+    gen = torch.Generator().manual_seed(31)
+    n = FAMILY_POINTS
+    p = 2.0 * torch.rand(n, 3, generator=gen) - 1.0
+    q = 2.0 * torch.rand(n, 3, generator=gen) - 1.0
+    errs = {}
+
+    def card_cpu(name, module, *inputs, tol=1e-4):
+        module.reset_parameters(torch.Generator().manual_seed(len(errs)))
+        want = module(*inputs).detach()
+        got = copy.deepcopy(module).to(dev)(*[x.to(dev) for x in inputs]).detach().cpu()
+        errs[name] = (got - want).abs().max().item() / want.abs().max().item()
+        check(errs[name] <= tol, f"{name}: card against CPU {errs[name]:.3e} > {tol}")
+
+    card_cpu("TwoStageMLP", TwoStageMLP(), p, q)
+    card_cpu("AutoDecoder", AutoDecoder(), p)
+    card_cpu("PartitionedAutoDecoder", PartitionedAutoDecoder(), 3.5 * p)
+    mm = warps.MipMap()
+    val = 2.2 * torch.rand(n, 2, generator=gen) - 1.1
+    mm.reset_parameters(torch.Generator().manual_seed(3))
+    want = mm.pdf(val).detach()
+    mm_d = copy.deepcopy(mm).to(dev)
+    errs["MipMap.pdf"] = ((mm_d.pdf(val.to(dev)).detach().cpu() - want).abs().max().item()
+                          / want.abs().max().item())
+    check(errs["MipMap.pdf"] <= 1e-6, "MipMap.pdf card against CPU")
+    uv, pdf = mm_d.sample(torch.Generator(device=dev).manual_seed(4), (n,))
+    check(torch.equal(mm_d.pdf(uv), pdf), "MipMap.sample: the pdf at the sample")
+    sh = warps.SphericalHarmonics(order=4)
+    d = torch.randn(4096, 3, generator=gen)
+    values = torch.sin(3 * d[:, 0]) + d[:, 2] ** 2
+    want = sh.fit(d, values)
+    got = copy.deepcopy(sh).to(dev).fit(d.to(dev), values.to(dev)).cpu()
+    errs["SphericalHarmonics.fit"] = (got - want).abs().max().item() / want.abs().max().item()
+    check(errs["SphericalHarmonics.fit"] <= 1e-3, "SphericalHarmonics.fit card against CPU")
+    idx = torch.arange(3 * 1009)
+    kc = samplers.permute_kensler(idx, 1009, 0x51633E2D)
+    kd = samplers.permute_kensler(idx.to(dev), 1009, 0x51633E2D).cpu()
+    check(torch.equal(kc, kd), "permute_kensler: card against CPU")
+    # the strata are integers; the float32 position in a stratum may differ
+    # in the last bit (on the card a division by a number is a product with
+    # its reciprocal)
+    so = {}
+    for device in ("cpu", dev):
+        s = samplers.OrthogonalSampler(SAMPLER_POINTS, jitter=False,
+                                       generator=torch.Generator(device=device).manual_seed(0))
+        so[str(device)] = s.next_2d(SAMPLER_POINTS).cpu()
+    r = s.resolution
+    a, b = so["cpu"], so[str(dev)]
+    errs["OrthogonalSampler"] = (a - b).abs().max().item()
+    check(torch.equal(torch.floor(a * r), torch.floor(b * r)) and errs["OrthogonalSampler"] <= 1e-6,
+          f"OrthogonalSampler dims 0-1: card against CPU {errs['OrthogonalSampler']:.3e}")
+    cells = torch.floor(b * r).to(torch.int64)
+    check(len({tuple(c) for c in cells.tolist()}) == len(cells),
+          "OrthogonalSampler: two samples share a stratum pair")
+    warp = warps.NeuralWarp().to(dev)
+    wgen = torch.Generator(device=dev).manual_seed(5)
+    first = warp.prime(wgen, iters=1, batches=WARP_POINTS).item()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    last = warp.prime(wgen, iters=WARP_ITERS - 1, batches=WARP_POINTS).item()
+    secs = time.perf_counter() - start
+    check(math.isfinite(last) and last < first, f"NeuralWarp.prime: the loss went {first} -> {last}")
+    print(f"(d) card against CPU (max |diff| over max): " + ", ".join(
+        f"{k} {e:.2e}" for k, e in errs.items()) + f"; permute_kensler the same integers, "
+          f"OrthogonalSampler (dims 0-1, {r}^2 strata, no jitter) the same strata; "
+          f"NeuralWarp.prime "
+          f"{WARP_ITERS} steps at {WARP_POINTS:,} directions: loss {first:.5f} -> {last:.5f}, "
+          f"{1e3 * secs / (WARP_ITERS - 1):.2f} ms/step")
+    return dict(errs=errs, prime=(first, last))
+
+
+def phase_hash(torch, dev):
+    """Phase 24: the hash-encoded surface and the rest of the NeRF family at
+    full width -> the numbers for the summary line."""
+    print(f"phase 24 on {card()}")
+    start = time.perf_counter()
+    c2ws = train_c2ws()
+    imgs, masks = sphere_gt(torch, c2ws)
+    parts = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t
+        return out
+
+    scene, flagship = timed("a", lambda: hash_flagship(torch, dev, c2ws, imgs, masks))
+    enc = timed("b", lambda: hash_encoding_card(torch, dev))
+    turns = timed("c", lambda: hash_turns(torch, dev, scene, c2ws, imgs, masks))
+    views = timed("d views", lambda: family_views(torch, dev))
+    modules = timed("d modules", lambda: family_modules(torch, dev))
+    secs = time.perf_counter() - start
+    print(f"phase 24 on {card()}: hash test view {turns['view_ms']['hash']:.1f} ms against "
+          f"the spheres' {turns['view_ms']['spheres']:.1f} (busy a 128^2 view "
+          f"{turns['busy']['hash 128^2 view']['busy_ms']:.1f} / "
+          f"{turns['busy']['spheres 128^2 view']['busy_ms']:.1f}), hash step "
+          f"{turns['step_ms']['hash']:.1f} ms against {turns['step_ms']['spheres']:.1f}, "
+          f"{turns['march_step']['hash']} launch calls a plain hash march step; HashEncoding "
+          f"on the card the same bits twice: {enc['same_bits']}; NeuralApprox view "
+          f"{views['NeuralApprox']['ms']:.1f} ms, GlobalNeuralBSDF view "
+          f"{views['Direct + GlobalNeuralBSDF (BSDF arm, Constant)']['ms']:.1f} ms; "
+          f"NeuralWarp.prime {modules['prime'][0]:.4f} -> {modules['prime'][1]:.4f}; "
+          f"phase 24 took {secs:.1f} s (" + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + ")")
+    return dict(flagship=flagship, enc=enc, turns=turns, views=views, modules=modules,
+                secs=secs)
+
+
 def median_busy(torch, fn, label, reps: int = 3) -> dict:
     """{busy_ms, wall_ms, launches}: the medians of ``reps`` profiles of one
     call of ``fn`` (profile_step), after one warm-up call."""
@@ -5243,6 +5747,9 @@ def main():
     if sys.argv[1:2] == ["--edit"]:
         phase_edit(torch, dev)
         return
+    if sys.argv[1:2] == ["--hash"]:
+        phase_hash(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -5274,6 +5781,7 @@ def main():
     nv = phase_nerv_generated(torch, dev)
     pt = phase_path(torch, dev, (nv["data"], nv["test"], nv["state"]))
     ed = phase_edit(torch, dev)
+    hs = phase_hash(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -5359,6 +5867,12 @@ def main():
           f"view; multi-light NeRV test view {ed['nerv']['ms']:.1f} ms/view; prime loss "
           f"{ed['prime']['loss'][0]:.5f} -> {ed['prime']['loss'][1]:.5f}; phase 23 took "
           f"{ed['secs']:.1f} s")
+    ht = hs["turns"]
+    print(f"hash surface and NeRF family (phase 24): hash test view {ht['view_ms']['hash']:.1f} "
+          f"ms against the spheres' {ht['view_ms']['spheres']:.1f}, hash training step "
+          f"{ht['step_ms']['hash']:.1f} ms against {ht['step_ms']['spheres']:.1f}, "
+          f"{ht['march_step']['hash']} launch calls a plain hash march step; NeuralApprox view "
+          f"{hs['views']['NeuralApprox']['ms']:.1f} ms; phase 24 took {hs['secs']:.1f} s")
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "

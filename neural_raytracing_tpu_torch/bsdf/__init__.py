@@ -1,4 +1,4 @@
 from .bsdfs import (
-    Bidirectional, Compose, ComposeSpatialVarying, Conductor, Diffuse, NeuralBSDF, Phong,
-    Plastic, SelectBSDF, invert_z,
+    Bidirectional, Compose, ComposeSpatialVarying, Conductor, Diffuse, GlobalNeuralBSDF,
+    NeuralBSDF, Phong, Plastic, SelectBSDF, invert_z,
 )

@@ -12,7 +12,10 @@ Counterpart of ``neural_raytracing_tpu/bsdf/bsdfs.py``:
   * ``Bidirectional``: a two-sided wrapper that flips the local frame for
     back-facing hits;
   * ``Compose``: a global softmax mixture; ``SelectBSDF``: a hard spatial
-    pick by a selector function.
+    pick by a selector function;
+  * ``GlobalNeuralBSDF``: one global pair of nets, attenuation over
+    ``param_rusin(n, wi, wo)`` times colour over the position, with a
+    ``DensityEstimator`` over uv as its pdf and sampler.
 
 ``eval_and_pdf(it, wo, active) -> (spectrum [..., 3], pdf [...], aux)`` and
 ``sample(it, generator, active) -> (BSDFSample, spectrum [..., 3])``.  Every
@@ -32,11 +35,12 @@ from torch import nn
 
 from ..interaction import BSDFSample
 from ..kernels.fused_mlp import FusedSkipConnMLP
-from ..nn.mlp import ACTIVATIONS, SkipConnMLP
+from ..nn.mlp import ACTIVATIONS, DensityEstimator, SkipConnMLP
 from ..ops import sampling
+from ..ops.dirs import dir_to_uv, uv_to_dir
 from ..ops.fresnel import fresnel, fresnel_conductor, fresnel_diff_refl
 from ..ops.math import local_reflect, maximum, normalize, reflect
-from ..ops.rusin import param_rusin2
+from ..ops.rusin import param_rusin, param_rusin2
 from ..ops.warps import square_to_cos_hemisphere, square_to_cos_hemisphere_pdf
 
 
@@ -454,4 +458,39 @@ class SelectBSDF(nn.Module):
         onehot = one_hot(self.selector(it.p), len(self.bsdfs))
         samples = [b.sample(it, generator, active) for b in self.bsdfs]
         wo, pdf, spectrum = combine_samples(samples, onehot)
+        return BSDFSample(wo=wo, pdf=pdf), spectrum
+
+
+class GlobalNeuralBSDF(nn.Module):
+    """One global net pair: ``attenuation(param_rusin(n, wi, wo)) * (1 +
+    color(p)) / 2``, two plain 3 x 64 relu SkipConnMLPs; the pdf is the
+    ``DensityEstimator`` ``dist`` at ``dir_to_uv(wo)``, and ``sample`` draws
+    from it (``wo = uv_to_dir(tanh(val))``), where the attenuation is
+    remapped to ``(1 + att) / 2``, as in the JAX package."""
+
+    def __init__(self):
+        super().__init__()
+        self.attenuation = SkipConnMLP(in_size=3, out=1, num_layers=3, hidden_size=64,
+                                       activation="relu")
+        self.color = SkipConnMLP(in_size=3, out=3, num_layers=3, hidden_size=64,
+                                 activation="relu")
+        self.dist = DensityEstimator()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.attenuation.reset_parameters(generator)
+        self.color.reset_parameters(generator)
+        self.dist.reset_parameters(generator)
+
+    def eval_and_pdf(self, it, wo: torch.Tensor, active=True):
+        att = self.attenuation(param_rusin(it.n, it.wi, wo))
+        spectrum = att * (1.0 + self.color(it.p)) / 2.0
+        pdf = self.dist.pdf(dir_to_uv(wo))[..., 0]
+        return spectrum, pdf, {}
+
+    def sample(self, it, generator, active=True):
+        val, pdf = self.dist.sample(generator, it.p.shape[:-1])
+        wo = normalize(uv_to_dir(torch.tanh(val)), eps=1e-7)
+        att = (1.0 + self.attenuation(param_rusin(it.n, it.wi, wo))) / 2.0
+        spectrum = att * (1.0 + self.color(it.p)) / 2.0
         return BSDFSample(wo=wo, pdf=pdf), spectrum

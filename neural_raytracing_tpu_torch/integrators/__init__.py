@@ -1,4 +1,4 @@
 from .integrators import (
     BasisBRDF, Debug, Depth, Direct, Illumination, Integrator, LevelSurfaces, Luminance,
-    Mask, NeRFIntegrator, NeRFReproduce, Path, Silhouette, mis_weight,
+    Mask, NeRFIntegrator, NeRFReproduce, NeuralApprox, Path, Silhouette, mis_weight,
 )

@@ -7,6 +7,8 @@ Counterpart of ``neural_raytracing_tpu/integrators/integrators.py``:
     path throughput detached each bounce;
   * the debug integrators ``Debug``, ``Silhouette``, ``Depth``,
     ``LevelSurfaces``, ``BasisBRDF``, ``Illumination``, ``Luminance``;
+  * ``NeuralApprox``: outgoing radiance predicted by a ``TwoStageMLP`` at
+    the primary hit;
   * ``NeRFIntegrator``: the training wrapper (appends the silhouette alpha);
     ``Mask``: appends the hit mask (the dataset generator's alpha);
     ``NeRFReproduce``: hands the rays to a volumetric (NeRF-family) shape.
@@ -22,9 +24,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from ..interaction import Interaction
+from ..nn.mlp import TwoStageMLP
 from ..ops.math import maximum, normalize
+from ..ops.rusin import param_rusin
 from ..scene import Scene, sample_emitter
 
 
@@ -280,6 +285,34 @@ class Path(Integrator):
             it, hits = _secondary(scene, it.spawn_rays(it.from_local(bs.wo)), generator)
             active = active & hits
         return result, original_active, first_it
+
+
+class NeuralApprox(Integrator, nn.Module):
+    """Outgoing radiance predicted directly: ``(1 + tanh(mlp(param_rusin(n,
+    wi, d), p))) / 2`` at the primary hit, ``d`` the light direction from
+    emitter sampling with no shadow rays, 0 where the ray missed.  The
+    integrator owns its ``TwoStageMLP`` (``mlp``); the JAX package keeps its
+    params under ``params["integrator"]``, which load into ``mlp``."""
+
+    def __init__(self):
+        nn.Module.__init__(self)
+        self.mlp = TwoStageMLP(in_1=3, in_2=3, intermediate=1, out=3)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        self.mlp.reset_parameters(generator)
+
+    def dims(self):
+        return 3
+
+    def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
+               training: Optional[bool] = False):
+        it, active = scene.shape.intersect(rays, primary=bool(training),
+                                           generator=generator)
+        ds, _ = sample_emitter(scene.replace(occlusion="none"), it, generator, active)
+        out = self.mlp(param_rusin(it.n, it.from_local(it.wi), ds.d), it.p)
+        result = torch.where(active[..., None], (1.0 + torch.tanh(out)) / 2.0, 0.0)
+        return result, active, it
 
 
 class NeRFIntegrator(Integrator):

@@ -1,6 +1,6 @@
-"""Fourier-encoded skip-connection MLP.
+"""Fourier-encoded skip-connection MLPs and the nets built on them.
 
-Counterpart of ``SkipConnMLP`` in ``neural_raytracing_tpu/nn/mlp.py``:
+Counterpart of ``neural_raytracing_tpu/nn/mlp.py``.  ``SkipConnMLP``:
   * the input is Fourier-encoded, ``enc = [x, sin(xB), cos(xB)]``;
   * the activation comes BEFORE each linear layer;
   * on a skip layer (``i % skip == 0 and i != L - 1``) the concatenation
@@ -17,6 +17,11 @@ bf16 and computes everything after that in float32, as
 ``SkipConnMLP.__call__`` of the JAX package does (its bf16 encoding meets
 float32 weights and is promoted); the fused kernel K1 rounds
 every matmul operand instead (``kernels/fused_mlp.py``).
+
+Also ``TwoStageMLP`` (weight-normed hidden layers, ``HiddenLinear``),
+``AutoDecoder`` and ``PartitionedAutoDecoder`` (latent codes conditioning a
+SkipConnMLP) and ``DensityEstimator`` (a 2-D Gaussian mixture); none has a
+kernel in the JAX package, so all are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.encoding import fourier_basis, fourier_encode, fourier_size
+from ..ops.math import clip, maximum
 
 class _LeakyReLU(torch.autograd.Function):
     """``F.leaky_relu(x, 0.01)`` (its values, bit for bit) with the gradient
@@ -240,3 +246,271 @@ def prime_identity(mlp: nn.Module, generator: torch.Generator, lr: float = 1e-4,
         loss.backward()
         opt.step()
     return None if loss is None else loss.detach()
+
+
+class HiddenLinear(Linear):
+    """A hidden layer of ``TwoStageMLP``: weight-normed ``{v, g, b}``, with
+    ``w = g * v / max(||v||_0, 1e-12)`` (the norm over ``fan_in``, each
+    output's column), or plain ``{w, b}``.  The layout is fixed when the
+    layer is built: a plain-layout params tree, which the JAX package applies
+    as plain whatever the net's flag, loads into a net built with
+    ``weight_norm=False``."""
+
+    def __init__(self, fan_in: int, fan_out: int, weight_norm: bool = True):
+        super().__init__(fan_in, fan_out)
+        self.weight_norm = weight_norm
+        if weight_norm:
+            del self.w, self.b      # the JAX order: v, g, b
+            self.v = nn.Parameter(torch.zeros(fan_in, fan_out))
+            self.g = nn.Parameter(torch.zeros(fan_out))
+            self.b = nn.Parameter(torch.zeros(fan_out))
+
+    @property
+    def _shape(self):
+        return tuple((self.v if self.weight_norm else self.w).shape)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator, mode: str):
+        """The plain layer's init; weight-normed, ``v`` is its ``w`` and ``g``
+        starts at ``||v||_0``, so the layer computes the plain one."""
+        if not self.weight_norm:
+            return super().reset_parameters(generator, mode)
+        plain = Linear(*self._shape).to(self.b.device)
+        plain.reset_parameters(generator, mode)
+        self.v.copy_(plain.w)
+        self.g.copy_(torch.linalg.norm(plain.w, dim=0))
+        self.b.copy_(plain.b)
+
+    def weight(self) -> torch.Tensor:
+        if not self.weight_norm:
+            return self.w
+        norm = torch.linalg.norm(self.v, dim=0)
+        return self.g * self.v / maximum(norm, 1e-12)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight() + self.b
+
+
+class TwoStageMLP(nn.Module):
+    """Two chained skip-MLP stages with a sigmoid bottleneck between them.
+
+    ``forward(i1[..., in_1], i2[..., in_2]) -> [..., out]``: the first stage
+    over the Fourier encoding of ``i1`` narrows to ``intermediate``
+    sigmoid units, which the second stage takes beside the encoding of
+    ``i2``.  The hidden layers of both stages are weight-normed
+    (``HiddenLinear``; ``weight_norm=False`` builds them plain); ``init``,
+    ``inter``, ``from_inter`` and ``out`` are plain.
+    """
+
+    def __init__(self, in_1: int = 3, in_2: int = 3, intermediate: int = 1,
+                 out: int = 3, num_layers: int = 6, hidden_size: int = 128,
+                 skip: int = 3, freqs: int = 10, sigma: float = 64.0,
+                 activation: str = "relu", init: str = "uniform",
+                 weight_norm: bool = True):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
+        self.weight_norm = weight_norm
+        self.in_1, self.in_2 = in_1, in_2
+        self.intermediate = intermediate
+        self.out_size = out
+        self.num_layers = num_layers
+        self.hidden_size = hidden_size
+        self.skip = skip
+        self.freqs = freqs
+        self.sigma = sigma
+        self.activation = ACTIVATIONS[activation]
+        self.init_mode = init
+        self.dim_1 = fourier_size(freqs, in_1)
+        self.mid_input = intermediate + fourier_size(freqs, in_2)
+
+        self.register_buffer("B1", torch.zeros(in_1, freqs))
+        self.register_buffer("B2", torch.zeros(in_2, freqs))
+        self.init = Linear(self.dim_1, hidden_size)
+        self.layers1 = self._stage(hidden_size + self.dim_1)
+        self.inter = Linear(hidden_size, intermediate)
+        self.from_inter = Linear(self.mid_input, hidden_size)
+        self.layers2 = self._stage(hidden_size + self.mid_input)
+        self.out = Linear(hidden_size, out)
+
+    def _stage(self, skip_size: int) -> nn.ModuleList:
+        return nn.ModuleList(
+            HiddenLinear(skip_size if self.is_skip_layer(i) else self.hidden_size,
+                         self.hidden_size, self.weight_norm)
+            for i in range(self.num_layers))
+
+    def is_skip_layer(self, i: int) -> bool:
+        return (i % self.skip) == 0 and i != self.num_layers - 1
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        for layer in (self.init, *self.layers1, self.inter, self.from_inter,
+                      *self.layers2, self.out):
+            layer.reset_parameters(generator, self.init_mode)
+        self.B1.copy_(fourier_basis(generator, self.freqs, self.in_1, self.sigma))
+        self.B2.copy_(fourier_basis(generator, self.freqs, self.in_2, self.sigma))
+
+    def forward(self, i1: torch.Tensor, i2: torch.Tensor) -> torch.Tensor:
+        batches = i1.shape[:-1]
+        act = self.activation
+        enc1 = fourier_encode(i1.reshape(-1, self.in_1), self.B1)
+        h = self.init(enc1)
+        for i, layer in enumerate(self.layers1):
+            if self.is_skip_layer(i):
+                h = torch.cat([h, enc1], dim=-1)
+            h = layer(act(h))
+        h = torch.sigmoid(self.inter(act(h)))
+        enc2 = fourier_encode(i2.reshape(-1, self.in_2), self.B2)
+        mid = torch.cat([h, enc2], dim=-1)
+        h = self.from_inter(mid)
+        for i, layer in enumerate(self.layers2):
+            if self.is_skip_layer(i):
+                h = torch.cat([h, mid], dim=-1)
+            h = layer(act(h))
+        out = self.out(act(h))
+        return out.reshape(batches + (self.out_size,))
+
+
+class AutoDecoder(nn.Module):
+    """A SkipConnMLP conditioned on one learned global code (DeepSDF-style).
+
+    ``forward(p[..., in_size], code=None) -> [..., out]``; without ``code``
+    the learned ``code [code_size]`` conditions every point.
+    """
+
+    def __init__(self, in_size: int = 3, out: int = 3, num_layers: int = 4,
+                 code_size: int = 64, hidden_size: int = 64, skip: int = 3,
+                 freqs: int = 8, sigma: float = 64.0,
+                 activation: str = "leaky_relu", init: str = "uniform"):
+        super().__init__()
+        self.code_size = code_size
+        self.code = nn.Parameter(torch.zeros(code_size))
+        self.mlp = SkipConnMLP(in_size=in_size, out=out, num_layers=num_layers,
+                               hidden_size=hidden_size, skip=skip, freqs=freqs,
+                               sigma=sigma, latent_size=code_size,
+                               activation=activation, init=init)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """The code ``U[0, 1)``, the net as its own init."""
+        self.code.copy_(torch.rand(self.code.shape, generator=generator,
+                                   device=generator.device))
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, p: torch.Tensor, code: Optional[torch.Tensor] = None) -> torch.Tensor:
+        code = self.code if code is None else code
+        latent = torch.broadcast_to(code, p.shape[:-1] + (self.code_size,))
+        return self.mlp(p, latent)
+
+
+class PartitionedAutoDecoder(nn.Module):
+    """A voxel grid of learned codes and one shared decoder MLP.
+
+    Positions in ``[-bound, bound]^3`` (clipped to it) fall into the cells of
+    a ``ps^3`` grid; each cell owns a code that conditions the shared net on
+    the point's coordinates within the cell.
+    """
+
+    def __init__(self, in_size: int = 3, out: int = 3, num_layers: int = 4,
+                 code_size: int = 64, partition_size: int = 8,
+                 bound: float = 3.0, hidden_size: int = 64, skip: int = 3,
+                 freqs: int = 8, sigma: float = 64.0,
+                 activation: str = "leaky_relu", init: str = "uniform"):
+        super().__init__()
+        self.code_size = code_size
+        self.ps = partition_size
+        self.bound = bound
+        self.in_size = in_size
+        self.codes = nn.Parameter(torch.zeros(partition_size ** 3, code_size))
+        self.mlp = SkipConnMLP(in_size=in_size, out=out, num_layers=num_layers,
+                               hidden_size=hidden_size, skip=skip, freqs=freqs,
+                               sigma=sigma, latent_size=code_size,
+                               activation=activation, init=init)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """The codes ``N(0, 1)``, the net as its own init."""
+        self.codes.copy_(torch.randn(self.codes.shape, generator=generator,
+                                     device=generator.device))
+        self.mlp.reset_parameters(generator)
+
+    def partition(self, p: torch.Tensor):
+        """-> (flat cell index [...], coordinates in the cell [..., 3]).  The
+        cell is the truncation of the non-negative scaled position, as the
+        JAX package's int32 cast, clamped to the grid."""
+        ps = self.ps
+        xyz = clip(p, -self.bound, self.bound) + self.bound
+        inv = (ps - 1) / (2.0 * self.bound)
+        idx = torch.clamp((xyz * inv).to(torch.int64), 0, ps - 1)
+        local = xyz * inv - idx
+        flat = idx[..., 0] + idx[..., 1] * ps + idx[..., 2] * ps * ps
+        return flat, local
+
+    def forward(self, p: torch.Tensor) -> torch.Tensor:
+        flat, local = self.partition(p.reshape(-1, self.in_size))
+        out = self.mlp(local, self.codes[flat])
+        return out.reshape(p.shape[:-1] + (self.mlp.out_size,))
+
+
+class DensityEstimator(nn.Module):
+    """A learned mixture of 2-D Gaussians with reparameterized sampling.
+
+    Each component ``k`` has a centre and the lower-triangular scale
+    ``[[exp(d0), 0], [a, exp(d1)]]`` from ``vars[k] = (a, d0, d1)``; the
+    mixture weights are ``softmax(weights)``.  ``sample(generator, shape)
+    -> (values [*shape, 2], pdf [*shape])`` draws one standard normal per
+    component through ``ops.sampling.normal`` and mixes the reparameterized
+    samples by the weights; ``pdf(val [..., 2]) -> [..., 1]``.  At init
+    every component is the unit Gaussian at the origin.
+    """
+
+    def __init__(self, in_size: int = 2, dists: int = 32):
+        super().__init__()
+        if in_size != 2:
+            raise ValueError("DensityEstimator is 2-D (in_size=2)")
+        self.in_size = in_size
+        self.dists = dists
+        self.centers = nn.Parameter(torch.zeros(dists, in_size))
+        self.vars = nn.Parameter(torch.zeros(dists, 3))
+        self.weights = nn.Parameter(torch.zeros(dists))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None):
+        for p in (self.centers, self.vars, self.weights):
+            p.zero_()
+
+    def _scale_tril(self):
+        a = self.vars[:, 0]
+        d0 = torch.exp(self.vars[:, 1])
+        d1 = torch.exp(self.vars[:, 2])
+        zeros = torch.zeros_like(a)
+        return torch.stack([torch.stack([d0, zeros], dim=-1),
+                            torch.stack([a, d1], dim=-1)], dim=-2)    # [K, 2, 2]
+
+    def _log_prob(self, val: torch.Tensor) -> torch.Tensor:
+        """``log N(val; centre_k, L_k L_k^T)`` for each component ``[..., K]``:
+        the 2x2 triangular solve in closed form."""
+        tril = self._scale_tril()
+        diff = val[..., None, :] - self.centers                       # [..., K, 2]
+        l00, l10, l11 = tril[:, 0, 0], tril[:, 1, 0], tril[:, 1, 1]
+        z0 = diff[..., 0] / l00
+        z1 = (diff[..., 1] - l10 * z0) / l11
+        maha = z0 * z0 + z1 * z1
+        logdet = torch.log(l00) + torch.log(l11)
+        return -0.5 * maha - logdet - math.log(2.0 * math.pi)
+
+    def sample(self, generator, shape: tuple):
+        from ..ops import sampling
+        shape = tuple(shape)
+        tril = self._scale_tril()
+        eps = sampling.normal(generator, shape + (self.dists, self.in_size),
+                              self.centers.device)
+        samples = self.centers + torch.einsum("kij,...kj->...ki", tril, eps)
+        k = torch.softmax(self.weights, dim=-1)
+        val = torch.sum(samples * k[:, None], dim=-2)
+        pdf = torch.sum(torch.exp(self._log_prob(val)) * k, dim=-1)
+        return val, pdf
+
+    def pdf(self, val: torch.Tensor) -> torch.Tensor:
+        k = torch.softmax(self.weights, dim=-1)
+        return torch.sum(torch.exp(self._log_prob(val)) * k, dim=-1, keepdim=True)

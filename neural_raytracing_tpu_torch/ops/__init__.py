@@ -11,5 +11,5 @@ from .math import (
     eikonal_loss, local_reflect, mse2psnr, nonzero_eps, normalize, rotate_vector,
     smooth_min, stable_smooth_min,
 )
-from .rusin import param_rusin2
+from .rusin import param_rusin, param_rusin2
 from .ssim import ms_ssim, ssim

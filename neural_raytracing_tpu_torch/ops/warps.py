@@ -1,11 +1,9 @@
 """Sampling-space warps (unit square -> disk / sphere / hemisphere) and their
 densities.
 
-Counterpart of the deterministic warps of
-``neural_raytracing_tpu/ops/warps.py``.  Every function takes uniform
-samples in ``[0, 1]^2`` in the last axis.  ``random_on_sphere``, which draws
-its own samples, has its one caller in the JAX package's ``warps.py`` and
-comes with it (ROADMAP.md Queue 1 item 5).
+Counterpart of ``neural_raytracing_tpu/ops/warps.py``.  Every warp takes
+uniform samples in ``[0, 1]^2`` in the last axis; ``random_on_sphere``
+draws its own through ``ops.sampling.uniform``.
 """
 
 from __future__ import annotations
@@ -14,7 +12,8 @@ import math
 
 import torch
 
-from .math import absolute, maximum
+from . import sampling
+from .math import absolute, clip, maximum
 
 
 def circ(x: torch.Tensor) -> torch.Tensor:
@@ -58,3 +57,16 @@ def square_to_cos_hemisphere(sample: torch.Tensor) -> torch.Tensor:
 
 def square_to_cos_hemisphere_pdf(d: torch.Tensor) -> torch.Tensor:
     return d[..., 2] / math.pi
+
+
+def random_on_sphere(generator, batches: int, device):
+    """Sphere directions ``[batches, 3]`` and the uniform ``uv [batches, 2]``
+    that made them (drawn through ``ops.sampling.uniform``)."""
+    uv = sampling.uniform(generator, (batches, 2), device)
+    u, v = uv[..., 0:1], uv[..., 1:2]
+    theta = 2.0 * math.pi * u
+    phi = torch.arccos(clip(2.0 * v - 1.0, -1.0, 1.0))
+    d = torch.cat([torch.sin(theta) * torch.cos(phi),
+                   torch.sin(theta) * torch.sin(phi),
+                   torch.cos(theta)], dim=-1)
+    return d, uv

@@ -303,7 +303,7 @@ def train(scene, integrator, optimizer_config, state: TrainState,
         raise ValueError(f"nan_policy must be 'raise' or 'skip', got {nan_policy!r}")
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device training) is not ported yet: "
-                                  "it comes with Queue 1 item 8 (ROADMAP.md)")
+                                  "it comes with Queue 1 item 4 (ROADMAP.md)")
     skip_nan = nan_policy == "skip"
     step_kw = dict(bundle_size=bundle_size, mask_weight=mask_weight,
                    tone_mapping=tone_mapping, with_ssim=with_ssim,

@@ -132,6 +132,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--skip-test", action="store_true")
     ap.add_argument("--nan-skip", action="store_true",
                     help="skip, not raise on, non-finite-loss steps")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="accepted and ignored, as the JAX script does")
     ap.add_argument("--stable-init", action="store_true",
                     help="zero-out weight-net head (collapse-resistant)")
     ap.add_argument("--light-scale", type=float, default=5.0,

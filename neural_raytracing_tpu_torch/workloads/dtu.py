@@ -16,8 +16,9 @@ path, each view's pose and intrinsic packed as one ``[2, 4, 4]`` array.
 ``main`` loads the scan with ``load_dtu``'s default source size (1600 x
 1200, the real scans'), as the JAX script does; ``run`` takes a
 ``DTUDataset`` in memory, so a caller with no PNGs, or no PIL, can drive
-the same path.  ``--data-parallel`` is not ported.  ``--device`` picks the
-card (default) or the CPU.
+the same path.  ``--data-parallel`` trains on the one device, as the JAX
+script does on one chip; beside ``--device-data`` it is refused, as there.
+``--device`` picks the card (default) or the CPU.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--nan-skip", action="store_true",
                     help="skip, not raise on, non-finite-loss steps")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard the views over the devices (not ported)")
+                    help="accepted; one device trains (refused with --device-data)")
     ap.add_argument("--surface-lr", type=float, default=8e-5)
     ap.add_argument("--bsdf-lr", type=float, default=8e-5)
     ap.add_argument("--light-lr", type=float, default=8e-5)
@@ -130,6 +131,8 @@ def run(args, data, name: str = "scan", save: bool = True):
         rand_uv_mask, save_scene, train,
     )
 
+    if args.device_data and args.data_parallel:
+        raise ValueError("--device-data is single-device: drop --data-parallel")
     train_idx, test_idx = split(len(data.images), args.test_every)
     scene = build_scene()
     opt = make_optimizer({"shape": args.surface_lr, "bsdf": args.bsdf_lr,
@@ -197,9 +200,6 @@ def run(args, data, name: str = "scan", save: bool = True):
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data-parallel is not ported yet: it comes with "
-                                  "Queue 1 item 8 (ROADMAP.md)")
     from ..training import load_dtu
     name = args.data.rstrip("/").split("/")[-1]
     return run(args, load_dtu(args.data, args.size), name)

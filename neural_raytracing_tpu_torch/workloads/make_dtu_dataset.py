@@ -175,7 +175,7 @@ def main(argv=None):
     args = parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError("--mesh needs TriangleMesh, which is not ported yet: "
-                                  "it comes with Queue 1 item 7 (ROADMAP.md)")
+                                  "it comes with Queue 1 item 3 (ROADMAP.md)")
     from PIL import Image   # only the writer needs PIL
 
     scene = build_scene(args.kind, args.light_scale)

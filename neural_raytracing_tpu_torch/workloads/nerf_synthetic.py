@@ -10,13 +10,16 @@ validation render and PSNR every ``--valid-freq`` steps; then the test
 split.  ``--half-res-throughput`` runs the silhouette min-scan on the
 2x-subsampled crop; ``--half-res-warmup N`` does so for the first N steps
 only.  ``--device-data`` trains on the on-device data path.
+``--surface hash`` swaps the surface for ``HashSDF()`` (a hash-encoded
+grid and a 2 x 64 relu net), which the kernels do not march: its march
+and min-scan are the plain loops, as in the JAX package.
 
     python -m neural_raytracing_tpu_torch.workloads.nerf_synthetic \
         --data nerf_synthetic/lego --size 256
 
 ``run`` takes the splits in memory (``NeRFDataset``s).  Not ported:
-``--surface hash`` (``HashSDF``, Queue 1 item 6) and ``--data-parallel``
-(item 8).  ``--device`` picks the card (default) or the CPU.
+``--data-parallel`` (Queue 1 item 4).  ``--device`` picks the card (default)
+or the CPU.
 """
 
 from __future__ import annotations
@@ -42,16 +45,15 @@ def build_scene(max_steps: int = 64, surface: str = "spheres", stable_init: bool
     from ..bsdf import ComposeSpatialVarying, NeuralBSDF
     from ..kernels import FusedSkipConnMLP
     from ..lights import LightField
+    from ..nn import HashSDF
     from ..shapes import SDF, SphereSDF
-    if surface == "hash":
-        raise NotImplementedError("--surface hash (HashSDF) is not ported yet: it comes "
-                                  "with Queue 1 item 6 (ROADMAP.md)")
+    module = HashSDF() if surface == "hash" else SphereSDF(n=128, stable_min=stable_min)
     sp_var_fn = None
     if stable_init:
         sp_var_fn = FusedSkipConnMLP(in_size=3, out=8, num_layers=16, hidden_size=256,
                                      freqs=128, sigma=128.0, init="xavier", zero_out=True)
     return Scene(
-        shape=SDF(SphereSDF(n=128, stable_min=stable_min), max_steps=max_steps,
+        shape=SDF(module, max_steps=max_steps,
                   throughput_steps=128, dist=2.2, throughput_mode=throughput_mode,
                   march_bound=march_bound),
         bsdf=ComposeSpatialVarying([NeuralBSDF(activation="softplus") for _ in range(8)],
@@ -268,9 +270,7 @@ def main(argv=None):
     args = parser().parse_args(argv)
     if args.data_parallel:
         raise NotImplementedError("--data-parallel is not ported yet: it comes with "
-                                  "Queue 1 item 8 (ROADMAP.md)")
-    if args.surface == "hash":
-        build_scene(surface="hash")                # raises: not ported
+                                  "Queue 1 item 4 (ROADMAP.md)")
     from ..training import load_nerf_synthetic
     name = args.dataset_name or args.data.rstrip("/").split("/")[-1]
     print(f"{name}, Size: {args.size}, Iters: {args.iters}")

@@ -13,7 +13,9 @@ colocated in the data); then the test renders of the first 8 views.
 
 The loop resolves each step's loss one step behind (as ``training.train``
 does), so the loss sampler sees a step's loss after the next step's views
-are drawn.  ``--device`` picks the card (default) or the CPU.
+are drawn.  ``--data-parallel``, ``--clip-norm`` and ``--nan-skip`` are
+accepted and ignored, as the JAX script ignores them.  ``--device`` picks
+the card (default) or the CPU.
 """
 
 from __future__ import annotations
@@ -149,6 +151,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=100)
     ap.add_argument("--skip-test", action="store_true")
+    # accepted and ignored, as scripts/nerfle.py ignores them
+    ap.add_argument("--data-parallel", action="store_true")
+    ap.add_argument("--clip-norm", type=float, default=None)
+    ap.add_argument("--nan-skip", action="store_true")
     ap.add_argument("--device", type=str, default="cuda")
     return ap
 

@@ -17,8 +17,8 @@ path`` trains with ``Path(max_depth=2)`` in place of ``Direct`` on either
 data path: a Direct-trained model absorbs the interreflection into its
 materials, then counts it twice under a Path eval.  ``run`` takes the
 train and test splits in memory (``NeRVDataset``s), so a caller with no
-PNGs, or no PIL, can drive the same path.  Not carried over from the JAX
-script: ``--data-parallel`` (Queue 1 item 8).  ``--device`` picks the card
+PNGs, or no PIL, can drive the same path.  ``--data-parallel`` is accepted
+and ignored, as the JAX script ignores it.  ``--device`` picks the card
 (default) or the CPU.
 """
 
@@ -109,6 +109,8 @@ def parser() -> argparse.ArgumentParser:
                          "(0: none)")
     ap.add_argument("--nan-skip", action="store_true",
                     help="skip, not raise on, non-finite-loss steps")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="accepted and ignored, as the JAX script does")
     ap.add_argument("--no-ssim", action="store_true")
     ap.add_argument("--surface-lr", type=float, default=4e-5)
     ap.add_argument("--bsdf-lr", type=float, default=4e-5)

@@ -327,7 +327,8 @@ def test_render_nerf_workload_on_the_cpu(nerv_run, capsys):
     assert (root / "orbit" / "orbit_nerf_001.png").exists()
 
 
-@pytest.mark.parametrize("argv", [["--data-parallel"], ["--surface", "hash"]])
+# --surface hash is ported: beside --data-parallel it still meets that refusal
+@pytest.mark.parametrize("argv", [["--data-parallel"], ["--surface", "hash", "--data-parallel"]])
 def test_nerf_synthetic_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         nerf_synthetic.main(["--data", "unused", "--device", "cpu", *argv])
