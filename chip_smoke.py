@@ -271,6 +271,30 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      MipMap, SphericalHarmonics.fit, permute_kensler and OrthogonalSampler
      (dims 0-1) on the card against the CPU; NeuralWarp.prime, 300 steps
      (the loss falls).
+ 25. triangle meshes, the rasterizers, the native host ops and the mesh
+     ground truth: (a) TriangleMesh on the card (the gear with its 0.7 mirror
+     plate, 84 faces, one chunk; the knot, 6,400 faces, 25 chunks) on the
+     40,000 camera rays of a 200^2 view at distance 2 and shadow rays from
+     their hits, intersect and intersect_test against the CPU (every 8th
+     ray of the knot) and backend="native", ms a call and launch calls an
+     intersect; (b) the knot by a FoVPerspectiveCamera at 256^2, 8 faces a
+     pixel, naive and binned (bin 32) equal on the card, and the points,
+     spheres and PulsarRenderer with gradients, ms each; (c)
+     workloads.make_mesh_dataset.run for the mirror GT of RESULTS.md:209 at
+     200^2 (gear, plate 0.7, nerv, camera distance 2, z up, elevation 8-55,
+     Path depth 2, auto-exposure), 6 train and 3 test views at 4 passes (of
+     the published 100, 16 and 16), no K1-K5 launch, ms a view and a pass,
+     launch calls a pass; (d) workloads.path_demo.run on (c)'s test views,
+     the PSNR of Direct and Path a view (Path ahead on average); (e)
+     workloads.seed_shape.run for the gear and plate, 300 of its 3,000
+     iterations at batch 8,192 (K1 counted; the Huber loss falls), the
+     scene saved; (f) from the seeded scene one NeRV step with hard
+     occlusion on (c)'s data against plain_kernels() (K1-K4 counted), then
+     workloads.nerv.run --load with the published flags for 10 steps (K1-K4
+     counted) and a test view in both shadow modes beside the black render;
+     (g) make_dtu_dataset --mesh knot at 64^2 (6 views, no K1-K5 launch),
+     workloads.dtu.run for 10 steps on it (K1-K3 counted) and its masked
+     test view.
 Phase 7 also runs the flagship step on the device data path (10 counted
 steps) and the two paths in turns, then the workload's own entry,
 workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
@@ -357,11 +381,21 @@ largest value (the tables' gradient is a scatter-add: its sums may meet in
 another order), its NeRF-family views as
 phase 22's, its modules on the card within 1e-4 of the CPU relative to the
 largest output (1e-3 for the least-squares fit, another LAPACK routine; 1e-6 for
-MipMap's pdf) and the samplers' integers equal.
+MipMap's pdf) and the samplers' integers equal; phase 25's TriangleMesh on
+the card against the CPU and the native backend hits and shadow flags
+agreeing on >= 99.9% of the rays (a ray through a shared edge hits by the
+last bit of a product, and each device contracts its products otherwise)
+and |t difference| <= 1e-4 where both hit, the binned rasterizer's
+fragments equal to the naive one's bit for bit (the same arithmetic a
+pixel, stable sorts), the NeRV step on the mesh data as phase 11's.
 
     python3 chip_smoke.py --hash
 
 runs phases 1 and 24 only (no result line).
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1 and 25 only (no result line).
 
     python3 chip_smoke.py --edit
 
@@ -5682,6 +5716,457 @@ def turn_times_main(root: str):
     print(json.dumps(out))
 
 
+# ---- phase 25: triangle meshes, the rasterizers, the native ops, the mesh GT ----------
+
+MESH_SIZE = 200                                    # the mirror GT's published size
+MESH_DIST = 2.0                                    # its camera distance (RESULTS.md:209)
+MESH_TRAIN_VIEWS = 6                               # (c) of the published 100
+MESH_TEST_VIEWS = 3                                # (c) of the published 16
+MESH_SPP = 4                                       # (c), (d) Path passes, of the published 16
+MESH_LIGHT = (1.0, 0.5, 1.2)                       # (a) the shadow rays' light
+RASTER_SIZE = 256                                  # (b)
+RASTER_BIN = 32
+SEED_ITERS = 300                                   # (e) of the published 3,000
+SEED_BATCH = 8192
+MESH_NERV_STEPS = 10                               # (f)
+MESH_NERV_CROP = 64
+MESH_DTU_SIZE = 64                                 # (g) make_dtu_dataset's default
+MESH_DTU_VIEWS = 6
+MESH_DTU_STEPS = 10
+MESH_DTU_CROP = 32
+
+
+def mesh_rays(torch, dev, kind, mirror_plate):
+    """(the TriangleMesh on ``dev``, the camera rays of a 200^2 view at
+    distance 2 [40,000, 6], shadow rays from their hits towards MESH_LIGHT
+    and the light's distances), on ``dev``."""
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.shapes import TriangleMesh
+    from neural_raytracing_tpu_torch.workloads import make_mesh_dataset as mm
+    verts, faces, _ = mm.gt_mesh(kind, 1.0, mirror_plate)
+    mesh = TriangleMesh(verts, faces).to(dev)
+    cam = mm.nerf_camera(mm.c2w_up(30.0, 33.0, MESH_DIST, up="z"), MESH_SIZE).to(dev)
+    rays = cam.sample_positions(_tile_positions(0.0, 0.0, MESH_SIZE, dev),
+                                size=MESH_SIZE).reshape(-1, 6)
+    it, hit = mesh.intersect(rays)
+    to_light = torch.tensor(MESH_LIGHT, device=dev) - it.p[hit]
+    dist = torch.linalg.norm(to_light, dim=-1)
+    return mesh, rays, torch.cat([it.p[hit], to_light / dist[:, None]], dim=-1), dist
+
+
+def mesh_intersect_card(torch, dev):
+    """(a) TriangleMesh on the card against the CPU and the native backend,
+    the gear with its plate and the knot -> {kind: numbers}.  The CPU
+    backend takes every 8th ray of the knot (its 25 chunks take seconds on
+    the host)."""
+    from neural_raytracing_tpu_torch.shapes import TriangleMesh
+    out = {}
+    for kind, plate in (("gear", 0.7), ("knot", 0.0)):
+        mesh, rays, shadow, dist = mesh_rays(torch, dev, kind, plate)
+        every = 8 if kind == "knot" else 1
+        verts, faces = mesh.verts.cpu().numpy(), mesh.faces.cpu().numpy()
+        calls = {"card": (mesh, slice(None)),
+                 "cpu": (TriangleMesh(verts, faces), slice(None, None, every)),
+                 "native": (TriangleMesh(verts, faces, backend="native"), slice(None))}
+        res, ms = {}, {}
+        for name, (m, sub) in calls.items():
+            r, s, d = ((rays, shadow, dist) if name == "card"
+                       else (rays[sub].cpu(), shadow[sub].cpu(), dist[sub].cpu()))
+
+            def both(m=m, r=r, s=s, d=d):
+                it, hit = m.intersect(r)
+                return it.t, hit, m.intersect_test(s, max_t=d)
+
+            if name == "card":
+                ms[name] = cuda_ms(both, 5)
+            else:
+                both()                                 # warm-up (the native build)
+                t0 = time.perf_counter()
+                both()
+                ms[name] = 1e3 * (time.perf_counter() - t0)
+            res[name] = [x.cpu() for x in both()]
+        prof = profile_step(torch, lambda: mesh.intersect(rays),
+                            f"TriangleMesh.intersect ({kind}, {len(rays):,} rays)")
+        t_c, h_c, f_c = res["card"]
+        line = [f"{kind}{' + plate ' + str(plate) if plate else ''}: {mesh.n_faces} "
+                f"faces ({mesh.faces.shape[0] // mesh.chunk} chunks of {mesh.chunk}), "
+                f"{len(rays):,} camera rays (hit {h_c.float().mean().item():.4f}), "
+                f"{len(shadow):,} shadow rays (blocked {(~f_c).float().mean().item():.4f})"]
+        for other in ("cpu", "native"):
+            sub = calls[other][1]
+            t_o, h_o, f_o = res[other]
+            agree = (h_c[sub] == h_o).float().mean().item()
+            both_hit = h_c[sub] & h_o
+            dt = (t_c[sub] - t_o).abs()[both_hit].max().item() if both_hit.any() else 0.0
+            free_agree = (f_c[sub] == f_o).float().mean().item()
+            check(agree >= 0.999, f"TriangleMesh {kind}: hit agreement with {other} {agree}")
+            check(dt <= 1e-4, f"TriangleMesh {kind}: |dt| {dt:.3e} against {other}")
+            check(free_agree >= 0.999,
+                  f"TriangleMesh {kind}: shadow agreement with {other} {free_agree}")
+            line.append(f"card vs {other}{' (every 8th ray)' if every > 1 and other == 'cpu' else ''}"
+                        f": hits agree {agree:.6f}, max |dt| {dt:.3e}, shadow flags agree "
+                        f"{free_agree:.6f}")
+        check(0.02 < h_c.float().mean().item() < 0.98, f"TriangleMesh {kind}: hit fraction")
+        launches = prof["host_launches"] if prof else None
+        line.append(f"intersect + intersect_test ms: card {ms['card']:.2f}, CPU "
+                    f"{ms['cpu']:.1f}{' (an eighth of the rays)' if every > 1 else ''}, native "
+                    f"{ms['native']:.1f}; launch calls an intersect {launches}")
+        print("mesh (a) " + "; ".join(line))
+        out[kind] = dict(ms=ms, launches=launches, chunks=mesh.faces.shape[0] // mesh.chunk)
+    return out
+
+
+def mesh_raster_card(torch, dev):
+    """(b) the rasterizers on the card: the knot at 256^2, 8 faces a pixel,
+    naive and binned (bin 32), equal; points, spheres and PulsarRenderer
+    with gradients -> {name: ms}."""
+    import numpy as np
+    from neural_raytracing_tpu_torch import raster
+    from neural_raytracing_tpu_torch.cameras import FoVPerspectiveCamera, look_at_view_transform
+    from neural_raytracing_tpu_torch.workloads import make_mesh_dataset as mm
+    verts, faces = mm.MESHES["knot"]()
+    r, t = look_at_view_transform(dist=1.2, elev=20.0, azim=30.0)
+    cam = FoVPerspectiveCamera(R=r.to(dev), T=t.to(dev))
+    v = torch.from_numpy(verts).to(dev)
+    f = torch.from_numpy(faces).to(dev)
+    screen = raster.transform_points_screen(cam, v)
+    kw = dict(image_size=RASTER_SIZE, faces_per_pixel=8)
+    naive = raster.rasterize_meshes(screen, f, **kw)
+    binned = raster.rasterize_meshes(screen, f, bin_size=RASTER_BIN, **kw)
+    same = torch.equal(naive.idx, binned.idx)
+    cover = (naive.idx[..., 0] >= 0).float().mean().item()
+    check(same, "raster: binned idx differs from naive")
+    check(all(torch.equal(getattr(naive, k), getattr(binned, k)) for k in ("zbuf", "dists",
+                                                                           "bary")),
+          "raster: binned fragments differ from naive")
+    check(0.05 < cover < 0.95, f"raster: coverage {cover}")
+    ms = {"naive": cuda_ms(lambda: raster.rasterize_meshes(screen, f, **kw), 3),
+          "binned": cuda_ms(lambda: raster.rasterize_meshes(screen, f, bin_size=RASTER_BIN,
+                                                            **kw), 3)}
+    # points and spheres with gradients to their coordinates, pulsar to all its inputs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pts = screen.detach().clone().requires_grad_(True)
+    rad = torch.full((len(verts),), 0.01, device=dev)
+    w = torch.randn(RASTER_SIZE, RASTER_SIZE, 8, generator=gen, device=dev)
+
+    def points():
+        frags = raster.rasterize_points(pts, RASTER_SIZE, rad, 8)
+        (torch.where(frags.idx >= 0, frags.zbuf * w, 0.0).sum()).backward()
+        return frags
+
+    def spheres():
+        frags = raster.rasterize_spheres(torch.cat([pts, rad[:, None]], -1), RASTER_SIZE, 8)
+        (torch.where(frags.idx >= 0, frags.dists * w, 0.0).sum()).backward()
+        return frags
+
+    pos = v.clone().requires_grad_(True)
+    col = torch.rand(len(verts), 3, generator=gen, device=dev).requires_grad_(True)
+    prad = torch.full((len(verts),), 0.02, device=dev, requires_grad=True)
+    cam_params = torch.tensor([0.0, 0.0, -1.5, 0.0, 0.0, 0.0, 1.5, 2.0], device=dev,
+                              requires_grad=True)
+    pulsar = raster.PulsarRenderer(RASTER_SIZE, RASTER_SIZE)
+
+    def render():
+        img = pulsar(pos, col, prad, cam_params, gamma=0.1, max_depth=3.0)
+        img.sum().backward()
+        return img
+
+    for name, fn in (("points", points), ("spheres", spheres), ("pulsar", render)):
+        ms[name] = cuda_ms(fn, 3)
+        out = fn()
+        grads = [pts.grad] if name != "pulsar" else [pos.grad, col.grad, prad.grad,
+                                                    cam_params.grad]
+        check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+              f"raster {name}: non-finite gradient")
+        check(any(g.abs().sum().item() > 0 for g in grads), f"raster {name}: zero gradient")
+        if name == "pulsar":
+            check(out.std().item() > 1e-3, "raster pulsar: a flat image")
+    print(f"mesh (b) the knot ({len(faces):,} faces) at {RASTER_SIZE}^2, 8 faces a pixel: "
+          f"coverage {cover:.4f}, binned (bin {RASTER_BIN}) idx equal to naive {same}; ms naive {ms['naive']:.2f}, binned "
+          f"{ms['binned']:.2f}; with gradients: points {ms['points']:.2f}, spheres "
+          f"{ms['spheres']:.2f}, PulsarRenderer {ms['pulsar']:.2f}")
+    return ms
+
+
+def mesh_gt(torch, dev):
+    """(c) the mirror GT of RESULTS.md:209 at 200^2 (gear, plate 0.7, nerv
+    format, camera distance 2, z up, elevation 8-55, Path depth 2), the
+    views and passes cut -> (args, run's dict, ms a view, ms a pass)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.workloads import make_mesh_dataset as mm
+    args = mm.parser().parse_args([
+        "--out", "(in memory)", "--kind", "gear", "--format", "nerv", "--size",
+        str(MESH_SIZE), "--cam-dist", str(MESH_DIST), "--up", "z", "--elev-range", "8", "55",
+        "--mirror-plate", "0.7", "--gt-bounces", "2", "--gt-spp", str(MESH_SPP),
+        "--train-views", str(MESH_TRAIN_VIEWS), "--test-views", str(MESH_TEST_VIEWS),
+        "--device", str(dev)])
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = mm.run(args, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    images = np.concatenate([out["train"][0], out["test"][0]])
+    n_views = len(images) + 2                              # and the 2 exposure probes
+    ms_view = 1e3 * secs / n_views
+    scene = mm.build_gt_scene("gear", out["scale"], mirror_plate=0.7).init(
+        torch.Generator().manual_seed(mm.SEED), device=dev)
+    integ, _ = mm.gt_integrator(2)
+    c2w = np.asarray(out["test"][1][0]["transform_matrix"], np.float32)
+    light = np.asarray(out["test"][1][0]["light_loc"], np.float32)
+    one = lambda: mm.render(scene, mm.nerf_camera(c2w, MESH_SIZE), light, out["scale"], integ, 1,
+                            size=MESH_SIZE, device=dev)
+    pass_ms = cuda_ms(one, 3)
+    prof = profile_step(torch, one, "one Path pass of a 200^2 mirror GT view")
+    direct, _ = mm.gt_integrator(1)
+    direct_ms = cuda_ms(lambda: mm.render(scene, mm.nerf_camera(c2w, MESH_SIZE), light,
+                                          out["scale"], direct, 1, size=MESH_SIZE,
+                                          device=dev), 3)
+    print(generator_report("mesh (c) mirror GT (gear + plate 0.7, Path depth 2, "
+                           f"{MESH_SPP} passes a view)", counts, images[..., :3] / 255.0,
+                           images[..., 3] > 127, secs))
+    print(f"mesh (c) light scale {out['scale']:.4f} (auto-exposure); {ms_view:.1f} ms a view "
+          f"({MESH_SPP} Path passes), {pass_ms:.1f} ms a Path pass, a Direct view "
+          f"{direct_ms:.1f} ms; launch calls a Path pass "
+          f"{prof['host_launches'] if prof else None}, so {MESH_SPP} x that a view")
+    return args, out, dict(ms_view=ms_view, pass_ms=pass_ms, direct_ms=direct_ms,
+                           launches=prof["host_launches"] if prof else None, secs=secs)
+
+
+def mesh_nerv_data(out, split):
+    from neural_raytracing_tpu_torch.workloads import make_nerv_dataset as mn
+    return mn.as_dataset(*out[split], MESH_SIZE)
+
+
+def mesh_path_demo(torch, dev, gt_args, out):
+    """(d) workloads.path_demo.run on (c)'s test views."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.workloads import path_demo
+    args = path_demo.parser().parse_args(["--data", "(in memory)", "--samples", str(MESH_SPP),
+                                          "--device", str(dev)])
+    start = time.perf_counter()
+    res = path_demo.run(args, mesh_nerv_data(out, "test"), out["meta"], log_fn=lambda s: None)
+    secs = time.perf_counter() - start
+    rows = res["per_view"]
+    check(all(np.isfinite([r["psnr_direct"], r["psnr_path"]]).all() for r in rows),
+          f"path_demo: {rows}")
+    check(res["delta"] > 0, f"path_demo: Path behind Direct on average ({res['delta']:.3f} dB)")
+    print(f"mesh (d) path_demo ({len(rows)} test views, {MESH_SPP} passes): PSNR Direct "
+          f"{[round(r['psnr_direct'], 3) for r in rows]}, Path "
+          f"{[round(r['psnr_path'], 3) for r in rows]}; means {res['avg_psnr_direct']:.3f} / "
+          f"{res['avg_psnr_path']:.3f} (delta {res['delta']:+.3f} dB); Path ahead on "
+          f"{sum(r['psnr_path'] > r['psnr_direct'] for r in rows)} of {len(rows)} views; "
+          f"{secs:.1f} s")
+    return res
+
+
+def mesh_seed(torch, dev, root):
+    """(e) workloads.seed_shape for the gear and plate, SEED_ITERS of its
+    3,000 iterations at batch 8,192, counted (K1); the scene saved as
+    ``{root}/nerv_mesh``."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.training import save_scene
+    from neural_raytracing_tpu_torch.workloads import seed_shape
+    args = seed_shape.parser().parse_args([
+        "--kind", "gear", "--mirror-plate", "0.7", "--name", "mesh", "--iters",
+        str(SEED_ITERS), "--batch", str(SEED_BATCH), "--device", str(dev)])
+    res, counts, secs = counted(torch, "seed_shape", lambda: seed_shape.run(
+        args, log_fn=lambda s: None))
+    # the fit's own ms an iteration: 50 more steps from where it stopped
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seed_shape.fit(res["scene"], res["points"], res["targets"], iters=50, batch=SEED_BATCH,
+                   generator=gen, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    iter_ms = 1e3 * (time.perf_counter() - t0) / 50
+    prof = profile_step(torch, lambda: seed_shape.fit(
+        res["scene"], res["points"], res["targets"], iters=1, batch=SEED_BATCH,
+        generator=gen, log_fn=lambda s: None), "one seed_shape iteration")
+    losses = res["losses"].cpu().numpy()
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    check(np.isfinite(losses).all() and last < first,
+          f"seed_shape: the Huber loss did not fall ({first} -> {last})")
+    save_scene(str(root / "nerv_mesh"), res["scene"], step=0)
+    rep = res["report"]
+    print(f"mesh (e) seed_shape (gear + plate, {SEED_ITERS} of 3,000 iterations, batch "
+          f"{SEED_BATCH:,}): Huber {losses[0]:.6f} -> {losses[-1]:.6f} (means of the first and "
+          f"last 20: {first:.6f} -> {last:.6f}), |f - d| p50 {rep['p50']:.4f} p90 "
+          f"{rep['p90']:.4f}, volume frac_neg {rep['frac_neg']:.3f}; run {secs:.2f} s (the "
+          f"probes and the report included), {iter_ms:.2f} ms an iteration of the fit, launch "
+          f"calls an iteration {prof['host_launches'] if prof else None}; K1 launches "
+          f"{counts['fused_mlp_forward']}; launches {counts}")
+    return res, iter_ms
+
+
+def mesh_nerv(torch, dev, root, out):
+    """(f) the NeRV twin on (c)'s data from the seeded scene: one step with
+    hard occlusion against plain_kernels(), then workloads.nerv.run
+    (the published flags: --load --dist 3.4 --no-ssim --nan-skip
+    --device-data --clip-norm 10) for MESH_NERV_STEPS steps, counted
+    (K1-K4), and its test view in both shadow modes."""
+    import copy
+
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.training import (
+        NeRVDataset, TrainState, build_step_fn, load_scene, make_optimizer,
+    )
+    from neural_raytracing_tpu_torch.workloads import nerv
+    data, test = mesh_nerv_data(out, "train"), mesh_nerv_data(out, "test")
+    scene = nerv.build_scene(dist=3.4, occlusion="hard").init(
+        torch.Generator().manual_seed(0), device=dev)
+    load_scene(str(root / "nerv_mesh"), scene)
+    spec = make_optimizer(NERV_LRS)
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(data.cam_to_worlds[np.asarray(idxs)]),
+                                          data.focal)
+    idxs = [0, 1, 2]
+    u = v = (MESH_SIZE - MESH_NERV_CROP) // 2
+    exp = torch.from_numpy(data.images[idxs, u:u + MESH_NERV_CROP, v:v + MESH_NERV_CROP]).to(dev)
+    mask = torch.from_numpy(data.masks[idxs, u:u + MESH_NERV_CROP, v:v + MESH_NERV_CROP]).to(dev)
+    rays = make_camera(idxs).to(dev).sample_positions(
+        _tile_positions(float(u), float(v), MESH_NERV_CROP, dev), size=MESH_SIZE)
+    res = {}
+    for label in ("kernels", "plain"):
+        sc = copy.deepcopy(scene)
+        sc.lights.set_location(data.light_locs[idxs])
+        step = build_step_fn(sc, Direct(training=True), spec, size=MESH_SIZE,
+                             crop_size=MESH_NERV_CROP, tone_mapping=True)
+        if label == "plain":
+            with plain_kernels():
+                _, aux = step(TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v), exp,
+                              mask)
+                with torch.no_grad():
+                    _, hit = sc.shape.intersect(rays, primary=False)
+        else:
+            (_, aux), counts, _ = counted(torch, "mesh NeRV step", lambda: step(
+                TrainState(sc, spec.init(sc), 0), make_camera(idxs), (u, v), exp, mask))
+            with torch.no_grad():
+                _, hit = sc.shape.intersect(rays, primary=False)
+        grads = {c: torch.cat([p.grad.reshape(-1) for p in getattr(sc, c).parameters()
+                               if p.grad is not None] or [torch.zeros(1, device=dev)])
+                 for c in ("shape", "bsdf", "lights")}
+        res[label] = (aux["loss"].item(), grads, hit)
+        del sc
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
+        check(counts[name] > 0, f"mesh NeRV step: kernel {name} was not launched")
+    (lk, gk, hk), (lp, gp, hp) = res["kernels"], res["plain"]
+    rel_loss = abs(lk - lp) / abs(lp)
+    n_hit_diff = int((hk != hp).sum().item())
+    rel_g = {c: ((gk[c] - gp[c]).norm() / gp[c].norm().clamp_min(1e-30)).item() for c in gk}
+    print(f"mesh (f) NeRV step on the mirror GT from the seeded scene (hard occlusion, 3 x "
+          f"{MESH_NERV_CROP}^2 at the centre; kernels vs plain_kernels()): loss {lk:.6f} vs "
+          f"{lp:.6f} (rel {rel_loss:.3e}), rays whose hit differs {n_hit_diff} of {hk.numel()} "
+          f"(hit fraction {hp.float().mean().item():.4f}), gradient rel L2 "
+          f"{', '.join(f'{c} {e:.3e}' for c, e in rel_g.items())}; launches {counts}")
+    check(np.isfinite(lk) and rel_loss <= 1e-4, f"mesh NeRV step: loss rel {rel_loss:.3e}")
+    check(n_hit_diff <= 0.001 * hk.numel(), f"mesh NeRV step: {n_hit_diff} hit flags differ")
+    check(hp.any().item(), "mesh NeRV step: no ray hit the seeded surface")
+    for c, e in rel_g.items():
+        check(gp[c].norm().item() > 0, f"mesh NeRV step: no {c} gradient")
+        check(e <= 1e-2, f"mesh NeRV step: {c} gradient rel L2 {e:.3e} > 1e-2")
+
+    args = twin_args(nerv, size=MESH_SIZE, crop_size=MESH_NERV_CROP, iters=MESH_NERV_STEPS,
+                     log_every=0, device=str(dev), device_data=True, load=True, dist=3.4,
+                     no_ssim=True, nan_skip=True, clip_norm=10.0, models=str(root))
+    one_test = NeRVDataset(test.cam_to_worlds[:1], test.focal, test.images[:1],
+                           test.masks[:1], test.light_locs[:1], None)
+    (state, tres), counts, secs = counted(torch, "mesh NeRV twin", lambda: nerv.run(
+        args, data, one_test, name="mesh", save=False))
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan", "fused_shadow_march"):
+        check(counts[name] > 0, f"mesh NeRV twin: kernel {name} was not launched")
+    check(np.isfinite(tres["losses"]).all(), f"mesh NeRV twin: losses {tres['losses']}")
+    for tag in ("soft", "hard"):
+        check(all(np.isfinite(v) for v in tres[tag].values()), f"mesh NeRV test: {tres[tag]}")
+    black = black_psnr(np.clip(one_test.images, 0, 1))
+    print(f"mesh (f) workloads.nerv.run --load (seeded) --dist 3.4 --no-ssim --nan-skip "
+          f"--device-data --clip-norm 10, {MESH_NERV_STEPS} steps of 3 x {MESH_NERV_CROP}^2 and "
+          f"one test view: {secs:.1f} s, losses {[round(x, 4) for x in tres['losses']]}; test "
+          f"PSNR soft {tres['soft']['psnr']:.3f}, hard {tres['hard']['psnr']:.3f} dB (black "
+          f"{black:.3f}); launches {counts}")
+    return dict(rel_loss=rel_loss, counts=counts, psnr={t: tres[t]["psnr"] for t in
+                                                        ("soft", "hard")}, black=black)
+
+
+def mesh_dtu(torch, dev):
+    """(g) make_dtu_dataset --mesh knot at 64^2, then workloads.dtu.run on
+    it (K1-K3) with its masked test view."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.training import dtu_dataset
+    from neural_raytracing_tpu_torch.workloads import dtu
+    from neural_raytracing_tpu_torch.workloads import make_dtu_dataset as md
+    scene = md.build_scene(mesh="knot").init(torch.Generator().manual_seed(md.SEED), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    images, masks, cams = md.render_scan(scene, MESH_DTU_VIEWS, MESH_DTU_SIZE, device=dev,
+                                         log_fn=lambda s: None, rig=md.mesh_rig())
+    secs = time.perf_counter() - start
+    gen_counts = launch_counts()
+    imgs, msks = md.as_arrays(images, masks)
+    print(generator_report("mesh (g) DTU generator --mesh knot (variety, 3-light ring)",
+                           gen_counts, imgs, msks, secs))
+    data = dtu_dataset(cams, imgs, msks, MESH_DTU_SIZE, src_size=(MESH_DTU_SIZE, MESH_DTU_SIZE))
+    args = twin_args(dtu, size=MESH_DTU_SIZE, crop_size=MESH_DTU_CROP, iters=MESH_DTU_STEPS,
+                     log_every=0, device=str(dev), device_data=True)
+    (state, res), counts, secs = counted(torch, "mesh DTU twin", lambda: dtu.run(
+        args, data, save=False))
+    for name in ("fused_mlp_forward", "fused_march", "fused_min_scan"):
+        check(counts[name] > 0, f"mesh DTU twin: kernel {name} was not launched")
+    check(np.isfinite(res["losses"]).all() and np.isfinite(res["test"]["psnr"]),
+          f"mesh DTU twin: {res['losses']}, {res['test']}")
+    test_idx = dtu.split(len(data.images), args.test_every)[1]
+    gt = data.images[test_idx] * data.masks[test_idx, ..., None]
+    print(f"mesh (g) workloads.dtu.run on the knot scan ({MESH_DTU_VIEWS} views at "
+          f"{MESH_DTU_SIZE}^2, {MESH_DTU_STEPS} steps of 3 x {MESH_DTU_CROP}^2, the device data "
+          f"path) and its masked test on views {[int(i) for i in test_idx]}: {secs:.1f} s, losses "
+          f"{[round(x, 4) for x in res['losses']]}, test PSNR {res['test']['psnr']:.3f} dB "
+          f"(black {black_psnr(gt):.3f}); launches {counts}")
+    return counts
+
+
+def phase_mesh(torch, dev):
+    """Phase 25: triangle meshes, the rasterizers, the native host ops and
+    the mesh ground truth with its users -> the numbers for the summary."""
+    import tempfile
+    print(f"phase 25 on {card()}")
+    start = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t
+        return out
+
+    inter = timed("a", lambda: mesh_intersect_card(torch, dev))
+    ras = timed("b", lambda: mesh_raster_card(torch, dev))
+    gt_args, gt, gt_ms = timed("c", lambda: mesh_gt(torch, dev))
+    demo = timed("d", lambda: mesh_path_demo(torch, dev, gt_args, gt))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        _, seed_ms = timed("e", lambda: mesh_seed(torch, dev, root))
+        nv = timed("f", lambda: mesh_nerv(torch, dev, root, gt))
+    dt = timed("g", lambda: mesh_dtu(torch, dev))
+    secs = time.perf_counter() - start
+    print(f"phase 25 on {card()}: TriangleMesh intersect + test on 40,000 + shadow rays gear "
+          f"{inter['gear']['ms']['card']:.2f} ms ({inter['gear']['launches']} launches an "
+          f"intersect), knot {inter['knot']['ms']['card']:.2f} ms "
+          f"({inter['knot']['launches']}); raster at 256^2 naive {ras['naive']:.2f} ms, binned "
+          f"{ras['binned']:.2f}; mirror GT {gt_ms['pass_ms']:.1f} ms a Path pass "
+          f"({gt_ms['launches']} launches), Direct {gt_ms['direct_ms']:.1f} ms a view; "
+          f"path_demo delta {demo['delta']:+.3f} dB; seed fit {seed_ms:.2f} ms an iteration; "
+          f"phase 25 took {secs:.1f} s (" + ", ".join(f"({k}) {v:.1f} s"
+                                                       for k, v in parts.items()) + ")")
+    return dict(intersect=inter, raster=ras, gt=gt_ms, demo=demo, seed_ms=seed_ms, nerv=nv,
+                dtu=dt, secs=secs)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5750,6 +6235,9 @@ def main():
     if sys.argv[1:2] == ["--hash"]:
         phase_hash(torch, dev)
         return
+    if sys.argv[1:2] == ["--mesh"]:
+        phase_mesh(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -5782,6 +6270,7 @@ def main():
     pt = phase_path(torch, dev, (nv["data"], nv["test"], nv["state"]))
     ed = phase_edit(torch, dev)
     hs = phase_hash(torch, dev)
+    mh = phase_mesh(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -5873,6 +6362,12 @@ def main():
           f"{ht['step_ms']['hash']:.1f} ms against {ht['step_ms']['spheres']:.1f}, "
           f"{ht['march_step']['hash']} launch calls a plain hash march step; NeuralApprox view "
           f"{hs['views']['NeuralApprox']['ms']:.1f} ms; phase 24 took {hs['secs']:.1f} s")
+    print(f"meshes (phase 25): TriangleMesh on the card gear {mh['intersect']['gear']['ms']['card']:.2f} "
+          f"ms, knot {mh['intersect']['knot']['ms']['card']:.2f} ms an intersect and shadow test "
+          f"of a 200^2 view; raster 256^2 naive {mh['raster']['naive']:.2f} ms, binned "
+          f"{mh['raster']['binned']:.2f}; mirror GT {mh['gt']['pass_ms']:.1f} ms a Path pass; "
+          f"path_demo delta {mh['demo']['delta']:+.3f} dB; seed fit {mh['seed_ms']:.2f} ms an "
+          f"iteration; phase 25 took {mh['secs']:.1f} s")
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "

@@ -26,20 +26,24 @@ integrators, ``shapes.Sphere``/``SphereCloud``, the twin
 ``ops.sampling.uniform``; and scene editing (``edits``, ``SDF.with_warp``,
 the twins ``workloads.edit_nerf``, ``edit_dtu`` and the multi-light
 ``eval_nerv``) with the other SDF surfaces, ``shapes.prime``,
-``nn.prime_identity`` and the NeRF-- and NeRV cameras.
+``nn.prime_identity`` and the NeRF-- and NeRV cameras; and triangle meshes
+(``shapes.TriangleMesh``, ``load_obj``), the rasterizers (``raster``), the
+native host ops (``native``, host C++) and ``ops.geometry``, with the mesh
+ground truth (``workloads.make_mesh_dataset``, ``make_dtu_dataset
+--mesh``), ``workloads.path_demo`` and ``workloads.seed_shape``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import (
-    bsdf, cameras, edits, integrators, kernels, lights, nn, ops, shapes, training,
-    workloads,
+    bsdf, cameras, edits, integrators, kernels, lights, native, nn, ops, raster, shapes,
+    training, workloads,
 )
 from .params import load_jax_params, state_dict_from_jax
 from .render import pathtrace, pathtrace_sample, render_rays
 from .scene import Scene, sample_emitter
 
 __all__ = [
-    "bsdf", "cameras", "edits", "integrators", "kernels", "lights", "nn", "ops",
-    "shapes", "training", "workloads", "load_jax_params", "state_dict_from_jax",
+    "bsdf", "cameras", "edits", "integrators", "kernels", "lights", "native", "nn", "ops",
+    "raster", "shapes", "training", "workloads", "load_jax_params", "state_dict_from_jax",
     "pathtrace", "pathtrace_sample", "render_rays", "Scene", "sample_emitter",
 ]

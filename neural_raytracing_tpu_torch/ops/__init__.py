@@ -4,6 +4,7 @@ from .dirs import (
 )
 from .encoding import fourier_basis, fourier_encode, fourier_size
 from .frames import coordinate_system, from_local, to_local
+from .geometry import distance_between_rays_and_segments, mesh_level_surfaces, ray_point_dist
 from .losses import (
     binary_cross_entropy, binary_cross_entropy_with_logits, masked_loss,
 )

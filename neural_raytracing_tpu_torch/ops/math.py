@@ -86,6 +86,12 @@ def absolute(x: torch.Tensor) -> torch.Tensor:
     return _Abs.apply(x)
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.cross(a, b)`` over the last axis, the operands broadcast."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b)
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-7, dim: int = -1) -> torch.Tensor:
     """L2-normalize along ``dim``, clamping INSIDE the sqrt.
 

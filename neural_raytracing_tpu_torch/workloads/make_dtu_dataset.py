@@ -26,9 +26,12 @@ weight net is drawn from a seeded ``torch.Generator`` (the JAX script draws
 it from ``PRNGKey(7)``); ``build_scene`` followed by ``load_jax_params``
 renders with the JAX draw.  A ``DTUCamera`` gives each ray of a bundle the
 same direction, so a view renders with a bundle of 1, which the JAX
-script's bundle of 4 only repeats.  ``--mesh`` (a triangle-mesh ground
-truth) needs ``TriangleMesh`` and raises.  ``--device`` picks the card
-(default) or the CPU.
+script's bundle of 4 only repeats.  ``--mesh KIND`` (``make_mesh_dataset``'s
+kinds) renders a triangle-mesh ground truth instead, scaled by
+``--obj-scale``, with the bright ``variety`` material, lit by a ring of 3
+point lights at elevation 35 about the y axis (radius 1.6), each view the
+sum of one render a light.  ``--device`` picks the card (default) or the
+CPU.
 """
 
 from __future__ import annotations
@@ -45,9 +48,15 @@ import torch
 SEED = 7                       # the weight net's draw (the JAX script's PRNGKey(7))
 
 
-def build_scene(kind: str = "bunny", light_scale: float = 3.0):
+def build_scene(kind: str = "bunny", light_scale: float = 3.0, mesh: Optional[str] = None,
+                obj_scale: float = 1.0):
     """The generator's scene (the weight net random until initialised or
-    loaded)."""
+    loaded): the procedural ``kind``, or with ``mesh`` that triangle mesh
+    under the ``variety`` material."""
+    if mesh:
+        from .make_mesh_dataset import build_gt_scene
+        return build_gt_scene(mesh, light_scale=light_scale, occlusion="hard",
+                              obj_scale=obj_scale, material="variety")
     from .. import Scene
     from ..bsdf import ComposeSpatialVarying, Diffuse
     from ..lights import PointLights
@@ -61,6 +70,15 @@ def build_scene(kind: str = "bunny", light_scale: float = 3.0):
                                   freqs=8, sigma=8.0)),
         lights=PointLights(location=(0.3, 0.6, 0.6), scale=light_scale),
         occlusion="hard")
+
+
+def mesh_rig() -> list:
+    """The 3 static lights of a mesh scan: a ring about the y axis at
+    elevation 35, radius 1.6."""
+    el = math.radians(35.0)
+    return [1.6 * np.asarray([math.cos(el) * math.sin(a), math.sin(el),
+                              math.cos(el) * math.cos(a)], np.float32)
+            for a in np.linspace(0.0, 2.0 * math.pi, 3, endpoint=False)]
 
 
 def intrinsic(size: int) -> np.ndarray:
@@ -115,15 +133,28 @@ def render_camera(pose: np.ndarray, size: int):
 
 
 def render_view(scene, pose: np.ndarray, *, size: int, key: Optional[int] = 0,
-                chunk_size: Optional[int] = None, device="cuda") -> np.ndarray:
-    """One RGBA view ``[size, size, 4]`` in [0, 1] (alpha: the hit mask)."""
+                chunk_size: Optional[int] = None, device="cuda", rig=None) -> np.ndarray:
+    """One RGBA view ``[size, size, 4]`` in [0, 1] (alpha: the hit mask);
+    with ``rig`` (light locations) the colours of one render a light,
+    summed, then clipped."""
     from ..integrators import Direct, Mask
     from ..render import pathtrace
-    img, _ = pathtrace(scene, render_camera(pose, size),
-                       Mask(Direct(training=False, horizon_mask=True)), size=size,
-                       chunk_size=chunk_size or size, bundle_size=1, background=0.0,
-                       key=key, device=device)
-    return np.clip(img.cpu().numpy(), 0.0, 1.0)
+
+    def one():
+        img, _ = pathtrace(scene, render_camera(pose, size),
+                           Mask(Direct(training=False, horizon_mask=True)), size=size,
+                           chunk_size=chunk_size or size, bundle_size=1, background=0.0,
+                           key=key, device=device)
+        return img.cpu().numpy()
+
+    if rig is None:
+        return np.clip(one(), 0.0, 1.0)
+    scene.lights.set_location(rig[0][None])
+    arr = one()
+    for loc in rig[1:]:
+        scene.lights.set_location(loc[None])
+        arr[..., :3] += one()[..., :3]
+    return np.clip(arr, 0.0, 1.0)
 
 
 def quantise(x: np.ndarray) -> np.ndarray:
@@ -132,15 +163,15 @@ def quantise(x: np.ndarray) -> np.ndarray:
 
 
 def render_scan(scene, n_views: int, size: int, chunk_size: Optional[int] = None,
-                device="cuda", log_fn=print):
+                device="cuda", log_fn=print, rig=None):
     """-> (images ``[V, S, S, 3]`` uint8, RGB masks ``[V, S, S, 3]`` uint8,
     the ``cameras.npz`` dict): what ``main`` writes.  View ``i`` renders
-    with key ``i``."""
+    with key ``i``; ``rig`` as ``render_view``."""
     poses, cams = scan_cameras(n_views, size)
     images, masks = [], []
     for i, pose in enumerate(poses):
         rgba = render_view(scene, pose, size=size, key=i, chunk_size=chunk_size,
-                           device=device)
+                           device=device, rig=rig)
         images.append(quantise(rgba[..., :3]))
         # RGB masks, as the DTU / IDR layout has them
         masks.append(np.repeat(quantise(rgba[..., 3:]), 3, axis=-1))
@@ -163,7 +194,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kind", type=str, default="bunny")
     ap.add_argument("--mesh", type=str, default=None,
                     choices=[None, "knot", "ico", "gear", "blocks"],
-                    help="a triangle-mesh ground truth (not ported)")
+                    help="a triangle-mesh ground truth (make_mesh_dataset's kinds) "
+                         "with the bright variety material and a 3-light ring")
+    ap.add_argument("--obj-scale", type=float, default=1.0)
     ap.add_argument("--light-scale", type=float, default=3.0)
     ap.add_argument("--size", type=int, default=64, help="image size")
     ap.add_argument("--device", type=str, default="cuda")
@@ -173,14 +206,12 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Render and write the scan; returns ``render_scan``'s arrays."""
     args = parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh needs TriangleMesh, which is not ported yet: "
-                                  "it comes with Queue 1 item 3 (ROADMAP.md)")
     from PIL import Image   # only the writer needs PIL
 
-    scene = build_scene(args.kind, args.light_scale)
+    scene = build_scene(args.kind, args.light_scale, args.mesh, args.obj_scale)
     scene.init(torch.Generator().manual_seed(SEED), device=args.device)
-    images, masks, cams = render_scan(scene, args.views, args.size, device=args.device)
+    images, masks, cams = render_scan(scene, args.views, args.size, device=args.device,
+                                      rig=mesh_rig() if args.mesh else None)
     for sub, arrs in (("image", images), ("mask", masks)):
         os.makedirs(os.path.join(args.out, sub), exist_ok=True)
         for i, arr in enumerate(arrs):

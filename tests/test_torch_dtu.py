@@ -252,9 +252,69 @@ def test_generator_render_matches_jax(view):
     assert not got[..., :3][mask == 0].any()                # background 0
 
 
-def test_mesh_option_raises():
-    with pytest.raises(NotImplementedError, match="TriangleMesh"):
-        make_dtu_dataset.main(["--out", "unused", "--mesh", "knot", "--device", "cpu"])
+def _jax_mesh_scan(views, size, kind="knot", obj_scale=1.0):
+    """scripts/make_dtu_dataset.py --mesh: (its PRNGKey(7) weights, the 8-bit
+    images of the first ``views`` views under its 3-light ring)."""
+    import make_mesh_dataset as jmm                   # scripts/make_mesh_dataset.py
+    jscene = jmm.build_gt_scene(kind, light_scale=3.0, occlusion="hard",
+                                obj_scale=obj_scale, material="variety")
+    tree = jax.tree.map(np.asarray, jscene.init(jax.random.PRNGKey(7)))
+    el = math.radians(35.0)
+    rig = [1.6 * np.asarray([math.cos(el) * math.sin(a), math.sin(el),
+                             math.cos(el) * math.cos(a)], np.float32)
+           for a in np.linspace(0.0, 2.0 * math.pi, 3, endpoint=False)]
+    _, poses, intr = _script_cameras(views, size)
+    images = []
+    for i in range(views):
+        cam = JDTUCamera(pose=jnp.asarray(poses[i][None]), intrinsic=jnp.asarray(intr),
+                         src_size=jnp.asarray([float(size), float(size)]))
+        arr = None
+        for loc in rig:
+            p = dict(tree, lights=dict(tree["lights"], location=jnp.atleast_2d(loc)))
+            img, _ = J.pathtrace(jscene, p, cam, JMask(JDirect(training=False,
+                                                                horizon_mask=True)),
+                                 size=size, chunk_size=size, background=0.0,
+                                 key=jax.random.PRNGKey(i))
+            img = np.array(img)
+            if arr is None:
+                arr = img
+            else:
+                arr[..., :3] += img[..., :3]
+        images.append((np.clip(arr, 0, 1) * 255).astype(np.uint8))
+    return tree, np.stack(images)
+
+
+def test_mesh_option_generates(tmp_path):
+    """``--mesh knot`` (with ``--obj-scale``): the scan of the triangle-mesh
+    ground truth under the 3-light ring, with the JAX PRNGKey(7) weights
+    equal to scripts/make_dtu_dataset.py's 8-bit images (masks equal on >=
+    99% of the pixels, colours within one level on >= 99% of the pixels
+    both hit: a ray through a shared edge hits by the last bit of a
+    product); ``main`` writes the script's cameras and the layout
+    ``load_dtu`` reads."""
+    tree, want = _jax_mesh_scan(3, 16, obj_scale=1.4)
+    scene = load_jax_params(make_dtu_dataset.build_scene("bunny", 3.0, mesh="knot",
+                                                         obj_scale=1.4), tree, device="cpu")
+    images, masks, _ = make_dtu_dataset.render_scan(scene, 3, 16, device="cpu",
+                                                    rig=make_dtu_dataset.mesh_rig(),
+                                                    log_fn=lambda s: None)
+    jmask = want[..., 3] > 127
+    mask = masks[..., 0] > 127
+    assert 0.05 < jmask.mean() < 0.95 and (mask == jmask).mean() >= 0.99
+    both = mask & jmask
+    diff = np.abs(images.astype(int) - want[..., :3].astype(int)).max(-1)[both]
+    assert (diff <= 1).mean() >= 0.99 and want[..., :3][both].max() > 20
+    assert not images[~mask].any()
+    out = tmp_path / "scan"
+    make_dtu_dataset.main(["--out", str(out), "--mesh", "knot", "--obj-scale", "1.4",
+                           "--views", "2", "--size", "12", "--device", "cpu"])
+    on_disk = np.load(out / "cameras.npz")
+    small, _, _ = _script_cameras(2, 12)
+    assert sorted(on_disk.files) == sorted(small)
+    for k in small:
+        np.testing.assert_array_equal(on_disk[k], small[k], err_msg=k)
+    data = TT.load_dtu(str(out), 12)
+    assert data.images.shape == (2, 12, 12, 3) and 0.05 < data.masks.mean() < 0.95
 
 
 def _centre_rays(cam, size):
