@@ -294,7 +294,28 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      counted) and a test view in both shadow modes beside the black render;
      (g) make_dtu_dataset --mesh knot at 64^2 (6 views, no K1-K5 launch),
      workloads.dtu.run for 10 steps on it (K1-K3 counted) and its masked
-     test view.
+     test view;
+ 26. data parallelism and the last twins: (a) in an NCCL process group of
+     one, train(mesh=parallel.make_mesh()) for 3 steps of phase 7's flagship
+     step (6 views x 80^2 crops of its GT, seed-0 weights, a seeded
+     generator) against train(mesh=None) from the same state, in turns
+     after a warm-up step of each (plain, mesh, mesh, plain): the losses' bits,
+     every parameter's bits and the K1, K2 and K3 launch counts the same,
+     ms a step of each; the step alone, warm, in turns with the plain step
+     (CUDA events) and one profile of each; one step under the mesh with
+     kernel_bwd (K6 counted); sharded_render_rays on one 128^2 eval tile
+     (256 steps, bounded) against Direct.sample, the same bits; (b)
+     workloads.fit_sphere.run at 64^2 for 100 iterations (K1,
+     K2 and K3 counted; the loss falls) and its evaluate; (c) the
+     visualization twins (workloads.visualize, nerv_vis, dtu_vis) on models
+     that 2 steps of workloads.nerf_synthetic.run, nerv.run and dtu.run
+     saved, on phase 7's GT and data the NeRV and DTU generator twins make
+     here (64^2): every image finite, the normal maps, the weight maps and
+     the flagship's render non-black on the pixels where the scene's
+     surface is hit (K1 and K2 counted); (d) workloads.exp_gan.train_gan
+     for 5 steps at 64^2 with 2 views on in-memory real images (K8
+     counted); (e) profiling.trace over one data-parallel step: a trace
+     file written with the profiling.annotate range in it.
 Phase 7 also runs the flagship step on the device data path (10 counted
 steps) and the two paths in turns, then the workload's own entry,
 workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
@@ -388,6 +409,10 @@ last bit of a product, and each device contracts its products otherwise)
 and |t difference| <= 1e-4 where both hit, the binned rasterizer's
 fragments equal to the naive one's bit for bit (the same arithmetic a
 pixel, stable sorts), the NeRV step on the mesh data as phase 11's.
+
+    python3 chip_smoke.py --parallel
+
+runs phases 1 and 26 only (no result line).
 
     python3 chip_smoke.py --hash
 
@@ -6167,6 +6192,356 @@ def phase_mesh(torch, dev):
                 dtu=dt, secs=secs)
 
 
+PARALLEL_STEPS = 3                                 # (a)
+FIT_SIZE = 64                                      # (b) scripts/fit_sphere.py's default
+FIT_ITERS = 100
+VIS_SIZE = 128                                     # (c) the vis scripts' default
+VIS_GEN_SIZE = 64                                  # (c) the NeRV and DTU data
+GAN_SIZE = 64                                      # (d) the critic's native size
+GAN_VIEWS = 2
+GAN_STEPS = 5
+
+
+def nonblack_on_hits(label, img, hit, least: float) -> float:
+    """The share of the hit pixels where ``img`` is not black; fails below
+    ``least`` or when nothing is hit."""
+    import numpy as np
+    check(np.isfinite(img).all(), f"{label}: not finite")
+    check(hit.any(), f"{label}: the surface is hit nowhere")
+    share = float((np.abs(img).max(axis=-1) > 0)[hit].mean())
+    check(share >= least, f"{label}: black on {1 - share:.4f} of the hit pixels")
+    return share
+
+
+def hit_mask(torch, scene, camera, size) -> "np.ndarray":
+    """Where the scene's surface is hit on ``camera``'s unjittered pixel
+    centres ``[size, size]``."""
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    dev = next(scene.parameters()).device
+    rays = camera.to(dev).sample_positions(_tile_positions(0.0, 0.0, size, dev), size=size)
+    with torch.no_grad():
+        _, hit = scene.shape.intersect(rays, primary=False)
+    return hit[0, ..., 0].cpu().numpy()
+
+
+def parallel_flagship(torch, dev, mesh, c2ws, imgs, masks):
+    """(a) train(mesh=) against train(mesh=None), the kernel_bwd step and
+    sharded_render_rays -> the numbers for the summary."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.parallel import sharded_render_rays
+    from neural_raytracing_tpu_torch.render import _tile_positions
+    from neural_raytracing_tpu_torch.training import TrainState, make_optimizer, train
+    spec = make_optimizer(LRS)
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
+
+    def run(with_mesh, label, iters=PARALLEL_STEPS, kernel_bwd=False):
+        scene = flagship_scene(torch, dev, "spheres")
+        set_kernel_bwd(torch, scene, kernel_bwd, 0)
+        state = TrainState(scene, spec.init(scene), 0)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, losses = train(scene, Direct(training=True), spec, state, make_camera, imgs,
+                              masks, torch.Generator(device=dev).manual_seed(1), size=SIZE,
+                              crop_size=CROP_SIZE, iters=iters, n_views=N_VIEWS, log_every=0,
+                              mesh=mesh if with_mesh else None)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - start) / iters
+        counts = launch_counts()
+        k1_routes(label)
+        check(len(losses) == iters and np.isfinite(losses).all(), f"{label}: losses {losses}")
+        return dict(losses=losses, state={k: v.clone() for k, v in scene.state_dict().items()},
+                    counts=counts, ms=ms, scene=scene)
+
+    # one step of each route first: the plain loop's allocator and the NCCL
+    # communicator the mesh route sets up at its first collective
+    run(False, "(a) train, warm-up", iters=1)
+    run(True, "(a) train, mesh warm-up", iters=1)
+    runs = {}
+    for i, with_mesh in enumerate((False, True, True, False)):
+        label = f"{'mesh' if with_mesh else 'plain'} {i}"
+        runs[label] = run(with_mesh, f"(a) train, {label}")
+    plain, meshed = runs["plain 0"], runs["mesh 1"]
+    same_state = all(torch.equal(plain["state"][k], v) for k, v in meshed["state"].items())
+    plain_again = all(torch.equal(plain["state"][k], v)
+                      for k, v in runs["plain 3"]["state"].items())
+    kernels = ("fused_mlp_forward", "fused_march", "fused_min_scan")
+    for name in kernels:
+        check(plain["counts"][name] > 0, f"(a) {name} was not launched on the plain loop")
+    print(f"  (a) {PARALLEL_STEPS} steps: losses plain {plain['losses']}, mesh "
+          f"{meshed['losses']}; the same loss bits {plain['losses'] == meshed['losses']}, "
+          f"parameter bits {same_state} (plain against plain: {plain_again}); launches "
+          + ", ".join(f"{n} {plain['counts'][n]} / {meshed['counts'][n]}" for n in kernels))
+    check(plain["losses"] == meshed["losses"] and runs["mesh 2"]["losses"] == meshed["losses"],
+          "(a) the world-one step's losses are not the plain loop's bits")
+    check(same_state, "(a) the world-one step's parameters are not the plain loop's bits")
+    check(all(plain["counts"][n] == meshed["counts"][n] for n in kernels),
+          "(a) the world-one step launched K1-K3 another number of times")
+    ms = {k: (runs[f"{k} 0" if k == "plain" else "mesh 1"]["ms"]
+              + runs["plain 3" if k == "plain" else "mesh 2"]["ms"]) / 2
+          for k in ("plain", "mesh")}
+    step_ms, busy = mesh_step_turns(torch, dev, mesh, spec, make_camera, imgs, masks)
+    bwd = run(True, "(a) train, mesh, kernel_bwd", iters=1, kernel_bwd=True)
+    check(bwd["counts"]["fused_mlp_backward"] > 0, "(a) K6 was not launched under the mesh")
+
+    scene = meshed["scene"]
+    test = scene.replace(shape=scene.shape.replace(max_steps=256, march_bound=1.2))
+    rays = make_camera([0]).to(dev).sample_positions(
+        _tile_positions((SIZE - CHUNK) / 2, (SIZE - CHUNK) / 2, CHUNK, dev),
+        size=SIZE).reshape(-1, 6)
+    reset_launch_counts()
+    with torch.no_grad():
+        values, active = sharded_render_rays(test, rays, Direct(training=False), mesh)
+        want, want_active, _ = Direct(training=False).sample(test, rays)
+    render_counts = launch_counts()
+    err = (values - want).abs().max().item()
+    same = torch.equal(values, want) and torch.equal(active, want_active)
+    check(err <= 1e-5 and torch.equal(active, want_active),
+          f"(a) sharded_render_rays differs from Direct.sample by {err:.3e}")
+    check(render_counts["fused_march"] > 0, "(a) sharded_render_rays: K2 was not launched")
+    print(f"  (a) world-one step {ms['mesh']:.1f} ms against the plain loop's "
+          f"{ms['plain']:.1f} ms (host clock, the mean of two turns after a warm-up step "
+          "of each route; "
+          + ", ".join(f"{k} {v['ms']:.1f}" for k, v in runs.items()) + "); kernel_bwd step under "
+          f"the mesh: K6 launches {bwd['counts']['fused_mlp_backward']}; sharded_render_rays "
+          f"on a {CHUNK}^2 eval tile: max |difference| {err:.3e}, the same bits {same}, hit "
+          f"fraction {active.float().mean().item():.4f}")
+    return dict(ms=ms, step_ms=step_ms, busy=busy, counts=meshed["counts"],
+                same_bits=same_state, render_same=same)
+
+
+def mesh_step_turns(torch, dev, mesh, spec, make_camera, imgs, masks):
+    """The step alone, warm (no loop, no broadcast): phase 7's first 6 views
+    and silhouette crop through the plain step and the world-one step in
+    turns (CUDA events, the median of 5 calls a turn), then one profile of
+    each -> (ms by route, the profiles)."""
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.parallel import make_parallel_train_step
+    from neural_raytracing_tpu_torch.training import TrainState, build_step_fn
+    idxs = list(range(N_VIEWS))
+    u, v = silhouette_crop()
+    exp = torch.from_numpy(imgs[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    mask = torch.from_numpy(masks[idxs, u:u + CROP_SIZE, v:v + CROP_SIZE]).to(dev)
+    camera = make_camera(idxs)
+    kw = dict(size=SIZE, crop_size=CROP_SIZE)
+    fns = {}
+    for label in ("plain", "mesh"):
+        scene = flagship_scene(torch, dev, "spheres")
+        step = (build_step_fn(scene, Direct(training=True), spec, **kw) if label == "plain"
+                else make_parallel_train_step(scene, Direct(training=True), spec, mesh,
+                                              n_views=N_VIEWS, **kw))
+        box = [TrainState(scene, spec.init(scene), 0),
+               torch.Generator(device=dev).manual_seed(1)]
+
+        def one(step=step, box=box):
+            box[0] = step(box[0], camera, (u, v), exp, mask, box[1])[0]
+        fns[label] = one
+    ms = in_turns(fns)
+    busy = {k: profile_step(torch, fn, f"(a) one step, {k}") for k, fn in fns.items()}
+    print(f"  (a) the step alone, warm, in turns: world-one {ms['mesh']:.2f} ms against the "
+          f"plain step's {ms['plain']:.2f} ms (CUDA events, the median of the turns' medians)"
+          + "".join(f"; {k}: busy {b['busy_ms']:.1f} ms, {b['launches']} launches, host "
+                    f"launch calls {b['host_launches']}" for k, b in busy.items() if b))
+    return ms, busy
+
+
+def parallel_fit_sphere(torch, dev):
+    """(b) workloads.fit_sphere.run at 64^2 for 100 iterations."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.workloads import fit_sphere
+    args = fit_sphere.parser().parse_args(["--size", str(FIT_SIZE), "--iters", str(FIT_ITERS),
+                                           "--log-every", "0", "--device", str(dev)])
+    out, counts, secs = counted(torch, "(b) fit_sphere",
+                                lambda: fit_sphere.run(args, save=False, log_fn=lambda *a: None))
+    losses = np.asarray(out["losses"])
+    for name in ("fused_march", "fused_min_scan"):
+        check(counts[name] > 0, f"(b) fit_sphere: {name} was not launched")
+    check(losses[-10:].mean() < losses[:10].mean(), f"(b) fit_sphere: the loss did not fall "
+          f"({losses[:10].mean():.4f} -> {losses[-10:].mean():.4f})")
+    check(all(np.isfinite(v) for v in out["metrics"].values()), f"(b) {out['metrics']}")
+    print(f"  (b) fit_sphere at {FIT_SIZE}^2: {FIT_ITERS} iterations and its evaluate in "
+          f"{secs:.2f} s, loss {losses[:10].mean():.4f} -> {losses[-10:].mean():.4f} (the means "
+          f"of the first and last 10), test PSNR {out['metrics']['psnr']:.3f}; launches K1 "
+          f"{counts['fused_mlp_forward']}, K2 {counts['fused_march']}, K3 "
+          f"{counts['fused_min_scan']}")
+    return dict(secs=secs, counts=counts, loss=(losses[:10].mean(), losses[-10:].mean()))
+
+
+def parallel_vis(torch, dev, root, c2ws, imgs, masks):
+    """(c) the three visualization twins on models that 2 training steps of
+    each workload twin saved."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.training import NeRFDataset, save_scene
+    from neural_raytracing_tpu_torch.workloads import (
+        dtu, dtu_vis, nerf_synthetic, nerv, nerv_vis, visualize,
+    )
+    from neural_raytracing_tpu_torch.workloads._common import load_trained
+    models = str(root / "models")
+    quiet = dict(log_every=0, device=str(dev), models=models)
+    state, _ = nerf_synthetic.run(
+        twin_args(nerf_synthetic, size=SIZE, crop_size=CROP_SIZE, n_views=N_VIEWS, iters=2,
+                  valid_freq=0, **quiet),
+        NeRFDataset(c2ws, FOCAL, imgs, masks), None, name="smoke", save=False)
+    save_scene(f"{models}/smoke", state.scene)
+    nv, _, _, _ = nerv_generated(torch, dev, VIS_GEN_SIZE, train_views=4, test_views=1)
+    state, _ = nerv.run(twin_args(nerv, size=VIS_GEN_SIZE, crop_size=VIS_GEN_SIZE, iters=2,
+                                  **quiet), nv, None, name="smoke", save=False)
+    save_scene(f"{models}/nerv_smoke", state.scene)
+    scan, _, _ = dtu_scan(torch, dev, VIS_GEN_SIZE, 4)
+    state, _ = dtu.run(twin_args(dtu, size=VIS_GEN_SIZE, crop_size=32, iters=2, **quiet), scan,
+                       name="smoke", save=False)
+    save_scene(f"{models}/dtu_smoke", state.scene)
+
+    focal = FOCAL * VIS_SIZE / SIZE
+    view = NeRFDataset(c2ws, focal, np.zeros((len(c2ws), VIS_SIZE, VIS_SIZE, 3)),
+                       np.zeros((len(c2ws), VIS_SIZE, VIS_SIZE)))
+    shares = {}
+    v, counts, secs_v = counted(torch, "(c) visualize", lambda: visualize.run(
+        twin_args(visualize, size=VIS_SIZE, n_orbit=1, **quiet), view, "smoke", save=False,
+        log_fn=lambda *a: None))
+    check(counts["fused_march"] > 0, "(c) visualize: K2 was not launched")
+    scene = load_trained(nerf_synthetic.build_scene(max_steps=128), f"{models}/smoke", dev)
+    hit = hit_mask(torch, scene, NeRFCamera(torch.from_numpy(c2ws[:1]), focal), VIS_SIZE)
+    shares["visualize render"] = nonblack_on_hits("(c) visualize render", v["orbit"][0], hit, 0.9)
+    shares["visualize normals"] = nonblack_on_hits("(c) visualize normals", v["normals"][0], hit,
+                                                   0.99)
+    weights = np.concatenate(v["basis"], axis=-1)
+    shares["visualize weights"] = nonblack_on_hits("(c) visualize weights", weights, hit, 0.99)
+    for b, img in enumerate(v["spheres"]):
+        check(np.isfinite(img).all() and img.max() > 0, f"(c) visualize sphere {b}")
+
+    n, counts_n, secs_n = counted(torch, "(c) nerv_vis", lambda: nerv_vis.run(
+        twin_args(nerv_vis, size=VIS_GEN_SIZE, views=2, **quiet), nv, "smoke", save=False))
+    scene = load_trained(nerv.build_scene(max_steps=128), f"{models}/nerv_smoke", dev)
+    for i in n["normals"]:
+        hit = hit_mask(torch, scene, NeRFCamera(torch.from_numpy(nv.cam_to_worlds[i:i + 1]),
+                                                nv.focal), VIS_GEN_SIZE)
+        shares[f"nerv_vis normals {i}"] = nonblack_on_hits(
+            f"(c) nerv_vis normals {i}", n["normals"][i], hit, 0.99)
+        shares[f"nerv_vis weights {i}"] = nonblack_on_hits(
+            f"(c) nerv_vis weights {i}", np.concatenate(n["weights"][i], axis=-1), hit, 0.99)
+        check(np.isfinite(n["sil"][i]).all(), f"(c) nerv_vis silhouette {i}")
+
+    d, counts_d, secs_d = counted(torch, "(c) dtu_vis", lambda: dtu_vis.run(
+        twin_args(dtu_vis, size=VIS_GEN_SIZE, views=2, **quiet), scan, "smoke", save=False))
+    scene = load_trained(dtu.build_scene(max_steps=128), f"{models}/dtu_smoke", dev)
+    make_camera = dtu.camera_maker(scan)
+    for i in d["normals"]:
+        hit = hit_mask(torch, scene, make_camera([i]), VIS_GEN_SIZE)
+        shares[f"dtu_vis normals {i}"] = nonblack_on_hits(
+            f"(c) dtu_vis normals {i}", d["normals"][i], hit, 0.99)
+        shares[f"dtu_vis render {i}"] = nonblack_on_hits(
+            f"(c) dtu_vis render {i}", d["render"][i], hit, 0.9)
+    for label, c in (("nerv_vis", counts_n), ("dtu_vis", counts_d)):
+        check(c["fused_march"] > 0, f"(c) {label}: K2 was not launched")
+    print(f"  (c) visualize {secs_v:.2f} s ({VIS_SIZE}^2, 1 orbit view, 8 sphere renders), "
+          f"nerv_vis {secs_n:.2f} s, dtu_vis {secs_d:.2f} s ({VIS_GEN_SIZE}^2, 2 views); "
+          f"non-black share of the hit pixels: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+          + f"; launches K1/K2: visualize {counts['fused_mlp_forward']}/"
+          f"{counts['fused_march']}, nerv_vis {counts_n['fused_mlp_forward']}/"
+          f"{counts_n['fused_march']}, dtu_vis {counts_d['fused_mlp_forward']}/"
+          f"{counts_d['fused_march']}")
+    return dict(counts=counts, shares=shares)
+
+
+def parallel_gan(torch, dev, imgs):
+    """(d) workloads.exp_gan.train_gan for 5 steps."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from neural_raytracing_tpu_torch.workloads import exp_gan
+    step = SIZE // GAN_SIZE
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = exp_gan.train_gan(imgs[:, ::step, ::step], size=GAN_SIZE, n_views=GAN_VIEWS,
+                            iters=GAN_STEPS, device=dev, log_every=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    counts = launch_counts()
+    check(counts["fused_composite"] > 0, "(d) exp_gan: K8 was not launched")
+    check(np.isfinite(out["d_losses"] + out["g_losses"]).all(), f"(d) exp_gan: {out}")
+    print(f"  (d) exp_gan: {GAN_STEPS} steps at {GAN_SIZE}^2 x {GAN_VIEWS} views in "
+          f"{secs:.2f} s ({1e3 * secs / GAN_STEPS:.1f} ms a step), critic losses "
+          f"{[round(x, 4) for x in out['d_losses']]}, generator "
+          f"{[round(x, 4) for x in out['g_losses']]}; K8 launches {counts['fused_composite']}")
+    return dict(secs=secs, counts=counts)
+
+
+def parallel_trace(torch, dev, root, mesh, c2ws, imgs, masks):
+    """(e) profiling.trace over one data-parallel step."""
+    import numpy as np
+    from neural_raytracing_tpu_torch import profiling
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import TrainState, make_optimizer, train
+    spec = make_optimizer(LRS)
+    scene = flagship_scene(torch, dev, "spheres")
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
+    with profiling.trace(str(root / "trace")) as prof:
+        with profiling.annotate("nrt_parallel_step"):
+            train(scene, Direct(training=True), spec, TrainState(scene, spec.init(scene), 0),
+                  make_camera, imgs, masks, torch.Generator(device=dev).manual_seed(1),
+                  size=SIZE, crop_size=CROP_SIZE, iters=1, n_views=N_VIEWS, log_every=0,
+                  mesh=mesh)
+            torch.cuda.synchronize()
+    text = Path(prof.trace_path).read_text()
+    check("nrt_parallel_step" in text, "(e) the annotate range is not in the trace")
+    kernel = "nrt_mlp_tile_f32_kernel" in text
+    print(f"  (e) profiling.trace: {Path(prof.trace_path).name}, "
+          f"{len(text) / 2**20:.1f} MiB, the annotate range in it, K1's kernel in it {kernel}")
+    return dict(mib=len(text) / 2**20, kernel=kernel)
+
+
+def phase_parallel(torch, dev):
+    """Phase 26: data parallelism in an NCCL group of one, fit_sphere, the
+    visualization twins, exp_gan and profiling.trace -> the numbers for the
+    summary."""
+    import tempfile
+
+    import torch.distributed as dist
+    from neural_raytracing_tpu_torch.parallel import make_mesh
+    print(f"phase 26 on {card()}")
+    start = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t
+        return out
+
+    c2ws = train_c2ws()
+    imgs, masks = sphere_gt(torch, c2ws)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dist.init_process_group("nccl", init_method=f"file://{root / 'store'}", world_size=1,
+                                rank=0)
+        try:
+            mesh = make_mesh()
+            check(mesh.size == 1 and mesh.collective and dist.get_backend() == "nccl",
+                  f"(a) not an NCCL group of one: {mesh}")
+            fl = timed("a", lambda: parallel_flagship(torch, dev, mesh, c2ws, imgs, masks))
+            tr = timed("e", lambda: parallel_trace(torch, dev, root, mesh, c2ws, imgs, masks))
+        finally:
+            dist.destroy_process_group()
+        fit = timed("b", lambda: parallel_fit_sphere(torch, dev))
+        vis = timed("c", lambda: parallel_vis(torch, dev, root, c2ws, imgs, masks))
+    gan = timed("d", lambda: parallel_gan(torch, dev, imgs))
+    secs = time.perf_counter() - start
+    print(f"phase 26 on {card()}: world-one step {fl['ms']['mesh']:.1f} ms against the plain "
+          f"loop's {fl['ms']['plain']:.1f} ms, the same bits {fl['same_bits']}; the step alone "
+          f"{fl['step_ms']['mesh']:.2f} against {fl['step_ms']['plain']:.2f} ms; fit_sphere "
+          f"{FIT_ITERS} iterations {fit['secs']:.2f} s; exp_gan {1e3 * gan['secs'] / GAN_STEPS:.1f} "
+          f"ms a step; phase 26 took {secs:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in sorted(parts.items())) + ")")
+    return dict(flagship=fl, fit=fit, vis=vis, gan=gan, trace=tr, secs=secs)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6238,6 +6613,9 @@ def main():
     if sys.argv[1:2] == ["--mesh"]:
         phase_mesh(torch, dev)
         return
+    if sys.argv[1:2] == ["--parallel"]:
+        phase_parallel(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -6271,6 +6649,7 @@ def main():
     ed = phase_edit(torch, dev)
     hs = phase_hash(torch, dev)
     mh = phase_mesh(torch, dev)
+    pl = phase_parallel(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -6368,6 +6747,14 @@ def main():
           f"{mh['raster']['binned']:.2f}; mirror GT {mh['gt']['pass_ms']:.1f} ms a Path pass; "
           f"path_demo delta {mh['demo']['delta']:+.3f} dB; seed fit {mh['seed_ms']:.2f} ms an "
           f"iteration; phase 25 took {mh['secs']:.1f} s")
+    print(f"data parallelism and the last twins (phase 26): world-one step "
+          f"{pl['flagship']['ms']['mesh']:.1f} ms against the plain loop's "
+          f"{pl['flagship']['ms']['plain']:.1f} ms, the same bits; the step alone "
+          f"{pl['flagship']['step_ms']['mesh']:.2f} against "
+          f"{pl['flagship']['step_ms']['plain']:.2f} ms; fit_sphere {FIT_ITERS} "
+          f"iterations {pl['fit']['secs']:.2f} s; exp_gan "
+          f"{1e3 * pl['gan']['secs'] / GAN_STEPS:.1f} ms a step; phase 26 took "
+          f"{pl['secs']:.1f} s")
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "

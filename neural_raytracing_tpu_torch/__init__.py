@@ -30,13 +30,19 @@ the twins ``workloads.edit_nerf``, ``edit_dtu`` and the multi-light
 (``shapes.TriangleMesh``, ``load_obj``), the rasterizers (``raster``), the
 native host ops (``native``, host C++) and ``ops.geometry``, with the mesh
 ground truth (``workloads.make_mesh_dataset``, ``make_dtu_dataset
---mesh``), ``workloads.path_demo`` and ``workloads.seed_shape``.
+--mesh``), ``workloads.path_demo`` and ``workloads.seed_shape``; and data parallelism
+over ``torch.distributed`` (``parallel``, ``training.train(mesh=)``,
+``workloads.nerf_synthetic --data-parallel``), the convolutional blocks
+(``nn.conv``, the twin ``workloads.exp_gan``), ``utils``, ``profiling``,
+``ops.misc`` and the visualization twins (``workloads.visualize``,
+``nerv_vis``, ``dtu_vis``) and ``workloads.fit_sphere``: all that the JAX
+package does.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import (
-    bsdf, cameras, edits, integrators, kernels, lights, native, nn, ops, raster, shapes,
-    training, workloads,
+    bsdf, cameras, edits, integrators, kernels, lights, native, nn, ops, parallel, profiling,
+    raster, samplers, shapes, training, utils, warps, workloads,
 )
 from .params import load_jax_params, state_dict_from_jax
 from .render import pathtrace, pathtrace_sample, render_rays
@@ -44,6 +50,7 @@ from .scene import Scene, sample_emitter
 
 __all__ = [
     "bsdf", "cameras", "edits", "integrators", "kernels", "lights", "native", "nn", "ops",
-    "raster", "shapes", "training", "workloads", "load_jax_params", "state_dict_from_jax",
+    "parallel", "profiling", "raster", "samplers", "shapes", "training", "utils", "warps",
+    "workloads", "load_jax_params", "state_dict_from_jax",
     "pathtrace", "pathtrace_sample", "render_rays", "Scene", "sample_emitter",
 ]

@@ -35,7 +35,7 @@ from torch import nn
 
 from ..interaction import BSDFSample
 from ..kernels.fused_mlp import FusedSkipConnMLP
-from ..nn.mlp import ACTIVATIONS, DensityEstimator, SkipConnMLP
+from ..nn.mlp import ACTIVATIONS, DensityEstimator, SkipConnMLP, resolve_activation
 from ..ops import sampling
 from ..ops.dirs import dir_to_uv, uv_to_dir
 from ..ops.fresnel import fresnel, fresnel_conductor, fresnel_diff_refl
@@ -62,7 +62,8 @@ def invert_z(xyz: torch.Tensor) -> torch.Tensor:
 def gumbel_argmax(generator, weights: torch.Tensor) -> torch.Tensor:
     """A categorical pick ``~ weights`` over the last axis (Gumbel-argmax):
     one uniform on ``[1e-10, 1)`` a weight."""
-    u = sampling.uniform(generator, weights.shape, weights.device, minval=1e-10)
+    u = sampling.uniform(generator, weights.shape, weights.device, minval=1e-10,
+                         batch_axis=0)
     gumbel = -torch.log(-torch.log(u))
     # torch.argmax, like jnp.argmax, returns the first of tied maxima
     return torch.argmax(torch.log(maximum(weights, 1e-20)) + gumbel, dim=-1)
@@ -86,7 +87,7 @@ def one_hot(idx: torch.Tensor, k: int) -> torch.Tensor:
 
 def cos_hemisphere_sample(it, generator, active=True) -> BSDFSample:
     """A cosine-weighted direction on the local upper hemisphere."""
-    u = sampling.uniform(generator, it.p.shape[:-1] + (2,), it.p.device)
+    u = sampling.uniform(generator, it.p.shape[:-1] + (2,), it.p.device, batch_axis=0)
     wo = normalize(square_to_cos_hemisphere(u))
     return BSDFSample(wo=wo, pdf=square_to_cos_hemisphere_pdf(wo))
 
@@ -110,14 +111,14 @@ class NeuralBSDF(nn.Module):
     """Single neural lobe: MLP(rusin(wi, wo)) -> RGB, cos-hemisphere sampling.
     ``zero()`` makes it return black (an ablation)."""
 
-    def __init__(self, activation: str = "sigmoid",
+    def __init__(self, activation="sigmoid",
                  mlp: Optional[SkipConnMLP] = None):
         super().__init__()
         if mlp is None:
             mlp = FusedSkipConnMLP(in_size=3, out=3, num_layers=6,
                                    hidden_size=96, freqs=64)
         self.mlp = mlp
-        self.act = ACTIVATIONS[activation]
+        self.act = resolve_activation(activation)
         self.zeroed = False
 
     @torch.no_grad()
@@ -196,24 +197,34 @@ class ComposeSpatialVarying(nn.Module):
         return BSDFSample(wo=wo, pdf=pdf * sel), spectrum
 
 
-class Diffuse(_Leaves):
-    """Lambertian lobe with a learnable reflectance colour ``[3]``.  As in
-    the JAX package, its spectrum is not masked by ``active`` (nor clamped
-    below the horizon)."""
+def identity(x):
+    return x
 
-    def __init__(self, reflectance=(0.25, 0.2, 0.7)):
+
+def identity_div_pi(x):
+    # divided by pi, not multiplied by 1/pi, as the JAX package does
+    return x / math.pi
+
+
+class Diffuse(_Leaves):
+    """Lambertian lobe with a learnable reflectance colour ``[3]``;
+    ``preprocess`` maps the spectrum (``identity_div_pi``, the default:
+    reflectance over pi).  As in the JAX package, its spectrum is not
+    masked by ``active`` (nor clamped below the horizon)."""
+
+    def __init__(self, reflectance=(0.25, 0.2, 0.7), preprocess: Callable = identity_div_pi):
         super().__init__()
         self._register(reflectance=reflectance)
+        self.preproc = preprocess
 
     def eval_and_pdf(self, it, wo: torch.Tensor, active=True):
         cos_theta_o = wo[..., 2]
-        # divided by pi, not multiplied by 1/pi, as the JAX package does
-        spectrum = cos_theta_o[..., None] * self.reflectance / math.pi
+        spectrum = self.preproc(cos_theta_o[..., None] * self.reflectance)
         return spectrum, square_to_cos_hemisphere_pdf(wo), {}
 
     def sample(self, it, generator, active=True):
         bs = cos_hemisphere_sample(it, generator)
-        return bs, (self.reflectance / math.pi).expand(it.p.shape)
+        return bs, self.preproc(self.reflectance).expand(it.p.shape)
 
 
 class Conductor(_Leaves):
@@ -277,7 +288,7 @@ class Phong(_Leaves):
         return self._spectrum(it, wo), square_to_cos_hemisphere_pdf(wo), {}
 
     def sample(self, it, generator, active=True):
-        u = sampling.uniform(generator, it.p.shape[:-1] + (2,), it.p.device)
+        u = sampling.uniform(generator, it.p.shape[:-1] + (2,), it.p.device, batch_axis=0)
         wo = square_to_cos_hemisphere(u)
         pdf = square_to_cos_hemisphere_pdf(wo)
         ok = (active_mask(active, it.p.shape[:-1], it.p.device)
@@ -327,10 +338,10 @@ class Plastic(_Leaves):
         p_spec = p_spec / (p_spec + p_diff)
         p_diff = 1.0 - p_spec
         ok = active_mask(active, it.p.shape[:-1], it.p.device) & (cos_theta_i > 0)
-        pick = sampling.uniform(generator, p_spec.shape, it.p.device)
+        pick = sampling.uniform(generator, p_spec.shape, it.p.device, batch_axis=0)
         sample_spec = ok & (pick < p_spec)
         diff_wo = square_to_cos_hemisphere(
-            sampling.uniform(generator, it.p.shape[:-1] + (2,), it.p.device))
+            sampling.uniform(generator, it.p.shape[:-1] + (2,), it.p.device, batch_axis=0))
         wo = torch.where(sample_spec[..., None], reflect(it.frame[..., 2], it.wi), diff_wo)
         pdf = maximum(torch.where(sample_spec, p_spec,
                                   p_diff * square_to_cos_hemisphere_pdf(wo)), 1e-10)

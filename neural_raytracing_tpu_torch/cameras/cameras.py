@@ -100,6 +100,17 @@ def nerf_c2w(elev_deg, azim_deg, dist=2.0) -> np.ndarray:
     return m
 
 
+def spherical_positions(min_elev=0.0, max_elev=45.0, min_azim=-135.0, max_azim=135.0,
+                        n_elev: int = 8, n_azim: int = 8, dist: float = 1.0, device=None):
+    """(R, T) of a grid of look-at views about the origin: ``n_elev``
+    elevations by ``n_azim`` azimuths, elevation-major."""
+    elevs = torch.linspace(min_elev, max_elev, n_elev, dtype=torch.float32)
+    azims = torch.linspace(min_azim, max_azim, n_azim, dtype=torch.float32)
+    ee, aa = torch.meshgrid(elevs, azims, indexing="ij")
+    return look_at_view_transform(dist=dist, elev=ee.reshape(-1), azim=aa.reshape(-1),
+                                  device=device)
+
+
 def _expand_bundle(positions: torch.Tensor, generator: Optional[torch.Generator],
                    bundle_size: int, with_noise) -> torch.Tensor:
     """[..., 2] -> [..., bundle, 2], jittered by U(-d/2, d/2) if ``with_noise``."""

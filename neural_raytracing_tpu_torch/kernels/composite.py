@@ -99,3 +99,7 @@ def composite_apply(sigma: torch.Tensor, rgb: torch.Tensor,
                            rgb.reshape(n_t, -1, 3).contiguous(),
                            ts.reshape(n_t).contiguous())
     return out.reshape(batches + (3,))
+
+
+# the JAX package's name for the drop-in of shapes.nerf.volumetric_integrate
+volumetric_integrate_fused = composite_apply

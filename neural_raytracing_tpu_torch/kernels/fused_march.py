@@ -136,14 +136,15 @@ def _shadow_lib() -> ctypes.CDLL:
 
 def supports(module) -> bool:
     """True if ``module`` is a SphereSDF or FusedSphereSDF whose shift net
-    the kernels run."""
+    the kernels run (a registered activation: a custom callable's shift
+    net marches by the plain loop)."""
     from ..shapes.sdf import SphereSDF
     from .fused_sdf import FusedSphereSDF
     if not isinstance(module, (SphereSDF, FusedSphereSDF)):
         return False
     mlp = module.shift
     return (isinstance(mlp, SkipConnMLP) and mlp.latent_size == 0
-            and mlp.in_size == 3 and mlp.out_size == 1)
+            and mlp.in_size == 3 and mlp.out_size == 1 and mlp.activation_name is not None)
 
 
 def _spheres(module, device):

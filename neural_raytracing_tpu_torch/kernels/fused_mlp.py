@@ -1392,7 +1392,9 @@ class FusedSkipConnMLP(SkipConnMLP):
         self.kernel_bwd_segments = kernel_bwd_segments
 
     def forward(self, p: torch.Tensor, latent=None) -> torch.Tensor:
-        if self.mode == "off" or latent is not None:
+        # a custom activation callable (no registered name) runs plain, as
+        # in the JAX package
+        if self.mode == "off" or latent is not None or self.activation_name is None:
             return super().forward(p, latent)
         if not p.is_cuda:
             if self.mode == "force":

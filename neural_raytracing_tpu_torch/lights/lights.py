@@ -162,7 +162,7 @@ class Constant(nn.Module):
         if generator is None:
             raise ValueError("Constant light sampling requires a generator")
         batch = it.p.shape[:-1]
-        u = sampling.uniform(generator, batch + (2,), it.p.device)
+        u = sampling.uniform(generator, batch + (2,), it.p.device, batch_axis=0)
         d = normalize(square_to_uniform_sphere(u))
         dist = 2.0 * self.radius
         pdf_val = square_to_uniform_sphere_pdf(d)

@@ -80,6 +80,40 @@ ACTIVATION_GRADS: dict = {
 }
 
 
+def resolve_activation(act):
+    """The activation function of a registered name, or ``act`` itself when
+    it is a callable."""
+    if callable(act):
+        return act
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    return ACTIVATIONS[act]
+
+
+def activation_name(act) -> Optional[str]:
+    """The registry name of an activation (a name, or a registered function
+    object), or None for a custom callable."""
+    if isinstance(act, str):
+        return act
+    for name, fn in ACTIVATIONS.items():
+        if fn is act:
+            return name
+    return None
+
+
+def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` of a ``{"w", "b"}`` params dict (the JAX layout)."""
+    return x @ params["w"] + params["b"]
+
+
+def wn_linear(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The weight-normed layer of a ``{"v", "g", "b"}`` params dict:
+    ``w = g * v / max(||v||_0, 1e-12)``, the norm over ``fan_in``."""
+    v = params["v"]
+    w = params["g"] * v / maximum(torch.linalg.norm(v, dim=0), 1e-12)
+    return x @ w + params["b"]
+
+
 class Linear(nn.Module):
     """``x @ w + b`` with ``w`` shaped ``[fan_in, fan_out]`` (the JAX layout)."""
 
@@ -140,11 +174,9 @@ class SkipConnMLP(nn.Module):
     def __init__(self, in_size: int = 3, out: int = 3, num_layers: int = 8,
                  hidden_size: int = 64, skip: int = 3, freqs: int = 16,
                  sigma: float = 32.0, latent_size: int = 0,
-                 activation: str = "leaky_relu", init: str = "uniform",
+                 activation="leaky_relu", init: str = "uniform",
                  zero_out: bool = False, compute_dtype=torch.float32):
         super().__init__()
-        if activation not in ACTIVATIONS:
-            raise ValueError(f"unknown activation {activation!r}")
         self.compute_dtype = check_compute_dtype(compute_dtype)
         self.in_size = in_size
         self.out_size = out
@@ -154,8 +186,10 @@ class SkipConnMLP(nn.Module):
         self.freqs = freqs
         self.sigma = sigma
         self.latent_size = latent_size
-        self.activation_name = activation
-        self.activation = ACTIVATIONS[activation]
+        # a name or a callable; a custom callable has no name, and the fused
+        # kernels (which take the registered activations) run it plain
+        self.activation = resolve_activation(activation)
+        self.activation_name = activation_name(activation)
         self.init_mode = init
         # zero only the output layer: the function starts at 0 while the
         # hidden layers keep their gradients
@@ -305,11 +339,9 @@ class TwoStageMLP(nn.Module):
     def __init__(self, in_1: int = 3, in_2: int = 3, intermediate: int = 1,
                  out: int = 3, num_layers: int = 6, hidden_size: int = 128,
                  skip: int = 3, freqs: int = 10, sigma: float = 64.0,
-                 activation: str = "relu", init: str = "uniform",
+                 activation="relu", init: str = "uniform",
                  weight_norm: bool = True):
         super().__init__()
-        if activation not in ACTIVATIONS:
-            raise ValueError(f"unknown activation {activation!r}")
         self.weight_norm = weight_norm
         self.in_1, self.in_2 = in_1, in_2
         self.intermediate = intermediate
@@ -319,7 +351,7 @@ class TwoStageMLP(nn.Module):
         self.skip = skip
         self.freqs = freqs
         self.sigma = sigma
-        self.activation = ACTIVATIONS[activation]
+        self.activation = resolve_activation(activation)
         self.init_mode = init
         self.dim_1 = fourier_size(freqs, in_1)
         self.mid_input = intermediate + fourier_size(freqs, in_2)
@@ -504,7 +536,7 @@ class DensityEstimator(nn.Module):
         shape = tuple(shape)
         tril = self._scale_tril()
         eps = sampling.normal(generator, shape + (self.dists, self.in_size),
-                              self.centers.device)
+                              self.centers.device, batch_axis=0)
         samples = self.centers + torch.einsum("kij,...kj->...ki", tril, eps)
         k = torch.softmax(self.weights, dim=-1)
         val = torch.sum(samples * k[:, None], dim=-2)

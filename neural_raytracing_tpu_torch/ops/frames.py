@@ -28,6 +28,13 @@ def coordinate_system(n: torch.Tensor) -> torch.Tensor:
     return torch.stack([s, t, n], dim=-1)
 
 
+def partial_frame(n: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """A frame from a normal and an incident direction (columns n, wi,
+    n x wi)."""
+    c = normalize(torch.linalg.cross(*torch.broadcast_tensors(n, wi), dim=-1), eps=1e-7)
+    return torch.stack([n, wi, c], dim=-1)
+
+
 def to_local(frame: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """World direction -> local frame coordinates (then renormalized)."""
     out = torch.einsum("...ij,...i->...j", frame, wo)

@@ -7,8 +7,13 @@ epsilons of the reference are kept verbatim: they are part of the behaviour.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
+
+PI = math.pi
+TWO_PI = 2.0 * math.pi
+INV_PI = 1.0 / math.pi
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +112,10 @@ def nonzero_eps(v: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     return torch.where(torch.abs(v) < eps, torch.full_like(v, eps), v)
 
 
+def dot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1, keepdim=keepdims)
+
+
 def smooth_min(v: torch.Tensor, k: float = 32.0, dim: int = 0) -> torch.Tensor:
     """Clamped exponential smooth minimum ``-log(max(sum(exp(-k v)), 1e-4)) / k``.
 
@@ -155,3 +164,56 @@ def rotate_vector(v: torch.Tensor, axis: torch.Tensor, c: torch.Tensor,
     return (v * c
             + axis * torch.sum(v * axis, dim=-1, keepdim=True) * (1.0 - c)
             + torch.linalg.cross(axis, v, dim=-1) * s)
+
+
+def weak_sigmoid(x: torch.Tensor, k: float = 4e-4, sqrt_k: float = 2e-2,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Signed sqrt with a linear region near zero."""
+    ax = absolute(x)
+    return torch.where(ax < k, x / sqrt_k, torch.sign(x) * torch.sqrt(ax + eps))
+
+
+def pos_weak_sigmoid(x: torch.Tensor, k: float = 4e-4, k_pow_3_2: float = 2e-2,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Positive symmetric variant of ``weak_sigmoid``."""
+    ax = absolute(x)
+    return torch.where(ax <= k, torch.square(x) / k_pow_3_2, torch.sqrt(ax + eps))
+
+
+def fwidth(v: torch.Tensor) -> torch.Tensor:
+    """``|ddx| + |ddy|`` over the image axes 1 and 2 of ``[N, W, H, ..., C]``
+    (the last difference repeated at the far edge)."""
+    dx = v[:, 1:] - v[:, :-1]
+    dx = torch.cat([dx, dx[:, -1:]], dim=1)
+    dy = v[:, :, 1:] - v[:, :, :-1]
+    dy = torch.cat([dy, dy[:, :, -1:]], dim=2)
+    return absolute(dx) + absolute(dy)
+
+
+def qmul(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions stored ``[w, x, y, z]``."""
+    t = r[..., :, None] * q[..., None, :]
+    w = t[..., 0, 0] - t[..., 1, 1] - t[..., 2, 2] - t[..., 3, 3]
+    x = t[..., 0, 1] + t[..., 1, 0] - t[..., 2, 3] + t[..., 3, 2]
+    y = t[..., 0, 2] + t[..., 1, 3] + t[..., 2, 0] - t[..., 3, 1]
+    z = t[..., 0, 3] - t[..., 1, 2] + t[..., 2, 1] + t[..., 3, 0]
+    return torch.stack([w, x, y, z], dim=-1)
+
+
+def quat_rot(v: torch.Tensor, axis: torch.Tensor, theta) -> torch.Tensor:
+    """Rotate ``v`` about the unit ``axis`` by ``theta`` by quaternion
+    conjugation."""
+    q1 = torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
+    t2 = (torch.as_tensor(theta, dtype=v.dtype, device=v.device) / 2.0).expand(
+        v.shape[:-1] + (1,))
+    q2 = torch.cat([torch.cos(t2), torch.sin(t2) * axis], dim=-1)
+    q2_inv = torch.cat([q2[..., :1], -q2[..., 1:]], dim=-1)
+    return qmul(qmul(q2, q1), q2_inv)[..., 1:]
+
+
+def almost_identity(x: torch.Tensor, thresh: float = 1e-1) -> torch.Tensor:
+    """The identity above ``thresh`` in magnitude, a smooth cubic below."""
+    x_abs = absolute(x)
+    t = x_abs / thresh
+    v = (x_abs - thresh) * t * t + thresh
+    return torch.where(x_abs > thresh, x, torch.sign(x) * v)

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .ops import sampling
 from .scene import Scene
 
 
@@ -91,15 +92,22 @@ def pathtrace(scene: Scene, camera, integrator, size: int = 512,
 
 def pathtrace_sample(scene: Scene, integrator, camera, uv, generator=None,
                      crop_size: int = 32, bundle_size: int = 1, size: int = 256,
-                     with_noise=False, training: bool = True):
+                     with_noise=False, training: bool = True, shard=None):
     """Render the ``crop_size``^2 window at pixel offset ``uv = (u, v)`` on
     the scene's device, differentiably (the training crop).  ``u`` and ``v``
     are ints or 0-d tensors on that device.  ``generator`` draws the camera
-    jitter and the integrator's randomness.  Returns ``(values [N, S, S,
+    jitter and the integrator's randomness.  ``shard = (rank, n_local,
+    n_padded)``: ``camera`` holds this rank's ``n_local`` views of a batch
+    of ``n_padded``, and the integrator's per-ray draws are this rank's rows
+    of the whole batch's (``ops.sampling.view_shard``); the camera jitter
+    has no view axis and is drawn whole.  Returns ``(values [N, S, S,
     bundle, dims], active, it)``."""
     device = next(scene.parameters()).device
     positions = _tile_positions(uv[0], uv[1], crop_size, device)
     rays = camera.to(device).sample_positions(
         positions, generator=generator, bundle_size=bundle_size, size=size,
         with_noise=with_noise)
-    return integrator.sample(scene, rays, generator=generator, training=training)
+    if shard is None:
+        return integrator.sample(scene, rays, generator=generator, training=training)
+    with sampling.view_shard(*shard):
+        return integrator.sample(scene, rays, generator=generator, training=training)

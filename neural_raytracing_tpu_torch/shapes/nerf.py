@@ -22,8 +22,10 @@ Each shape is an ``nn.Module`` whose parameters follow the JAX params tree
 generator=None, lights=None[, latent=None])`` renders ``rays [..., 6]`` to
 ``[..., 3]``: the ``generator`` takes the place of the JAX key (it jitters
 the far end of the samples and draws the sigma noise; without one there is
-no jitter), ``lights`` is the scene's light module.  ``PlainNeRF`` and
-``PartialNeRF`` take a ``latent``, as in JAX.  The nets are the plain
+no jitter; the draws go through ``ops.sampling``), ``lights`` is the
+scene's light module.  ``PlainNeRF`` and ``PartialNeRF`` take a
+``latent``, as in JAX; ``PlainNeRF.latent``, when set, is the codes a call
+without one uses (the JAX ``params["shape"]["latent"]``).  The nets are the plain
 ``SkipConnMLP`` (plain jnp in the JAX package too).  ``fused`` ("auto",
 "force" or "off") selects the compositing of ``volumetric_integrate``.
 """
@@ -38,6 +40,7 @@ from torch import nn
 
 from ..kernels.composite import composite_apply, composite_plain
 from ..nn.mlp import SkipConnMLP
+from ..ops import sampling
 from ..ops.dirs import dir_to_elev_azim, elev_azim_to_dir
 from ..ops.math import maximum
 
@@ -84,8 +87,7 @@ def _sample_ts(generator: Optional[torch.Generator], t_near: float,
     far end moves by ``U(0, 1) * jitter``."""
     far = t_far
     if generator is not None:
-        u = torch.rand((), generator=generator, device=generator.device)
-        far = t_far + u.to(device) * jitter
+        far = t_far + sampling.uniform(generator, (), device) * jitter
     return _linspace(t_near, far, steps, device)
 
 
@@ -123,6 +125,7 @@ class PlainNeRF(nn.Module):
         self.second = SkipConnMLP(in_size=2, out=3,
                                   latent_size=latent_size + intermediate_size,
                                   num_layers=5, hidden_size=32)
+        self.latent: Optional[torch.Tensor] = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -132,7 +135,10 @@ class PlainNeRF(nn.Module):
     def volume_render(self, rays: torch.Tensor, generator=None, lights=None,
                       latent: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``latent``: optional per-view codes ``[N, latent_size]`` over the
-        leading camera axis of the rays (zeros without)."""
+        leading camera axis of the rays (``self.latent`` without; zeros
+        without either)."""
+        if latent is None:
+            latent = self.latent
         r_d = rays[..., 3:]
         ts = _sample_ts(generator, self.t_near, self.t_far, self.steps, rays.device)
         pts = _sample_points(rays, ts)
@@ -146,8 +152,9 @@ class PlainNeRF(nn.Module):
         rgb = torch.tanh(self.second(elaz, torch.cat([intermediate, latent], dim=-1)))
         noise = 0.0
         if generator is not None and self.sigma_noise:
-            noise = torch.randn(alpha.shape, generator=generator,
-                                device=generator.device).to(alpha.device) * self.sigma_noise
+            # alpha is [steps, batch, ...]: the batch is its axis 1
+            noise = sampling.normal(generator, alpha.shape, alpha.device,
+                                    batch_axis=1) * self.sigma_noise
         sigma = F.relu(alpha + noise)
         return (volumetric_integrate(sigma, rgb, ts, self.fused) + 1.0) / 2.0
 

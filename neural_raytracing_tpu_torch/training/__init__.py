@@ -1,13 +1,14 @@
 """Training: the step, the host loop, evaluation, optimizer and checkpoints.
 
-Counterpart of ``neural_raytracing_tpu/training`` on one device: the host
-data path and the on-device one (``device_dataset``,
-``make_device_data_step``, ``train(device_data=)``); no device mesh.
+Counterpart of ``neural_raytracing_tpu/training``: the host data path, the
+on-device one (``device_dataset``, ``make_device_data_step``,
+``train(device_data=)``) and data parallelism over a ``parallel.Mesh``
+(``train(mesh=)``).
 """
 
 from .calibrate import calibrate_exposure
 from .checkpoint import (
-    load_scene, load_train_state, save_scene, save_train_state,
+    load_pytree, load_scene, load_train_state, save_pytree, save_scene, save_train_state,
 )
 from .datasets import (
     ColocateDataset, DTUDataset, NeRFDataset, NeRVDataset, decompose_projection,
@@ -17,7 +18,7 @@ from .datasets import (
 from .eval import evaluate
 from .loop import (
     TrainState, build_step_fn, default_extra_loss, device_dataset,
-    init_train_state, make_device_data_step, rand_uv, rand_uv_mask, train,
+    init_train_state, make_device_data_step, make_train_step, rand_uv, rand_uv_mask, train,
 )
 from .loss_sampler import LossSampler
 from .optim import (

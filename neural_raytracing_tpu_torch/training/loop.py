@@ -15,6 +15,9 @@ The on-device data path (``device_dataset``, ``make_device_data_step``,
 ``train(device_data=)``) keeps the training split on the scene's device and
 draws the views, the crop and the camera batch there, so a step makes no
 host-to-device copy and no wait for the card of its own.
+
+``train(mesh=)`` trains data-parallel over the ranks of a
+``parallel.Mesh``: one process a device (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
                   with_ssim: bool = True, with_noise=False,
                   extra_loss: Callable = default_extra_loss,
                   space_reg: Optional[Callable] = None,
-                  skip_nan_updates: bool = False):
+                  n_real_views: Optional[int] = None,
+                  skip_nan_updates: bool = False, mesh=None):
     """The step ``(state, camera, uv, exp, mask, generator) -> (state, aux)``.
 
     ``exp``/``mask`` are the ``[N, S, S, 3]`` / ``[N, S, S]`` ground-truth crop
@@ -76,9 +80,31 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     ``space_reg(scene, generator) -> scalar`` (optional) is added to the
     loss: a regularizer at fresh random points each step (the JAX
     ``space_reg(params, key)``).
+    ``n_real_views``: the view axis may be padded (``parallel.pad_batch``);
+    the loss, ``extra_loss`` included, runs on the first ``n_real_views``
+    views only, so padded views contribute no gradient.
+    ``mesh`` (a ``parallel.Mesh``; ``parallel.make_parallel_train_step``
+    sets it, with ``n_real_views``): every rank passes the whole batch,
+    renders its shard of the padded view axis, gathers the rendered views
+    and computes the loss on all of them; the parameter gradients are
+    all-reduced by their mean before clipping, the finite check and AdamW.
     """
+    from ..parallel.mesh import gather_views, padded_size, reduce_grads, shard_batch
     train_integrator = NeRFIntegrator(integrator)
     clip_norm = optimizer_config.clip_norm
+    if mesh is not None and n_real_views is None:
+        raise ValueError("a mesh step needs n_real_views, the views of its batch")
+
+    def render(scene_, camera, uv, generator):
+        kw = dict(crop_size=crop_size, bundle_size=bundle_size, size=size,
+                  with_noise=with_noise)
+        if mesh is None:
+            return pathtrace_sample(scene_, train_integrator, camera, uv, generator, **kw)
+        padded = padded_size(n_real_views, mesh.size)
+        n_local = padded // mesh.size
+        out = pathtrace_sample(scene_, train_integrator, shard_batch(camera, mesh, n_real_views),
+                               uv, generator, shard=(mesh.rank, n_local, padded), **kw)
+        return gather_views(out, mesh, n_local)
 
     def step(state: TrainState, camera, uv, exp, mask, generator=None):
         scene_, opt = state.scene, state.optimizer
@@ -90,11 +116,14 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        values, _, it = pathtrace_sample(
-            scene_, train_integrator, camera, uv, generator, crop_size=crop_size,
-            bundle_size=bundle_size, size=size, with_noise=with_noise)
+        values, _, it = render(scene_, camera, uv, generator)
         got = values.mean(dim=-2)                       # over the bundle
         throughput = it.throughput.mean(dim=-1)
+        if n_real_views is not None:
+            n_padded = got.shape[0]
+            got, throughput, it = (got[:n_real_views], throughput[:n_real_views],
+                                   _views(it, n_padded, n_real_views))
+            exp, mask = exp[:n_real_views], mask[:n_real_views]
         loss = masked_loss(got[..., :3], exp, throughput, mask,
                            mask_weight=mask_weight, tone_mapping=tone_mapping,
                            with_ssim=with_ssim)
@@ -102,6 +131,8 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
         if space_reg is not None:
             loss = loss + space_reg(scene_, generator)
         loss.backward()
+        if mesh is not None:
+            reduce_grads(params, mesh)
         if clip_norm is not None:
             clip_grads(params, clip_norm)
         if skip_nan_updates:
@@ -115,6 +146,22 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
                 {"loss": loss.detach(), "got": got.detach()})
 
     return step
+
+
+def _views(tree, n_padded: int, n: int):
+    """The first ``n`` views of the leaves of a NamedTuple whose leading
+    axis is ``n_padded``."""
+    return type(tree)(*(v[:n] if isinstance(v, torch.Tensor) and v.dim() >= 1
+                        and v.shape[0] == n_padded else v for v in tree))
+
+
+def make_train_step(scene, integrator, optimizer_config, donate: bool = True, **kwargs):
+    """The single-device training step (``build_step_fn``).  The JAX
+    package jits the step and may donate the train state's buffers; the
+    port's step runs eagerly and updates the scene and the optimizer in
+    place, so ``donate`` is accepted and changes nothing."""
+    del donate
+    return build_step_fn(scene, integrator, optimizer_config, **kwargs)
 
 
 def device_dataset(images, masks, cam_to_worlds, crop_size: int,
@@ -297,13 +344,27 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     ``ValueError``), and the lights follow ``device_data["light_locs"]``
     where it is present instead of ``light_update``; ``exp_imgs`` and
     ``exp_masks`` are not read.
+    ``mesh`` (a ``parallel.Mesh``) trains data-parallel
+    (``parallel.make_parallel_train_step``): rank 0's scene is broadcast
+    first, every rank draws the same views, crops and jitter (the same
+    ``seed`` and an identically seeded ``generator``) and computes the same
+    loss, and only rank 0 logs, validates and saves.  A mesh takes neither
+    ``device_data`` (a single-device path, as in the JAX script) nor
+    ``light_update`` (per-view lights are not sharded); both raise
+    ``ValueError``.
     Returns (state, losses).
     """
     if nan_policy not in ("raise", "skip"):
         raise ValueError(f"nan_policy must be 'raise' or 'skip', got {nan_policy!r}")
     if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device training) is not ported yet: "
-                                  "it comes with Queue 1 item 4 (ROADMAP.md)")
+        if device_data is not None:
+            raise ValueError("device_data is a single-device path: it takes no mesh")
+        if light_update is not None:
+            raise ValueError("light_update moves per-view lights, which a mesh "
+                             "does not shard")
+        if mesh.rank != 0:
+            log_fn = lambda *a, **k: None
+            save_fn = valid_fn = None
     skip_nan = nan_policy == "skip"
     step_kw = dict(bundle_size=bundle_size, mask_weight=mask_weight,
                    tone_mapping=tone_mapping, with_ssim=with_ssim,
@@ -321,9 +382,16 @@ def train(scene, integrator, optimizer_config, state: TrainState,
             scene, integrator, optimizer_config, camera_builder, n_views=n_views,
             size=size, crop_size=crop_size, mask_crops=uv_select is not None,
             with_light_locs="light_locs" in device_data, **step_kw)
+    elif mesh is not None:
+        from ..parallel import make_parallel_train_step, replicate
+        step_fn = make_parallel_train_step(scene, integrator, optimizer_config, mesh,
+                                           n_views=n_views, size=size,
+                                           crop_size=crop_size, **step_kw)
+        replicate(state.scene, mesh)
     else:
         step_fn = build_step_fn(scene, integrator, optimizer_config, size=size,
                                 crop_size=crop_size, **step_kw)
+    if device_data is None:
         device = next(state.scene.parameters()).device
         images = torch.as_tensor(np.asarray(exp_imgs)[..., :3], dtype=torch.float32,
                                  device=device)

@@ -120,7 +120,7 @@ class MipMap(nn.Module):
         device = self.percents.device
         w = torch.softmax(self.percents, dim=-1)
         leaf = gumbel_argmax(generator, w.expand(shape + (self.n,)))
-        jitter = sampling.uniform(generator, shape + (2,), device)
+        jitter = sampling.uniform(generator, shape + (2,), device, batch_axis=0)
         # the leaf's cell from its bit path
         x0 = torch.zeros(shape, device=device)
         y0 = torch.zeros(shape, device=device)

@@ -54,3 +54,21 @@ def base_parser(desc: str, size: int = 256) -> argparse.ArgumentParser:
 
 def device_of(args) -> str:
     return "cpu" if getattr(args, "cpu", False) else args.device
+
+
+def load_trained(scene, model_dir: str, device):
+    """``scene`` with seed-0 weights, then the artifacts of ``model_dir``
+    (the JAX visualization scripts' ``init_train_state`` + ``load_scene``)."""
+    import torch
+    from ..training import load_scene
+    scene.init(torch.Generator().manual_seed(0), device=device)
+    return load_scene(model_dir, scene)
+
+
+def render_view(scene, camera, integrator, size: int, key: int, device) -> np.ndarray:
+    """One view in one tile, background 0 (the visualization scripts'
+    ``pathtrace`` call) -> numpy ``[size, size, dims]``."""
+    from ..render import pathtrace
+    img, _ = pathtrace(scene, camera, integrator, size=size, chunk_size=size,
+                       background=0.0, key=key, device=device)
+    return img.cpu().numpy()

@@ -17,9 +17,11 @@ and min-scan are the plain loops, as in the JAX package.
     python -m neural_raytracing_tpu_torch.workloads.nerf_synthetic \
         --data nerf_synthetic/lego --size 256
 
-``run`` takes the splits in memory (``NeRFDataset``s).  Not ported:
-``--data-parallel`` (Queue 1 item 4).  ``--device`` picks the card (default)
-or the CPU.
+``run`` takes the splits in memory (``NeRFDataset``s).  ``--device`` picks
+the card (default) or the CPU.  ``--data-parallel`` trains over the ranks of
+``parallel.make_mesh()``: a world of one in one process, or one process a
+card under ``torchrun --nproc_per_node=N`` (each rank on
+``cuda:LOCAL_RANK``; only rank 0 logs, validates, saves and tests).
 """
 
 from __future__ import annotations
@@ -114,7 +116,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--nan-skip", action="store_true",
                     help="skip, not raise on, non-finite-loss steps")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard the views over the devices (not ported)")
+                    help="shard the views over the ranks of parallel.make_mesh()")
     ap.add_argument("--surface-lr", type=float, default=8e-5)
     ap.add_argument("--bsdf-lr", type=float, default=8e-4)
     ap.add_argument("--light-lr", type=float, default=8e-5)
@@ -149,12 +151,13 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args, data, test=None, name: str = "nerf", save: bool = True):
+def run(args, data, test=None, name: str = "nerf", save: bool = True, mesh=None):
     """Train on ``data`` (a ``NeRFDataset``), then, given ``test``, the test
     split.  ``save`` writes the scene artifacts, the resume file, the
-    metrics and the renders.  Returns ``(state, results)``:
-    ``results["losses"]``, ``results["test"]`` (the metrics) and
-    ``results["test_images"]``."""
+    metrics and the renders.  ``mesh`` (a ``parallel.Mesh``) trains
+    data-parallel; then only rank 0 saves and runs the test split.
+    Returns ``(state, results)``: ``results["losses"]``, ``results["test"]``
+    (the metrics) and ``results["test_images"]``."""
     from ..cameras import NeRFCamera
     from ..integrators import Direct
     from ..ops.math import mse2psnr
@@ -166,6 +169,8 @@ def run(args, data, test=None, name: str = "nerf", save: bool = True):
 
     if args.half_res_warmup and args.half_res_throughput:
         raise ValueError("--half-res-warmup and --half-res-throughput are exclusive")
+    if mesh is not None and mesh.rank != 0:
+        save, test = False, None
     plan = phases(args)
     scene = build_scene(surface=args.surface, stable_init=args.stable_init,
                         stable_min=args.stable_min,
@@ -235,7 +240,7 @@ def run(args, data, test=None, name: str = "nerf", save: bool = True):
             uv_select=rand_uv_mask if args.mask_crops else None,
             extra_loss=make_extra_loss(args.weight_reg, args.sat_guard),
             log_every=args.log_every, metrics=metrics, device_data=device_data,
-            camera_builder=camera_builder, valid_freq=args.valid_freq,
+            camera_builder=camera_builder, valid_freq=args.valid_freq, mesh=mesh,
             valid_fn=valid_fn if args.valid_freq else None, save_fn=save_fn,
             ckpt_freq=max(n // 5 - 1, 1))
         results["losses"] += losses
@@ -266,17 +271,30 @@ def run(args, data, test=None, name: str = "nerf", save: bool = True):
     return state, results
 
 
-def main(argv=None):
+def main(argv=None, save: bool = True):
     args = parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data-parallel is not ported yet: it comes with "
-                                  "Queue 1 item 4 (ROADMAP.md)")
+    mesh = data_parallel_mesh(args) if args.data_parallel else None
     from ..training import load_nerf_synthetic
     name = args.dataset_name or args.data.rstrip("/").split("/")[-1]
     print(f"{name}, Size: {args.size}, Iters: {args.iters}")
     data = load_nerf_synthetic(args.data, args.size, "train")
     test = None if args.skip_test else load_nerf_synthetic(args.data, args.size, "test")
-    return run(args, data, test, name)
+    return run(args, data, test, name, save=save, mesh=mesh)
+
+
+def data_parallel_mesh(args):
+    """``parallel.make_mesh()`` on ``args.device`` for a world of one, on
+    the rank's device under ``torchrun``; ``args.device`` becomes the mesh's
+    device."""
+    from ..parallel import make_mesh
+    if args.device_data:
+        raise ValueError("--device-data is single-device: it takes no --data-parallel")
+    dist_run = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    mesh = make_mesh(device=None if dist_run else args.device)
+    args.device = str(mesh.device)
+    if mesh.rank == 0:
+        print(f"data-parallel over {mesh.size} devices")
+    return mesh
 
 
 if __name__ == "__main__":

@@ -54,7 +54,7 @@ class Replay:
     def __init__(self, arrays):
         self.arrays = [np.array(a, np.float32) for a in arrays]
 
-    def __call__(self, generator, shape, device, minval=0.0):
+    def __call__(self, generator, shape, device, minval=0.0, batch_axis=None):
         assert self.arrays, "the port drew more uniforms than the JAX function"
         a = self.arrays.pop(0)
         assert a.shape == tuple(shape), (a.shape, tuple(shape))

@@ -62,7 +62,7 @@ from neural_raytracing_tpu_torch.bsdf import Conductor, Diffuse  # noqa: E402
 from neural_raytracing_tpu_torch.integrators import Direct, Mask  # noqa: E402
 from neural_raytracing_tpu_torch.interaction import Interaction  # noqa: E402
 from neural_raytracing_tpu_torch.kernels import FusedSkipConnMLP, supports  # noqa: E402
-from neural_raytracing_tpu_torch.ops import fresnel, warps  # noqa: E402
+from neural_raytracing_tpu_torch.ops import warps  # noqa: E402
 from neural_raytracing_tpu_torch.ops import math as tmath  # noqa: E402
 from neural_raytracing_tpu_torch.params import load_jax_params  # noqa: E402
 from neural_raytracing_tpu_torch.shapes import (  # noqa: E402
@@ -76,6 +76,7 @@ torch.set_num_threads(1)
 # the JAX modules by name: the package exports functions under some of them
 jfresnel, jmath, jwarps, jsdf = (sys.modules[f"neural_raytracing_tpu.{m}"] for m in (
     "ops.fresnel", "ops.math", "ops.warps", "shapes.sdf"))
+fresnel = sys.modules["neural_raytracing_tpu_torch.ops.fresnel"]
 
 
 def _grad_np(fn_t, x):

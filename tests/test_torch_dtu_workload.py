@@ -327,8 +327,10 @@ def test_render_nerf_workload_on_the_cpu(nerv_run, capsys):
     assert (root / "orbit" / "orbit_nerf_001.png").exists()
 
 
-# --surface hash is ported: beside --data-parallel it still meets that refusal
+# --data-parallel is ported (tests/test_torch_parallel.py), with or without
+# --surface hash; beside --device-data, a single-device path, it is refused
+# (scripts/nerf_synthetic.py:227 asserts so)
 @pytest.mark.parametrize("argv", [["--data-parallel"], ["--surface", "hash", "--data-parallel"]])
 def test_nerf_synthetic_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        nerf_synthetic.main(["--data", "unused", "--device", "cpu", *argv])
+    with pytest.raises(ValueError, match="single-device"):
+        nerf_synthetic.main(["--data", "unused", "--device", "cpu", "--device-data", *argv])

@@ -58,7 +58,7 @@ class _Normals:
     def __init__(self, arrays):
         self.arrays = [np.array(a, np.float32) for a in arrays]
 
-    def __call__(self, generator, shape, device):
+    def __call__(self, generator, shape, device, batch_axis=None):
         assert self.arrays, "the port drew more normals than the JAX function"
         a = self.arrays.pop(0)
         assert a.shape == tuple(shape), (a.shape, tuple(shape))

@@ -75,6 +75,27 @@ def scene_pair(**kw):
                                          device="cpu")
 
 
+def jax_tree_from_port(jscene, module):
+    """A params tree of ``jscene``'s layout (``jax.eval_shape``) holding the
+    port ``module``'s state as numpy: the weights bridge read backwards, so
+    a JAX scene takes seeded weights without the JAX init's op-by-op
+    compiles."""
+    flat = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}.") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, f"{prefix}{i}.") for i, v in enumerate(node))
+        leaf = flat.pop(prefix[:-1])
+        assert leaf.shape == node.shape, prefix
+        return leaf
+
+    tree = walk(jax.eval_shape(jscene.init, jax.random.PRNGKey(0)), "")
+    assert not flat, sorted(flat)
+    return tree
+
+
 def _flat_numpy(tree):
     return {k: v.numpy() for k, v in state_dict_from_jax(tree).items()}
 

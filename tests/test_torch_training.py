@@ -262,13 +262,18 @@ def test_nan_policy(policy):
 
 @pytest.mark.parametrize("option", ["mesh", "device_data"])
 def test_unported_train_options_raise(option):
-    """mesh= is not ported; device_data= is (tests/test_torch_device_data.py),
-    and without its camera_builder it raises."""
+    """mesh= trains data-parallel (tests/test_torch_parallel.py) but takes no
+    device_data=, a single-device path (as scripts/nerf_synthetic.py
+    asserts); device_data= is ported (tests/test_torch_device_data.py), and
+    without its camera_builder it raises."""
+    from neural_raytracing_tpu_torch.parallel import make_mesh
     scene, imgs, masks, make_camera = _train_setup()
     spec = T.make_optimizer(LRS)
     state = T.init_train_state(scene, spec, device="cpu")
-    error, match = ((NotImplementedError, "not ported") if option == "mesh"
-                    else (ValueError, "camera_builder"))
-    with pytest.raises(error, match=match):
+    if option == "mesh":
+        kw, match = dict(mesh=make_mesh(device="cpu"), device_data={}), "single-device"
+    else:
+        kw, match = dict(device_data=object()), "camera_builder"
+    with pytest.raises(ValueError, match=match):
         T.train(scene, Direct(training=True), spec, state, make_camera, imgs, masks,
-                size=SIZE, crop_size=CROP, iters=1, **{option: object()})
+                size=SIZE, crop_size=CROP, iters=1, **kw)
