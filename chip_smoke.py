@@ -315,7 +315,23 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      surface is hit (K1 and K2 counted); (d) workloads.exp_gan.train_gan
      for 5 steps at 64^2 with 2 views on in-memory real images (K8
      counted); (e) profiling.trace over one data-parallel step: a trace
-     file written with the profiling.annotate range in it.
+     file written with the profiling.annotate range in it;
+ 27. the JAX options the port takes (ComposeSpatialVarying's preprocess,
+     Conductor's activation and threshold, train's step_fn,
+     look_at_view_transform's eye): (a) a 128^2 eval view of the flagship
+     scene (256 steps, bounded 1.2, seed-0 weights) with a non-identity
+     affine preprocess before the 16x256 weight net, against
+     plain_kernels() (K1 and K2 counted), and the weight net's input
+     gradient through the preprocess on 16,384 points against the plain
+     version's; (b) the colocate scene with Conductor(activation="softplus",
+     threshold=0.9) on one 200^2 test view with hard shadows from a relight
+     light (K1, K2 and K4 counted) against plain_kernels(), then the same
+     weights and key with Conductor("sigmoid", 0.94) and Conductor(): the
+     same bits; (c) 3 flagship training steps (6 x 80^2) through
+     train(step_fn=build_step_fn(...)) against train() without it: the
+     same losses' and parameters' bits (K1, K2 and K3 counted); (d)
+     look_at_view_transform(eye=) on the card at the centres of 1,000
+     (dist, elev, azim) against the spherical form.
 Phase 7 also runs the flagship step on the device data path (10 counted
 steps) and the two paths in turns, then the workload's own entry,
 workloads.nerf_synthetic.run, at full width on its GT (6 steps: the
@@ -408,11 +424,18 @@ agreeing on >= 99.9% of the rays (a ray through a shared edge hits by the
 last bit of a product, and each device contracts its products otherwise)
 and |t difference| <= 1e-4 where both hit, the binned rasterizer's
 fragments equal to the naive one's bit for bit (the same arithmetic a
-pixel, stable sorts), the NeRV step on the mesh data as phase 11's.
+pixel, stable sorts), the NeRV step on the mesh data as phase 11's;
+phase 27's views against plain_kernels() as phase 4's, the weight net's
+input gradient within 1e-4 of max|plain| (K5's derivatives' tolerance),
+the eye form's R and T within 1e-6 of the spherical form's.
 
     python3 chip_smoke.py --parallel
 
 runs phases 1 and 26 only (no result line).
+
+    python3 chip_smoke.py --options
+
+runs phases 1 and 27 only (no result line).
 
     python3 chip_smoke.py --hash
 
@@ -2320,7 +2343,7 @@ def shadow_step_ms(torch, dev):
     from neural_raytracing_tpu_torch.kernels import fused_shadow_march
     module = march_surface(torch, dev)
     run = lambda m, o, d, dt: fused_shadow_march(m, o, d, 1e30, max_steps=64, epsilon=-1.0,
-                                                 compute_dtype=dt)
+                                                 past_light_exit=True, compute_dtype=dt)
     out = {tag: {rows: one_block_step_ms(torch, module, run, rows, dt)
                  for rows in SHADOW_ROWS[tag]}
            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
@@ -3381,7 +3404,7 @@ def k4_bf16_probe(torch, module):
     # zero-direction rays at the same points (sd < eps there): blocked after
     # their one evaluation, as the plain loop says, whatever max_steps
     # (K4-bf16 as its plain loop over the bf16 SDF, which may tip near eps)
-    zero, kw = torch.zeros_like(r_o), dict(max_steps=64, epsilon=1e-3)
+    zero, kw = torch.zeros_like(r_o), dict(max_steps=64, epsilon=1e-3, past_light_exit=True)
     check(not bool(fused_shadow_march(module, p.contiguous(), zero, 10.0, **kw).any()),
           "K4 probe: a zero-direction ray inside the surface was let through")
     nb0 = fused_shadow_march_bf16(module, p.contiguous(), zero, 10.0, **kw)
@@ -6542,6 +6565,231 @@ def phase_parallel(torch, dev):
     return dict(flagship=fl, fit=fit, vis=vis, gan=gan, trace=tr, secs=secs)
 
 
+# ---- slice 19: the JAX options the port takes ---------------------------------------------
+
+OPT_SIZE = 128                                     # (a) the flagship eval view
+OPT_POINTS = 16_384                                # (a) the weight net's input gradient
+OPT_STEPS = 3                                      # (c)
+OPT_EYES = 1_000                                   # (d)
+# (a) the preprocess: a fixed affine map of the hit points
+OPT_AFFINE = ((0.9, 0.2, -0.1), (0.0, 1.1, 0.3), (0.2, -0.4, 0.8))
+OPT_SHIFT = (0.05, -0.1, 0.02)
+
+
+def launched(label, counts, names):
+    for name in names:
+        check(counts[name] > 0, f"{label}: kernel {name} was not launched")
+
+
+def plain_run(fn):
+    """-> (``fn()`` under plain_kernels(), its host ms; ``fn`` waits for the
+    card)."""
+    with plain_kernels():
+        start = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - start)
+
+
+def options_preprocess(torch, dev):
+    """(a) the flagship with ComposeSpatialVarying(preprocess=affine)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.bsdf import identity
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera, nerf_c2w
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.kernels import route_counts
+    from neural_raytracing_tpu_torch.render import pathtrace
+    from neural_raytracing_tpu_torch.workloads import nerf_synthetic
+    from neural_raytracing_tpu_torch.workloads._common import chunk_for
+    a = torch.tensor(OPT_AFFINE, device=dev)
+    b = torch.tensor(OPT_SHIFT, device=dev)
+    affine = lambda p: p @ a + b                          # noqa: E731
+    scene = nerf_synthetic.build_scene(max_steps=256, march_bound=1.2)
+    scene.bsdf.preprocess = affine
+    scene.init(torch.Generator().manual_seed(0), device=dev)
+    cam = NeRFCamera(torch.from_numpy(nerf_c2w(30.0, 45.0, 2.0)[None, :3]), FOCAL)
+
+    def view():
+        with torch.no_grad():
+            return pathtrace(scene, cam, Direct(training=False), size=OPT_SIZE,
+                             chunk_size=chunk_for(OPT_SIZE), bundle_size=1, background=0.0,
+                             key=0, device=dev)[0].cpu().numpy()
+
+    view()                                                                   # warm-up
+    got, counts, secs = counted(torch, "(a) preprocess view", view)
+    launched("(a) preprocess view", counts, ("fused_march",))
+    routes, ms = route_counts()["fused_mlp_forward"], 1e3 * secs
+    want, plain_ms = plain_run(view)
+    frac, agree, mean_d, max_d = compare_images("(a) preprocess view", got, want)
+    scene.bsdf.preprocess = identity
+    ident = view()
+    scene.bsdf.preprocess = affine
+    check(np.abs(ident - got).max() > 0, "(a) the preprocess does not change the view")
+    # the weight net's input gradient through the preprocess, kernel against plain
+    g = torch.Generator(device=dev).manual_seed(3)
+    pts = 0.6 * torch.rand(OPT_POINTS, 3, generator=g, device=dev) - 0.3
+    w = torch.randn(OPT_POINTS, 8, generator=g, device=dev)
+
+    def grad():
+        p = pts.clone().requires_grad_()
+        k, _ = scene.bsdf.normalized_weights(p)
+        return torch.autograd.grad(torch.sum(k * w), p)[0]
+
+    gk, gcounts, _ = counted(torch, "(a) weight-net gradient", grad)
+    gp, _ = plain_run(grad)
+    g_err = (gk - gp).abs().max().item()
+    g_scale = gp.abs().max().item()
+    check(g_scale > 0 and g_err <= 1e-4 * g_scale,
+          f"(a) weight-net input gradient: max |kernel - plain| {g_err:.3e} > 1e-4 x {g_scale:.3e}")
+    print(f"  (a) flagship {OPT_SIZE}^2 eval view with preprocess = affine: {ms:.1f} ms "
+          f"(plain_kernels() {plain_ms:.1f} ms), lit fraction {frac:.4f}, mask agreement "
+          f"{agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| {max_d:.3e}; max |diff| from the "
+          f"identity's view {np.abs(ident - got).max():.3e}; launches K1 "
+          f"{counts['fused_mlp_forward']} (routes {routes}), K2 {counts['fused_march']}; the "
+          f"weight net's input gradient on {OPT_POINTS:,} points: max |kernel - plain| "
+          f"{g_err:.3e} of max {g_scale:.3e}, K1 launches {gcounts['fused_mlp_forward']}")
+    return dict(ms=ms, plain_ms=plain_ms, counts=counts, grad_counts=gcounts, grad_err=g_err,
+                agree=agree, mean_diff=mean_d)
+
+
+def options_conductor(torch, dev):
+    """(b) the colocate scene with Conductor(activation=, threshold=)."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.bsdf import Conductor
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.render import _tile_positions, pathtrace
+    from neural_raytracing_tpu_torch.workloads import colocate
+    from neural_raytracing_tpu_torch.workloads import make_dataset as md
+    scene = colocate.build_scene()
+    check(isinstance(scene.bsdf.bsdfs[3], Conductor), "(b) the colocate scene's lobe 3")
+    scene.bsdf.bsdfs[3] = Conductor(activation="softplus", threshold=0.9)
+    scene.init(torch.Generator().manual_seed(0), device=dev)
+    test = colocate.eval_scene(scene)
+    test.lights.set_location(md.relight_light(2, 0).to(dev))
+    cam = md.camera_at(1.0, md.CAM_ELEVS[1], md.CAM_AZIMS[2])
+
+    def view():
+        with torch.no_grad():
+            return pathtrace(test, cam, Direct(training=False), size=CO_SIZE,
+                             chunk_size=CO_CHUNK, bundle_size=1, background=0.0, key=0,
+                             device=dev)[0].cpu().numpy()
+
+    view()                                                                   # warm-up
+    got, counts, secs = counted(torch, "(b) conductor view", view)
+    launched("(b) conductor view", counts, ("fused_march", "fused_shadow_march"))
+    ms = 1e3 * secs
+    rays = cam.to(dev).sample_positions(_tile_positions(0.0, 0.0, CO_SIZE, dev), size=CO_SIZE)
+    blocked, hit = blocked_shadow_rays(torch, test, rays)
+    check(blocked > 0, "(b) no shadow ray blocked")
+    want, plain_ms = plain_run(view)
+    frac, agree, mean_d, max_d = compare_images("(b) conductor view", got, want)
+    # the defaults: the same weights and key under the explicit defaults and none
+    state = scene.bsdf.bsdfs[3].state_dict()
+    images = {}
+    for label, lobe in (("explicit", Conductor(activation="sigmoid", threshold=0.94)),
+                        ("default", Conductor())):
+        lobe.load_state_dict(state)
+        scene.bsdf.bsdfs[3] = lobe.to(dev)
+        images[label] = view()
+    same = np.array_equal(images["explicit"], images["default"])
+    check(same, "(b) Conductor() and Conductor('sigmoid', 0.94) render other bits")
+    moved = float(np.abs(images["default"] - got).max())
+    check(moved > 0, "(b) activation and threshold do not change the view")
+    print(f"  (b) colocate {CO_SIZE}^2 test view, hard shadows, Conductor(softplus, 0.9): "
+          f"{ms:.1f} ms (plain_kernels() {plain_ms:.1f} ms), hit fraction "
+          f"{hit.float().mean().item():.4f}, blocked shadow rays {blocked}, lit fraction "
+          f"{frac:.4f}, mask agreement {agree:.6f}, mean |diff| {mean_d:.3e}, max |diff| "
+          f"{max_d:.3e}; launches K1 {counts['fused_mlp_forward']}, K2 {counts['fused_march']}, "
+          f"K4 {counts['fused_shadow_march']}; Conductor('sigmoid', 0.94) and Conductor() the "
+          f"same bits {same}, max |diff| from (softplus, 0.9) {moved:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, counts=counts, same_bits=same, agree=agree,
+                mean_diff=mean_d, blocked=blocked)
+
+
+def options_step_fn(torch, dev):
+    """(c) train(step_fn=) against train() without it."""
+    import numpy as np
+    from neural_raytracing_tpu_torch.cameras import NeRFCamera
+    from neural_raytracing_tpu_torch.integrators import Direct
+    from neural_raytracing_tpu_torch.training import (
+        TrainState, build_step_fn, make_optimizer, train,
+    )
+    c2ws = train_c2ws()
+    imgs, masks = sphere_gt(torch, c2ws)
+    spec = make_optimizer(LRS)
+    make_camera = lambda idxs: NeRFCamera(torch.from_numpy(c2ws[np.asarray(idxs)]), FOCAL)
+
+    def run(own, label):
+        scene = flagship_scene(torch, dev, "spheres")
+        kw, calls = {}, []
+        if own:
+            step = build_step_fn(scene, Direct(training=True), spec, size=SIZE,
+                                 crop_size=CROP_SIZE)
+
+            def step_fn(*args):
+                calls.append(1)
+                return step(*args)
+            kw["step_fn"] = step_fn
+
+        def go():
+            return train(scene, Direct(training=True), spec, TrainState(scene, spec.init(scene), 0),
+                         make_camera, imgs, masks, torch.Generator(device=dev).manual_seed(1),
+                         size=SIZE, crop_size=CROP_SIZE, iters=OPT_STEPS, n_views=N_VIEWS,
+                         log_every=0, **kw)[1]
+        losses, counts, secs = counted(torch, label, go)
+        launched(label, counts, ("fused_march", "fused_min_scan"))
+        check(len(losses) == OPT_STEPS and np.isfinite(losses).all(), f"{label}: {losses}")
+        check(not own or len(calls) == OPT_STEPS, f"{label}: the given step ran {len(calls)} times")
+        return dict(losses=losses, counts=counts, ms=1e3 * secs / OPT_STEPS,
+                    state={k: v.clone() for k, v in scene.state_dict().items()})
+
+    run(False, "(c) train, warm-up")
+    built, given = run(False, "(c) train"), run(True, "(c) train(step_fn=)")
+    same_losses = built["losses"] == given["losses"]
+    same_state = all(torch.equal(built["state"][k], v) for k, v in given["state"].items())
+    check(same_losses and same_state, f"(c) train(step_fn=) differs from train(): losses "
+          f"{given['losses']} against {built['losses']}, parameters the same {same_state}")
+    names = ("fused_mlp_forward", "fused_march", "fused_min_scan")
+    print(f"  (c) {OPT_STEPS} flagship steps ({N_VIEWS} x {CROP_SIZE}^2): train(step_fn=) "
+          f"{given['ms']:.1f} ms a step, train() {built['ms']:.1f}; losses {given['losses']}, "
+          f"the same loss and parameter bits {same_losses and same_state}; launches (given / "
+          "built) " + ", ".join(f"{n} {given['counts'][n]} / {built['counts'][n]}" for n in names))
+    return dict(ms=given["ms"], built_ms=built["ms"], counts=given["counts"], same_bits=True)
+
+
+def options_eye(torch, dev):
+    """(d) look_at_view_transform(eye=) on the card."""
+    from neural_raytracing_tpu_torch.cameras import look_at_view_transform
+    from neural_raytracing_tpu_torch.cameras.cameras import camera_position_from_spherical_angles
+    g = torch.Generator(device=dev).manual_seed(5)
+    dist = 0.5 + 3.0 * torch.rand(OPT_EYES, generator=g, device=dev)
+    elev = 170.0 * torch.rand(OPT_EYES, generator=g, device=dev) - 85.0
+    azim = 360.0 * torch.rand(OPT_EYES, generator=g, device=dev) - 180.0
+    at = torch.tensor([[0.1, -0.2, 0.3]], device=dev)
+    eye = camera_position_from_spherical_angles(dist, elev, azim, device=dev) + at
+    r, t = look_at_view_transform(eye=eye, at=at, device=dev)
+    r0, t0 = look_at_view_transform(dist=dist, elev=elev, azim=azim, at=at, device=dev)
+    check(r.is_cuda and t.is_cuda and r.shape == (OPT_EYES, 3, 3), "(d) R, T not on the card")
+    err = max((r - r0).abs().max().item(), (t - t0).abs().max().item())
+    check(err <= 1e-6, f"(d) the eye form differs from the spherical form by {err:.3e}")
+    print(f"  (d) look_at_view_transform(eye=) at {OPT_EYES:,} centres on the card: max "
+          f"|difference| from the (dist, elev, azim) form {err:.3e}")
+    return dict(err=err)
+
+
+def phase_options(torch, dev):
+    """Phase 27: the JAX options the port takes, on the card -> the numbers
+    for the summary."""
+    print(f"phase 27 on {card()}")
+    start = time.perf_counter()
+    out = dict(preprocess=options_preprocess(torch, dev), conductor=options_conductor(torch, dev),
+               step_fn=options_step_fn(torch, dev), eye=options_eye(torch, dev))
+    out["secs"] = time.perf_counter() - start
+    print(f"phase 27 on {card()}: preprocess view {out['preprocess']['ms']:.1f} ms, conductor "
+          f"view {out['conductor']['ms']:.1f} ms, train(step_fn=) "
+          f"{out['step_fn']['ms']:.1f} ms a step; phase 27 took {out['secs']:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6616,6 +6864,9 @@ def main():
     if sys.argv[1:2] == ["--parallel"]:
         phase_parallel(torch, dev)
         return
+    if sys.argv[1:2] == ["--options"]:
+        phase_options(torch, dev)
+        return
     k1 = phase_mlp(torch, dev)
     if sys.argv[1:2] == ["--k1"]:
         bf16_k1(torch, dev)
@@ -6650,6 +6901,7 @@ def main():
     hs = phase_hash(torch, dev)
     mh = phase_mesh(torch, dev)
     pl = phase_parallel(torch, dev)
+    op = phase_options(torch, dev)
 
     def entry(name, source, replaces, launches, m):
         e = dict(name=name, route="cuda", source=f"neural_raytracing_tpu_torch/csrc/{source}",
@@ -6755,6 +7007,13 @@ def main():
           f"iterations {pl['fit']['secs']:.2f} s; exp_gan "
           f"{1e3 * pl['gan']['secs'] / GAN_STEPS:.1f} ms a step; phase 26 took "
           f"{pl['secs']:.1f} s")
+    print(f"the JAX options (phase 27): preprocess view {op['preprocess']['ms']:.1f} ms "
+          f"(K1 {op['preprocess']['counts']['fused_mlp_forward']}, K2 "
+          f"{op['preprocess']['counts']['fused_march']}), Conductor(softplus, 0.9) view "
+          f"{op['conductor']['ms']:.1f} ms (K4 {op['conductor']['counts']['fused_shadow_march']}), "
+          f"the defaults the same bits {op['conductor']['same_bits']}; train(step_fn=) "
+          f"{op['step_fn']['ms']:.1f} ms a step (K3 {op['step_fn']['counts']['fused_min_scan']}); "
+          f"phase 27 took {op['secs']:.1f} s")
     print(f"training step (kernels): {1e3 * step_s:.1f} ms/step, "
           f"{N_RAYS / step_s:,.0f} rays/s; NeRV training step {1e3 * nerv_step_s:.1f} "
           f"ms/step, {NERV_RAYS / nerv_step_s:,.0f} rays/s, K4 launches "

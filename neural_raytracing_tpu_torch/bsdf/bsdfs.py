@@ -44,10 +44,6 @@ from ..ops.rusin import param_rusin, param_rusin2
 from ..ops.warps import square_to_cos_hemisphere, square_to_cos_hemisphere_pdf
 
 
-# Conductor's lobe: local_reflect(wi) . wo above this is the mirror cone
-THRESHOLD = 0.94
-
-
 def active_mask(active, batch_shape, device) -> torch.Tensor:
     """``active`` (a bool or a bool tensor) broadcast to ``batch_shape``."""
     return torch.as_tensor(active, dtype=torch.bool, device=device).expand(batch_shape)
@@ -146,11 +142,19 @@ class NeuralBSDF(nn.Module):
         return bs, self._spectrum(it, bs.wo)
 
 
+def identity(x):
+    return x
+
+
 class ComposeSpatialVarying(nn.Module):
-    """Spatially-varying mixture: weights = sigmoid(MLP(x)) per basis BSDF."""
+    """Spatially-varying mixture: weights = sigmoid(MLP(preprocess(x))) per
+    basis BSDF.  ``preprocess`` maps the hit points before the weight net
+    (``identity``, the default); it is a torch function, so gradients reach
+    the points through it."""
 
     def __init__(self, bsdfs: Sequence[nn.Module],
-                 sp_var_fn: Optional[SkipConnMLP] = None):
+                 sp_var_fn: Optional[SkipConnMLP] = None,
+                 preprocess: Callable = identity):
         super().__init__()
         self.bsdfs = nn.ModuleList(bsdfs)
         if sp_var_fn is None:
@@ -158,6 +162,7 @@ class ComposeSpatialVarying(nn.Module):
                 in_size=3, out=len(self.bsdfs), num_layers=16,
                 hidden_size=256, freqs=128, sigma=128.0, init="xavier")
         self.sp_var_fn = sp_var_fn
+        self.preprocess = preprocess
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -167,7 +172,7 @@ class ComposeSpatialVarying(nn.Module):
 
     def normalized_weights(self, p: torch.Tensor):
         """-> (sigmoid weights [..., K], raw logits [..., K])."""
-        raw = self.sp_var_fn(p)
+        raw = self.sp_var_fn(self.preprocess(p))
         # the reference uses sigmoid rather than softmax
         return torch.sigmoid(raw), raw
 
@@ -195,10 +200,6 @@ class ComposeSpatialVarying(nn.Module):
         # the raw sigmoid weight, multiplies the basis pdf
         sel = torch.sum(k * onehot, dim=-1) / maximum(torch.sum(k, dim=-1), 1e-10)
         return BSDFSample(wo=wo, pdf=pdf * sel), spectrum
-
-
-def identity(x):
-    return x
 
 
 def identity_div_pi(x):
@@ -229,8 +230,10 @@ class Diffuse(_Leaves):
 
 class Conductor(_Leaves):
     """Near-mirror conductor lobe: ``fresnel_conductor(cos_i,
-    softplus(eta), 0) * sigmoid(specular)`` where ``local_reflect(wi) . wo``
-    exceeds ``THRESHOLD``, else 0 (pdf 1 or 0).
+    softplus(eta), 0) * act(specular)`` where ``local_reflect(wi) . wo``
+    exceeds ``threshold``, else 0 (pdf 1 or 0).  ``activation`` is a
+    registered name or a callable (``sigmoid``, the default); ``threshold``
+    0.94 by default.
 
     ``specular`` is ``[3]``, ``eta`` and ``k`` are 0-d.  ``sample`` reflects
     ``wi`` (no draw) and, as the JAX package does, reads ``eta`` raw, ``k``
@@ -240,16 +243,18 @@ class Conductor(_Leaves):
     """
 
     def __init__(self, specular=(1.0, 1.0, 1.0), eta: float = 1.3,
-                 k: float = 1.0):
+                 k: float = 1.0, activation="sigmoid", threshold: float = 0.94):
         super().__init__()
         self._register(specular=specular, eta=float(eta), k=float(k))
+        self.act = resolve_activation(activation)
+        self.threshold = float(threshold)
 
     def eval_and_pdf(self, it, wo: torch.Tensor, active=True):
         refl = local_reflect(it.wi)
-        thresh = torch.sum(refl * wo, dim=-1) > THRESHOLD
+        thresh = torch.sum(refl * wo, dim=-1) > self.threshold
         fr = fresnel_conductor(it.wi[..., 2], ACTIVATIONS["softplus"](self.eta), 0.0)
         spectrum = torch.where(thresh[..., None],
-                               fr[..., None] * torch.sigmoid(self.specular), 0.0)
+                               fr[..., None] * self.act(self.specular), 0.0)
         pdf = torch.where(thresh, 1.0, 0.0)
         ok = active_mask(active, it.p.shape[:-1], it.p.device)
         spectrum = torch.where(ok[..., None], spectrum, 0.0)

@@ -67,14 +67,22 @@ def look_at_rotation(camera_position: torch.Tensor, at, up) -> torch.Tensor:
     return r.transpose(1, 2)
 
 
-def look_at_view_transform(dist=1.0, elev=0.0, azim=0.0, degrees=True,
+def look_at_view_transform(dist=1.0, elev=0.0, azim=0.0, degrees=True, eye=None,
                            at=((0.0, 0.0, 0.0),), up=((0.0, 1.0, 0.0),),
                            device=None):
-    """(R [N,3,3], T [N,3]) such that ``X_view = X_world R + T``."""
-    at_arr = torch.atleast_2d(_as_f32(at, device))
-    c = camera_position_from_spherical_angles(dist, elev, azim, degrees, device)
-    c, at = torch.broadcast_tensors(c, at_arr)
-    c = c + at
+    """(R [N,3,3], T [N,3]) such that ``X_view = X_world R + T``.
+
+    ``eye`` (``[3]`` or ``[N, 3]``), when given, is the camera centre and
+    ``dist`` / ``elev`` / ``azim`` are not read; else the centre is
+    ``at`` plus the spherical position."""
+    if eye is not None:
+        c = torch.atleast_2d(_as_f32(eye, device))
+        at = torch.atleast_2d(_as_f32(at, c.device)).expand(c.shape)
+    else:
+        at_arr = torch.atleast_2d(_as_f32(at, device))
+        c = camera_position_from_spherical_angles(dist, elev, azim, degrees, device)
+        c, at = torch.broadcast_tensors(c, at_arr)
+        c = c + at
     r = look_at_rotation(c, at, up)
     t = -torch.einsum("nij,ni->nj", r, c)
     return r, t

@@ -39,7 +39,9 @@ K4 replaces ``fused_shadow_march`` (body ``_build_shadow_kernel``): the loop
 of ``SDF.intersect_test``, which differs from K2's in four places (depth
 starts at ``1e2 * eps``, the hit test is a strict ``sd < eps``, the hit
 step's distance is still applied, and the past-light exit gates a ray on
-``depth < max_t``).  The kernel (``csrc/fused_shadow.cu``) runs on K2's
+``depth < max_t``: ``past_light_exit``, off by default as in the JAX
+kernel, where a ray past its light marches on; ``SDF`` passes its own
+``shadow_past_light_exit``).  The kernel (``csrc/fused_shadow.cu``) runs on K2's
 persistent slots (``csrc/march_slots.cuh``; ``shadow_plan``'s blocks and
 slots) over the tiled SDF, with steps made for the thin tails of its small
 launches (a 10,000-ray eval chunk, a 12,288-ray training call): the live
@@ -605,7 +607,7 @@ fused_min_scan_bf16.launches = 0
 @torch.no_grad()
 def shadow_march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                        max_steps: int, epsilon: float,
-                       past_light_exit: bool = True):
+                       past_light_exit: bool = False):
     """Plain shadow march, the plain version of K4 (``SDF.intersect_test``).
 
     ``sdf(p[..., 3]) -> [...]``; ``max_t`` is a scalar or per-ray.  Returns
@@ -631,7 +633,7 @@ def shadow_march_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
 @torch.no_grad()
 def shadow_slots_plain(sdf, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                        slots: int, max_steps: int, epsilon: float,
-                       past_light_exit: bool = True, min_rows: int = 8):
+                       past_light_exit: bool = False, min_rows: int = 8):
     """A plain model of K4's schedule in one block of ``slots`` slots, for
     tests; not on any path.
 
@@ -718,7 +720,7 @@ def shadow_info(module, compute_dtype=torch.float32, device=None) -> dict:
 
 def fused_shadow_march(module, r_o: torch.Tensor, r_d: torch.Tensor, max_t, *,
                        max_steps: int, epsilon: float,
-                       past_light_exit: bool = True,
+                       past_light_exit: bool = False,
                        compute_dtype=torch.float32, stats=None) -> torch.Tensor:
     """Launch K4 on CUDA tensors.  Returns ``not_blocked [...]`` (bool).
 

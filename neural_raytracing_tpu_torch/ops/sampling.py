@@ -20,6 +20,7 @@ rank; any other draw there raises, since no rank could tell its rows.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -56,8 +57,9 @@ def _draw(fn, generator, shape, batch_axis: Optional[int]) -> torch.Tensor:
 
 
 def uniform(generator: Optional[torch.Generator], shape, device,
-            minval: float = 0.0, batch_axis: Optional[int] = None) -> torch.Tensor:
-    """``U[minval, 1)`` float32 of ``shape`` on ``device``, drawn from
+            minval: float = 0.0, batch_axis: Optional[int] = None,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``U[minval, 1)`` of ``shape`` in ``dtype`` on ``device``, drawn from
     ``generator`` on the generator's own device (a CUDA generator draws on
     the card: nothing waits for it).  As ``jax.random.uniform``, the
     samples are scaled to the interval and clamped at ``minval``.
@@ -65,7 +67,7 @@ def uniform(generator: Optional[torch.Generator], shape, device,
     draw made per ray (see the module's docstring)."""
     if generator is None:
         raise ValueError("a Monte Carlo draw requires a torch.Generator")
-    u = _draw(torch.rand, generator, shape, batch_axis)
+    u = _draw(functools.partial(torch.rand, dtype=dtype), generator, shape, batch_axis)
     if minval:
         u = torch.clamp_min(u * (1.0 - minval) + minval, minval)
     return u.to(device)

@@ -59,10 +59,14 @@ def square_to_cos_hemisphere_pdf(d: torch.Tensor) -> torch.Tensor:
     return d[..., 2] / math.pi
 
 
-def random_on_sphere(generator, batches: int, device):
+def random_on_sphere(generator, batches: int, device, dtype: torch.dtype = torch.float32):
     """Sphere directions ``[batches, 3]`` and the uniform ``uv [batches, 2]``
-    that made them (drawn through ``ops.sampling.uniform``)."""
-    uv = sampling.uniform(generator, (batches, 2), device)
+    that made them (drawn through ``ops.sampling.uniform``), both in
+    ``dtype``: the draw and the trigonometry run in it."""
+    # a float32 draw keeps uniform's float32 call, the one that a replay of
+    # the JAX package's draws stands in for (see ops.sampling)
+    kw = {} if dtype == torch.float32 else {"dtype": dtype}
+    uv = sampling.uniform(generator, (batches, 2), device, **kw)
     u, v = uv[..., 0:1], uv[..., 1:2]
     theta = 2.0 * math.pi * u
     phi = torch.arccos(clip(2.0 * v - 1.0, -1.0, 1.0))

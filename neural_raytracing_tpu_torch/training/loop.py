@@ -319,6 +319,7 @@ def train(scene, integrator, optimizer_config, state: TrainState,
           valid_freq: int = 0, valid_fn: Optional[Callable] = None,
           log_every: int = 100, log_fn: Callable = print,
           metrics: Optional[list] = None, mesh=None, seed: int = 0,
+          step_fn: Optional[Callable] = None,
           uv_select: Optional[Callable] = None, nan_policy: str = "raise",
           device_data: Optional[dict] = None,
           camera_builder: Optional[Callable] = None):
@@ -352,6 +353,12 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     ``device_data`` (a single-device path, as in the JAX script) nor
     ``light_update`` (per-view lights are not sharded); both raise
     ``ValueError``.
+    ``step_fn(state, camera, (u, v), exp, mask, generator) -> (state, aux)``,
+    ``build_step_fn``'s signature, replaces the step built here (under a
+    mesh too, where the state is still replicated first).  It does not go
+    with ``device_data``, whose step takes the dataset and not a batch: the
+    two together raise ``ValueError`` (where the JAX loop ignores
+    ``step_fn``).
     Returns (state, losses).
     """
     if nan_policy not in ("raise", "skip"):
@@ -371,6 +378,9 @@ def train(scene, integrator, optimizer_config, state: TrainState,
                    extra_loss=extra_loss, space_reg=space_reg,
                    skip_nan_updates=skip_nan)
     if device_data is not None:
+        if step_fn is not None:
+            raise ValueError("step_fn takes a host batch; device_data builds its own "
+                             "on-device step: pass one of them")
         if camera_builder is None:
             raise ValueError("device_data needs a camera_builder")
         if uv_select is not None and uv_select is not rand_uv_mask:
@@ -384,11 +394,12 @@ def train(scene, integrator, optimizer_config, state: TrainState,
             with_light_locs="light_locs" in device_data, **step_kw)
     elif mesh is not None:
         from ..parallel import make_parallel_train_step, replicate
-        step_fn = make_parallel_train_step(scene, integrator, optimizer_config, mesh,
-                                           n_views=n_views, size=size,
-                                           crop_size=crop_size, **step_kw)
+        if step_fn is None:
+            step_fn = make_parallel_train_step(scene, integrator, optimizer_config, mesh,
+                                               n_views=n_views, size=size,
+                                               crop_size=crop_size, **step_kw)
         replicate(state.scene, mesh)
-    else:
+    elif step_fn is None:
         step_fn = build_step_fn(scene, integrator, optimizer_config, size=size,
                                 crop_size=crop_size, **step_kw)
     if device_data is None:

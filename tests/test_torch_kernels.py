@@ -269,7 +269,8 @@ def test_new_kernels_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_min_scan(module, x, x, 0.1, steps=4)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_shadow_march(module, x, x, 1.0, max_steps=4, epsilon=1e-3)
+        fused_shadow_march(module, x, x, 1.0, max_steps=4, epsilon=1e-3,
+                           past_light_exit=True)
     with pytest.raises(ValueError, match="CUDA"):
         fused_sphere_sdf(module, x)
     with pytest.raises(ValueError, match="CUDA"):
@@ -476,6 +477,29 @@ def test_fused_shadow_march_matches_plain(cuda, past_light_exit, stable_min):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("past_light_exit", [False, True])
+def test_fused_shadow_march_default_flag_is_the_jax_kernels(cuda, past_light_exit):
+    """K4's ``past_light_exit`` defaults to False, as the JAX kernel's: a
+    call without the flag gives the explicit False's flags bit for bit, and
+    each flag value its plain loop's."""
+    module = _surface(cuda)
+    r_o, r_d, dist = _shadow_rays(cuda)
+    kw = dict(max_steps=64, epsilon=1e-3)
+    reset_launch_counts()
+    nb = fused_shadow_march(module, r_o, r_d, dist, past_light_exit=past_light_exit, **kw)
+    default = fused_shadow_march(module, r_o, r_d, dist, **kw)
+    assert launch_counts()["fused_shadow_march"] == 2
+    set_kernel_mode(module, "off")
+    pnb, _ = shadow_march_plain(module, r_o, r_d, dist, past_light_exit=past_light_exit, **kw)
+    pdefault, _ = shadow_march_plain(module, r_o, r_d, dist, **kw)
+    set_kernel_mode(module, "auto")
+    torch.cuda.synchronize()
+    assert (nb == pnb).float().mean() >= 0.999
+    if not past_light_exit:
+        assert torch.equal(default, nb) and torch.equal(pdefault, pnb)
+
+
+@pytest.mark.cuda
 def test_sdf_intersect_test_goes_through_k4(cuda):
     sdf = SDF(_surface(cuda), max_steps=64)
     r_o, r_d, dist = _shadow_rays(cuda, n=512)
@@ -671,7 +695,7 @@ def test_fused_shadow_march_rules(cuda):
     assert 0.0 < sd.item() < eps
     max_t = torch.cat([torch.tensor([10.0, 10.0]), depth + 0.5 * sd])
     nb = fused_shadow_march(_one_sphere(cuda), r_o.to(cuda), r_d.to(cuda),
-                            max_t.to(cuda), max_steps=64, epsilon=eps)
+                            max_t.to(cuda), max_steps=64, epsilon=eps, past_light_exit=True)
     assert nb.tolist() == [True, True, True]
 
 
@@ -683,7 +707,7 @@ def test_fused_shadow_march_same_flags_across_launches_and_permutations(cuda, co
     evaluates): the same bits in a second launch and under a permutation."""
     module = _surface(cuda)
     r_o, r_d, dist = _shadow_rays(cuda, n=20_001)
-    kw = dict(max_steps=64, epsilon=1e-3, compute_dtype=compute_dtype)
+    kw = dict(max_steps=64, epsilon=1e-3, compute_dtype=compute_dtype, past_light_exit=True)
     nb = fused_shadow_march(module, r_o, r_d, dist, **kw)
     nb2 = fused_shadow_march(module, r_o, r_d, dist, **kw)
     perm = torch.randperm(20_001, generator=torch.Generator().manual_seed(9)).to(cuda)
@@ -729,15 +753,18 @@ def test_fused_shadow_march_stats_add_up(cuda):
     module = _surface(cuda)
     r_o, r_d, dist = _shadow_rays(cuda, n=5000)
     stats = torch.zeros(3, dtype=torch.int64, device=cuda)
-    nb = fused_shadow_march(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3, stats=stats)
+    nb = fused_shadow_march(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3, stats=stats,
+                            past_light_exit=True)
     set_kernel_mode(module, "off")
-    _, evals = shadow_march_plain(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3)
+    _, evals = shadow_march_plain(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3,
+                                  past_light_exit=True)
     steps, rows, live = stats.tolist()
     moving = r_d.abs().sum(-1) > 0
     want = int(evals[moving].sum()) + int((~moving).sum())
     assert abs(live - want) <= 0.01 * want
     assert live <= rows <= 128 * steps and steps >= int(evals.max())
-    fused_shadow_march(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3, stats=stats)
+    fused_shadow_march(module, r_o, r_d, dist, max_steps=64, epsilon=1e-3, stats=stats,
+                       past_light_exit=True)
     assert stats[2].item() == 2 * live
     assert nb.dtype == torch.bool
 
@@ -886,7 +913,7 @@ def test_bf16_variants_raise_on_cpu_tensors_and_switch():
                  lambda: fused_march_bf16(module, x, x, 1.0, max_steps=4, epsilon=1e-3),
                  lambda: fused_min_scan_bf16(module, x, x, 0.1, steps=4),
                  lambda: fused_shadow_march_bf16(module, x, x, 1.0, max_steps=4,
-                                                 epsilon=1e-3)):
+                                                 epsilon=1e-3, past_light_exit=True)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     with pytest.raises(ValueError, match="compute dtype"):
@@ -1366,7 +1393,7 @@ def test_march_kernels_share_k1s_cached_pack(cuda, dtype):
         fused_march(module, r_o, r_d, 4.0, max_steps=16, epsilon=1e-3, compute_dtype=dtype)
         fused_min_scan(module, r_o, r_d, 0.05, steps=8, compute_dtype=dtype)
         fused_shadow_march(module, r_o, r_d, dist, max_steps=16, epsilon=1e-3,
-                           compute_dtype=dtype)
+                           compute_dtype=dtype, past_light_exit=True)
         fused_mlp_forward(mlp, x, mlp.B, mlp.flat_weights(), dtype)
         assert launch_counts()["pack_tile_weights"] == 1
         mlp.out.b.add_(0.01)

@@ -181,7 +181,7 @@ def test_fused_shadow_march_checks_widths_before_devices(hidden, n_spheres, limi
                                                     hidden_size=hidden, freqs=2))
     x = torch.rand(8, 3)
     with pytest.raises(ValueError, match=f"fused_shadow_march takes at most {limit}"):
-        fused_shadow_march(module, x, x, 1.0, max_steps=4, epsilon=EPS)
+        fused_shadow_march(module, x, x, 1.0, max_steps=4, epsilon=EPS, past_light_exit=True)
 
 
 # (rays, the kernel's slots) -> (blocks, slots) on a card of 132 SMs: at most
