@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import profiling
 from ..interaction import Interaction
 from ..nn.mlp import TwoStageMLP
 from ..ops.math import maximum, normalize
@@ -192,8 +193,9 @@ class Direct(Integrator):
     def sample(self, scene: Scene, rays: torch.Tensor, generator=None,
                training: Optional[bool] = None):
         training = self.training if training is None else training
-        it, active = scene.shape.intersect(rays, primary=training,
-                                           generator=generator)
+        with profiling.annotate("nrt.direct.intersect"):
+            it, active = scene.shape.intersect(rays, primary=training,
+                                               generator=generator)
         result = torch.zeros(rays.shape[:-1] + (3,), dtype=torch.float32,
                              device=rays.device)
         # delta lights are unhittable by BSDF-sampled rays: no BSDF arm
@@ -209,7 +211,8 @@ class Direct(Integrator):
             wo = it.to_local(ds.d)
             if self.horizon_mask:
                 active_emitted = active_emitted & (wo[..., 2] > 0.0)
-            bsdf_val, bsdf_pdf, aux = scene.bsdf.eval_and_pdf(it, wo, active_emitted)
+            with profiling.annotate("nrt.direct.bsdf"):
+                bsdf_val, bsdf_pdf, aux = scene.bsdf.eval_and_pdf(it, wo, active_emitted)
             it = _attach_aux(it, aux)
             val = bsdf_val * emitter_val / self.emitter_samples
             if bsdf_samples > 0 and not ds.delta:

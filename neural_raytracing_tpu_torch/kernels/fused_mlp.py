@@ -80,6 +80,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from .. import profiling
 from ..nn.mlp import ACTIVATION_GRADS, SkipConnMLP, check_compute_dtype, mlp_forward
 from ..ops.encoding import fourier_encode
 from ._build import library
@@ -540,14 +541,38 @@ def mlp_forward_bf16_operands(mlp: SkipConnMLP, p: torch.Tensor,
     return out.reshape(batches + (mlp.out_size,))
 
 
+def k1_work(mlp: SkipConnMLP, rows: int) -> dict:
+    """What K1 is handed for ``rows`` rows of ``mlp``, from its shapes:
+    ``flops``, 2 x the multiply-adds of its layer matrices (``weight_shapes``
+    from ``init_w`` on; the Fourier basis's ``x @ B`` is not counted), and
+    ``bytes``, the rows' float32 inputs and outputs and the net's float32
+    weights, each once."""
+    shapes = weight_shapes(mlp)
+    macs = sum(a * b for a, b in shapes[1::2])
+    weight_bytes = 4 * (macs + sum(s[0] for s in shapes[2::2]) + shapes[0][0] * shapes[0][1])
+    return {"flops": 2 * rows * macs,
+            "bytes": 4 * rows * (mlp.in_size + mlp.out_size) + weight_bytes}
+
+
 def _k1(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor, weights):
     """K1 (K1-bf16 for a bf16 net) on CUDA tensors; on CPU tensors K1-bf16's
-    plain version, so the CPU computes what the card does."""
-    if mlp.compute_dtype == torch.float32:
-        return fused_mlp_forward(mlp, x, basis, weights)
-    if not x.is_cuda:
-        return mlp_forward_bf16_operands(mlp, x, basis, weights)
-    return fused_mlp_forward_bf16(mlp, x, basis, weights)
+    plain version, so the CPU computes what the card does.  Under a
+    profiler session the call is the span ``nrt.k1`` and counts
+    ``k1.calls``, ``k1.rows`` and ``k1_work``'s ``k1.flops`` and
+    ``k1.bytes``."""
+    with profiling.annotate("nrt.k1"):
+        if profiling.recording():
+            rows = x.shape[0]
+            work = k1_work(mlp, rows)
+            profiling.count("k1.calls", 1)
+            profiling.count("k1.rows", rows)
+            profiling.count("k1.flops", work["flops"])
+            profiling.count("k1.bytes", work["bytes"])
+        if mlp.compute_dtype == torch.float32:
+            return fused_mlp_forward(mlp, x, basis, weights)
+        if not x.is_cuda:
+            return mlp_forward_bf16_operands(mlp, x, basis, weights)
+        return fused_mlp_forward_bf16(mlp, x, basis, weights)
 
 
 def recompute_grads(plain, tensors, needs, g) -> list:

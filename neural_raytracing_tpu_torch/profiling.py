@@ -5,7 +5,11 @@ Counterpart of ``neural_raytracing_tpu/profiling.py``:
     and, where there is one, the card), written to ``logdir`` as a Chrome
     trace (open in Perfetto or ``chrome://tracing``);
   * ``annotate(name)``: a ``torch.profiler.record_function`` range, which
-    names a phase on the trace's timeline;
+    names a phase on the trace's timeline, while a profiler session
+    records, and a shared no-op otherwise;
+  * ``count(name, n)`` / ``counters()``: work the program counts at its
+    layer boundaries (rows, rays, operations, bytes), added up while a
+    profiler session records;
   * ``Throughput``: a rays/s and step-time meter with moving averages;
   * ``StepTimer``: host-clock time per named phase, synchronising the
     device of the tensors it is given;
@@ -38,9 +42,40 @@ def trace(logdir: str):
     prof.export_chrome_trace(prof.trace_path)
 
 
+_NO_SPAN = contextlib.nullcontext()
+_COUNTERS: Dict[str, int] = {}
+
+
+def recording() -> bool:
+    """True while a ``torch.profiler`` session records.  Spans and counts
+    are made only then, so the program pays a check and no more without
+    one."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def annotate(name: str):
-    """A named range on the profiler's timeline (a context manager)."""
-    return torch.profiler.record_function(name)
+    """A named range on the profiler's timeline (a context manager): a
+    ``record_function`` range while a session records, which then sits on
+    the session's one clock with the device's kernels, else a shared
+    no-op context."""
+    return torch.profiler.record_function(name) if recording() else _NO_SPAN
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while a session records.  ``n`` is
+    a number the host holds (a shape, a width), never a tensor's value,
+    which would wait for the card."""
+    if recording():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counts made so far."""
+    return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
 
 
 def debug_nans(enable: bool = True) -> None:

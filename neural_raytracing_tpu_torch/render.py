@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import profiling
 from .ops import sampling
 from .scene import Scene
 
@@ -59,35 +60,38 @@ def pathtrace(scene: Scene, camera, integrator, size: int = 512,
     ``key`` (an int) seeds the per-tile generators; None renders without
     jitter.  ``it`` is the last tile's interaction with
     ``scan_tiles=False`` and None otherwise, as in the JAX render.  The
-    images stay on ``device``.
+    images stay on ``device``.  Its spans are ``nrt.pathtrace`` (the call)
+    and ``nrt.pathtrace.tile`` (each tile).
     """
-    if size % chunk_size:
-        raise ValueError(f"chunk_size must divide size ({size} % {chunk_size})")
-    camera = camera.to(device)
-    n = len(camera)
-    n_tiles = size // chunk_size
-    out = torch.full((n, size, size, integrator.dims()), float(background),
-                     dtype=torch.float32, device=device)
-    it = None
-    for idx in range(n_tiles * n_tiles):
-        ti, tj = divmod(idx, n_tiles)
-        generator = tile_generator(key, idx, device)
-        positions = _tile_positions(float(ti * chunk_size),
-                                    float(tj * chunk_size), chunk_size, device)
-        rays = camera.sample_positions(positions, generator=generator,
-                                       bundle_size=bundle_size, size=size,
-                                       with_noise=with_noise)
-        values, mask, it = integrator.sample(scene, rays, generator=generator,
-                                             training=training)
-        # mean over the bundle dim; background where no bundle ray hit
-        valid = torch.any(mask, dim=-1)                      # [N, c, c]
-        v = torch.mean(values, dim=-2)                       # [N, c, c, dims]
-        out[:, ti * chunk_size:(ti + 1) * chunk_size,
-            tj * chunk_size:(tj + 1) * chunk_size] = torch.where(
-                valid[..., None], v, float(background))
-    if squeeze_first and n == 1:
-        out = out[0]
-    return out, (None if scan_tiles else it)
+    with profiling.annotate("nrt.pathtrace"):
+        if size % chunk_size:
+            raise ValueError(f"chunk_size must divide size ({size} % {chunk_size})")
+        camera = camera.to(device)
+        n = len(camera)
+        n_tiles = size // chunk_size
+        out = torch.full((n, size, size, integrator.dims()), float(background),
+                         dtype=torch.float32, device=device)
+        it = None
+        for idx in range(n_tiles * n_tiles):
+            with profiling.annotate("nrt.pathtrace.tile"):
+                ti, tj = divmod(idx, n_tiles)
+                generator = tile_generator(key, idx, device)
+                positions = _tile_positions(float(ti * chunk_size),
+                                            float(tj * chunk_size), chunk_size, device)
+                rays = camera.sample_positions(positions, generator=generator,
+                                               bundle_size=bundle_size, size=size,
+                                               with_noise=with_noise)
+                values, mask, it = integrator.sample(scene, rays, generator=generator,
+                                                     training=training)
+                # mean over the bundle dim; background where no bundle ray hit
+                valid = torch.any(mask, dim=-1)                      # [N, c, c]
+                v = torch.mean(values, dim=-2)                       # [N, c, c, dims]
+                out[:, ti * chunk_size:(ti + 1) * chunk_size,
+                    tj * chunk_size:(tj + 1) * chunk_size] = torch.where(
+                        valid[..., None], v, float(background))
+        if squeeze_first and n == 1:
+            out = out[0]
+        return out, (None if scan_tiles else it)
 
 
 def pathtrace_sample(scene: Scene, integrator, camera, uv, generator=None,

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from . import profiling
 from .bsdf.bsdfs import active_mask
 from .interaction import Interaction
 from .nn.mlp import SkipConnMLP
@@ -63,19 +64,23 @@ class Scene(nn.Module):
 
 def sample_emitter(scene: Scene, it: Interaction, generator=None, active=True):
     """Sample a direction towards the lights with the scene's occlusion mode
-    -> ``(DirectionSample, spectrum [..., 3])``."""
-    ds, spectrum = scene.lights.sample_direction(it, generator=generator,
-                                                 active=active)
+    -> ``(DirectionSample, spectrum [..., 3])``.  Its spans are
+    ``nrt.direct.emitter`` (the lights) and ``nrt.direct.shadow`` (the
+    shadow ray and the occlusion net)."""
+    with profiling.annotate("nrt.direct.emitter"):
+        ds, spectrum = scene.lights.sample_direction(it, generator=generator,
+                                                     active=active)
     if scene.occlusion == "none":
         return ds, spectrum
-    rays = torch.cat([it.p, ds.d], dim=-1)
-    max_t = ds.dist if ds.dist is not None else 10.0
-    not_blocked = scene.shape.intersect_test(rays, max_t=max_t, active=active)
-    ok = active_mask(active, it.p.shape[:-1], it.p.device)
-    if scene.occlusion == "hard":
-        return ds, torch.where((not_blocked & ok)[..., None], spectrum, 0.0)
-    # learned occlusion: attenuate only the blocked samples
-    occ_in = torch.cat([it.p, dir_to_elev_azim(ds.d)], dim=-1)
-    occ_att = torch.sigmoid(scene.occ(occ_in))
-    spectrum = torch.where((~not_blocked)[..., None], occ_att * spectrum, spectrum)
-    return ds, spectrum * ok[..., None]
+    with profiling.annotate("nrt.direct.shadow"):
+        rays = torch.cat([it.p, ds.d], dim=-1)
+        max_t = ds.dist if ds.dist is not None else 10.0
+        not_blocked = scene.shape.intersect_test(rays, max_t=max_t, active=active)
+        ok = active_mask(active, it.p.shape[:-1], it.p.device)
+        if scene.occlusion == "hard":
+            return ds, torch.where((not_blocked & ok)[..., None], spectrum, 0.0)
+        # learned occlusion: attenuate only the blocked samples
+        occ_in = torch.cat([it.p, dir_to_elev_azim(ds.d)], dim=-1)
+        occ_att = torch.sigmoid(scene.occ(occ_in))
+        spectrum = torch.where((~not_blocked)[..., None], occ_att * spectrum, spectrum)
+        return ds, spectrum * ok[..., None]

@@ -39,6 +39,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from .. import profiling
 from ..interaction import Interaction
 from ..kernels.fused_march import (
     check_omega, fused_march, fused_min_scan, fused_shadow_march, march_plain,
@@ -361,21 +362,23 @@ class SDF(nn.Module):
 
     def _march(self, r_o, r_d, max_t, t_start=None):
         """No-grad sphere trace. Returns (depths [...], hit mask [...])."""
-        if self._use_kernel(r_o):
-            return fused_march(self.module, r_o, r_d, max_t,
-                               max_steps=self.max_steps, epsilon=self.epsilon,
-                               omega=self.omega, t_start=t_start,
-                               compute_dtype=self.march_dtype)
-        depths, hit, _ = march_plain(self._loop_sdf(), r_o, r_d, max_t, t_start,
-                                     max_steps=self.max_steps,
-                                     epsilon=self.epsilon, omega=self.omega)
+        profiling.count("march.rays", r_o.numel() // 3)
+        with profiling.annotate("nrt.sdf.march"):
+            if self._use_kernel(r_o):
+                return fused_march(self.module, r_o, r_d, max_t,
+                                   max_steps=self.max_steps, epsilon=self.epsilon,
+                                   omega=self.omega, t_start=t_start,
+                                   compute_dtype=self.march_dtype)
+            depths, hit, _ = march_plain(self._loop_sdf(), r_o, r_d, max_t, t_start,
+                                         max_steps=self.max_steps,
+                                         epsilon=self.epsilon, omega=self.omega)
         return depths, hit
 
     def normals(self, p: torch.Tensor) -> torch.Tensor:
         """Un-normalized SDF gradient at ``p``; differentiable (a graph of
         the gradient is built) when grad mode is on."""
         create = torch.is_grad_enabled()
-        with torch.enable_grad():
+        with profiling.annotate("nrt.sdf.normals"), torch.enable_grad():
             q = p if create and p.requires_grad else p.detach().requires_grad_()
             (g,) = torch.autograd.grad(self.sdf(q).sum(), q, create_graph=create)
         return g
@@ -396,12 +399,14 @@ class SDF(nn.Module):
         else:
             u = sampling.uniform(generator, (), r_o.device)
             step = (self.dist + u * (2.0 / steps)) / steps
-        if self._use_kernel(r_o):
-            idxs = fused_min_scan(self.module, r_o, r_d, step, steps=steps,
-                                  compute_dtype=self.march_dtype)
-        else:
-            idxs = min_scan_plain(self._loop_sdf(), r_o.detach(), r_d.detach(),
-                                  step, steps=steps)
+        profiling.count("scan.samples", r_o.numel() // 3 * (steps + 1))
+        with profiling.annotate("nrt.sdf.scan"):
+            if self._use_kernel(r_o):
+                idxs = fused_min_scan(self.module, r_o, r_d, step, steps=steps,
+                                      compute_dtype=self.march_dtype)
+            else:
+                idxs = min_scan_plain(self._loop_sdf(), r_o.detach(), r_d.detach(),
+                                      step, steps=steps)
         best_pos = (r_o + (idxs * step)[..., None] * r_d).detach()
         return self.sdf(best_pos), best_pos
 
@@ -484,15 +489,17 @@ class SDF(nn.Module):
         scalar or per ray); no gradient.  ``active`` is accepted and, as in
         the reference, not used."""
         r_o, r_d = rays[..., :3], rays[..., 3:]
-        if self._use_kernel(r_o):
-            return fused_shadow_march(
-                self.module, r_o, r_d, max_t, max_steps=self.max_steps,
-                epsilon=self.epsilon,
-                past_light_exit=self.shadow_past_light_exit,
-                compute_dtype=self.march_dtype)
-        not_blocked, _ = shadow_march_plain(
-            self._loop_sdf(), r_o, r_d, max_t, max_steps=self.max_steps,
-            epsilon=self.epsilon, past_light_exit=self.shadow_past_light_exit)
+        profiling.count("shadow.rays", r_o.numel() // 3)
+        with profiling.annotate("nrt.sdf.shadow"):
+            if self._use_kernel(r_o):
+                return fused_shadow_march(
+                    self.module, r_o, r_d, max_t, max_steps=self.max_steps,
+                    epsilon=self.epsilon,
+                    past_light_exit=self.shadow_past_light_exit,
+                    compute_dtype=self.march_dtype)
+            not_blocked, _ = shadow_march_plain(
+                self._loop_sdf(), r_o, r_d, max_t, max_steps=self.max_steps,
+                epsilon=self.epsilon, past_light_exit=self.shadow_past_light_exit)
         return not_blocked
 
     def level_surfaces(self, rays: torch.Tensor, steps: int = 128) -> torch.Tensor:

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..integrators import NeRFIntegrator
 from ..ops.losses import masked_loss
 from ..ops.math import eikonal_loss
@@ -88,6 +89,8 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     renders its shard of the padded view axis, gathers the rendered views
     and computes the loss on all of them; the parameter gradients are
     all-reduced by their mean before clipping, the finite check and AdamW.
+    The step's spans are ``nrt.step.zero_grad``, ``nrt.step.render``,
+    ``nrt.step.loss``, ``nrt.step.backward`` and ``nrt.step.optimizer``.
     """
     from ..parallel.mesh import gather_views, padded_size, reduce_grads, shard_batch
     train_integrator = NeRFIntegrator(integrator)
@@ -109,39 +112,44 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     def step(state: TrainState, camera, uv, exp, mask, generator=None):
         scene_, opt = state.scene, state.optimizer
         params = [p for group in opt.param_groups for p in group["params"]]
-        # zeros, not None: AdamW then updates every parameter each step, as
-        # optax does, also one that no gradient reaches (Conductor's k) or
-        # whose gradient a shape change dropped
-        opt.zero_grad(set_to_none=False)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        values, _, it = render(scene_, camera, uv, generator)
-        got = values.mean(dim=-2)                       # over the bundle
-        throughput = it.throughput.mean(dim=-1)
-        if n_real_views is not None:
-            n_padded = got.shape[0]
-            got, throughput, it = (got[:n_real_views], throughput[:n_real_views],
-                                   _views(it, n_padded, n_real_views))
-            exp, mask = exp[:n_real_views], mask[:n_real_views]
-        loss = masked_loss(got[..., :3], exp, throughput, mask,
-                           mask_weight=mask_weight, tone_mapping=tone_mapping,
-                           with_ssim=with_ssim)
-        loss = loss + extra_loss(it, got, exp, mask)
-        if space_reg is not None:
-            loss = loss + space_reg(scene_, generator)
-        loss.backward()
-        if mesh is not None:
-            reduce_grads(params, mesh)
-        if clip_norm is not None:
-            clip_grads(params, clip_norm)
-        if skip_nan_updates:
-            good = bool(torch.isfinite(loss) & torch.isfinite(
-                global_norm([p.grad for p in params])))
-            if not good:
-                return state, {"loss": loss.detach(), "got": got.detach()}
-        broadcast_state(opt)
-        opt.step()
+        with profiling.annotate("nrt.step.zero_grad"):
+            # zeros, not None: AdamW then updates every parameter each step, as
+            # optax does, also one that no gradient reaches (Conductor's k) or
+            # whose gradient a shape change dropped
+            opt.zero_grad(set_to_none=False)
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        with profiling.annotate("nrt.step.render"):
+            values, _, it = render(scene_, camera, uv, generator)
+        with profiling.annotate("nrt.step.loss"):
+            got = values.mean(dim=-2)                       # over the bundle
+            throughput = it.throughput.mean(dim=-1)
+            if n_real_views is not None:
+                n_padded = got.shape[0]
+                got, throughput, it = (got[:n_real_views], throughput[:n_real_views],
+                                       _views(it, n_padded, n_real_views))
+                exp, mask = exp[:n_real_views], mask[:n_real_views]
+            loss = masked_loss(got[..., :3], exp, throughput, mask,
+                               mask_weight=mask_weight, tone_mapping=tone_mapping,
+                               with_ssim=with_ssim)
+            loss = loss + extra_loss(it, got, exp, mask)
+            if space_reg is not None:
+                loss = loss + space_reg(scene_, generator)
+        with profiling.annotate("nrt.step.backward"):
+            loss.backward()
+        with profiling.annotate("nrt.step.optimizer"):
+            if mesh is not None:
+                reduce_grads(params, mesh)
+            if clip_norm is not None:
+                clip_grads(params, clip_norm)
+            if skip_nan_updates:
+                good = bool(torch.isfinite(loss) & torch.isfinite(
+                    global_norm([p.grad for p in params])))
+                if not good:
+                    return state, {"loss": loss.detach(), "got": got.detach()}
+            broadcast_state(opt)
+            opt.step()
         return (TrainState(scene_, opt, state.step + 1),
                 {"loss": loss.detach(), "got": got.detach()})
 
@@ -359,6 +367,11 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     with ``device_data``, whose step takes the dataset and not a batch: the
     two together raise ``ValueError`` (where the JAX loop ignores
     ``step_fn``).
+    Its spans are ``nrt.train.upload`` (the split's copy to the device,
+    counted as ``train.upload_bytes``) and ``nrt.train.step`` (one
+    iteration), which holds ``nrt.train.draw`` (the views, crop, camera and
+    ground-truth slice) and ``nrt.train.resolve`` (the previous step's loss
+    read on the host).
     Returns (state, losses).
     """
     if nan_policy not in ("raise", "skip"):
@@ -404,10 +417,12 @@ def train(scene, integrator, optimizer_config, state: TrainState,
                                 crop_size=crop_size, **step_kw)
     if device_data is None:
         device = next(state.scene.parameters()).device
-        images = torch.as_tensor(np.asarray(exp_imgs)[..., :3], dtype=torch.float32,
-                                 device=device)
-        masks = torch.as_tensor(np.asarray(exp_masks), dtype=torch.float32,
-                                device=device)
+        with profiling.annotate("nrt.train.upload"):
+            images = torch.as_tensor(np.asarray(exp_imgs)[..., :3], dtype=torch.float32,
+                                     device=device)
+            masks = torch.as_tensor(np.asarray(exp_masks), dtype=torch.float32,
+                                    device=device)
+        profiling.count("train.upload_bytes", 4 * (images.numel() + masks.numel()))
         selector = LossSampler(len(exp_imgs))
     # metrics and logs carry the global attempted step
     base = int(state.step)
@@ -443,30 +458,34 @@ def train(scene, integrator, optimizer_config, state: TrainState,
             metrics.append({"step": base + i - 1, "loss": loss, "rays_per_sec": rps})
 
     for i in range(iters):
-        if device_data is not None:
-            idxs = None
-            state, aux = dstep(state, device_data, generator)
-        else:
-            idxs = selector.sample(n=n_views)
-            camera = make_camera(idxs)
-            if uv_select is not None:
-                u, v = uv_select(rng, exp_masks[idxs[0]], crop_size)
+        with profiling.annotate("nrt.train.step"):
+            if device_data is not None:
+                idxs = None
+                state, aux = dstep(state, device_data, generator)
             else:
-                u, v = rand_uv(rng, size, size, crop_size)
-            sel = torch.as_tensor(idxs, device=device)
-            exp = images[sel, u:u + crop_size, v:v + crop_size]
-            mask = masks[sel, u:u + crop_size, v:v + crop_size]
-            if light_update is not None:
-                light_update(state.scene, camera, idxs)
-            state, aux = step_fn(state, camera, (u, v), exp, mask, generator)
-        rays_done += n_views * crop_size * crop_size * bundle_size
-        if pending is not None:
-            resolve(pending, i)
-        pending = (idxs, aux["loss"])
-        if save_fn is not None and ckpt_freq and (i % ckpt_freq) == 0 and i:
-            save_fn(state, base + i)
-        if valid_fn is not None and valid_freq and (i % valid_freq) == 0:
-            valid_fn(state, base + i)
+                with profiling.annotate("nrt.train.draw"):
+                    idxs = selector.sample(n=n_views)
+                    camera = make_camera(idxs)
+                    if uv_select is not None:
+                        u, v = uv_select(rng, exp_masks[idxs[0]], crop_size)
+                    else:
+                        u, v = rand_uv(rng, size, size, crop_size)
+                    sel = torch.as_tensor(idxs, device=device)
+                    exp = images[sel, u:u + crop_size, v:v + crop_size]
+                    mask = masks[sel, u:u + crop_size, v:v + crop_size]
+                if light_update is not None:
+                    light_update(state.scene, camera, idxs)
+                state, aux = step_fn(state, camera, (u, v), exp, mask, generator)
+            rays_done += n_views * crop_size * crop_size * bundle_size
+            if pending is not None:
+                with profiling.annotate("nrt.train.resolve"):
+                    resolve(pending, i)
+            pending = (idxs, aux["loss"])
+            if save_fn is not None and ckpt_freq and (i % ckpt_freq) == 0 and i:
+                save_fn(state, base + i)
+            if valid_fn is not None and valid_freq and (i % valid_freq) == 0:
+                valid_fn(state, base + i)
     if pending is not None:
-        resolve(pending, iters)
+        with profiling.annotate("nrt.train.resolve"):
+            resolve(pending, iters)
     return state, losses
