@@ -60,10 +60,10 @@ Phases, each of which fails loudly (a non-zero exit and no result line):
      one with every kernel off from the same state; 20 iterations of train
      through the kernels (launch counts reset just before, read just after);
      3 iterations each with K6, K7 and everything plain; a profile of one
-     step; the step with each backward route of the shading nets (the
-     autograd recompute, K6, K7) timed in turns, then one profile each
-     (device busy ms, launches), every net on the tile route; evaluate on 2
-     views;
+     step (a replay of its CUDA graph); the step with each backward route of
+     the shading nets (the autograd recompute, K6, K7; each route its own
+     graph) timed in turns, then one profile each (device busy ms,
+     launches), every net on the tile route; evaluate on 2 views;
   8. K4 fused_shadow_march against shadow_march_plain at the shapes the NeRV
      paths launch it at (shadow_shapes), on the shadow rays of the trained
      NeRV scene (scripts/models_seed_dir/nerv_mesh_gear_mirror200b) from the
@@ -1747,17 +1747,27 @@ def set_kernel_bwd(torch, scene, on: bool, segments: int = 4):
 STEP_ROUTES = {"recompute": (False, 4), "K6": (True, 0), "K7": (True, 4)}
 
 
+def graphed(torch, one_step):
+    """Two calls of ``one_step``, a live training step: where its CUDA graph
+    for the scene's routes is not yet captured, the first runs eagerly and
+    the second captures it, so the calls after them replay it."""
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+
+
 def step_routes(torch, scene, one_step, reps: int = 3):
     """The flagship step with each of STEP_ROUTES: the wall ms a step (host
     clock, synchronised; the median of ``reps`` steps a turn, the routes in
     turns a, b, c, c, b, a), then one profile each (device busy ms,
-    launches); every shading net on the tile route."""
+    launches); every shading net on the tile route.  A route is part of
+    the step's graph key, so each is timed and profiled as its own graph's
+    replays."""
     from neural_raytracing_tpu_torch.kernels import reset_launch_counts
 
     def timed(route):
         set_kernel_bwd(torch, scene, *STEP_ROUTES[route])
-        one_step()
-        torch.cuda.synchronize()
+        graphed(torch, one_step)
         times = []
         for _ in range(reps):
             start = time.perf_counter()
@@ -1773,6 +1783,7 @@ def step_routes(torch, scene, one_step, reps: int = 3):
     out = {}
     for route, (on, segments) in STEP_ROUTES.items():
         set_kernel_bwd(torch, scene, on, segments)
+        graphed(torch, one_step)
         reset_launch_counts()
         prof = profile_step(torch, one_step, f"one training step, backward route {route}")
         routes = k1_routes(f"step, backward route {route}")
@@ -2017,7 +2028,8 @@ def phase_train(torch, dev):
 
     step = build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP_SIZE)
     one_step = lambda: step(state, make_camera(idxs), (u, v), exp, mask, gen)
-    profile_step(torch, one_step, "one training step (kernels)")
+    graphed(torch, one_step)
+    profile_step(torch, one_step, "one training step (kernels), a replay of its graph")
     step_routes(torch, scene, one_step)
 
     start = time.perf_counter()

@@ -5,6 +5,8 @@ Each kernel wrapper counts its launches in a plain integer attribute
 show which kernels its path went through.
 """
 
+import contextlib
+
 from torch import nn
 
 from .composite import (
@@ -75,6 +77,39 @@ def route_counts() -> dict:
     """The launches by route of K1, K1-bf16, K6, K7a, K7b and K5:
     ``{"fused_mlp_forward": {"tile": n, "general": n}, ...}``."""
     return {name: dict(KERNELS[name].route_launches) for name in ROUTED}
+
+
+def _launch_table() -> dict:
+    """Every launch count: by kernel, and by (kernel, route)."""
+    table = {name: fn.launches for name, fn in KERNELS.items()}
+    table.update({(name, route): n for name in ROUTED
+                  for route, n in KERNELS[name].route_launches.items()})
+    return table
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Take the launches counted in the block out of ``launch_counts`` and
+    ``route_counts`` into a dict of their own (the value yielded), for
+    ``add_launches``: a CUDA graph's capture counts launches it records and
+    does not make, and each replay makes them."""
+    before = _launch_table()
+    taken = {}
+    try:
+        yield taken
+    finally:
+        after = _launch_table()
+        taken.update({k: after[k] - n for k, n in before.items() if after[k] != n})
+        add_launches({k: -n for k, n in taken.items()})
+
+
+def add_launches(counts: dict) -> None:
+    """Add a ``launches_apart`` dict to the launch counts."""
+    for key, n in counts.items():
+        if isinstance(key, tuple):
+            KERNELS[key[0]].route_launches[key[1]] += n
+        else:
+            KERNELS[key].launches += n
 
 
 def set_kernel_mode(module: nn.Module, mode: str):

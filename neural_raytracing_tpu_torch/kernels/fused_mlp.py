@@ -409,6 +409,14 @@ def tile_pack_key(basis: torch.Tensor, weights, compute_dtype) -> tuple:
 _TILE_PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+def forget_packs() -> None:
+    """Drop every cached pack.  For the weights changed where their versions
+    do not show it (a CUDA graph's replay updates them in place on the card)
+    and around a graph's capture, whose packs must be its own: recorded in
+    the graph, in its memory, and run at each replay."""
+    _TILE_PACKS.clear()
+
+
 def _cached_pack(mlp: SkipConnMLP, basis: torch.Tensor, weights, kind, pack):
     """(the packed views of ``kind``, their C pointer table), cached for the
     module by ``tile_pack_key``.  A new version of the weights is packed by
@@ -557,11 +565,11 @@ def k1_work(mlp: SkipConnMLP, rows: int) -> dict:
 def _k1(mlp: SkipConnMLP, x: torch.Tensor, basis: torch.Tensor, weights):
     """K1 (K1-bf16 for a bf16 net) on CUDA tensors; on CPU tensors K1-bf16's
     plain version, so the CPU computes what the card does.  Under a
-    profiler session the call is the span ``nrt.k1`` and counts
-    ``k1.calls``, ``k1.rows`` and ``k1_work``'s ``k1.flops`` and
-    ``k1.bytes``."""
+    profiler session the call is the span ``nrt.k1``; there, and in a
+    ``profiling.collect()`` block, it counts ``k1.calls``, ``k1.rows`` and
+    ``k1_work``'s ``k1.flops`` and ``k1.bytes``."""
     with profiling.annotate("nrt.k1"):
-        if profiling.recording():
+        if profiling.counting():
             rows = x.shape[0]
             work = k1_work(mlp, rows)
             profiling.count("k1.calls", 1)

@@ -10,6 +10,9 @@ Counterpart of ``neural_raytracing_tpu/profiling.py``:
   * ``count(name, n)`` / ``counters()``: work the program counts at its
     layer boundaries (rows, rays, operations, bytes), added up while a
     profiler session records;
+  * ``collect()``: the counts a block makes, gathered apart whether or not
+    a session records (a CUDA graph's capture, whose replays give them
+    back through ``count``);
   * ``Throughput``: a rays/s and step-time meter with moving averages;
   * ``StepTimer``: host-clock time per named phase, synchronising the
     device of the tensors it is given;
@@ -44,6 +47,7 @@ def trace(logdir: str):
 
 _NO_SPAN = contextlib.nullcontext()
 _COUNTERS: Dict[str, int] = {}
+_COLLECTED: Optional[Dict[str, int]] = None   # the open ``collect()`` block's counts
 
 
 def recording() -> bool:
@@ -61,12 +65,39 @@ def annotate(name: str):
     return torch.profiler.record_function(name) if recording() else _NO_SPAN
 
 
+def counting() -> bool:
+    """True while ``count`` keeps what it is given: a session records, or a
+    ``collect()`` block is open.  A count that costs work to work out is
+    made only then."""
+    return _COLLECTED is not None or recording()
+
+
 def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name`` while a session records.  ``n`` is
+    """Add ``n`` to the counter ``name`` while a session records, or to the
+    open ``collect()`` block's counts, whether or not one records.  ``n`` is
     a number the host holds (a shape, a width), never a tensor's value,
     which would wait for the card."""
-    if recording():
+    if _COLLECTED is not None:
+        _COLLECTED[name] = _COLLECTED.get(name, 0) + n
+    elif recording():
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def collect():
+    """Gather the counts made in the block into a dict of their own (the
+    value yielded), whether or not a session records, and keep them out of
+    ``counters()``.  A CUDA graph's capture records work that it does not
+    do; each replay does it, and gives the capture's counts back through
+    ``count``.  Blocks do not nest."""
+    global _COLLECTED
+    if _COLLECTED is not None:
+        raise RuntimeError("profiling.collect() blocks do not nest")
+    _COLLECTED = {}
+    try:
+        yield _COLLECTED
+    finally:
+        _COLLECTED = None
 
 
 def counters() -> Dict[str, int]:

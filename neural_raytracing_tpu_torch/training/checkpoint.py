@@ -96,9 +96,15 @@ def save_train_state(path: str, scene: nn.Module, optimizer, step: int) -> None:
 
 
 def load_train_state(path: str, scene: nn.Module, optimizer) -> int:
-    """Restore ``scene`` and ``optimizer`` in place; returns the step."""
+    """Restore ``scene`` and ``optimizer`` in place; returns the step.  The
+    optimizer keeps its own ``capturable``, which follows its device
+    (``AdamWConfig.init``), whichever device wrote the file."""
     device = next(scene.parameters()).device
     state = torch.load(path, map_location=device, weights_only=True)
     scene.load_state_dict(state["scene"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
+    saved = state["optimizer"]
+    for group, own in zip(saved["param_groups"], optimizer.param_groups):
+        if "capturable" in own:
+            group["capturable"] = own["capturable"]
+    optimizer.load_state_dict(saved)
     return int(state["step"])

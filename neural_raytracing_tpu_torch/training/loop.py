@@ -5,9 +5,11 @@ picks views, a crop is drawn, ``NeRFIntegrator(integrator)`` renders the
 crop with primary (throughput-carrying) intersections, ``masked_loss`` plus
 the eikonal term is minimised by AdamW.
 
-The JAX step is one jitted pure function; here the step runs eagerly and
-updates the scene's parameters and the optimizer in place.  ``TrainState``
-carries the scene, the ``torch.optim.AdamW`` and the applied-step count.
+The JAX step is one jitted pure function; here the step updates the
+scene's parameters and the optimizer in place, eagerly or, on the card, as
+one CUDA graph replayed each step (``step_graph.GraphedStep``).
+``TrainState`` carries the scene, the ``torch.optim.AdamW`` and the
+applied-step count.
 The loop resolves each step's loss one step behind, so the host queues the
 next step before it waits for the card.
 
@@ -23,6 +25,7 @@ host-to-device copy and no wait for the card of its own.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -35,6 +38,7 @@ from ..ops.math import eikonal_loss
 from ..render import pathtrace_sample
 from .loss_sampler import LossSampler
 from .optim import broadcast_state, clip_grads, global_norm
+from .step_graph import GraphedStep
 
 
 class TrainState(NamedTuple):
@@ -91,6 +95,10 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
     all-reduced by their mean before clipping, the finite check and AdamW.
     The step's spans are ``nrt.step.zero_grad``, ``nrt.step.render``,
     ``nrt.step.loss``, ``nrt.step.backward`` and ``nrt.step.optimizer``.
+    Without a mesh and without ``skip_nan_updates`` the step is a
+    ``step_graph.GraphedStep``: on a CUDA scene it is captured in a CUDA
+    graph at its second call and replayed from the third on (its spans are
+    then ``nrt.step.graph``); everywhere else it runs eagerly.
     """
     from ..parallel.mesh import gather_views, padded_size, reduce_grads, shard_batch
     train_integrator = NeRFIntegrator(integrator)
@@ -149,10 +157,18 @@ def build_step_fn(scene, integrator, optimizer_config, *, size: int,
                 if not good:
                     return state, {"loss": loss.detach(), "got": got.detach()}
             broadcast_state(opt)
-            opt.step()
+            with warnings.catch_warnings():
+                # on the card ``AdamWConfig.init`` makes AdamW capturable,
+                # for the step's CUDA graph: an eager step means to step it
+                # uncaptured
+                warnings.filterwarnings("ignore", "This instance was constructed with "
+                                        "capturable=True")
+                opt.step()
         return (TrainState(scene_, opt, state.step + 1),
                 {"loss": loss.detach(), "got": got.detach()})
 
+    if mesh is None and not skip_nan_updates:
+        return GraphedStep(step, clip_norm)
     return step
 
 
@@ -166,8 +182,8 @@ def _views(tree, n_padded: int, n: int):
 def make_train_step(scene, integrator, optimizer_config, donate: bool = True, **kwargs):
     """The single-device training step (``build_step_fn``).  The JAX
     package jits the step and may donate the train state's buffers; the
-    port's step runs eagerly and updates the scene and the optimizer in
-    place, so ``donate`` is accepted and changes nothing."""
+    port's step updates the scene and the optimizer in place, so
+    ``donate`` is accepted and changes nothing."""
     del donate
     return build_step_fn(scene, integrator, optimizer_config, **kwargs)
 
@@ -371,7 +387,8 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     counted as ``train.upload_bytes``) and ``nrt.train.step`` (one
     iteration), which holds ``nrt.train.draw`` (the views, crop, camera and
     ground-truth slice) and ``nrt.train.resolve`` (the previous step's loss
-    read on the host).
+    read on the host: its copy was queued after that step, so the wait
+    leaves the step just queued running on the card).
     Returns (state, losses).
     """
     if nan_policy not in ("raise", "skip"):
@@ -433,9 +450,22 @@ def train(scene, integrator, optimizer_config, state: TrainState,
     pending = None
     consecutive_bad = 0
 
+    def fetch(loss: torch.Tensor):
+        """Start the loss's copy to the host, waiting for nothing: a read of
+        the card's tensor would wait for every step queued after it."""
+        if not loss.is_cuda:
+            return loss, None
+        host = torch.empty((), dtype=loss.dtype, pin_memory=True)
+        host.copy_(loss, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(loss.device))
+        return host, done
+
     def resolve(pending, i):
         nonlocal consecutive_bad
-        p_idxs, p_loss = pending
+        p_idxs, (p_loss, done) = pending
+        if done is not None:
+            done.synchronize()
         loss = float(p_loss)
         if not np.isfinite(loss):
             if not skip_nan:
@@ -470,7 +500,11 @@ def train(scene, integrator, optimizer_config, state: TrainState,
                         u, v = uv_select(rng, exp_masks[idxs[0]], crop_size)
                     else:
                         u, v = rand_uv(rng, size, size, crop_size)
-                    sel = torch.as_tensor(idxs, device=device)
+                    sel = torch.as_tensor(idxs)
+                    if device.type == "cuda":
+                        # pinned, the copy waits for nothing: the host queues
+                        # this step while the card runs the one before
+                        sel = sel.pin_memory().to(device, non_blocking=True)
                     exp = images[sel, u:u + crop_size, v:v + crop_size]
                     mask = masks[sel, u:u + crop_size, v:v + crop_size]
                 if light_update is not None:
@@ -480,7 +514,7 @@ def train(scene, integrator, optimizer_config, state: TrainState,
             if pending is not None:
                 with profiling.annotate("nrt.train.resolve"):
                     resolve(pending, i)
-            pending = (idxs, aux["loss"])
+            pending = (idxs, fetch(aux["loss"]))
             if save_fn is not None and ckpt_freq and (i % ckpt_freq) == 0 and i:
                 save_fn(state, base + i)
             if valid_fn is not None and valid_freq and (i % valid_freq) == 0:

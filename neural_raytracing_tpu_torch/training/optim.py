@@ -85,9 +85,15 @@ class AdamWConfig(NamedTuple):
         return groups
 
     def init(self, module: nn.Module) -> torch.optim.AdamW:
+        """The AdamW over ``module``'s groups.  On the card it is
+        ``capturable`` (its step counts live on the card), so that the
+        training step's CUDA graph (``step_graph.GraphedStep``) can capture
+        it; its eager steps do the same math."""
+        first = next(module.parameters(), None)
         return torch.optim.AdamW(self.param_groups(module), lr=self.default_lr,
                                  betas=(self.b1, self.b2), eps=self.eps,
-                                 weight_decay=self.weight_decay)
+                                 weight_decay=self.weight_decay,
+                                 capturable=first is not None and first.is_cuda)
 
 
 def make_optimizer(lrs: Dict[str, float], default_lr: float = 1e-4,

@@ -202,3 +202,51 @@ def test_k1_work_scales_with_rows(rows):
     assert one["flops"] == 2 * 165_504
     assert work["flops"] == rows * one["flops"]
     assert work["bytes"] - k1_work(net, 0)["bytes"] == 4 * rows * (3 + 1)
+
+
+def test_collect_gathers_counts_without_a_session():
+    profiling.reset_counters()
+    assert not profiling.counting()
+    with profiling.collect() as counts:
+        assert profiling.counting() and not profiling.recording()
+        profiling.count("a", 2)
+        profiling.count("b", 1)
+        profiling.count("a", 3)
+        with pytest.raises(RuntimeError, match="do not nest"):
+            with profiling.collect():
+                pass
+        profiling.count("a", 1)       # the open block still collects
+    assert counts == {"a": 6, "b": 1}
+    assert not profiling.counting() and profiling.counters() == {}
+    # K1's counts too, which are worked out only while counted
+    net = FusedSkipConnMLP(in_size=3, out=2, num_layers=3, hidden_size=16, freqs=4,
+                           compute_dtype=torch.bfloat16)
+    with profiling.collect() as k1:
+        net(torch.rand(7, 3))
+    work = k1_work(net, 7)
+    assert k1 == {"k1.calls": 1, "k1.rows": 7, "k1.flops": work["flops"],
+                  "k1.bytes": work["bytes"]}
+    assert profiling.counters() == {}
+
+
+def test_collected_counts_come_back_only_while_recording():
+    profiling.reset_counters()
+    with profiling.collect() as counts:
+        profiling.count("k1.flops", 10)
+        profiling.count("scan.samples", 4)
+
+    def give_back():
+        for name, n in counts.items():
+            profiling.count(name, n)
+
+    give_back()
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        give_back()
+        give_back()
+        # under a session a collect() block still keeps its counts apart
+        with profiling.collect() as apart:
+            profiling.count("k1.flops", 1)
+        assert profiling.counters() == {"k1.flops": 20, "scan.samples": 8}
+    assert apart == {"k1.flops": 1}
+    profiling.reset_counters()

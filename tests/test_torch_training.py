@@ -166,6 +166,32 @@ def test_train_state_round_trip(tmp_path):
     assert other_opt.state_dict()["state"][0]["step"] == 1
 
 
+@pytest.mark.parametrize("written_capturable", [True, False])
+def test_train_state_keeps_the_optimizers_capturable(tmp_path, written_capturable):
+    """A resume file written on the card (a capturable AdamW) resumes on the
+    CPU, and the other way round: the optimizer keeps the ``capturable``
+    its own device gave it, and steps."""
+    _, _, scene = scene_pair()
+    opt = T.make_optimizer(LRS).init(scene)
+    for p in scene.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    for group in opt.param_groups:
+        group["capturable"] = written_capturable
+    T.save_train_state(str(tmp_path / "state.pt"), scene, opt, 5)
+    _, _, other = scene_pair()
+    other_opt = T.make_optimizer(LRS).init(other)
+    for group in other_opt.param_groups:
+        group["capturable"] = not written_capturable
+    T.load_train_state(str(tmp_path / "state.pt"), other, other_opt)
+    assert all(g["capturable"] is not written_capturable for g in other_opt.param_groups)
+    if written_capturable:       # the CPU's own AdamW, not capturable, steps
+        for p in other.parameters():
+            p.grad = torch.ones_like(p)
+        other_opt.step()
+        assert other_opt.state_dict()["state"][0]["step"] == 2
+
+
 # ---- train and evaluate ---------------------------------------------------------
 
 def _gt(seed=0):
@@ -258,6 +284,40 @@ def test_nan_policy(policy):
     assert not state.optimizer.state     # AdamW never stepped
     for k, v in scene.state_dict().items():
         assert torch.equal(before[k], v), k
+
+
+@pytest.mark.parametrize("policy", ["raise", "skip"])
+def test_train_reads_each_loss_a_step_behind(policy):
+    """The loop reads a step's loss after it has queued the next step: a
+    non-finite loss from a step that does not check it itself still raises
+    at its own step, or is logged and left out of the losses."""
+    scene, imgs, masks, make_camera = _train_setup()
+    spec = T.make_optimizer(LRS)
+    state = T.init_train_state(scene, spec, device="cpu")
+    inner = T.build_step_fn(scene, Direct(training=True), spec, size=SIZE, crop_size=CROP)
+    calls = []
+
+    def step_fn(state, *args):
+        state, aux = inner(state, *args)
+        calls.append(state.step)
+        if len(calls) == 2:
+            aux = dict(aux, loss=torch.tensor(float("nan")))
+        return state, aux
+
+    logs = []
+    run = lambda: T.train(scene, Direct(training=True), spec, state, make_camera, imgs,
+                          masks, size=SIZE, crop_size=CROP, iters=4, n_views=2,
+                          log_every=0, log_fn=logs.append, nan_policy=policy,
+                          step_fn=step_fn)
+    if policy == "raise":
+        with pytest.raises(FloatingPointError, match="at step 1$"):
+            run()
+        assert calls == [1, 2, 3]      # step 1's loss is read once step 2 is queued
+        return
+    state, losses = run()
+    assert calls == [1, 2, 3, 4] and state.step == 4
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert [s.split()[:3] for s in logs] == [["step", "1", "non-finite"]]
 
 
 @pytest.mark.parametrize("option", ["mesh", "device_data"])
