@@ -2,20 +2,21 @@
 the rays need, counted from a configuration's widths.
 
 Operations are ``2 x`` the multiply-adds of the linear layers, as the port's
-kernel table counts them: an SDF evaluation is ``2 x`` the shift net's
-multiply-adds plus 31 operations per sphere (``2 x 165,504 + 31 x 128`` for
-``SphereSDF(128)`` with its 8 x 128 shift net).  The differentiable part of a
-training step counts three times its forward operations (the forward, and a
-backward of twice that); recomputation is not counted.
+kernel table counts them.  An SDF evaluation, and what a march reads once,
+are counted by the surface's kind (``reference/surfaces/<kind>.py``).  The
+differentiable part of a training step counts three times its forward
+operations (the forward, and a backward of twice that); recomputation is not
+counted.
 """
 
 from __future__ import annotations
+
+from .reference.surfaces import surface_kind
 
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores and HBM3
 # bandwidth, dense, at the full 700 W power limit
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-SPHERE_OPS = 31
 
 
 def enc_size(net: dict) -> int:
@@ -46,8 +47,7 @@ def weight_bytes(net: dict) -> int:
 
 def sdf_ops(cfg: dict) -> int:
     """Operations of one SDF evaluation at one point."""
-    surface = cfg["surface"]
-    return net_ops(surface["shift"]) + SPHERE_OPS * surface["spheres"]
+    return surface_kind(cfg["surface"]).eval_ops(cfg["surface"])
 
 
 def shading_ops(cfg: dict) -> int:
@@ -68,9 +68,8 @@ def bound_s(ops: float, n_bytes: float = 0.0) -> float:
 
 def march_bytes(cfg: dict, rays: int, outputs: int = 2) -> int:
     """Bytes a march moves at least: each ray's origin and direction in, its
-    ``outputs`` words out, the shift net's weights and the spheres once."""
-    return 4 * rays * (6 + outputs) + weight_bytes(cfg["surface"]["shift"]) \
-        + 4 * 13 * cfg["surface"]["spheres"]
+    ``outputs`` words out, and what the surface's kind reads once."""
+    return 4 * rays * (6 + outputs) + surface_kind(cfg["surface"]).eval_bytes(cfg["surface"])
 
 
 def train_step_ops(cfg: dict, rays: int, hits: int, march_evals: int, scan_evals: int) -> float:

@@ -2,8 +2,8 @@
 
 Written from the published model (prashantraina/neural_raytracing,
 ``scripts/nerf_synthetic.py`` and ``scripts/nerv.py``) as the port states
-it, with no kernel, no cache and no batching trick: a learned surface (the
-smooth minimum of transformed spheres plus a Fourier-feature skip MLP), a
+it, with no kernel, no cache and no batching trick: a learned surface (of
+the kind its configuration names, one module each under ``surfaces/``), a
 sphere trace, the silhouette min-scan, the shadow march, neural BSDF lobes
 under a spatially varying weight net, and a learned light field or a point
 light with hard or learned shadows, under direct lighting.
@@ -20,6 +20,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .surfaces import surface_kind
 
 
 def leaky_relu(x):
@@ -72,24 +74,11 @@ class Net:
         return out.reshape(batch + (s["out"],))
 
 
-class Surface:
-    """``SDF(SphereSDF)``: ``-log(max(sum_i exp(-k d_i), 1e-4)) / k`` over the
-    transformed spheres, plus the shift net."""
-
-    def __init__(self, cfg: dict, weights: dict):
-        self.cfg = cfg["surface"]
-        self.w = weights
-        self.shift = Net(self.cfg["shift"], weights, "shape.shift.")
-
-    def __call__(self, p):
-        batch = p.shape[:-1]
-        flat = p.reshape(-1, 3)
-        tfs = self.w["shape.tfs"] + torch.eye(3, dtype=flat.dtype, device=flat.device)
-        q = torch.einsum("ijk,bk->ibj", tfs, flat) - self.w["shape.centers"][:, None, :]
-        sd = torch.linalg.norm(q, dim=-1) - self.w["shape.radii"][:, None]
-        k = self.cfg["k"]
-        smin = -torch.log(torch.clamp_min(torch.sum(torch.exp(-k * sd), dim=0), 1e-4)) / k
-        return smin.reshape(batch) + self.shift(p)[..., 0]
+def Surface(cfg: dict, weights: dict):
+    """The configuration's surface: the plain SDF of its kind's module,
+    ``surfaces/<cfg["surface"]["kind"]>.py``."""
+    spec = cfg["surface"]
+    return surface_kind(spec).Surface(spec, weights)
 
 
 # ---- the three loops ---------------------------------------------------------

@@ -12,8 +12,12 @@ import torch
 from conftest import CELLS, ROOT
 
 # float32 rounding of the same operations in another order: on the CPU the
-# program's plain path and the reference agree to a few ulps
-AGREE = {"loss_gap_first": 1e-6, "update_gap_median": 1e-5, "rel_err": 1e-5}
+# program's plain path and the reference agree to a few ulps.  The first
+# gradient's gaps read at most 3.2e-6 (worst leaf) and 2.8e-7 (median leaf)
+# over 13 seeds of the tiny training run: ten times that, far under the
+# cell's limits of 8e-2 and 6e-3
+AGREE = {"loss_gap_first": 1e-6, "grad_gap_worst": 3e-5, "grad_gap_median": 3e-6,
+         "update_gap_median": 1e-5, "rel_err": 1e-5}
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -3,11 +3,12 @@ a checkpoint in the repository, by the benchmark itself.
 
 ``shapes(cfg)`` lists every leaf of a configuration by its dotted name (the
 published params tree's paths: ``shape.shift.layers.0.w``,
-``bsdf.bsdfs.3.mlp.out.b``, ``lights.color``, ...).  From a seed, the
-leaves are drawn in two calls on one ``torch.Generator`` of the device (the
-uniforms of every leaf, then the normals of the Fourier bases), and each
-takes the first rule of ``cfg["weights"]["init"]`` whose pattern matches its
-name:
+``bsdf.bsdfs.3.mlp.out.b``, ``lights.color``, ...); the surface's kind
+(``reference/surfaces/<kind>.py``) lists the ``shape.*`` leaves.  From a
+seed, the leaves are drawn in two calls on one ``torch.Generator`` of the
+device (the uniforms of every leaf, then the normals of the Fourier bases),
+and each takes the first rule of ``cfg["weights"]["init"]`` whose pattern
+matches its name:
 
 - ``["zeros"]``;
 - ``["uniform", lo, hi]``;
@@ -25,6 +26,8 @@ import math
 from pathlib import Path
 
 import torch
+
+from .reference.surfaces import surface_kind
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -44,9 +47,7 @@ def net_shapes(prefix: str, net: dict) -> dict:
 
 
 def shapes(cfg: dict) -> dict:
-    s = cfg["surface"]["spheres"]
-    out = {"shape.centers": (s, 3), "shape.radii": (s,), "shape.tfs": (s, 3, 3)}
-    out.update(net_shapes("shape.shift.", cfg["surface"]["shift"]))
+    out = surface_kind(cfg["surface"]).shapes(cfg["surface"])
     b = cfg["bsdf"]
     for i in range(b["lobes"]):
         out.update(net_shapes(f"bsdf.bsdfs.{i}.mlp.", b["lobe"]))
